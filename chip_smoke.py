@@ -3,22 +3,34 @@
 
     python3 chip_smoke.py        # needs one card
 
-Drives the port's main path — paged serving (``PagedLM`` + ``Engine``) of
-qwen2-0.5b at full width and depth, bf16, random weights from a seed — and
-holds every CUDA kernel of that path against its plain PyTorch version:
+Drives the port's main paths at full width and depth, bf16, random weights
+from a seed — paged serving (``PagedLM`` + ``Engine``) of qwen2-0.5b, and
+recurrent serving (``api.get_model``: prefill, then greedy ``decode_step``s
+against an O(1) state) of rwkv6-1.6b and zamba2-1.2b — and holds every CUDA
+kernel of those paths against its plain PyTorch version:
 
   1. set-up: the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
-  2. each kernel vs its plain version on the card, at the main path's
+  2. each kernel vs its plain version on the card, at the main paths'
      shapes (tolerances stated where they are checked), and timed with CUDA
-     events beside its bound and the plain version;
+     events beside its bound and the plain version: K1 paged attention, K2
+     flash attention, K3 the Mamba2 SSD scan, K4 the RWKV6 wkv scan;
   3. the engine: 16 requests, whole-prompt prefill and then chunked
      prefill; the launch counters must show every decode layer went
      through K1 (paged attention) and every whole-prefill layer through K2
      (flash attention);
   4. one prefill and one decode step through the kernels vs through the
      plain versions on the same state; and a reduced fp32 model served on
-     the card vs the same weights served on the CPU, token for token.
+     the card vs the same weights served on the CPU, token for token;
+  5. rwkv6-1.6b, then zamba2-1.2b (one model on the card at a time): 4
+     prompts of 1024 tokens prefilled as one batch, then 32 greedy decode
+     steps; the counters must show K4 on every rwkv6 layer of prefill and
+     decode, K3 on every zamba2 backbone layer of prefill and K2 on every
+     application of zamba2's shared attention block; prefill and first
+     decode logits through the kernels vs through the plain versions; a
+     profiled prefill and decode step;
+  6. reduced fp32 rwkv6, zamba2 and mamba2 models, shaped for the kernels,
+     served on the card and on the CPU from the same weights: same tokens.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
@@ -57,6 +69,33 @@ BF16_COMPUTE_REL, BF16_COMPUTE_PV = 2.0 ** -6, 2.0 ** -7
 # bf16 residual layers carry that to 0.041-0.042 at |logit| <= 3.2 (three
 # H100 runs); the bound leaves room for about twice that
 LOGIT_TOL = 0.1
+# Scan outputs in bf16 (K3, K4): kernel and plain version compute in fp32
+# from the same bf16 inputs, in another order (K4 multiplies the decays
+# where the plain chunked form takes exp(sum log w)), and round to bf16: at
+# most an ulp apart, 2^-7 |want| (rel 2^-6 allows two).  Near 0, where the
+# ulp vanishes, the two fp32 sums still differ in proportion to the
+# magnitudes summed, for which the output's largest magnitude stands: abs
+# 2^-12 max|want|, a sixteenth of a bf16 ulp at the top of the range.
+SCAN_OUT_REL, SCAN_OUT_ABS = 2.0 ** -6, 2.0 ** -12
+# final scan states, fp32 on both sides over up to 1024 steps (the plain
+# forms go through exp/log, a few fp32 ulps each): 1e-4 relative plus
+# 1e-4 of the state's largest magnitude
+SCAN_STATE_REL, SCAN_STATE_ABS = 1e-4, 1e-4
+# recurrent serving at full size (section 5)
+N_PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 1024, 32
+# Full-depth recurrent models with random bf16 weights amplify last-bit
+# differences: two plain versions of the same scan (the chunked form and
+# the sequential oracle, both exact in fp32) give bf16 logits 0.31 (rwkv6)
+# and 0.77 (zamba2) apart at |logit| ~4.7 (H100).  So in bf16 the
+# kernels' logits are held to REC_SPREAD_FACTOR times the spread between
+# those two plain versions, measured in the same run (never below
+# LOGIT_TOL), and their argmax on every row whose top-2 gap exceeds that
+# bound.  The same weights in fp32 carry the tight check, where rounding
+# is not amplified to that degree: the kernels must agree with the plain
+# version to FP32_LOGIT_TOL (measured 9.3e-5 for rwkv6 and 5.0e-4 for
+# zamba2 at full size on an H100) with the same argmax on every row.
+REC_SPREAD_FACTOR = 3.0
+FP32_LOGIT_TOL = 1e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -250,6 +289,163 @@ def run_kernel_checks(report: dict) -> dict:
     return results
 
 
+def scan_tol(want, rel, ab):
+    """(rel, abs) with abs a fraction of want's largest magnitude."""
+    return rel, ab * float(want.float().abs().max())
+
+
+def mamba_case(B, S, H, dtype, *, h0: bool, seed: int):
+    """K3 inputs shaped as zamba2's prefill gives them: softplus-ed dt, A
+    from -1 to -16 (up to exp(-32) a step), ds = dh = 64."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=g)
+    x = rn(B, S, H, 64).to(dtype)
+    dt = F.softplus(rn(B, S, H))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm, Cm = rn(B, S, 64).to(dtype), rn(B, S, 64).to(dtype)
+    D = torch.ones(H, device="cuda")
+    return x, dt, A, Bm, Cm, D, (rn(B, H, 64, 64) if h0 else None)
+
+
+def rwkv_case(B, S, H, dtype, *, s0: bool, seed: int):
+    """K4 inputs shaped as rwkv6's time-mix gives them: w = exp(-exp(w0 +
+    lora)) around w0 = -3 (slow decay), u ~ 0.1."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(*shape, device="cuda", generator=g)
+    r, k, v = (rn(B, S, H, 64).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(-3.0 + 0.5 * rn(B, S, H, 64))).to(dtype)
+    u = 0.1 * rn(H, 64)
+    return r, k, v, w, u, (rn(B, H, 64, 64) if s0 else None)
+
+
+def run_scan_checks(report: dict) -> dict:
+    """K3 and K4 vs their plain versions at the recurrent paths' shapes:
+    with and without state in, state out, a ragged S and S = 1."""
+    import torch
+
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    results = {}
+
+    def held(tag, name, got, want):
+        (gy, gs), (wy, ws) = got, want
+        tol_y = scan_tol(wy, SCAN_OUT_REL, SCAN_OUT_ABS)
+        tol_s = scan_tol(ws, SCAN_STATE_REL, SCAN_STATE_ABS)
+        ry, rs = tol_ratio(gy, wy, tol_y), tol_ratio(gs, ws, tol_s)
+        e = max_err(gy, wy)
+        print(f"[{tag}] {name}: out max_abs_err={e:.3e} max|want|="
+              f"{float(wy.float().abs().max()):.3e} err/tol={ry:.3f}; "
+              f"state max_abs_err={max_err(gs, ws):.3e} max|want|="
+              f"{float(ws.abs().max()):.3e} err/tol={rs:.3f}")
+        check(ry <= 1 and rs <= 1,
+              f"{tag} disagrees with its plain version: {name}")
+        return e
+
+    # -- K3: zamba2 prefill, B=4 S=1024 H=64 dh=ds=64 -----------------------
+    bf = torch.bfloat16
+    cases = [("zamba2 prefill B=4 S=1024 H=64 bf16, state out",
+              mamba_case(4, 1024, 64, bf, h0=False, seed=1)),
+             ("B=4 S=1024 H=64 bf16, state in and out",
+              mamba_case(4, 1024, 64, bf, h0=True, seed=2)),
+             ("ragged S=1000 bf16, state in and out",
+              mamba_case(4, 1000, 64, bf, h0=True, seed=3)),
+             ("S=1 bf16, state in and out",
+              mamba_case(4, 1, 64, bf, h0=True, seed=4)),
+             ("fp32 B=2 S=300 H=8, state in and out",
+              mamba_case(2, 300, 8, torch.float32, h0=True, seed=5))]
+    errs = []
+    for name, (x, dt, A, Bm, Cm, D, h0) in cases:
+        got = m2.mamba2_scan(x, dt, A, Bm, Cm, D, h0=h0, return_state=True)
+        want = ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, D, h0=h0,
+                                       return_state=True)
+        torch.cuda.synchronize()
+        errs.append(held("K3", name, got, want))
+    x, dt, A, Bm, Cm, D, _ = cases[0][1]
+    B, S, H, dh = x.shape
+    ds = Bm.shape[-1]
+    isz = x.element_size()
+    nbytes = (2 * x.numel() + 2 * Bm.numel()) * isz + dt.numel() * 4 \
+        + 2 * H * 4 + B * H * ds * dh * 4
+    flops = B * S * H * (5.0 * ds * dh + 2 * dh)
+    b_ms, b_by = bound(nbytes, flops, x.dtype)
+    print(f"[K3] timed: B={B} S={S} H={H} dh={dh} ds={ds} {x.dtype}, no "
+          f"state in, state out: {nbytes} bytes, {flops:.0f} flops "
+          f"(state-passing form)")
+    results["mamba2_scan"] = dict(
+        name="mamba2_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
+        replaces="src/repro/kernels/mamba2_scan.py:69",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: m2.mamba2_scan(x, dt, A, Bm, Cm, D,
+                                          return_state=True)),
+        plain_ms=time_ms(lambda: ref.mamba2_scan_chunked(
+            x, dt, A, Bm, Cm, D, return_state=True), iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # -- K4: rwkv6 prefill B=4 S=1024 H=32 dh=64, and its decode step -------
+    cases = [("rwkv6 prefill B=4 S=1024 H=32 bf16, state out",
+              rwkv_case(4, 1024, 32, bf, s0=False, seed=6)),
+             ("B=4 S=1024 H=32 bf16, state in and out",
+              rwkv_case(4, 1024, 32, bf, s0=True, seed=7)),
+             ("ragged S=1000 bf16, state in and out",
+              rwkv_case(4, 1000, 32, bf, s0=True, seed=8)),
+             ("rwkv6 decode S=1 bf16, state in and out",
+              rwkv_case(4, 1, 32, bf, s0=True, seed=9)),
+             ("fp32 B=2 S=300 H=8, state in and out",
+              rwkv_case(2, 300, 8, torch.float32, s0=True, seed=10))]
+    errs = []
+    for name, (r, k, v, w, u, s0) in cases:
+        got = rw.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+        want = ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
+                                      return_state=True)
+        torch.cuda.synchronize()
+        errs.append(held("K4", name, got, want))
+
+    def k4_bound(r, s_in):
+        B, S, H, dh = r.shape
+        nbytes = 5 * r.numel() * r.element_size() + H * dh * 4 \
+            + (1 + s_in) * B * H * dh * dh * 4
+        flops = B * S * H * 5.0 * dh * dh
+        return nbytes, flops, bound(nbytes, flops, r.dtype)
+
+    r, k, v, w, u, _ = cases[0][1]
+    nbytes, flops, (b_ms, b_by) = k4_bound(r, False)
+    print(f"[K4] timed prefill: B={r.shape[0]} S={r.shape[1]} "
+          f"H={r.shape[2]} dh={r.shape[3]} {r.dtype}, no state in, state "
+          f"out: {nbytes} bytes, {flops:.0f} flops")
+    rd, kd, vd, wd, ud, sd = cases[3][1]
+    nb_d, fl_d, (bd_ms, bd_by) = k4_bound(rd, True)
+    print(f"[K4] timed decode: B={rd.shape[0]} S=1 H={rd.shape[2]}, state "
+          f"in and out: {nb_d} bytes, {fl_d:.0f} flops")
+    results["rwkv6_scan"] = dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:59",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, return_state=True)),
+        plain_ms=time_ms(lambda: ref.rwkv6_scan_chunked(
+            r, k, v, w, u, return_state=True), iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_decode=time_ms(lambda: rw.rwkv6_scan(
+            rd, kd, vd, wd, ud, s0=sd, return_state=True), iters=50),
+        plain_ms_decode=time_ms(lambda: ref.rwkv6_scan_chunked(
+            rd, kd, vd, wd, ud, s0=sd, return_state=True)),
+        bound_ms_decode=bd_ms, bound_by_decode=bd_by)
+    for r_ in results.values():
+        r_["kernel_ms"] = r_["ms"]
+        print(f"[{r_['name']}] ms={r_['ms']:.4f} plain_ms="
+              f"{r_['plain_ms']:.4f} bound_ms={r_['bound_ms']:.6f} "
+              f"({r_['bound_by']}) library: none (no single PyTorch call "
+              f"computes the scan)")
+    report.update(results)
+    return results
+
+
 # ----------------------------------------------------------------------------
 # phases 3-4: the engine
 # ----------------------------------------------------------------------------
@@ -264,17 +460,45 @@ def make_requests(cfg, n, lo, hi, max_new, seed):
         max_new_tokens=max_new) for i in range(n)]
 
 
-def reset_counts():
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its launches."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import paged_attention as pa
-    pa.paged_attention.launches = 0
-    fa.flash_attention.launches = 0
+    from repro_torch.kernels import rwkv6_scan as rw
+    return {"paged_attention": pa.paged_attention,
+            "flash_attention": fa.flash_attention,
+            "mamba2_scan": m2.mamba2_scan, "rwkv6_scan": rw.rwkv6_scan}
 
 
-def read_counts():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    return pa.paged_attention.launches, fa.flash_attention.launches
+def reset_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def through_plain(fn, *, oracle: bool = False):
+    """Run fn() with every kernel of ``ops`` swapped for its plain version
+    (the CPU path's functions, here on the card's tensors); ``oracle``
+    takes the scans' sequential oracles instead of their chunked forms."""
+    from repro_torch.kernels import ops, ref
+    plain = {"paged_attention": ref.paged_attention,
+             "flash_attention": ref.mha_attention,
+             "mamba2_scan": ref.mamba2_scan if oracle
+             else ref.mamba2_scan_chunked,
+             "rwkv6_scan": ref.rwkv6_scan if oracle
+             else ref.rwkv6_scan_chunked}
+    saved = {k: getattr(ops, k) for k in plain}
+    for k, f in plain.items():
+        setattr(ops, k, f)
+    try:
+        return fn()
+    finally:
+        for k, f in saved.items():
+            setattr(ops, k, f)
 
 
 def run_engine(cfg, params, *, chunked: bool, launches: dict) -> dict:
@@ -295,7 +519,8 @@ def run_engine(cfg, params, *, chunked: bool, launches: dict) -> dict:
     eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = read_counts()             # ... and ends here
+    counts = read_counts()             # ... and ends here
+    k1, k2 = counts["paged_attention"], counts["flash_attention"]
     st = eng.stats()
     mode = "chunked" if chunked else "whole"
     check(len(eng.finished) == n_req, f"{mode}: not every request finished")
@@ -311,7 +536,9 @@ def run_engine(cfg, params, *, chunked: bool, launches: dict) -> dict:
     want_k2 = 0 if chunked else n_req * L
     check(k2 == want_k2, f"{mode}: K2 launched {k2} times, expected "
           f"{want_k2}")
-    launches[mode] = {"paged_attention": k1, "flash_attention": k2}
+    check(counts["mamba2_scan"] == counts["rwkv6_scan"] == 0,
+          f"{mode}: a scan kernel launched on the transformer path: {counts}")
+    launches[mode] = counts
     out = {"mode": mode, "requests": n_req, "tokens": int(toks.size),
            "wall_s": wall, "tokens_per_s": toks.size / wall,
            "median_step_ms": st["measured_step_s"] * 1e3,
@@ -326,24 +553,11 @@ def compare_paths(cfg, params) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref
     from repro_torch.serving.engine import PagedLM
 
     lm = PagedLM(cfg, params, max_batch=8, max_seq=1024 + 64,
                  page_tokens=16, device="cuda")
     reqs = make_requests(cfg, 8, 128, 1024, 8, seed=2)
-    plain = {"paged_attention": ref.paged_attention,
-             "flash_attention": ref.mha_attention}
-
-    def through_plain(fn):
-        saved = {k: getattr(ops, k) for k in plain}
-        for k, f in plain.items():
-            setattr(ops, k, f)
-        try:
-            return fn()
-        finally:
-            for k, f in saved.items():
-                setattr(ops, k, f)
 
     # whole-prompt prefill: K2 vs plain, on a slot of its own
     r = reqs[0]
@@ -397,27 +611,27 @@ def compare_paths(cfg, params) -> None:
     profile_decode(lm, tokens, active)
 
 
-def profile_decode(lm, tokens, active, steps: int = 5) -> None:
-    """Where a decode step's time goes: wall time per step (host clock
-    around synchronised steps, without the profiler), device time by kernel
-    (torch.profiler, over the same number of steps) and the device's busy
-    share of the unprofiled wall time.  Each step rewrites the same K/V
-    rows, so the state does not drift."""
+def device_profile(fn, steps: int) -> dict:
+    """Where a call's time goes: wall time per call (host clock around
+    synchronised calls, without the profiler), device time by kernel
+    (torch.profiler, over the same number of calls) and the device's busy
+    share of the unprofiled wall time.  fn() must leave the state it reads
+    as it found it (or rewrite the same rows), so the calls do not drift."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    lm.decode_logits(tokens, active)           # warm
+    fn()                                       # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        lm.decode_logits(tokens, active)
+        fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            lm.decode_logits(tokens, active)
+            fn()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device-side rows only (kernels, copies): an operator's row repeats the
@@ -427,14 +641,19 @@ def profile_decode(lm, tokens, active, steps: int = 5) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     dev_ms = sum(ms for _, ms in rows)
+    return {"step_wall_ms": wall_ms,
+            "step_wall_ms_under_profiler": prof_wall_ms,
+            "device_ms": dev_ms if rows else "not measured",
+            "device_busy_share": dev_ms / wall_ms if rows else "not measured",
+            "top_device_ms": [[k, ms] for k, ms in
+                              sorted(rows, key=lambda r: -r[1])[:8]]}
+
+
+def profile_decode(lm, tokens, active, steps: int = 5) -> None:
+    """The engine's decode step: each step rewrites the same K/V rows."""
     out = {"batch": int(active.sum()),
            "context_tokens": int(lm.seq_lens.sum()),
-           "step_wall_ms": wall_ms,
-           "step_wall_ms_under_profiler": prof_wall_ms,
-           "device_ms": dev_ms if rows else "not measured",
-           "device_busy_share": dev_ms / wall_ms if rows else "not measured",
-           "top_device_ms": [[k, ms] for k, ms in
-                             sorted(rows, key=lambda r: -r[1])[:8]]}
+           **device_profile(lambda: lm.decode_logits(tokens, active), steps)}
     print(f"[profile decode step] {json.dumps(out)}")
 
 
@@ -469,6 +688,210 @@ def compare_with_cpu() -> None:
           "whole and chunked prefill")
 
 
+# ----------------------------------------------------------------------------
+# phases 5-6: recurrent serving (rwkv6, zamba2)
+# ----------------------------------------------------------------------------
+
+def expected_launches(cfg) -> dict:
+    """The launches one prefill of (N_PROMPTS, PROMPT_LEN) and DECODE_STEPS
+    greedy decode steps must show, per kernel."""
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    if cfg.family == "rwkv6":      # K4: every layer, prefill and decode
+        want["rwkv6_scan"] = cfg.n_layers * (1 + DECODE_STEPS)
+    if cfg.family == "zamba2":     # K3 every backbone layer, K2 every
+        want["mamba2_scan"] = cfg.n_layers  # shared block, prefill only
+        want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    return want
+
+
+def serve_recurrent(name: str) -> dict:
+    """Prefill (N_PROMPTS, PROMPT_LEN) as one batch, then DECODE_STEPS greedy
+    decode steps, through ``api.get_model`` at full size; returns the
+    kernels' launches of that run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_config(name)
+    model = api.get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[{cfg.name}] {n_par} parameters ({n_bytes / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(N_PROMPTS, PROMPT_LEN))).to("cuda")}
+    kw = ({"max_len": PROMPT_LEN + DECODE_STEPS}
+          if cfg.family == "zamba2" else {})
+    model.prefill(params, batch, **kw)         # warm: cuBLAS, first launches
+    torch.cuda.synchronize()
+
+    reset_counts()                             # the main path's run
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, batch, **kw)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        logits, state = model.decode_step(params, tok, state, PROMPT_LEN + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    counts = read_counts()                     # ... ends here
+    toks = torch.cat(out, 1).cpu().numpy()
+    check(tuple(logits.shape) == (N_PROMPTS, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: decode logits not finite or of the wrong shape")
+    check(toks.shape == (N_PROMPTS, DECODE_STEPS + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{cfg.name}: a token lies outside the vocabulary")
+    want = expected_launches(cfg)
+    check(counts == want, f"{cfg.name}: launches {counts}, expected {want}")
+    res = {"model": cfg.name, "prompts": N_PROMPTS, "prompt_len": PROMPT_LEN,
+           "decode_steps": DECODE_STEPS, "prefill_ms": pre_s * 1e3,
+           "prompt_tokens_per_s": N_PROMPTS * PROMPT_LEN / pre_s,
+           "decode_ms_per_step": dec_s * 1e3 / DECODE_STEPS,
+           "generated_tokens_per_s": N_PROMPTS * DECODE_STEPS / dec_s,
+           "launches": counts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[serve {cfg.name}] {json.dumps(res)}")
+
+    compare_recurrent_paths(cfg, model, params, batch, kw)
+    _, state = model.prefill(params, batch, **kw)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    prof = {"prefill": device_profile(
+        lambda: model.prefill(params, batch, **kw), 1),
+        "decode step": device_profile(
+        lambda: model.decode_step(params, tok, state, PROMPT_LEN), 3)}
+    for what, p in prof.items():
+        print(f"[profile {cfg.name} {what}] {json.dumps(p)}")
+    return counts
+
+
+def first_logits(model, params, batch, kw, *, plain=False, oracle=False):
+    """Last-token logits of the prefill and of one decode step from the
+    kernels' prefill state (zamba2 rewrites the same cache row each time),
+    through the kernels or, with ``plain``, through the plain versions."""
+    run = (lambda f: through_plain(f, oracle=oracle)) if plain \
+        else (lambda f: f())
+    lk, state = model.prefill(params, batch, **kw)
+    tok = lk[:, -1].argmax(-1)[:, None]
+    pre = run(lambda: model.prefill(params, batch, **kw))[0]
+    dec = run(lambda: model.decode_step(params, tok, state, PROMPT_LEN))[0]
+    return pre[:, -1].float(), dec[:, -1].float()
+
+
+def compare_recurrent_paths(cfg, model, params, batch, kw) -> None:
+    """The first prefill and decode logits through the kernels vs through
+    the plain versions: in bf16 (the served weights) against the spread of
+    two plain versions, and in fp32 (the same weights, upcast) tightly."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import api
+    kern = first_logits(model, params, batch, kw)
+    plain = first_logits(model, params, batch, kw, plain=True)
+    orac = first_logits(model, params, batch, kw, plain=True, oracle=True)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = type(params)(cfg32, device="cuda")
+    p32.load_state_dict(params.state_dict())
+    m32 = api.get_model(cfg32)
+    kern32 = first_logits(m32, p32, batch, kw)
+    plain32 = first_logits(m32, p32, batch, kw, plain=True)
+    del p32
+    torch.cuda.synchronize()
+    for i, what in enumerate(("prefill", "decode")):
+        k, p, o = kern[i], plain[i], orac[i]
+        spread = max_err(p, o)
+        tol = max(REC_SPREAD_FACTOR * spread, LOGIT_TOL)
+        e = max_err(k, p)
+        top2 = p.topk(2, dim=-1).values
+        gaps = top2[:, 0] - top2[:, 1]
+        same = k.argmax(-1) == p.argmax(-1)
+        clear = gaps > tol
+        print(f"[compare {cfg.name}] bf16 {what} logits: max_abs_err="
+              f"{e:.3e} max|logit|={float(p.abs().max()):.3f}; two plain "
+              f"versions (chunked vs sequential) {spread:.3e} apart, tol "
+              f"{tol:.3e}; argmax agreement {int(same.sum())}/{len(same)}, "
+              f"on the {int(clear.sum())} rows with a top-2 gap above tol "
+              f"{int(same[clear].sum())} (top-2 gaps "
+              f"{[round(float(g), 4) for g in gaps]})")
+        check(e <= tol, f"{cfg.name}: bf16 {what} logits of the kernels "
+              f"and the plain versions differ by {e:.3e} > {tol:.3e}")
+        check(bool(same[clear].all()),
+              f"{cfg.name}: bf16 {what} argmax differs on a row whose "
+              f"top-2 gap exceeds {tol:.3e}")
+        k, p = kern32[i], plain32[i]
+        e = max_err(k, p)
+        agree = int((k.argmax(-1) == p.argmax(-1)).sum())
+        top2 = p.topk(2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).min())
+        print(f"[compare {cfg.name}] fp32 {what} logits: max_abs_err={e:.3e}"
+              f" max|logit|={float(p.abs().max()):.3f} argmax agreement "
+              f"{agree}/{k.shape[0]} (smallest top-2 gap {gap:.3e}, tol "
+              f"{FP32_LOGIT_TOL})")
+        check(e <= FP32_LOGIT_TOL and agree == k.shape[0],
+              f"{cfg.name}: fp32 {what} logits of the kernels and the plain "
+              f"versions disagree ({e:.3e}, argmax {agree}/{k.shape[0]})")
+
+
+def compare_recurrent_with_cpu() -> None:
+    """Reduced fp32 rwkv6, zamba2 and mamba2 models shaped for the kernels
+    (head_dim 64; ssm head_dim 64, d_state 64), served on the card and,
+    from the same weights, on the CPU: same greedy tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models.common import SsmCfg
+    ssm = SsmCfg(d_state=64, head_dim=64)
+    cases = [("rwkv6-1.6b", None, dict(head_dim=64)),
+             ("zamba2-1.2b", None, dict(head_dim=64, ssm=ssm)),
+             ("zamba2-1.2b", "mamba2", dict(ssm=ssm))]
+    S, steps = 70, 8                       # 70: one chunk of 64 and a tail
+    for name, family, over in cases:
+        cfg = configs.get_config(name)
+        if family:
+            cfg = dataclasses.replace(cfg, family=family)
+        cfg = cfg.reduced(**over)
+        model = api.get_model(cfg)
+        params = model.init(torch.Generator(device="cpu").manual_seed(3))
+        toks = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab, size=(2, S)))
+        kw = {"max_len": S + steps} if cfg.family == "zamba2" else {}
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = type(params)(cfg, device=dev)
+            p.load_state_dict(params.state_dict())
+            reset_counts()
+            logits, state = model.prefill(p, {"tokens": toks.to(dev)}, **kw)
+            seq = []
+            for i in range(steps):
+                tok = logits[:, -1].argmax(-1)[:, None]
+                seq.append(tok.cpu())
+                logits, state = model.decode_step(p, tok, state, S + i)
+            outs[dev] = torch.cat(seq, 1)
+            if dev == "cuda":
+                launched = {k: v for k, v in read_counts().items() if v}
+        check(torch.equal(outs["cuda"], outs["cpu"]),
+              f"reduced fp32 {cfg.family}: card and CPU tokens differ")
+        check(bool(launched), f"reduced {cfg.family}: no kernel launched")
+        print(f"[compare] reduced fp32 {cfg.family} (kernel shapes): card "
+              f"tokens == CPU tokens over {steps} decode steps; kernels "
+              f"launched on the card: {launched}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -490,6 +913,7 @@ def main() -> int:
 
     report: dict = {}
     run_kernel_checks(report)
+    run_scan_checks(report)
     launches: dict = {}                # per engine run: whole, chunked
     cfg = configs.get_config("qwen2-0.5b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -506,22 +930,38 @@ def main() -> int:
     print(f"[engine] whole vs chunked prefill: {same}/{len(whole)} "
           "requests with identical tokens (bf16)")
     # the main path is the launcher's: whole-prompt prefill, then decode
-    check(all(launches["whole"].values()),
-          f"a kernel of the main path never launched: {launches}")
+    check(launches["whole"]["paged_attention"] > 0
+          and launches["whole"]["flash_attention"] > 0,
+          f"a kernel of the engine path never launched: {launches}")
     compare_paths(cfg, params)
     compare_with_cpu()
+    del params                         # one model on the card at a time
+    torch.cuda.empty_cache()
+
+    # each main path is read on its own: qwen2's engine (whole prefill, the
+    # launcher's default), then rwkv6 and zamba2 served through get_model
+    paths = {"qwen2_engine": launches["whole"]}
+    for name in ("rwkv6-1.6b", "zamba2-1.2b"):
+        torch.cuda.reset_peak_memory_stats()
+        paths[name] = serve_recurrent(name)
+        torch.cuda.empty_cache()
+    compare_recurrent_with_cpu()
     kernels = []
     for name, r in report.items():
-        kernels.append({"name": r["name"], "route": r["route"],
-                        "source": r["source"], "replaces": r["replaces"],
-                        "launches": launches["whole"][name],
-                        "launches_chunked_prefill":
-                            launches["chunked"][name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "kernel_ms": r["kernel_ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        entry = {"name": r["name"], "route": r["route"],
+                 "source": r["source"], "replaces": r["replaces"],
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "launches_chunked_prefill": launches["chunked"][name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "kernel_ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        entry.update({k: v for k, v in r.items() if k.endswith("_decode")})
+        kernels.append(entry)
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel of the main paths never launched: {paths}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

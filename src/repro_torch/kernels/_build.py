@@ -20,11 +20,15 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "mamba2_scan",
+           "rwkv6_scan")
+# no --use_fast_math / -ftz: flushing denormals to zero would break the
+# scans' guards (the exponent selected before exp, w floored before log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
-_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
 # C signatures of the entry points: every pointer and the stream are void*
 SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
@@ -33,6 +37,9 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_vp, _vp, _vp, _vp,
                          _i, _i, _i, _i, _i, _i, _i, _f, _i, _i, _vp]),
+    "mamba2_scan": ("mamba2_scan_launch",
+                    [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp]),
+    "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -5,15 +5,22 @@
     build or launch — there is no quiet fallback to the plain version;
   * any other device raises.
 
-Signatures and layouts are the JAX package's ``kernels/ops.py``.
+Signatures and layouts are the JAX package's ``kernels/ops.py``, without
+its ``impl=`` knob: the device picks the implementation.  On the CPU the
+scans take their chunked plain versions, as JAX's ``impl="auto"`` does off
+the TPU; on the card the kernels K3 and K4 take the ``h0``/``s0`` and
+``return_state`` contract themselves, where the Pallas kernels leave it to
+the chunked jnp reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_scan as _m2
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rw
 
 
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
@@ -43,3 +50,24 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                                    scale=scale)
     return ref.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                                scale=scale)
+
+
+def mamba2_scan(x, dt, A, Bmat, Cmat, D, *, h0=None,
+                return_state: bool = False):
+    """x: (B,S,H,dh), dt: (B,S,H), A/D: (H,), Bmat/Cmat: (B,S,ds), h0:
+    (B,H,ds,dh) -> y like x [, final state (B,H,ds,dh) fp32]."""
+    if _on_cuda(x, "mamba2_scan"):
+        return _m2.mamba2_scan(x, dt, A, Bmat, Cmat, D, h0=h0,
+                               return_state=return_state)
+    return ref.mamba2_scan_chunked(x, dt, A, Bmat, Cmat, D, h0=h0,
+                                   return_state=return_state)
+
+
+def rwkv6_scan(r, k, v, w, u, *, s0=None, return_state: bool = False):
+    """r/k/v/w: (B,S,H,dh), u: (H,dh), s0: (B,H,dh,dh) -> y like r
+    [, final state (B,H,dh,dh) fp32]."""
+    if _on_cuda(r, "rwkv6_scan"):
+        return _rw.rwkv6_scan(r, k, v, w, u, s0=s0,
+                              return_state=return_state)
+    return ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
+                                  return_state=return_state)

@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-The counterparts of the JAX package's ``kernels/ref.py`` oracles for the
-two kernels of the serving path.  ``ops`` runs them for tensors on the CPU
-(the tests), and ``chip_smoke.py`` holds each CUDA kernel against them on
-the card.  The main path never runs them when a card is present.
+The counterparts of the JAX package's ``kernels/ref.py`` oracles: the two
+attention functions of the serving path, and the two recurrent scans
+(Mamba2 SSD, RWKV6 wkv) with their sequential oracles and chunked forms.
+``ops`` runs them for tensors on the CPU (the tests; the chunked forms for
+the scans, as JAX's ``impl="auto"`` does off the TPU), and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
+main path never runs them when a card is present.
 
 One deliberate difference from the JAX references: a query row that sees
 no key (``seq_len == 0``, or causal ``Sq > Skv`` above the first key)
@@ -99,3 +102,185 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     probs = _softmax_rows(logits, mask)
     out = torch.einsum("bhs,bshd->bhd", probs, vf)
     return out.to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Mamba2 / SSD selective scan (n_groups = 1)
+# ----------------------------------------------------------------------------
+
+def _state(init: torch.Tensor | None, shape, device) -> torch.Tensor:
+    """The fp32 initial state: ``init``, or zeros."""
+    if init is None:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return init.float()
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor,
+                h0: torch.Tensor | None = None, return_state: bool = False):
+    """Sequential oracle of the Mamba2 SSD recurrence (n_groups = 1).
+
+    x: (B, S, H, dh); dt: (B, S, H) softplus-ed step sizes (> 0);
+    A: (H,) negative decay rates; Bmat, Cmat: (B, S, ds); D: (H,) skip
+    gain; h0: (B, H, ds, dh) initial state (zeros if None).
+
+    h_t = exp(A dt_t) h_{t-1} + dt_t * B_t (x) x_t ;  y_t = C_t . h_t + D x_t
+    Returns y (B, S, H, dh) in x.dtype [and the final fp32 state].
+    """
+    Bsz, S, H, dh = x.shape
+    ds = Bmat.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bmat.float(), Cmat.float()
+    Af = A.float()
+    h = _state(h0, (Bsz, H, ds, dh), x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(Af[None, :] * dtf[:, t])                  # (B,H)
+        inject = torch.einsum("bs,bhd->bhsd", Bf[:, t],
+                              xf[:, t] * dtf[:, t, :, None])
+        h = h * decay[..., None, None] + inject
+        ys.append(torch.einsum("bs,bhsd->bhd", Cf[:, t], h))
+    y = (torch.stack(ys, 1) + D.float()[None, None, :, None] * xf).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def _pad_to_chunks(t: torch.Tensor, chunk: int, axis: int = 1):
+    pad = (-t.shape[axis]) % chunk
+    if pad == 0:
+        return t, 0
+    shape = list(t.shape)
+    shape[axis] = pad
+    return torch.cat([t, t.new_zeros(shape)], axis), pad
+
+
+DEFAULT_SCAN_CHUNK = 64
+
+
+def mamba2_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        Bmat: torch.Tensor, Cmat: torch.Tensor,
+                        D: torch.Tensor, h0: torch.Tensor | None = None,
+                        return_state: bool = False,
+                        chunk: int = DEFAULT_SCAN_CHUNK):
+    """Chunked SSD: the contract of ``mamba2_scan`` in O(S/chunk) steps.
+
+    Per chunk (the decay is a scalar per head and step, so all is matmuls):
+      G[t,j] = exp(cum_t - cum_j)                       (<= 1 for j <= t)
+      y_t    = sum_{j<=t} G[t,j] (C_t.B_j) dt_j x_j + exp(cum_t) C_t . h_in
+               + D x_t
+      h_out  = exp(cum_C) h_in + sum_j exp(cum_C - cum_j) dt_j B_j (x) x_j
+    Padded steps have dt = 0: decay 1, no injection.
+    """
+    Bsz, S, H, dh = x.shape
+    ds = Bmat.shape[-1]
+    xf, _ = _pad_to_chunks(x.float(), chunk)
+    dtf, _ = _pad_to_chunks(dt.float(), chunk)
+    Bf, _ = _pad_to_chunks(Bmat.float(), chunk)
+    Cf, _ = _pad_to_chunks(Cmat.float(), chunk)
+    Af, Df = A.float(), D.float()
+    nC = xf.shape[1] // chunk
+    h = _state(h0, (Bsz, H, ds, dh), x.device)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    ys = []
+    for c in range(nC):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, dtc, bc, cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(Af[None, None, :] * dtc, 1)         # (B,C,H) <= 0
+        cum_h = cum.transpose(1, 2)                             # (B,H,C)
+        # mask the exponent BEFORE exp: the upper triangle is positive, and
+        # exp(+big) * 0 would be inf * 0 = NaN
+        diff = cum_h[..., :, None] - cum_h[..., None, :]
+        G = torch.exp(torch.where(mask, diff, diff.new_tensor(-1e30)))
+        CB = torch.einsum("bts,bjs->btj", cc, bc)
+        xdt = xc * dtc[..., None]                               # (B,C,H,dh)
+        y = torch.einsum("bhtj,btj,bjhd->bthd", G, CB, xdt)
+        y = y + torch.einsum("bts,bhsd->bthd", cc, h) \
+            * torch.exp(cum)[..., None]
+        ys.append(y + Df[None, None, :, None] * xc)
+        decay_end = torch.exp(cum_h[..., -1:] - cum_h)          # (B,H,C) <= 1
+        h = h * torch.exp(cum_h[..., -1])[..., None, None] \
+            + torch.einsum("bhj,bjs,bjhd->bhsd", decay_end, bc, xdt)
+    y = torch.cat(ys, 1)[:, :S].to(x.dtype)
+    return (y, h) if return_state else y
+
+
+# ----------------------------------------------------------------------------
+# RWKV6 (Finch) wkv recurrence with data-dependent per-channel decay
+# ----------------------------------------------------------------------------
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               s0: torch.Tensor | None = None, return_state: bool = False):
+    """Sequential oracle of the RWKV6 wkv recurrence.
+
+    r, k, v, w: (B, S, H, dh), w the decay in (0, 1); u: (H, dh) bonus;
+    s0: (B, H, dh, dh) initial state (zeros if None).
+    S_t = diag(w_t) S_{t-1} + k_t (x) v_t
+    y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)
+    Returns y (B, S, H, dh) in r.dtype [and the final fp32 state].
+    """
+    B, S, H, dh = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()
+    s = _state(s0, (B, H, dh, dh), r.device)
+    ys = []
+    for t in range(S):
+        kv = torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                               s + uf[None, :, :, None] * kv))
+        s = s * wf[:, t, ..., None] + kv
+    y = torch.stack(ys, 1).to(r.dtype)
+    return (y, s) if return_state else y
+
+
+RWKV_SCAN_CHUNK = 32
+
+
+def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       s0: torch.Tensor | None = None,
+                       return_state: bool = False,
+                       chunk: int = RWKV_SCAN_CHUNK):
+    """Chunked RWKV6 wkv: the contract of ``rwkv6_scan`` in O(S/chunk) steps.
+
+    The decay is per k-channel, so the intra-chunk term keeps the channel
+    sum, with the exact pairwise exponent cum_{t-1} - cum_j (<= 0 for
+    j < t):
+      y_t = sum_{j<t} sum_c r_t[c] exp(cum_{t-1}[c] - cum_j[c]) k_j[c] v_j
+          + (r_t . u k_t) v_t + (r_t * exp(cum_{t-1})) . S_in
+    Padded steps have w = 1 and k = v = 0.
+    """
+    Bsz, S, H, dh = r.shape
+    rf, _ = _pad_to_chunks(r.float(), chunk)
+    kf, _ = _pad_to_chunks(k.float(), chunk)
+    vf, _ = _pad_to_chunks(v.float(), chunk)
+    wf, pad = _pad_to_chunks(w.float(), chunk)
+    if pad:
+        wf[:, S:] = 1.0
+    uf = u.float()
+    nC = rf.shape[1] // chunk
+    s = _state(s0, (Bsz, H, dh, dh), r.device)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)   # j < t
+    ys = []
+    for c in range(nC):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rc, kc, vc, wc = rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl]
+        # the floor keeps w in fp32's normal range: a denormal flushed to 0
+        # would give log(0) = -inf and poison cum_prev = cum - lw
+        lw = torch.log(torch.clamp_min(wc, 1e-30))
+        cum = torch.cumsum(lw, 1)                       # inclusive, <= 0
+        cum_prev = cum - lw                             # exclusive
+        r2 = rc * torch.exp(cum_prev)
+        expo = cum_prev[:, :, None] - cum[:, None, :]   # (B,C,C,H,dh)
+        expo = torch.where(mask[None, :, :, None, None], expo,
+                           expo.new_tensor(-1e30))
+        att = torch.einsum("bihd,bijhd,bjhd->bhij", rc, torch.exp(expo), kc)
+        y = torch.einsum("bhij,bjhd->bihd", att, vc)
+        bonus = torch.einsum("bihd,hd,bihd->bih", rc, uf, kc)
+        y = y + bonus[..., None] * vc
+        ys.append(y + torch.einsum("bihk,bhkv->bihv", r2, s))
+        decay_end = torch.exp(cum[:, -1:] - cum)        # (B,C,H,dh) <= 1
+        s = s * torch.exp(cum[:, -1])[..., None] \
+            + torch.einsum("bjhk,bjhv->bhkv", kc * decay_end, vc)
+    y = torch.cat(ys, 1)[:, :S].to(r.dtype)
+    return (y, s) if return_state else y

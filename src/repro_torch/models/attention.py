@@ -1,11 +1,13 @@
-"""GQA attention with RoPE: the full-sequence path of training and prefill.
+"""GQA attention with RoPE: training / prefill and decode on a dense cache.
 
 The counterpart of the JAX package's ``models/attention.py``.  The JAX
 prefill computes ``ref.mha_attention``; here the same function goes through
 ``ops.flash_attention``, which runs the CUDA kernel K2 on the card and the
-plain version on the CPU.  Decode against a dense cache (``attn_decode``)
-and cross-attention are not ported yet: the serving engine decodes through
-its paged pool.
+plain version on the CPU.  ``attn_decode`` is one token against a dense
+(B, S_max, Hkv, hd) cache, inline PyTorch as the JAX version is inline
+jnp; unlike JAX it writes the new K/V row into the cache in place.  The
+serving engine decodes through its paged pool instead (K1).
+Cross-attention (``attn_cross``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -70,3 +72,56 @@ def attn_full(cfg: ArchCfg, p: Params, x: torch.Tensor, *, freqs=None,
                               compute_dtype=compute_dtype(cfg))
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"], (k, v)
+
+
+def init_kv_cache(cfg: ArchCfg, batch: int, max_len: int, *, layers: int,
+                  device="cuda") -> dict:
+    """{"k", "v"}: zeros of (layers, batch, max_len, Hkv, hd) in cfg.dtype."""
+    hd = cfg.resolved_head_dim
+    shape = (layers, batch, max_len, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def attn_decode(cfg: ArchCfg, p: Params, x: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, *,
+                freqs=None):
+    """One-token decode against a dense cache.
+
+    x: (B, 1, d); k_cache/v_cache: (B, S_max, Hkv, hd); pos: the index this
+    token writes to (== the current context length).  The new K/V row is
+    written into the caches IN PLACE (JAX returns updated copies); returns
+    (out, k_cache, v_cache) with the caches the same tensors."""
+    B = x.shape[0]
+    S_max = k_cache.shape[1]
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(cfg, p, x, x)            # (B,1,H,hd)/(B,1,Hkv,hd)
+    if freqs is not None:
+        posb = torch.full((B, 1), pos, device=x.device)
+        q = apply_rope(q, posb, freqs)
+        k = apply_rope(k, posb, freqs)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    group = cfg.n_heads // cfg.n_kv_heads
+    visible = torch.arange(S_max, device=x.device) <= pos
+    if compute_dtype(cfg) == torch.bfloat16:
+        # q*scale and the probabilities rounded to bf16, the cache read in
+        # its own dtype, grouped-query products accumulated in fp32
+        qf = (q[:, 0].float() * hd ** -0.5).to(torch.bfloat16).float()
+        q4 = qf.reshape(B, cfg.n_kv_heads, group, hd)
+        logits = torch.einsum("bkgd,bskd->bkgs", q4, k_cache.float())
+        logits = logits.masked_fill(~visible, float("-inf"))
+        probs = torch.softmax(logits, -1).to(torch.bfloat16).float()
+        out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
+        out = out.to(x.dtype).reshape(B, 1, -1)
+        return out @ p["wo"], k_cache, v_cache
+    qf = q[:, 0].float() * hd ** -0.5
+    kf, vf = k_cache.float(), v_cache.float()
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=2)
+        vf = vf.repeat_interleave(group, dim=2)
+    logits = torch.einsum("bhd,bshd->bhs", qf, kf)
+    logits = logits.masked_fill(~visible, float("-inf"))
+    probs = torch.softmax(logits, -1)
+    out = torch.einsum("bhs,bshd->bhd", probs, vf).to(x.dtype)
+    return out.reshape(B, 1, -1) @ p["wo"], k_cache, v_cache

@@ -1,0 +1,168 @@
+"""Zamba2-style hybrid LM: Mamba2 backbone + one *shared* attention block.
+
+The counterpart of the JAX package's ``models/hybrid.py``.  The backbone is
+a stack of Mamba2 mixer layers (``models/ssm.py``; their prefill scans run
+the kernel K3 on the card); one shared transformer block (full attention +
+MLP, one parameter set) is applied after every ``attn_every`` backbone
+layers.  Its prefill attention goes through ``attn_full``, so through the
+kernel K2 on the card.
+
+Decode state: per-layer Mamba states (O(1)) and one dense KV cache per
+shared-block application, padded to ``max_len`` at prefill.  ``decode_step``
+writes the new K/V rows into those caches in place (JAX returns updated
+copies); the Mamba states come back as new tensors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models import common, ssm
+from repro_torch.models.common import ArchCfg
+
+
+def n_shared_applications(cfg: ArchCfg) -> int:
+    return cfg.n_layers // cfg.attn_every
+
+
+class SharedBlock(nn.Module):
+    """The shared block: ln1 -> attention, ln2 -> MLP."""
+
+    def __init__(self, cfg: ArchCfg, gen, device) -> None:
+        super().__init__()
+        self.ln1 = common.init_norm(cfg, device)
+        self.ln2 = common.init_norm(cfg, device)
+        self.attn = attn.init_attn(cfg, gen, device)
+        self.mlp = common.init_mlp(cfg, gen, device)
+
+
+class HybridLM(nn.Module):
+    """Parameters named like the JAX pytree (``mamba.<i>.mixer.w_in``,
+    ``shared.attn.wq``, ...)."""
+
+    def __init__(self, cfg: ArchCfg, *, device,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.embed = common.init_embed(cfg, generator, device)
+        self.mamba = nn.ModuleList(ssm.MambaBlock(cfg, generator, device)
+                                   for _ in range(cfg.n_layers))
+        self.shared = SharedBlock(cfg, generator, device)
+        self.final_norm = common.init_norm(cfg, device)
+
+
+def init_lm(cfg: ArchCfg, generator: torch.Generator) -> HybridLM:
+    """Random weights drawn from ``generator``, on the generator's device."""
+    return HybridLM(cfg, device=generator.device, generator=generator)
+
+
+def _spans(cfg: ArchCfg):
+    """[(lo, hi, shared_after), ...] covering all backbone layers."""
+    napps = n_shared_applications(cfg)
+    spans = [(g * cfg.attn_every, (g + 1) * cfg.attn_every, True)
+             for g in range(napps)]
+    if napps * cfg.attn_every < cfg.n_layers:
+        spans.append((napps * cfg.attn_every, cfg.n_layers, False))
+    return spans
+
+
+def _shared_full(cfg: ArchCfg, sp: SharedBlock, h: torch.Tensor, freqs):
+    a, kv = attn.attn_full(cfg, sp.attn, common.apply_norm(cfg, sp.ln1, h),
+                           freqs=freqs, causal=True)
+    h = h + a
+    h = h + common.apply_mlp(cfg, sp.mlp, common.apply_norm(cfg, sp.ln2, h))
+    return h, kv
+
+
+def forward(cfg: ArchCfg, params: HybridLM, h: torch.Tensor) -> torch.Tensor:
+    freqs = common.rope_freqs(cfg, h.device)
+    for lo, hi, shared in _spans(cfg):
+        for lp in params.mamba[lo:hi]:
+            h = h + ssm.apply_mamba(cfg, lp.mixer,
+                                    common.apply_norm(cfg, lp.ln, h))
+        if shared:
+            h, _ = _shared_full(cfg, params.shared, h, freqs)
+    return common.apply_norm(cfg, params.final_norm, h)
+
+
+def train_loss(cfg: ArchCfg, params: HybridLM, batch: dict) -> torch.Tensor:
+    h = common.embed_tokens(params.embed, batch["tokens"])
+    logits = common.lm_head(cfg, params.embed, forward(cfg, params, h))
+    return common.cross_entropy(logits, batch["labels"])
+
+
+# ----------------------------------------------------------------------------
+# serving
+# ----------------------------------------------------------------------------
+
+def init_state(cfg: ArchCfg, batch: int, max_len: int, *,
+               device="cuda") -> dict:
+    return {"mamba": ssm.init_mamba_state(cfg, batch, layers=cfg.n_layers,
+                                          device=device),
+            "kv": attn.init_kv_cache(cfg, batch, max_len,
+                                     layers=n_shared_applications(cfg),
+                                     device=device)}
+
+
+def prefill(cfg: ArchCfg, params: HybridLM, batch: dict, *,
+            max_len: int | None = None):
+    """Returns (last-token logits (B, 1, V), decode state); the shared
+    block's K/V are padded to ``max_len`` (default: the prompt length)."""
+    h = common.embed_tokens(params.embed, batch["tokens"])
+    S = h.shape[1]
+    pad = (max_len or S) - S
+    freqs = common.rope_freqs(cfg, h.device)
+    convs, ssds, ks, vs = [], [], [], []
+    for lo, hi, shared in _spans(cfg):
+        for lp in params.mamba[lo:hi]:
+            y, (conv, ssd) = ssm.apply_mamba(
+                cfg, lp.mixer, common.apply_norm(cfg, lp.ln, h),
+                return_state=True)
+            h = h + y
+            convs.append(conv)
+            ssds.append(ssd)
+        if shared:
+            h, (k, v) = _shared_full(cfg, params.shared, h, freqs)
+            ks.append(F.pad(k, (0, 0, 0, 0, 0, pad)))
+            vs.append(F.pad(v, (0, 0, 0, 0, 0, pad)))
+    h = common.apply_norm(cfg, params.final_norm, h)
+    logits = common.lm_head(cfg, params.embed, h[:, -1:])
+    return logits, {
+        "mamba": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)},
+        "kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+    }
+
+
+def decode_step(cfg: ArchCfg, params: HybridLM, token: torch.Tensor,
+                state: dict, pos: int):
+    """token: (B, 1); ``pos``: the position this token writes to.  Returns
+    (logits (B, 1, V), state), the shared block's caches written in place."""
+    h = common.embed_tokens(params.embed, token)
+    freqs = common.rope_freqs(cfg, h.device)
+    mamba, kv = state["mamba"], state["kv"]
+    convs, ssds = [], []
+    app = 0
+    for lo, hi, shared in _spans(cfg):
+        for i in range(lo, hi):
+            lp = params.mamba[i]
+            y, conv, ssd = ssm.mamba_decode_step(
+                cfg, lp.mixer, common.apply_norm(cfg, lp.ln, h),
+                mamba["conv"][i], mamba["ssd"][i])
+            h = h + y
+            convs.append(conv)
+            ssds.append(ssd)
+        if shared:
+            sp = params.shared
+            a, _, _ = attn.attn_decode(
+                cfg, sp.attn, common.apply_norm(cfg, sp.ln1, h),
+                kv["k"][app], kv["v"][app], pos, freqs=freqs)
+            h = h + a
+            h = h + common.apply_mlp(cfg, sp.mlp,
+                                     common.apply_norm(cfg, sp.ln2, h))
+            app += 1
+    h = common.apply_norm(cfg, params.final_norm, h)
+    logits = common.lm_head(cfg, params.embed, h)
+    return logits, {"mamba": {"conv": torch.stack(convs),
+                              "ssd": torch.stack(ssds)}, "kv": kv}

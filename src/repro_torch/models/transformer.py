@@ -5,8 +5,10 @@ stack is an ``nn.ModuleList`` walked with a Python loop (JAX: ``lax.scan``
 over stacked parameters), and there is no ``jit``: PyTorch runs eagerly.
 
 Entry points:
-  * ``train_loss`` — full-sequence causal LM loss;
-  * ``prefill``    — full forward that also returns the KV cache.
+  * ``train_loss``  — full-sequence causal LM loss;
+  * ``prefill``     — full forward that also returns the KV cache;
+  * ``decode_step`` — one token against the dense KV cache (written in
+    place, where JAX returns an updated copy).
 The paged decode path lives in ``serving/engine.py``.  Rematerialisation,
 the hand-SPMD ``manual_sp`` stack and sharding constraints wait for the
 training slice of the port; the configs' ``tp_activations`` and
@@ -136,3 +138,20 @@ def prefill(cfg: ArchCfg, params: TransformerLM, batch: dict, *,
     if return_hidden:
         return logits, cache, h
     return logits, cache
+
+
+def decode_step(cfg: ArchCfg, params: TransformerLM, token: torch.Tensor,
+                cache: dict, pos: int):
+    """token: (B, 1) int; cache {"k", "v"}: (L, B, S_max, Hkv, hd); pos: the
+    position this token writes to.  Returns (logits (B, 1, V), cache), the
+    cache written in place."""
+    h = common.embed_tokens(params.embed, token)
+    freqs = common.rope_freqs(cfg, h.device)
+    for i, lp in enumerate(params.layers):
+        x = common.apply_norm(cfg, lp.ln1, h)
+        a, _, _ = attn.attn_decode(cfg, lp.attn, x, cache["k"][i],
+                                   cache["v"][i], pos, freqs=freqs)
+        h = h + a
+        h = h + _mix(cfg, lp, h)
+    h = common.apply_norm(cfg, params.final_norm, h)
+    return common.lm_head(cfg, params.embed, h), cache

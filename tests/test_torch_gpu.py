@@ -7,7 +7,9 @@ JAX nor ``repro``, so it runs on a machine with only PyTorch and nvcc:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are the bars of ``tests/test_kernels.py``: 3e-4 for fp32,
-6e-2 where bf16 rounds (bf16 inputs or ``compute_dtype``).
+6e-2 where bf16 rounds (bf16 inputs or ``compute_dtype``).  The scans'
+final states are fp32 on both sides, summed in another order: 3e-4 (scaled
+by the state's magnitude) in either input dtype.
 """
 import numpy as np
 import pytest
@@ -15,8 +17,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_scan as m2  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -94,3 +98,132 @@ def test_kernels_refuse_what_they_do_not_build(cuda):
                         seq_lens=[3, 9])
     with pytest.raises(TypeError, match="int32"):
         pa.paged_attention(*args[:3], args[3].long(), args[4])
+
+
+# ----------------------------------------------------------------------------
+# K3 / K4: the recurrent scans
+# ----------------------------------------------------------------------------
+
+def close_scaled(got, want, t):
+    """|got - want| <= t * (1 + max|want|): the sums run over up to S
+    steps, so the bar scales with the output's magnitude."""
+    scale = 1.0 + float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=t,
+                               atol=t * scale)
+
+
+def mamba_inputs(device, dtype, *, B, S, H, dh=64, ds=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, dh, generator=g)
+    dt = torch.rand(B, S, H, generator=g) * 0.1 + 0.01
+    A = -torch.rand(H, generator=g) * 2 - 0.1
+    Bm = torch.randn(B, S, ds, generator=g)
+    Cm = torch.randn(B, S, ds, generator=g)
+    D = torch.randn(H, generator=g)
+    h0 = torch.randn(B, H, ds, dh, generator=g)
+    return (x.to(device, dtype), dt.to(device), A.to(device),
+            Bm.to(device, dtype), Cm.to(device, dtype), D.to(device),
+            h0.to(device))
+
+
+def rwkv_inputs(device, dtype, *, B, S, H, dh=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, dh, generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, S, H, dh, generator=g) * 0.5
+                             - 1.5))
+    u = torch.randn(H, dh, generator=g) * 0.1
+    s0 = torch.randn(B, H, dh, dh, generator=g)
+    return (r.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            w.to(device, dtype), u.to(device), s0.to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 100, 256])
+def test_mamba2_scan_kernel_matches_plain(cuda, S, dtype, state):
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, dtype, B=2, S=S, H=3)
+    h0 = h0 if state else None
+    n = m2.mamba2_scan.launches
+    y, h = ops.mamba2_scan(x, dt, A, Bm, Cm, D, h0=h0, return_state=True)
+    assert m2.mamba2_scan.launches == n + 1
+    wy, wh = ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, D, h0=h0,
+                                     return_state=True)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    close_scaled(y, wy, tol(dtype))
+    close_scaled(h, wh, 3e-4)
+    # without return_state: the same output, no state
+    y2 = ops.mamba2_scan(x, dt, A, Bm, Cm, D, h0=h0)
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.gpu
+def test_mamba2_scan_kernel_takes_strided_views(cuda):
+    """x, B, C as the mixer hands them over: views into one (B, S, C)
+    tensor, neither contiguous nor copied."""
+    B, S, H, dh, ds = 2, 130, 2, 64, 64
+    g = torch.Generator().manual_seed(4)
+    xbc = torch.randn(B, S, H * dh + 2 * ds, generator=g).to(cuda)
+    x, Bm, Cm = torch.split(xbc, [H * dh, ds, ds], -1)
+    xh = x.reshape(B, S, H, dh)
+    assert not xh.is_contiguous() and not Bm.is_contiguous()
+    _, dt, A, _, _, D, h0 = mamba_inputs(cuda, torch.float32, B=B, S=S, H=H)
+    got = ops.mamba2_scan(xh, dt, A, Bm, Cm, D, h0=h0)
+    want = ref.mamba2_scan_chunked(xh.contiguous(), dt, A, Bm.contiguous(),
+                                   Cm.contiguous(), D, h0=h0)
+    close_scaled(got, want, 3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_mamba2_scan_kernel_does_not_depend_on_the_chunk(cuda, chunk):
+    """The kernel's chunk is 64 steps; the plain version's may be any."""
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, torch.float32, B=1, S=200,
+                                           H=2, seed=5)
+    got = ops.mamba2_scan(x, dt, A, Bm, Cm, D, h0=h0)
+    want = ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, D, h0=h0, chunk=chunk)
+    close_scaled(got, want, 3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 100, 256])
+def test_rwkv6_scan_kernel_matches_plain(cuda, S, dtype, state):
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, dtype, B=2, S=S, H=3)
+    s0 = s0 if state else None
+    n = rw.rwkv6_scan.launches
+    y, s = ops.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    assert rw.rwkv6_scan.launches == n + 1
+    wy, ws = ref.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    close_scaled(y, wy, tol(dtype))
+    close_scaled(s, ws, 3e-4)
+    y2 = ops.rwkv6_scan(r, k, v, w, u, s0=s0)
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_kernel_strong_decay_stays_finite(cuda):
+    """w underflowing to 0 and denormal: the kernel multiplies by w (no
+    log), and is built without flush-to-zero."""
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, torch.float32, B=1, S=70, H=2)
+    w = torch.exp(-torch.exp(torch.randn_like(w) * 2 + 1.0))
+    w[0, :5] = 1e-40                     # denormal in fp32
+    got = ops.rwkv6_scan(r, k, v, w, u, s0=s0)
+    want = ref.rwkv6_scan(r, k, v, w, u, s0=s0)
+    assert torch.isfinite(got).all()
+    close_scaled(got, want, 3e-4)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_refuse_what_they_do_not_build(cuda):
+    r, k, v, w, u, _ = rwkv_inputs(cuda, torch.float32, B=1, S=4, H=2, dh=32)
+    with pytest.raises(ValueError, match="dh must be"):
+        rw.rwkv6_scan(r, k, v, w, u)
+    with pytest.raises(TypeError):
+        rw.rwkv6_scan(r, k.bfloat16(), v, w, u)
+    x, dt, A, Bm, Cm, D, _ = mamba_inputs(cuda, torch.float32, B=1, S=4, H=2,
+                                          ds=32)
+    with pytest.raises(ValueError, match="ds one of"):
+        m2.mamba2_scan(x, dt, A, Bm, Cm, D)

@@ -31,6 +31,9 @@ def test_port_modules_load_no_jax_and_no_repro():
     mods = port_modules()
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels.paged_attention" in mods
+    for m in ("kernels.mamba2_scan", "kernels.rwkv6_scan", "models.rwkv",
+              "models.ssm", "models.hybrid"):
+        assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
