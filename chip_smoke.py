@@ -12,9 +12,12 @@ kernel of those paths against its plain PyTorch version:
   1. set-up: the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
   2. each kernel vs its plain version on the card, at the main paths'
-     shapes (tolerances stated where they are checked), and timed with CUDA
-     events beside its bound and the plain version: K1 paged attention, K2
-     flash attention, K3 the Mamba2 SSD scan, K4 the RWKV6 wkv scan;
+     shapes and their edges (tolerances stated where they are checked), and
+     timed with CUDA events beside its bound and the plain version: K1
+     paged attention (split-K; at the timed B=16 shape, the engine's batch
+     8 with its 67-page table, and one 16k-key row), K2 flash attention
+     (tensor cores for bf16; both compute dtypes, beside SDPA), K3 the
+     Mamba2 SSD scan, K4 the RWKV6 wkv scan;
   3. the engine: 16 requests, whole-prompt prefill and then chunked
      prefill; the launch counters must show every decode layer went
      through K1 (paged attention) and every whole-prefill layer through K2
@@ -36,6 +39,13 @@ Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
 without the last line.  It imports nothing of JAX and nothing of the JAX
 package ``repro``.
+
+    python3 chip_smoke.py --engine-ab PARENT   # PARENT: another checkout
+
+runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
+decode step) for the port of PARENT and of this checkout, each in a process
+of its own, in the order PARENT, this, this, PARENT, and prints each run's
+walls and tokens/s: two versions compared on one card in one call.
 """
 from __future__ import annotations
 
@@ -96,6 +106,10 @@ N_PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 1024, 32
 # zamba2 at full size on an H100) with the same argmax on every row.
 REC_SPREAD_FACTOR = 3.0
 FP32_LOGIT_TOL = 1e-2
+# device kernels of each of our wrappers, by a part of their names
+OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
+               "K2": ("flash_attention",), "K3": ("mamba2_scan_kernel",),
+               "K4": ("rwkv6_scan_kernel",)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -126,6 +140,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def time_graph_ms(fn, iters: int = 100, reps: int = 5) -> float:
+    """Per-call device time of fn() with no host in the way: ``iters``
+    calls captured in one CUDA graph, replayed ``reps`` times."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (reps * iters)
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
@@ -148,12 +187,14 @@ def tol_ratio(got, want, tol) -> float:
 # phase 2: kernels vs plain versions
 # ----------------------------------------------------------------------------
 
-def paged_case(rng, *, B, H, Hkv, D, page, seq_lens, dtype):
-    """Inputs for K1: a scattered page table over a pool with spare pages."""
+def paged_case(rng, *, B, H, Hkv, D, page, seq_lens, dtype, max_pages=None):
+    """Inputs for K1: a scattered page table over a pool with spare pages;
+    ``max_pages`` below a row's pages clamps that row's keys."""
     import numpy as np
     import torch
     dev = "cuda"
-    max_pages = max(-(-int(s) // page) for s in seq_lens) + 1
+    if max_pages is None:
+        max_pages = max(-(-int(s) // page) for s in seq_lens) + 1
     P = B * max_pages + 7
     perm = rng.permutation(P)[:B * max_pages].reshape(B, max_pages)
     q = torch.randn(B, H, D, device=dev).to(dtype)
@@ -162,6 +203,29 @@ def paged_case(rng, *, B, H, Hkv, D, page, seq_lens, dtype):
     pt = torch.from_numpy(perm.astype(np.int32)).to(dev)
     sl = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     return q, kp, vp, pt, sl
+
+
+def garbage_tail(pt, sl, page):
+    """The page table with every entry past a row's resident pages set to
+    an id far outside the pool: a kernel that reads one faults."""
+    pt = pt.clone()
+    for b, s in enumerate(sl.tolist()):
+        pt[b, -(-min(s, pt.shape[1] * page) // page):] = 2 ** 30
+    return pt
+
+
+def k1_bound(q, kp, pt, sl):
+    """Bytes K1 must move (the resident K/V rows, q, out, the table entries
+    in use, seq_lens) and its flops, for these inputs."""
+    B, H, D = q.shape
+    page, Hkv = kp.shape[1], kp.shape[2]
+    keys = [min(int(s), pt.shape[1] * page) for s in sl.tolist()]
+    n_tok = sum(keys)
+    isz = q.element_size()
+    nbytes = (2 * n_tok * Hkv * D * isz + 2 * q.numel() * isz
+              + sum(-(-s // page) for s in keys) * 4 + B * 4)
+    flops = 4.0 * n_tok * H * D
+    return n_tok, nbytes, flops, bound(nbytes, flops, q.dtype)
 
 
 def run_kernel_checks(report: dict) -> dict:
@@ -183,43 +247,87 @@ def run_kernel_checks(report: dict) -> dict:
                            rng.integers(1, 2049, size=10)]).astype(np.int32)
     main = paged_case(rng, B=16, H=14, Hkv=2, D=64, page=16,
                       seq_lens=lens, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    # the engine's own shape: batch 8, a 67-page table (max_seq 1072)
+    engine = paged_case(rng, B=8, H=14, Hkv=2, D=64, page=16,
+                        seq_lens=rng.integers(128, 1057, size=8), dtype=bf,
+                        max_pages=67)
+    long1 = paged_case(rng, B=1, H=14, Hkv=2, D=64, page=16,
+                       seq_lens=[16384], dtype=bf)
     cases = [("qwen2 decode B=16 H=14 Hkv=2 D=64 bf16", main, BF16_TOL),
+             ("engine shape B=8 67-page table bf16", engine, BF16_TOL),
+             ("B=1 one 16384-key sequence bf16 (128 partitions)", long1,
+              BF16_TOL),
+             ("partition edges 127/128/129/255/256/257, seq_len 0 beside "
+              "4000-key rows, bf16",
+              paged_case(rng, B=9, H=14, Hkv=2, D=64, page=16,
+                         seq_lens=[127, 128, 129, 255, 256, 257, 0, 4000,
+                                   4000], dtype=bf), BF16_TOL),
              ("MHA B=8 H=Hkv=32 D=128 bf16",
               paged_case(rng, B=8, H=32, Hkv=32, D=128, page=16,
                          seq_lens=rng.integers(1, 1025, size=8),
-                         dtype=torch.bfloat16), BF16_TOL),
+                         dtype=bf), BF16_TOL),
+             ("H/Hkv=12 (two head chunks) D=128 bf16",
+              paged_case(rng, B=3, H=24, Hkv=2, D=128, page=16,
+                         seq_lens=[700, 1, 129], dtype=bf), BF16_TOL),
              ("fp32 B=4 H=8 Hkv=1 D=64 page=8 with seq_len 0",
               paged_case(rng, B=4, H=8, Hkv=1, D=64, page=8,
                          seq_lens=[0, 5, 64, 300], dtype=torch.float32),
-              FP32_TOL)]
+              FP32_TOL),
+             ("fp32 seq_lens past a 3-page table (clamped) D=128",
+              paged_case(rng, B=3, H=14, Hkv=2, D=128, page=16,
+                         seq_lens=[40, 500, 0], dtype=torch.float32,
+                         max_pages=3), FP32_TOL)]
     for name, args, tol in cases:
-        got = pa.paged_attention(*args)
+        q, kp, vp, pt, sl = args
+        # entries past a row's length are garbage the kernel must not read
+        got = pa.paged_attention(q, kp, vp,
+                                 garbage_tail(pt, sl, kp.shape[1]), sl)
+        blocks = pa.paged_attention.last_blocks   # the grid launched
         want = ref.paged_attention(*args)
         torch.cuda.synchronize()
         e, s = max_err(got, want), tol_ratio(got, want, tol)
         print(f"[K1] {name}: max_abs_err={e:.3e} max|want|="
               f"{float(want.float().abs().max()):.3e} err/tol={s:.3f} "
-              f"(tol {tol[0]:.3g}|want| + {tol[1]:.3g})")
+              f"(tol {tol[0]:.3g}|want| + {tol[1]:.3g}), "
+              f"{blocks} blocks launched")
         check(s <= 1, f"K1 disagrees with its plain version: {name}")
+        check(all(not got[b].any() for b, n in enumerate(sl.tolist())
+                  if n == 0), f"K1: a row with no key is not 0: {name}")
         errs.append(e)
+    # ms is the eager loop, as for every kernel; K1's device time is below
+    # the wrapper's host cost, so that loop times the host, and ms_graph
+    # replays the calls from a CUDA graph (the device back to back)
+    timed = {}
+    for tag, (q, kp, vp, pt, sl) in (("", main), ("_engine_shape", engine),
+                                     ("_b1_16k", long1)):
+        n_tok, nbytes, flops, (b_ms, b_by) = k1_bound(q, kp, pt, sl)
+        call = (lambda q=q, kp=kp, vp=vp, pt=pt, sl=sl:
+                pa.paged_attention(q, kp, vp, pt, sl))
+        ms_graph, ms = time_graph_ms(call), time_ms(call, iters=200)
+        blocks = pa.paged_attention.last_blocks   # the grid launched
+        timed.update({f"ms{tag}": ms, f"ms_graph{tag}": ms_graph,
+                      f"blocks{tag}": blocks})
+        if tag:
+            timed[f"bound_ms{tag}"] = b_ms
+        print(f"[K1] timed{tag or ' (main)'}: B={q.shape[0]} H={q.shape[1]} "
+              f"Hkv={kp.shape[2]} D={q.shape[2]} {q.dtype}, table "
+              f"{pt.shape[1]} pages, sum(seq_lens)={n_tok}, {nbytes} bytes, "
+              f"{flops:.0f} flops: ms={ms:.5f} (eager) ms_graph="
+              f"{ms_graph:.5f} bound_ms={b_ms:.6f} ({b_by}), "
+              f"{b_ms / ms_graph:.3f} of the bound by ms_graph, {blocks} "
+              f"blocks launched")
+    check(timed["blocks"] >= 132, f"K1: {timed['blocks']} blocks at the "
+          "timed shape, fewer than the card's 132 SMs")
     q, kp, vp, pt, sl = main
-    Hkv, D, H, B = kp.shape[2], q.shape[2], q.shape[1], q.shape[0]
-    n_tok = int(sl.sum())
-    isz = q.element_size()
-    nbytes = (2 * n_tok * Hkv * D * isz + 2 * q.numel() * isz
-              + sum(-(-int(s) // kp.shape[1]) for s in sl.tolist()) * 4
-              + B * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * n_tok * H * D, q.dtype)
-    print(f"[K1] timed: B={B} H={H} Hkv={Hkv} D={D} {q.dtype}, "
-          f"sum(seq_lens)={n_tok}, {nbytes} bytes, {4 * n_tok * H * D} flops")
+    _, _, _, (b_ms, b_by) = k1_bound(q, kp, pt, sl)
     results["paged_attention"] = dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:73",
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: pa.paged_attention(q, kp, vp, pt, sl)),
+        max_abs_err=max(errs), ms=timed.pop("ms"),
         plain_ms=time_ms(lambda: ref.paged_attention(q, kp, vp, pt, sl)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, **timed)
 
     # -- K2: causal prefill attention at the slice's shapes --------------------
     def fa_case(B, H, Hkv, Sq, Skv, D, dtype):
@@ -228,10 +336,29 @@ def run_kernel_checks(report: dict) -> dict:
 
     errs = []
     main = fa_case(1, 14, 2, 2048, 2048, 64, torch.bfloat16)
+    zamba = fa_case(4, 32, 32, 1024, 1024, 64, torch.bfloat16)
+    s1024 = fa_case(1, 14, 2, 1024, 1024, 64, torch.bfloat16)  # engine's
+                                                               # longest
     cases = [
         ("qwen2 prefill S=2048 bf16", main, True, torch.float32, BF16_TOL),
+        ("qwen2 prefill S=2048 bf16 compute_dtype=bf16", main, True,
+         torch.bfloat16, None),
+        ("zamba2 shared block B=4 H=Hkv=32 S=1024 bf16", zamba, True,
+         torch.float32, BF16_TOL),
         ("qwen2 prefill ragged S=1000 bf16",
          fa_case(1, 14, 2, 1000, 1000, 64, torch.bfloat16), True,
+         torch.float32, BF16_TOL),
+        *((f"tile edges S={S} bf16",
+           fa_case(2, 14, 2, S, S, 64, torch.bfloat16), True, torch.float32,
+           BF16_TOL) for S in (63, 64, 65, 127, 129)),
+        ("D=128 H=Hkv=32 S=512 bf16 (scale after the product)",
+         fa_case(1, 32, 32, 512, 512, 128, torch.bfloat16), True,
+         torch.float32, BF16_TOL),
+        ("bf16 Sq=300 Skv=100 causal, empty rows",
+         fa_case(1, 4, 4, 300, 100, 64, torch.bfloat16), True, torch.float32,
+         BF16_TOL),
+        ("bf16 non-causal Sq=77 Skv=200",
+         fa_case(1, 8, 1, 77, 200, 128, torch.bfloat16), False,
          torch.float32, BF16_TOL),
         ("D=128 H=Hkv=32 S=512 compute_dtype=bf16",
          fa_case(1, 32, 32, 512, 512, 128, torch.bfloat16), True,
@@ -263,26 +390,53 @@ def run_kernel_checks(report: dict) -> dict:
               f"(tol {tol_txt})")
         check(s <= 1, f"K2 disagrees with its plain version: {name}")
         errs.append(e)
+
+    def k2_bound(q, k):
+        B, H, S, D = q.shape
+        isz = q.element_size()
+        visible = S * (S + 1) / 2        # causal keys seen, summed over rows
+        nbytes = (2 * q.numel() + 2 * k.numel()) * isz
+        flops = 4.0 * B * H * D * visible
+        print(f"[K2] timed: B={B} H={H} Hkv={k.shape[1]} S={S} D={D} "
+              f"{q.dtype} causal, {nbytes} bytes, {flops:.0f} flops")
+        return bound(nbytes, flops, q.dtype)
+
+    def fa_ms(q, k, v, cdt=torch.float32):
+        return time_ms(lambda: fa.flash_attention(
+            q, k, v, causal=True, compute_dtype=cdt), iters=50)
+
+    def sdpa_ms(q, k, v):
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=50)
+
     q, k, v = main
-    B, H, S, D = q.shape
-    isz = q.element_size()
-    visible = S * (S + 1) / 2            # causal keys seen, summed over rows
-    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * isz,
-                       4.0 * B * H * D * visible, q.dtype)
-    print(f"[K2] timed: B={B} H={H} Hkv={k.shape[1]} S={S} D={D} {q.dtype} "
-          f"causal, {(2 * q.numel() + 2 * k.numel()) * isz} bytes, "
-          f"{4 * B * H * D * visible:.0f} flops")
-    results["flash_attention"] = dict(
+    b_ms, b_by = k2_bound(q, k)
+    zb_ms, _ = k2_bound(zamba[0], zamba[1])
+    lib_ms = sdpa_ms(q, k, v)
+    results["flash_attention"] = r = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:85",
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        max_abs_err=max(errs), ms=fa_ms(q, k, v),
         plain_ms=time_ms(lambda: ref.mha_attention(q, k, v, causal=True),
                          iters=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)))
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        ms_graph=time_graph_ms(lambda: fa.flash_attention(q, k, v),
+                               iters=20),
+        ms_compute_bf16=fa_ms(q, k, v, torch.bfloat16),
+        library_ms_repeat=sdpa_ms(q, k, v),
+        ms_zamba2_shape=fa_ms(*zamba), bound_ms_zamba2_shape=zb_ms,
+        library_ms_zamba2_shape=sdpa_ms(*zamba),
+        ms_qwen2_s1024=fa_ms(*s1024), library_ms_qwen2_s1024=sdpa_ms(*s1024))
+    print(f"[K2] qwen2 prefill shape: ms={r['ms']:.5f} (compute fp32; "
+          f"graph-replayed {r['ms_graph']:.5f}), compute_dtype=bf16 "
+          f"{r['ms_compute_bf16']:.5f}; SDPA {lib_ms:.5f} / "
+          f"{r['library_ms_repeat']:.5f}; {r['ms'] / lib_ms:.2f}x SDPA; "
+          f"bound {b_ms:.6f} ({b_by}). zamba2 shape: "
+          f"{r['ms_zamba2_shape']:.5f} vs SDPA "
+          f"{r['library_ms_zamba2_shape']:.5f}; qwen2 S=1024: "
+          f"{r['ms_qwen2_s1024']:.5f} vs SDPA "
+          f"{r['library_ms_qwen2_s1024']:.5f}")
     for r in results.values():
         r["kernel_ms"] = r["ms"]
     report.update(results)
@@ -501,7 +655,10 @@ def through_plain(fn, *, oracle: bool = False):
             setattr(ops, k, f)
 
 
-def run_engine(cfg, params, *, chunked: bool, launches: dict) -> dict:
+def run_engine(cfg, params, *, chunked: bool,
+               launches: dict) -> tuple[dict, dict]:
+    """Serve 16 requests; returns their tokens by request id and the
+    run's walls and tokens/s."""
     import numpy as np
     import torch
 
@@ -544,12 +701,13 @@ def run_engine(cfg, params, *, chunked: bool, launches: dict) -> dict:
            "median_step_ms": st["measured_step_s"] * 1e3,
            "k1_launches": k1, "k2_launches": k2, "stats": st}
     print(f"[engine {mode}] {json.dumps(out)}")
-    return {r.rid: list(r.out_tokens) for r in eng.finished}
+    return {r.rid: list(r.out_tokens) for r in eng.finished}, out
 
 
-def compare_paths(cfg, params) -> None:
+def compare_paths(cfg, params) -> dict:
     """Prefill and one decode step through the kernels vs through the plain
-    versions, on the same state, on the card."""
+    versions, on the same state, on the card; returns the per-request
+    prefill times and the profiled decode step."""
     import numpy as np
     import torch
 
@@ -581,9 +739,10 @@ def compare_paths(cfg, params) -> None:
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
     n_pre = sum(len(r.prompt) for r in reqs)
+    pre_tps = n_pre / (sum(pre_ms) / 1e3)
     print(f"[prefill] per request ms: {[round(x, 3) for x in pre_ms]} "
           f"(prompts {[len(r.prompt) for r in reqs]}; "
-          f"{n_pre / (sum(pre_ms) / 1e3):.1f} prompt tokens/s)")
+          f"{pre_tps:.1f} prompt tokens/s)")
 
     tokens = np.array([r.out_tokens[-1] for r in reqs], np.int32)
     active = np.ones((8,), bool)
@@ -608,7 +767,8 @@ def compare_paths(cfg, params) -> None:
     check(agree == len(tokens),
           f"decode argmax differs on {len(tokens) - agree} of "
           f"{len(tokens)} rows")
-    profile_decode(lm, tokens, active)
+    return {"prefill_ms": pre_ms, "prompt_tokens_per_s": pre_tps,
+            "decode_step": profile_decode(lm, tokens, active)}
 
 
 def device_profile(fn, steps: int) -> dict:
@@ -641,20 +801,27 @@ def device_profile(fn, steps: int) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     dev_ms = sum(ms for _, ms in rows)
+    ours = {tag: sum(ms for k, ms in rows if any(n in k for n in names))
+            for tag, names in OUR_KERNELS.items()}
+    ours = {tag: ms for tag, ms in ours.items() if ms}
     return {"step_wall_ms": wall_ms,
             "step_wall_ms_under_profiler": prof_wall_ms,
             "device_ms": dev_ms if rows else "not measured",
             "device_busy_share": dev_ms / wall_ms if rows else "not measured",
+            "our_kernels_device_ms": ours,
+            "our_kernels_device_share": {
+                tag: ms / dev_ms for tag, ms in ours.items()},
             "top_device_ms": [[k, ms] for k, ms in
                               sorted(rows, key=lambda r: -r[1])[:8]]}
 
 
-def profile_decode(lm, tokens, active, steps: int = 5) -> None:
+def profile_decode(lm, tokens, active, steps: int = 5) -> dict:
     """The engine's decode step: each step rewrites the same K/V rows."""
     out = {"batch": int(active.sum()),
            "context_tokens": int(lm.seq_lens.sum()),
            **device_profile(lambda: lm.decode_logits(tokens, active), steps)}
     print(f"[profile decode step] {json.dumps(out)}")
+    return out
 
 
 def compare_with_cpu() -> None:
@@ -892,11 +1059,78 @@ def compare_recurrent_with_cpu() -> None:
               f"launched on the card: {launched}")
 
 
+# ----------------------------------------------------------------------------
+# --engine-ab: phases 3-4 for two checkouts of the port, on one card
+# ----------------------------------------------------------------------------
+
+def engine_only(src: str) -> None:
+    """Phases 3-4 with the port under ``src``: one ``[engine-ab]`` line."""
+    sys.path.insert(0, src)
+    import torch
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all(("paged_attention", "flash_attention"))
+    cfg = configs.get_config("qwen2-0.5b")
+    params = api.get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    res: dict = {"package": str(Path(repro_torch.__file__).parent)}
+    for chunked in (False, True):
+        _, run = run_engine(cfg, params, chunked=chunked, launches={})
+        res["chunked" if chunked else "whole"] = run
+    res.update(compare_paths(cfg, params))
+    print(f"[engine-ab] {json.dumps(res)}")
+
+
+def engine_ab(parent: str) -> None:
+    """Phases 3-4 for PARENT's port and this one, each in a process of its
+    own, in the order PARENT, this, this, PARENT."""
+    trees = [("parent", Path(parent).resolve()), ("this", ROOT),
+             ("this", ROOT), ("parent", Path(parent).resolve())]
+    rows = []
+    for label, tree in trees:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--engine-only",
+             str(tree / "src")], capture_output=True, text=True, timeout=900)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"the engine run of {tree} failed")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("[engine-ab] ")][-1]
+        rows.append((label, json.loads(line[len("[engine-ab] "):])))
+    for label, r in rows:
+        d = r["decode_step"]
+        print(f"[engine-ab {label}] whole: {r['whole']['tokens_per_s']:.1f} "
+              f"tokens/s, wall {r['whole']['wall_s']:.3f} s, median step "
+              f"{r['whole']['median_step_ms']:.2f} ms; chunked: "
+              f"{r['chunked']['tokens_per_s']:.1f} tokens/s; prefill "
+              f"{r['prompt_tokens_per_s']:.1f} prompt tokens/s; decode step "
+              f"wall {d['step_wall_ms']:.3f} ms, device {d['device_ms']} ms, "
+              f"busy {d['device_busy_share']}, ours "
+              f"{d['our_kernels_device_ms']}")
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--engine-ab", metavar="PARENT",
+                    help="phases 3-4 alone, for PARENT's port and this one")
+    ap.add_argument("--engine-only", metavar="SRC", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.engine_only:
+        engine_only(args.engine_only)
+        return 0
+    if args.engine_ab:
+        engine_ab(args.engine_ab)
+        return 0
     from repro_torch import configs
     from repro_torch.kernels import _build
     from repro_torch.models import api
@@ -924,8 +1158,8 @@ def main() -> int:
     print(f"[engine] qwen2-0.5b: {n_par} parameters "
           f"({n_par * 2 / 1e9:.2f} GB bf16), init "
           f"{time.perf_counter() - t0:.1f} s")
-    whole = run_engine(cfg, params, chunked=False, launches=launches)
-    chunked = run_engine(cfg, params, chunked=True, launches=launches)
+    whole, _ = run_engine(cfg, params, chunked=False, launches=launches)
+    chunked, _ = run_engine(cfg, params, chunked=True, launches=launches)
     same = sum(whole[i] == chunked[i] for i in whole)
     print(f"[engine] whole vs chunked prefill: {same}/{len(whole)} "
           "requests with identical tokens (bf16)")
@@ -958,7 +1192,8 @@ def main() -> int:
                  "kernel_ms": r["kernel_ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        entry.update({k: v for k, v in r.items() if k.endswith("_decode")})
+        # further shapes and variants: *_decode, ms_engine_shape, ...
+        entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main paths never launched: {paths}")

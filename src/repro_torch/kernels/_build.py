@@ -32,8 +32,8 @@ _vp, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # C signatures of the entry points: every pointer and the stream are void*
 SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
-                        [_vp, _vp, _vp, _vp, _vp, _vp,
-                         _i, _i, _i, _i, _i, _i, _f, _i, _vp]),
+                        [_vp] * 7 + [_i] * 7
+                        + [_f, _i, ctypes.POINTER(_i), _vp]),
     "flash_attention": ("flash_attention_launch",
                         [_vp, _vp, _vp, _vp,
                          _i, _i, _i, _i, _i, _i, _i, _f, _i, _i, _vp]),

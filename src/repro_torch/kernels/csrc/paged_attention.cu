@@ -8,24 +8,46 @@
 //
 // What bounds it: bytes.  One decode step reads every resident K/V page
 // once, sum(seq_len) * 2 * Hkv * D * itemsize bytes, and does 4 flops per
-// byte-pair read — far below the card's ~295 flops/byte ridge.  So the
-// design spends nothing on tensor cores and everything on reading each page
-// once:
-//   * one block per (sequence b, KV head); the `group = H / Hkv` query heads
-//     that share the KV head share every K/V load (the Pallas grid streams
-//     each page once per query head);
-//   * the block walks only the resident positions, min(seq_len,
-//     max_pages * page), in tiles of TILE keys gathered through the page
-//     table, so ragged batches pay only for what they hold;
-//   * online softmax in fp32 shared memory across tiles; a row that sees no
-//     key (seq_len == 0) writes 0, like the Pallas kernel.
-// Left for later work: splitting long sequences across blocks (a
-// log-sum-exp combine) so that small batches fill all 132 SMs, and 16-byte
-// vector loads.
+// byte-pair read — far below the card's ~295 flops/byte ridge.  At small
+// batch the difficulty is parallelism, not arithmetic: one block per
+// (sequence, KV head) gives 16 blocks on 132 SMs at the engine's batch of 8
+// and each walks its whole sequence alone.  So the design is flash-decoding
+// (split-K) with the page table read inside the kernel:
+//   * each (sequence, KV head) is cut into partitions of `part_keys` keys;
+//     the grid is (n_split, Hkv * head chunks, B) with n_split =
+//     ceil(max_pages * page / part_keys), taken from the page table's shape
+//     alone, so the host never reads seq_lens (no synchronisation);
+//   * a block whose partition starts at or past n_keys = min(seq_len,
+//     max_pages * page) writes an empty partial (l = 0) and exits;
+//   * inside a block, the query heads of the group that share the KV head
+//     (at most 8 a block; larger groups take several head chunks) sit in
+//     registers, scaled; each key's row is read by D * itemsize / 16 lanes
+//     with one 16-byte load each (8 lanes for a bf16 D = 64 row), every lane
+//     translating its key's page through the table; four keys a lane group
+//     are loaded before any is used, so the loads overlap;
+//   * dot products are the lanes' partial sums reduced by __shfl_xor within
+//     the lane group; each lane group keeps its own online softmax in fp32
+//     registers and accumulates P V over its own columns; lane groups
+//     combine by shuffles and warps once through shared memory at the end
+//     (one __syncthreads a block, none per key);
+//   * partials (acc[D], m, l) per (b, h, split) go to an fp32 scratch, and
+//     a second small kernel combines them by log-sum-exp, grid (H, B); a row
+//     with no key (seq_len == 0) writes 0, like the Pallas kernel.
+// One instantiation a dtype and D serves every group size, MHA included
+// (heads past the group's are masked off): no served model takes K1 with
+// a group of 1, so no narrower variant is kept for it.
+// The arithmetic is the plain version's (q * scale in fp32, fp32 logits,
+// exp, fp32 sums) in another order.
+//
+// Resources (ptxas -v, CUDA 12.8, sm_90a), bf16 D = 64 with 8 heads a
+// block (qwen2's path): 218 registers, 8 448 bytes of static shared memory
+// (4 warps x 8 heads x (D + 2) floats), no spills; the combine kernel 32
+// registers.
 //
 // Layouts (all contiguous): q (B, H, D); k_pages, v_pages (P, page, Hkv,
-// D); page_table (B, max_pages) int32; seq_lens (B,) int32; out (B, H, D)
-// in q's dtype.  T is float or __nv_bfloat16, D is 64 or 128.
+// D); page_table (B, max_pages) int32; seq_lens (B,) int32; partials (B, H,
+// n_split, D + 2) fp32 (acc[D], m, l); out (B, H, D) in q's dtype.  T is
+// float or __nv_bfloat16, D is 64 or 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,12 +56,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;
+constexpr int kMaxHeads = 8;  // query heads a block serves
+constexpr int kUnroll = 4;    // keys a lane group loads before using any
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -49,160 +69,259 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// keys per tile: 4096 / D, so the K and V tiles take 32 KB of fp32 together
-template <int D> struct Tile { static constexpr int kKeys = 4096 / D; };
+// 16 bytes of T -> fp32
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void widen(const uint4& r, float (&f)[N]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void widen(const uint4& r, float (&f)[N]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 -> fp32 is a 16-bit shift
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
-                       const int32_t* __restrict__ page_table,
-                       const int32_t* __restrict__ seq_lens,
-                       T* __restrict__ out, int H, int Hkv, int page,
-                       int max_pages, float scale) {
-  constexpr int TILE = Tile<D>::kKeys;
-  constexpr int KS = D + 1;  // padded K row: the score loop reads K by rows
-  const int hkv = blockIdx.x;
-  const int b = blockIdx.y;
+__global__ void __launch_bounds__(kWarps * 32)
+paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                     const T* __restrict__ v_pages,
+                     const int32_t* __restrict__ page_table,
+                     const int32_t* __restrict__ seq_lens,
+                     float* __restrict__ part, int H, int Hkv, int page,
+                     int max_pages, int part_keys, int n_chunk, float scale) {
+  constexpr int VEC = Vec<T>::N;   // elements a lane loads at once
+  constexpr int LPK = D / VEC;     // lanes a key
+  constexpr int KPW = 32 / LPK;    // keys a warp step
+  constexpr int GROUPS = kWarps * KPW;
+  constexpr int PS = D + 2;        // a partial: acc[D], m, l
+  constexpr int G = kMaxHeads;
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
+  const int hkv = blockIdx.y / n_chunk;
+  const int chunk = blockIdx.y % n_chunk;
+  const int b = blockIdx.z;
   const int group = H / Hkv;
+  const int h0 = hkv * group + chunk * kMaxHeads;
+  const int nh = min(kMaxHeads, group - chunk * kMaxHeads);  // <= G
   const int tid = threadIdx.x;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;                    // TILE x KS
-  float* v_s = k_s + TILE * KS;         // TILE x D
-  float* q_s = v_s + TILE * D;          // group x D, pre-scaled
-  float* acc = q_s + group * D;         // group x D
-  float* p_s = acc + group * D;         // group x TILE (scores, then probs)
-  float* m_s = p_s + group * TILE;      // group: running max
-  float* l_s = m_s + group;             // group: running sum
-  float* a_s = l_s + group;             // group: this tile's rescale factor
-
-  const int h0 = hkv * group;
-  for (int i = tid; i < group * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    q_s[i] = to_float(q[((size_t)b * H + h0 + g) * D + d]) * scale;
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < group; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
+  const int warp = tid / 32, lane = tid % 32;
+  const int sub = lane % LPK;     // this lane's 16-byte slice of a row
+  const int grp = warp * KPW + lane / LPK;
 
   const int n_keys = min(seq_lens[b], max_pages * page);
+  const int j0 = split * part_keys;
+  const int j_end = min(j0 + part_keys, n_keys);
+  float* pb = part + ((size_t)b * H + h0) * n_split * PS + (size_t)split * PS;
+  if (j0 >= n_keys) {  // empty partition
+    if (tid < nh) {
+      pb[(size_t)tid * n_split * PS + D] = -INFINITY;
+      pb[(size_t)tid * n_split * PS + D + 1] = 0.f;
+    }
+    return;
+  }
+
+  float qv[G][VEC], acc[G][VEC], m[G], l[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {  // q: one 16-byte load a head and lane
+    m[gi] = -INFINITY;
+    l[gi] = 0.f;
+    uint4 qr = make_uint4(0u, 0u, 0u, 0u);
+    if (gi < nh)
+      qr = *reinterpret_cast<const uint4*>(q + ((size_t)b * H + h0 + gi) * D +
+                                           sub * VEC);
+    Vec<T>::widen(qr, qv[gi]);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      acc[gi][e] = 0.f;
+      qv[gi][e] *= scale;
+    }
+  }
+
   const int32_t* row = page_table + (size_t)b * max_pages;
-  for (int j0 = 0; j0 < n_keys; j0 += TILE) {
-    __syncthreads();  // previous tile fully consumed (and q_s/acc set up)
-    // gather this tile's keys through the page table: the TLB
-    for (int i = tid; i < TILE * D; i += kThreads) {
-      const int t = i / D, d = i % D;
-      const int pos = j0 + t;
-      float kv = 0.f, vv = 0.f;
-      if (pos < n_keys) {
-        const int phys = row[pos / page];
+  const int rounds = (j_end - j0 + GROUPS * kUnroll - 1) / (GROUPS * kUnroll);
+  for (int it = 0; it < rounds; ++it) {
+    uint4 kr[kUnroll], vr[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {  // loads first, use after
+      const int j = j0 + (it * kUnroll + u) * GROUPS + grp;
+      if (j < j_end) {
+        const int phys = row[j / page];  // the TLB
         const size_t off =
-            (((size_t)phys * page + pos % page) * Hkv + hkv) * D + d;
-        kv = to_float(k_pages[off]);
-        vv = to_float(v_pages[off]);
+            (((size_t)phys * page + j % page) * Hkv + hkv) * D + sub * VEC;
+        kr[u] = *reinterpret_cast<const uint4*>(k_pages + off);
+        vr[u] = *reinterpret_cast<const uint4*>(v_pages + off);
+      } else {
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       }
-      k_s[t * KS + d] = kv;
-      v_s[t * D + d] = vv;
     }
-    __syncthreads();
-    // scores: one (query head, key) pair per thread and step
-    for (int i = tid; i < group * TILE; i += kThreads) {
-      const int g = i / TILE, t = i % TILE;
-      float s = -INFINITY;
-      if (j0 + t < n_keys) {
-        s = 0.f;
-        const float* qr = q_s + g * D;
-        const float* kr = k_s + t * KS;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool live = j0 + (it * kUnroll + u) * GROUPS + grp < j_end;
+      float kf[VEC], vf[VEC];
+      Vec<T>::widen(kr[u], kf);
+      Vec<T>::widen(vr[u], vf);
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s = fmaf(qv[gi][e], kf[e], s);
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1)  // all lanes take part
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (live && gi < nh) {
+          const float m_new = fmaxf(m[gi], s);
+          const float alpha = expf(m[gi] - m_new);  // 0 when m = -inf
+          const float p = expf(s - m_new);
+          l[gi] = l[gi] * alpha + p;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[gi][e] = fmaf(p, vf[e], acc[gi][e] * alpha);
+          m[gi] = m_new;
+        }
       }
-      p_s[i] = s;
     }
-    __syncthreads();
-    // running max per query head; every tile holds at least one live key
-    for (int g = tid; g < group; g += kThreads) {
-      float mt = -INFINITY;
-      for (int t = 0; t < TILE; ++t) mt = fmaxf(mt, p_s[g * TILE + t]);
-      const float m_new = fmaxf(m_s[g], mt);
-      a_s[g] = expf(m_s[g] - m_new);  // 0 on the first tile (m = -inf)
-      m_s[g] = m_new;
+  }
+
+  // lane groups of a warp hold the same columns: combine by shuffles
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[gi], o);
+      const float mx = fmaxf(m[gi], mo);
+      const float a = m[gi] == -INFINITY ? 0.f : expf(m[gi] - mx);
+      const float c = mo == -INFINITY ? 0.f : expf(mo - mx);
+      l[gi] = l[gi] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[gi][e], o);
+        acc[gi][e] = acc[gi][e] * a + ao * c;
+      }
+      m[gi] = mx;
     }
-    __syncthreads();
-    for (int i = tid; i < group * TILE; i += kThreads) {
-      p_s[i] = expf(p_s[i] - m_s[i / TILE]);  // masked keys: exp(-inf) = 0
-    }
-    __syncthreads();
-    for (int i = tid; i < group * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      const float* pr = p_s + g * TILE;
-      float o = 0.f;
-      for (int t = 0; t < TILE; ++t) o = fmaf(pr[t], v_s[t * D + d], o);
-      acc[i] = acc[i] * a_s[g] + o;
-      if (d == 0) {
-        float l = 0.f;
-        for (int t = 0; t < TILE; ++t) l += pr[t];
-        l_s[g] = l_s[g] * a_s[g] + l;
+  }
+  // ... and the warps through shared memory, once
+  __shared__ float w_acc[kWarps][G][D];
+  __shared__ float w_ml[kWarps][G][2];
+  if (lane < LPK) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) w_acc[warp][gi][sub * VEC + e] = acc[gi][e];
+      if (sub == 0) {
+        w_ml[warp][gi][0] = m[gi];
+        w_ml[warp][gi][1] = l[gi];
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < group * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    const float l = l_s[g];
-    out[((size_t)b * H + h0 + g) * D + d] =
-        from_float<T>(l > 0.f ? acc[i] / l : 0.f);
+  for (int i = tid; i < nh * D; i += kWarps * 32) {
+    const int gi = i / D, d = i % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, w_ml[w][gi][0]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w_ml[w][gi][1] > 0.f) {  // a warp that saw no key adds nothing
+        const float c = expf(w_ml[w][gi][0] - mx);
+        lsum += w_ml[w][gi][1] * c;
+        a += w_acc[w][gi][d] * c;
+      }
+    }
+    float* dst = pb + (size_t)gi * n_split * PS;
+    dst[d] = a;
+    if (d == 0) {
+      dst[D] = mx;
+      dst[D + 1] = lsum;
+    }
   }
+}
+
+// out[b, h] = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M); 0 if no key
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+paged_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                     int n_split) {
+  constexpr int PS = D + 2;
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int d = threadIdx.x;
+  const float* p = part + ((size_t)b * H + h) * n_split * PS;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s)
+    if (p[s * PS + D + 1] > 0.f) mx = fmaxf(mx, p[s * PS + D]);
+  float lsum = 0.f, a = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float l = p[s * PS + D + 1];
+    if (l > 0.f) {  // empty partitions wrote no acc
+      const float c = expf(p[s * PS + D] - mx);
+      lsum += l * c;
+      a += p[s * PS + d] * c;
+    }
+  }
+  out[((size_t)b * H + h) * D + d] = from_float<T>(lsum > 0.f ? a / lsum
+                                                              : 0.f);
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* sl, void* out, int B, int H, int Hkv, int page,
-           int max_pages, float scale, cudaStream_t stream) {
-  constexpr int TILE = Tile<D>::kKeys;
-  const int group = H / Hkv;
-  const size_t smem =
-      sizeof(float) * ((size_t)TILE * (D + 1) + (size_t)TILE * D +
-                       2 * (size_t)group * D + (size_t)group * TILE +
-                       3 * (size_t)group);
-  auto kernel = paged_attention_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hkv, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+           const void* sl, float* part, void* out, int B, int H, int Hkv,
+           int page, int max_pages, int part_keys, int n_split, float scale,
+           int* blocks, cudaStream_t stream) {
+  const int n_chunk = (H / Hkv + kMaxHeads - 1) / kMaxHeads;
+  dim3 grid(n_split, Hkv * n_chunk, B);
+  *blocks = grid.x * grid.y * grid.z;
+  paged_partial_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int32_t*)pt,
-      (const int32_t*)sl, (T*)out, H, Hkv, page, max_pages, scale);
+      (const int32_t*)sl, part, H, Hkv, page, max_pages, part_keys, n_chunk,
+      scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_combine_kernel<T, D><<<dim3(H, B), D, 0, stream>>>(part, (T*)out,
+                                                            n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); -1 for a D or dtype this file does not build.
+// dtype: 0 = float32, 1 = bfloat16.  part: fp32 scratch of B * H * n_split
+// * (D + 2) floats, n_split = ceil(max_pages * page / part_keys).  *blocks
+// gets the partial kernel's grid size as launched.  Returns
+// cudaGetLastError() after the launches (0 on success); -1 for a D, dtype
+// or partition this file does not take.
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* page_table,
-                                      const void* seq_lens, void* out, int B,
-                                      int H, int Hkv, int D, int page,
-                                      int max_pages, float scale, int dtype,
+                                      const void* seq_lens, void* part,
+                                      void* out, int B, int H, int Hkv, int D,
+                                      int page, int max_pages, int part_keys,
+                                      float scale, int dtype, int* blocks,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k_pages, v_pages, page_table, seq_lens, out,
-                             B, H, Hkv, page, max_pages, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k_pages, v_pages, page_table, seq_lens, out,
-                              B, H, Hkv, page, max_pages, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, page_table,
-                                     seq_lens, out, B, H, Hkv, page,
-                                     max_pages, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, page_table,
-                                      seq_lens, out, B, H, Hkv, page,
-                                      max_pages, scale, s);
+  if (part_keys <= 0) return -1;
+  const int n_split = (max_pages * page + part_keys - 1) / part_keys;
+  if (n_split == 0) return -1;
+  float* p = (float*)part;
+#define PAGED_LAUNCH(T, DD)                                                 \
+  return launch<T, DD>(q, k_pages, v_pages, page_table, seq_lens, p, out, B, \
+                       H, Hkv, page, max_pages, part_keys, n_split, scale,   \
+                       blocks, s)
+  if (dtype == 0 && D == 64) PAGED_LAUNCH(float, 64);
+  if (dtype == 0 && D == 128) PAGED_LAUNCH(float, 128);
+  if (dtype == 1 && D == 64) PAGED_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) PAGED_LAUNCH(__nv_bfloat16, 128);
+#undef PAGED_LAUNCH
   return -1;
 }

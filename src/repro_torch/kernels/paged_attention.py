@@ -6,8 +6,17 @@ attention over a paged K/V pool, with the page table read inside the kernel
 (the §2.2 hardware TLB).  Its plain version is ``kernels/ref.py::
 paged_attention``; ``kernels/ops.py`` picks between them by the tensors'
 device.  This wrapper takes CUDA tensors only and never falls back.
+
+The kernel is split-K (flash-decoding): partitions of ``PART_KEYS`` keys,
+one block each, write partials to an fp32 scratch that a second kernel of
+the same call combines.  The number of partitions comes from the page
+table's shape alone: the wrapper never reads ``seq_lens`` on the host, so
+it does not synchronise with the card.  ``paged_attention.last_blocks``
+holds the partial kernel's grid size as the last launch set it.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -15,6 +24,7 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+PART_KEYS = 128   # keys a partition (one block per partition and KV head)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -53,20 +63,32 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(seq_lens.shape)} (D must be one of {HEAD_DIMS})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention kernel: q and the pools must be "
+                         "16-byte aligned (rows are read 16 bytes at a "
+                         "time)")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    max_pages = page_table.shape[1]
+    n_split = -(-max_pages * page // PART_KEYS)
+    if out.numel() == 0 or n_split == 0:
+        return out.zero_()
+    part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _build.load("paged_attention")
+    blocks = ctypes.c_int(0)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             B, H, Hkv, D, page, page_table.shape[1], float(scale),
-             DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             page_table.data_ptr(), seq_lens.data_ptr(), part.data_ptr(),
+             out.data_ptr(), B, H, Hkv, D, page, max_pages, PART_KEYS,
+             float(scale), DTYPES[q.dtype], ctypes.byref(blocks),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
     paged_attention.launches += 1
+    paged_attention.last_blocks = blocks.value
     return out
 
 
 paged_attention.launches = 0
+paged_attention.last_blocks = 0

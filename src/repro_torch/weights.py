@@ -48,8 +48,13 @@ def _flatten(tree, prefix: str = ""):
             yield name, v
 
 
-def from_jax_params(cfg: ArchCfg, params, *, device="cpu"):
-    """``params``: the JAX ``init_lm`` pytree with numpy leaves."""
+def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
+    """``params``: the JAX ``init_lm`` pytree with numpy leaves.  The model
+    lands on the card unless the caller asks for the CPU (``device="cpu"``);
+    without a card the default raises, as ``PagedLM`` does."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("from_jax_params: no CUDA device is available; "
+                           "pass device='cpu' to load the model on the CPU")
     if cfg.family not in _LM:
         raise NotImplementedError(f"family {cfg.family!r}: no model module "
                                   "in the port yet")

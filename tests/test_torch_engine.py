@@ -36,8 +36,8 @@ def models(name):
     jcfg = jconfigs.get_config(name).reduced()
     tcfg = tconfigs.get_config(name).reduced()
     jp = jtf.init_lm(jcfg, jax.random.key(0))
-    return jcfg, jp, tcfg, from_jax_params(tcfg, jax.tree.map(np.asarray,
-                                                              jp))
+    return jcfg, jp, tcfg, from_jax_params(
+        tcfg, jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def requests(mod, vocab):

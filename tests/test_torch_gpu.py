@@ -7,7 +7,8 @@ JAX nor ``repro``, so it runs on a machine with only PyTorch and nvcc:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are the bars of ``tests/test_kernels.py``: 3e-4 for fp32,
-6e-2 where bf16 rounds (bf16 inputs or ``compute_dtype``).  The scans'
+6e-2 where bf16 rounds (bf16 inputs or ``compute_dtype``); bf16 attention
+under ``compute_dtype=fp32`` is also held to two bf16 ulps plus 2.5e-4.  The scans'
 final states are fp32 on both sides, summed in another order: 3e-4 (scaled
 by the state's magnitude) in either input dtype.
 """
@@ -36,9 +37,12 @@ def tol(dtype):
     return 3e-4 if dtype == torch.float32 else 6e-2
 
 
-def paged_inputs(device, dtype, *, B, H, Hkv, D, page, seq_lens, seed=0):
+def paged_inputs(device, dtype, *, B, H, Hkv, D, page, seq_lens, seed=0,
+                 max_pages=None):
+    """``max_pages`` below a row's pages clamps that row's keys."""
     rng = np.random.default_rng(seed)
-    max_pages = max(-(-s // page) for s in seq_lens) + 1
+    if max_pages is None:
+        max_pages = max(-(-s // page) for s in seq_lens) + 1
     P = B * max_pages + 5
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, H, D, generator=g).to(device, dtype)
@@ -50,20 +54,82 @@ def paged_inputs(device, dtype, *, B, H, Hkv, D, page, seq_lens, seed=0):
     return q, kp, vp, pt, sl
 
 
+def garbage_tail(pt, seq_lens, page):
+    """The page table with every entry past a row's resident pages set to
+    an id far outside the pool: a kernel that reads one faults."""
+    pt = pt.clone()
+    for b, s in enumerate(seq_lens):
+        pt[b, -(-min(s, pt.shape[1] * page) // page):] = 2 ** 30
+    return pt
+
+
+# seq_lens: B = len(seq_lens); PART_KEYS = 128 keys a partition
+PAGED_LENS = {
+    "ragged": ([0, 1, 17, 95, 64], None),
+    "partition_edges": ([127, 128, 129, 255, 256, 257, 0, 1000], None),
+    "one_16k_sequence": ([16384], None),
+    "clamped_to_table": ([40, 500, 0, 48], 3),   # 3 pages hold 48 / 24 keys
+}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("lens", list(PAGED_LENS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,H,Hkv,page", [(64, 14, 2, 16), (128, 8, 8, 16),
-                                          (64, 8, 1, 8)])
-def test_paged_attention_kernel_matches_plain(cuda, D, H, Hkv, page, dtype):
-    args = paged_inputs(cuda, dtype, B=5, H=H, Hkv=Hkv, D=D, page=page,
-                        seq_lens=[0, 1, 17, 95, 64])
+                                          (64, 8, 1, 8), (64, 24, 2, 16)])
+def test_paged_attention_kernel_matches_plain(cuda, D, H, Hkv, page, dtype,
+                                              lens):
+    """Split-K partitions at, below and above their edges, one long row
+    (many partitions), seq_len 0 beside long rows, seq_len clamped to the
+    table, and page-table entries past every row's length that must never
+    be read; H/Hkv = 12 takes two head chunks of a block."""
+    seq_lens, max_pages = PAGED_LENS[lens]
+    args = paged_inputs(cuda, dtype, B=len(seq_lens), H=H, Hkv=Hkv, D=D,
+                        page=page, seq_lens=seq_lens, max_pages=max_pages)
+    q, kp, vp, pt, sl = args
     n = pa.paged_attention.launches
-    got = ops.paged_attention(*args)
+    got = ops.paged_attention(q, kp, vp, garbage_tail(pt, seq_lens, page),
+                              sl)
     assert pa.paged_attention.launches == n + 1
+    # the grid as launched: partitions from the table's shape alone, times
+    # KV heads, head chunks of 8 and rows
+    n_split = -(-pt.shape[1] * page // pa.PART_KEYS)
+    assert pa.paged_attention.last_blocks == \
+        n_split * Hkv * -(-(H // Hkv) // 8) * len(seq_lens)
     want = ref.paged_attention(*args)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol(dtype),
                                atol=tol(dtype))
-    assert not got[0].any(), "a row with no key gives 0"
+    for b, s in enumerate(seq_lens):
+        if s == 0:
+            assert not got[b].any(), "a row with no key gives 0"
+
+
+@pytest.mark.gpu
+def test_paged_attention_kernel_does_not_synchronise(cuda):
+    """The wrapper never reads seq_lens on the host: it runs under the sync
+    debug mode set to raise, and inside a captured CUDA graph, whose replay
+    follows seq_lens changed on the card."""
+    seq_lens = [300, 5, 0, 129]
+    q, kp, vp, pt, sl = paged_inputs(cuda, torch.bfloat16, B=4, H=14, Hkv=2,
+                                     D=64, page=16, seq_lens=seq_lens)
+    pa.paged_attention(q, kp, vp, pt, sl)          # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.paged_attention(q, kp, vp, pt, sl)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, kp, vp, pt, sl)
+    sl.copy_(torch.tensor([17, 300, 64, 0], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               ref.paged_attention(q, kp, vp, pt, sl).float(),
+                               rtol=tol(torch.bfloat16),
+                               atol=tol(torch.bfloat16))
+    assert not out[3].any()
 
 
 @pytest.mark.gpu
@@ -72,9 +138,18 @@ def test_paged_attention_kernel_matches_plain(cuda, D, H, Hkv, page, dtype):
 @pytest.mark.parametrize("Sq,Skv,D,causal", [(100, 100, 64, True),
                                              (70, 200, 128, True),
                                              (130, 60, 64, True),
-                                             (77, 150, 64, False)])
+                                             (77, 150, 64, False),
+                                             (63, 63, 64, True),
+                                             (64, 64, 128, True),
+                                             (65, 65, 64, True),
+                                             (127, 127, 128, True),
+                                             (129, 129, 64, True),
+                                             (2048, 2048, 64, True)])
 def test_flash_attention_kernel_matches_plain(cuda, Sq, Skv, D, causal,
                                               dtype, compute):
+    """Tile edges (63/64/65, 127/129 rows and keys), a long prompt, D = 128
+    with the scale applied after the product, Sq > Skv (empty rows give
+    0), non-causal."""
     g = torch.Generator().manual_seed(Sq + Skv)
     q = torch.randn(2, 6, Sq, D, generator=g).to(cuda, dtype)
     k = torch.randn(2, 2, Skv, D, generator=g).to(cuda, dtype)
@@ -85,6 +160,10 @@ def test_flash_attention_kernel_matches_plain(cuda, Sq, Skv, D, causal,
     want = ref.mha_attention(q, k, v, causal=causal, compute_dtype=compute)
     t = max(tol(dtype), tol(compute))
     torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+    if dtype == torch.bfloat16 and compute == torch.float32:
+        # P is not rounded (hi + lo products): two bf16 ulps + 2.5e-4
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                                   atol=2.5e-4)
 
 
 @pytest.mark.gpu

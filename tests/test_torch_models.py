@@ -39,7 +39,7 @@ def both(name, **over):
     jcfg = jconfigs.get_config(name).reduced(**jover)
     tcfg = tconfigs.get_config(name).reduced(**tover)
     jp = jtf.init_lm(jcfg, jax.random.key(0))
-    tp = from_jax_params(tcfg, jax.tree.map(np.asarray, jp))
+    tp = from_jax_params(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, jp, tcfg, tp
 
 

@@ -63,7 +63,7 @@ def both(name, family=None, **over):
     """(jcfg, JAX model, JAX params, tcfg, port model, port params)."""
     jcfg, tcfg = cfgs(name, family, **over)
     jp = _jax_params(jcfg)
-    tp = from_jax_params(tcfg, jax.tree.map(np.asarray, jp))
+    tp = from_jax_params(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     return jcfg, japi.get_model(jcfg), jp, tcfg, tapi.get_model(tcfg), tp
 
 
