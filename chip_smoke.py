@@ -17,7 +17,10 @@ kernel of those paths against its plain PyTorch version:
      paged attention (split-K; at the timed B=16 shape, the engine's batch
      8 with its 67-page table, and one 16k-key row), K2 flash attention
      (tensor cores for bf16; both compute dtypes, beside SDPA), K3 the
-     Mamba2 SSD scan, K4 the RWKV6 wkv scan;
+     Mamba2 SSD scan, K4 the RWKV6 wkv scan (bf16 prefill on their
+     tensor-core kernels, K4's S = 1 on its decode kernel, fp32 prefill on
+     the FMA kernels: each call's route is checked; eager ``ms`` and
+     CUDA-graph ``ms_graph``);
   3. the engine: 16 requests, whole-prompt prefill and then chunked
      prefill; the launch counters must show every decode layer went
      through K1 (paged attention) and every whole-prefill layer through K2
@@ -30,8 +33,9 @@ kernel of those paths against its plain PyTorch version:
      steps; the counters must show K4 on every rwkv6 layer of prefill and
      decode, K3 on every zamba2 backbone layer of prefill and K2 on every
      application of zamba2's shared attention block; prefill and first
-     decode logits through the kernels vs through the plain versions; a
-     profiled prefill and decode step;
+     decode logits through the kernels vs through the plain versions; the
+     scans' routes on the main path (tensor-core kernels in prefill, K4's
+     decode kernel in decode); a profiled prefill and decode step;
   6. reduced fp32 rwkv6, zamba2 and mamba2 models, shaped for the kernels,
      served on the card and on the CPU from the same weights: same tokens.
 
@@ -41,11 +45,14 @@ without the last line.  It imports nothing of JAX and nothing of the JAX
 package ``repro``.
 
     python3 chip_smoke.py --engine-ab PARENT   # PARENT: another checkout
+    python3 chip_smoke.py --scan-ab PARENT
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
-decode step) for the port of PARENT and of this checkout, each in a process
-of its own, in the order PARENT, this, this, PARENT, and prints each run's
-walls and tokens/s: two versions compared on one card in one call.
+decode step), or K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
+and K4 prefill and K4's decode step at the timed shapes), for the port of
+PARENT and of this checkout, each in a process of its own, in the order
+PARENT, this, this, PARENT: two versions compared on one card in one
+call.
 """
 from __future__ import annotations
 
@@ -106,10 +113,12 @@ N_PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 1024, 32
 # zamba2 at full size on an H100) with the same argmax on every row.
 REC_SPREAD_FACTOR = 3.0
 FP32_LOGIT_TOL = 1e-2
-# device kernels of each of our wrappers, by a part of their names
+# device kernels of each of our wrappers, by a part of their names: K3's
+# mamba2_scan_kernel and mamba2_scan_mma_kernel, K4's rwkv6_scan_kernel,
+# rwkv6_scan_mma_kernel and rwkv6_scan_decode_kernel
 OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
-               "K2": ("flash_attention",), "K3": ("mamba2_scan_kernel",),
-               "K4": ("rwkv6_scan_kernel",)}
+               "K2": ("flash_attention",), "K3": ("mamba2_scan",),
+               "K4": ("rwkv6_scan",)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -463,6 +472,18 @@ def mamba_case(B, S, H, dtype, *, h0: bool, seed: int):
     return x, dt, A, Bm, Cm, D, (rn(B, H, 64, 64) if h0 else None)
 
 
+def mixer_views(case):
+    """K3 inputs as zamba2's mixer hands them over: x, B and C views
+    into one (B, S, H*dh + 2*ds) projection (ssm.py's split), not
+    contiguous."""
+    import torch
+    x, dt, A, Bm, Cm, D, h0 = case
+    B, S, H, dh = x.shape
+    xbc = torch.cat([x.reshape(B, S, H * dh), Bm, Cm], -1)
+    xv, bv, cv = torch.split(xbc, [H * dh, Bm.shape[-1], Cm.shape[-1]], -1)
+    return xv.reshape(B, S, H, dh), dt, A, bv, cv, D, h0
+
+
 def rwkv_case(B, S, H, dtype, *, s0: bool, seed: int):
     """K4 inputs shaped as rwkv6's time-mix gives them: w = exp(-exp(w0 +
     lora)) around w0 = -3 (slow decay), u ~ 0.1."""
@@ -475,6 +496,28 @@ def rwkv_case(B, S, H, dtype, *, s0: bool, seed: int):
     return r, k, v, w, u, (rn(B, H, 64, 64) if s0 else None)
 
 
+def scan_times(m2, rw) -> dict:
+    """``ms`` (the eager loop: the wrapper's host cost and the device) and
+    ``ms_graph`` (CUDA-graph replay: the device alone) of the scan wrappers
+    ``m2.mamba2_scan`` and ``rw.rwkv6_scan`` at the main paths' timed
+    shapes: K3 and K4 prefill (bf16, S = 1024, no state in, state out) and
+    K4's decode step (S = 1, state in and out)."""
+    import torch
+    bf = torch.bfloat16
+    x, dt, A, Bm, Cm, D, _ = mamba_case(4, 1024, 64, bf, h0=False, seed=1)
+    r, k, v, w, u, _ = rwkv_case(4, 1024, 32, bf, s0=False, seed=6)
+    rd, kd, vd, wd, ud, sd = rwkv_case(4, 1, 32, bf, s0=True, seed=9)
+    k3 = lambda: m2.mamba2_scan(x, dt, A, Bm, Cm, D, return_state=True)
+    k4 = lambda: rw.rwkv6_scan(r, k, v, w, u, return_state=True)
+    k4d = lambda: rw.rwkv6_scan(rd, kd, vd, wd, ud, s0=sd, return_state=True)
+    return {"mamba2_scan": dict(ms=time_ms(k3),
+                                ms_graph=time_graph_ms(k3, iters=20)),
+            "rwkv6_scan": dict(ms=time_ms(k4),
+                               ms_graph=time_graph_ms(k4, iters=20),
+                               ms_decode=time_ms(k4d, iters=50),
+                               ms_graph_decode=time_graph_ms(k4d))}
+
+
 def run_scan_checks(report: dict) -> dict:
     """K3 and K4 vs their plain versions at the recurrent paths' shapes:
     with and without state in, state out, a ragged S and S = 1."""
@@ -485,6 +528,15 @@ def run_scan_checks(report: dict) -> dict:
     from repro_torch.kernels import rwkv6_scan as rw
 
     results = {}
+    routes = {"K3": {}, "K4": {}}
+    times = scan_times(m2, rw)
+
+    def routed(fn, want, name):
+        """The device kernel the wrapper's C entry point reported."""
+        tag = "K3" if fn is m2.mamba2_scan else "K4"
+        check(fn.last_kernel == want, f"{tag} {name}: launched "
+              f"{fn.last_kernel}, expected {want}")
+        routes[tag][name] = fn.last_kernel
 
     def held(tag, name, got, want):
         (gy, gs), (wy, ws) = got, want
@@ -508,6 +560,12 @@ def run_scan_checks(report: dict) -> dict:
               mamba_case(4, 1024, 64, bf, h0=True, seed=2)),
              ("ragged S=1000 bf16, state in and out",
               mamba_case(4, 1000, 64, bf, h0=True, seed=3)),
+             *((f"chunk edge S={S} bf16, state in and out",
+                mamba_case(2, S, 8, bf, h0=True, seed=30 + S))
+               for S in (15, 16, 63, 65)),
+             ("zamba2 mixer's strided views B=2 S=300 H=8 bf16, state in "
+              "and out", mixer_views(mamba_case(2, 300, 8, bf, h0=True,
+                                                seed=40))),
              ("S=1 bf16, state in and out",
               mamba_case(4, 1, 64, bf, h0=True, seed=4)),
              ("fp32 B=2 S=300 H=8, state in and out",
@@ -515,6 +573,8 @@ def run_scan_checks(report: dict) -> dict:
     errs = []
     for name, (x, dt, A, Bm, Cm, D, h0) in cases:
         got = m2.mamba2_scan(x, dt, A, Bm, Cm, D, h0=h0, return_state=True)
+        routed(m2.mamba2_scan, "mamba2_scan_mma_kernel" if x.dtype == bf
+               else "mamba2_scan_kernel", name)
         want = ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, D, h0=h0,
                                        return_state=True)
         torch.cuda.synchronize()
@@ -534,27 +594,43 @@ def run_scan_checks(report: dict) -> dict:
         name="mamba2_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
         replaces="src/repro/kernels/mamba2_scan.py:69",
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: m2.mamba2_scan(x, dt, A, Bm, Cm, D,
-                                          return_state=True)),
+        max_abs_err=max(errs), **times["mamba2_scan"],
         plain_ms=time_ms(lambda: ref.mamba2_scan_chunked(
             x, dt, A, Bm, Cm, D, return_state=True), iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # -- K4: rwkv6 prefill B=4 S=1024 H=32 dh=64, and its decode step -------
+    strong = rwkv_case(2, 200, 8, bf, s0=True, seed=12)
+    sw = torch.exp(-torch.exp(2.0 * torch.randn(
+        strong[3].shape, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(13)) + 1.0))
+    sw[:, 5:9] = 0.0                      # w = 0: the 1e-30 floor
+    sw[:, 40:44] = 1e-39                  # a bf16 denormal
+    strong = strong[:3] + (sw.to(bf),) + strong[4:]
     cases = [("rwkv6 prefill B=4 S=1024 H=32 bf16, state out",
               rwkv_case(4, 1024, 32, bf, s0=False, seed=6)),
              ("B=4 S=1024 H=32 bf16, state in and out",
               rwkv_case(4, 1024, 32, bf, s0=True, seed=7)),
              ("ragged S=1000 bf16, state in and out",
               rwkv_case(4, 1000, 32, bf, s0=True, seed=8)),
+             *((f"chunk edge S={S} bf16, state in and out",
+                rwkv_case(2, S, 8, bf, s0=True, seed=20 + S))
+               for S in (2, 15, 16, 63, 64, 65)),
+             ("strong decay (w = 0, denormal w) S=200 bf16, state in and "
+              "out", strong),
              ("rwkv6 decode S=1 bf16, state in and out",
               rwkv_case(4, 1, 32, bf, s0=True, seed=9)),
+             ("decode S=1 fp32, state in and out",
+              rwkv_case(4, 1, 32, torch.float32, s0=True, seed=11)),
              ("fp32 B=2 S=300 H=8, state in and out",
               rwkv_case(2, 300, 8, torch.float32, s0=True, seed=10))]
     errs = []
     for name, (r, k, v, w, u, s0) in cases:
         got = rw.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+        S = r.shape[1]
+        routed(rw.rwkv6_scan, "rwkv6_scan_decode_kernel" if S == 1
+               else "rwkv6_scan_mma_kernel" if r.dtype == bf
+               else "rwkv6_scan_kernel", name)
         want = ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
                                       return_state=True)
         torch.cuda.synchronize()
@@ -572,7 +648,8 @@ def run_scan_checks(report: dict) -> dict:
     print(f"[K4] timed prefill: B={r.shape[0]} S={r.shape[1]} "
           f"H={r.shape[2]} dh={r.shape[3]} {r.dtype}, no state in, state "
           f"out: {nbytes} bytes, {flops:.0f} flops")
-    rd, kd, vd, wd, ud, sd = cases[3][1]
+    rd, kd, vd, wd, ud, sd = next(c for n, c in cases
+                                  if n.startswith("rwkv6 decode"))
     nb_d, fl_d, (bd_ms, bd_by) = k4_bound(rd, True)
     print(f"[K4] timed decode: B={rd.shape[0]} S=1 H={rd.shape[2]}, state "
           f"in and out: {nb_d} bytes, {fl_d:.0f} flops")
@@ -580,22 +657,24 @@ def run_scan_checks(report: dict) -> dict:
         name="rwkv6_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:59",
-        max_abs_err=max(errs),
-        ms=time_ms(lambda: rw.rwkv6_scan(r, k, v, w, u, return_state=True)),
+        max_abs_err=max(errs), **times["rwkv6_scan"],
         plain_ms=time_ms(lambda: ref.rwkv6_scan_chunked(
             r, k, v, w, u, return_state=True), iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms_decode=time_ms(lambda: rw.rwkv6_scan(
-            rd, kd, vd, wd, ud, s0=sd, return_state=True), iters=50),
         plain_ms_decode=time_ms(lambda: ref.rwkv6_scan_chunked(
             rd, kd, vd, wd, ud, s0=sd, return_state=True)),
         bound_ms_decode=bd_ms, bound_by_decode=bd_by)
+    results["mamba2_scan"]["device_routes"] = routes["K3"]
+    results["rwkv6_scan"]["device_routes"] = routes["K4"]
     for r_ in results.values():
         r_["kernel_ms"] = r_["ms"]
-        print(f"[{r_['name']}] ms={r_['ms']:.4f} plain_ms="
-              f"{r_['plain_ms']:.4f} bound_ms={r_['bound_ms']:.6f} "
-              f"({r_['bound_by']}) library: none (no single PyTorch call "
-              f"computes the scan)")
+        dec = (f"; decode ms={r_['ms_decode']:.5f} ms_graph_decode="
+               f"{r_['ms_graph_decode']:.5f} bound_ms_decode="
+               f"{r_['bound_ms_decode']:.6f}" if "ms_decode" in r_ else "")
+        print(f"[{r_['name']}] ms={r_['ms']:.5f} ms_graph="
+              f"{r_['ms_graph']:.5f} plain_ms={r_['plain_ms']:.4f} "
+              f"bound_ms={r_['bound_ms']:.6f} ({r_['bound_by']}){dec}; "
+              f"library: none (no single PyTorch call computes the scan)")
     report.update(results)
     return results
 
@@ -879,6 +958,8 @@ def serve_recurrent(name: str) -> dict:
     import torch
 
     from repro_torch import configs
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.models import api
     cfg = configs.get_config(name)
     model = api.get_model(cfg)
@@ -902,6 +983,10 @@ def serve_recurrent(name: str) -> dict:
     logits, state = model.prefill(params, batch, **kw)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
+    # the device kernel each scan wrapper launched last, in prefill
+    routes = {"prefill": tuple(fn.last_kernel for fn in
+                               (m2.mamba2_scan, rw.rwkv6_scan)
+                               if fn.launches)}
     tok = logits[:, -1].argmax(-1)[:, None]
     out = [tok]
     t0 = time.perf_counter()
@@ -912,6 +997,14 @@ def serve_recurrent(name: str) -> dict:
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t0
     counts = read_counts()                     # ... ends here
+    if cfg.family == "rwkv6":      # the decode steps ran last
+        check(routes["prefill"] == ("rwkv6_scan_mma_kernel",)
+              and rw.rwkv6_scan.last_kernel == "rwkv6_scan_decode_kernel",
+              f"{cfg.name}: K4 took {routes['prefill']} in prefill and "
+              f"{rw.rwkv6_scan.last_kernel} in decode")
+    if cfg.family == "zamba2":
+        check(routes["prefill"] == ("mamba2_scan_mma_kernel",),
+              f"{cfg.name}: K3 took {routes['prefill']} in prefill")
     toks = torch.cat(out, 1).cpu().numpy()
     check(tuple(logits.shape) == (N_PROMPTS, 1, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
@@ -926,7 +1019,10 @@ def serve_recurrent(name: str) -> dict:
            "prompt_tokens_per_s": N_PROMPTS * PROMPT_LEN / pre_s,
            "decode_ms_per_step": dec_s * 1e3 / DECODE_STEPS,
            "generated_tokens_per_s": N_PROMPTS * DECODE_STEPS / dec_s,
-           "launches": counts,
+           "launches": counts, "scan_routes": {
+               "prefill": routes["prefill"],
+               "decode": rw.rwkv6_scan.last_kernel
+               if cfg.family == "rwkv6" else None},
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(f"[serve {cfg.name}] {json.dumps(res)}")
 
@@ -1060,7 +1156,7 @@ def compare_recurrent_with_cpu() -> None:
 
 
 # ----------------------------------------------------------------------------
-# --engine-ab: phases 3-4 for two checkouts of the port, on one card
+# --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
 def engine_only(src: str) -> None:
@@ -1086,23 +1182,53 @@ def engine_only(src: str) -> None:
     print(f"[engine-ab] {json.dumps(res)}")
 
 
-def engine_ab(parent: str) -> None:
-    """Phases 3-4 for PARENT's port and this one, each in a process of its
-    own, in the order PARENT, this, this, PARENT."""
+def scans_only(src: str) -> None:
+    """K3's and K4's ``ms`` and ``ms_graph`` (``scan_times``) with the port
+    under ``src``: one ``[scan-ab]`` line."""
+    sys.path.insert(0, src)
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as rw
+    _build.build_all(("mamba2_scan", "rwkv6_scan"))
+    res = {"package": str(Path(repro_torch.__file__).parent),
+           **scan_times(m2, rw)}
+    print(f"[scan-ab] {json.dumps(res)}")
+
+
+def ab_runs(parent: str, only: str, tag: str) -> list:
+    """``chip_smoke.py --<only> SRC`` for PARENT's port and this one, each in
+    a process of its own, in the order PARENT, this, this, PARENT; returns
+    (label, the run's ``[tag]`` JSON) for each."""
     trees = [("parent", Path(parent).resolve()), ("this", ROOT),
              ("this", ROOT), ("parent", Path(parent).resolve())]
     rows = []
     for label, tree in trees:
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--engine-only",
+            [sys.executable, str(Path(__file__).resolve()), f"--{only}",
              str(tree / "src")], capture_output=True, text=True, timeout=900)
         sys.stdout.write(proc.stdout)
         sys.stderr.write(proc.stderr[-4000:])
-        check(proc.returncode == 0, f"the engine run of {tree} failed")
+        check(proc.returncode == 0, f"the {only} run of {tree} failed")
         line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("[engine-ab] ")][-1]
-        rows.append((label, json.loads(line[len("[engine-ab] "):])))
-    for label, r in rows:
+                if ln.startswith(f"[{tag}] ")][-1]
+        rows.append((label, json.loads(line[len(tag) + 3:])))
+    return rows
+
+
+def scan_ab(parent: str) -> None:
+    """K3's and K4's times for PARENT's port and this one, on one card."""
+    for label, r in ab_runs(parent, "scans-only", "scan-ab"):
+        k3, k4 = r["mamba2_scan"], r["rwkv6_scan"]
+        print(f"[scan-ab {label}] K3 prefill ms {k3['ms']:.5f} ms_graph "
+              f"{k3['ms_graph']:.5f}; K4 prefill ms {k4['ms']:.5f} ms_graph "
+              f"{k4['ms_graph']:.5f}; K4 decode ms {k4['ms_decode']:.5f} "
+              f"ms_graph {k4['ms_graph_decode']:.5f}")
+
+
+def engine_ab(parent: str) -> None:
+    """Phases 3-4 for PARENT's port and this one, on one card."""
+    for label, r in ab_runs(parent, "engine-only", "engine-ab"):
         d = r["decode_step"]
         print(f"[engine-ab {label}] whole: {r['whole']['tokens_per_s']:.1f} "
               f"tokens/s, wall {r['whole']['wall_s']:.3f} s, median step "
@@ -1120,6 +1246,10 @@ def main() -> int:
     ap.add_argument("--engine-ab", metavar="PARENT",
                     help="phases 3-4 alone, for PARENT's port and this one")
     ap.add_argument("--engine-only", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--scan-ab", metavar="PARENT",
+                    help="K3's and K4's times alone, for PARENT's port and "
+                         "this one")
+    ap.add_argument("--scans-only", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1130,6 +1260,12 @@ def main() -> int:
         return 0
     if args.engine_ab:
         engine_ab(args.engine_ab)
+        return 0
+    if args.scans_only:
+        scans_only(args.scans_only)
+        return 0
+    if args.scan_ab:
+        scan_ab(args.scan_ab)
         return 0
     from repro_torch import configs
     from repro_torch.kernels import _build

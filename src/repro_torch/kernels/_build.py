@@ -38,11 +38,19 @@ SIGNATURES = {
                         [_vp, _vp, _vp, _vp,
                          _i, _i, _i, _i, _i, _i, _i, _f, _i, _i, _vp]),
     "mamba2_scan": ("mamba2_scan_launch",
-                    [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp]),
-    "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp]),
+                    [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
+    "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp, _vp]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, without making a
+    ``torch.cuda.Stream`` object (the wrappers run once a layer of every
+    decode step)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def build_dir() -> Path:

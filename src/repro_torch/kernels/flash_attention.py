@@ -57,7 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, H, Hkv, Sq, Skv, D, int(causal), float(scale),
              COMPUTE_DTYPES[compute_dtype], DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _build.raw_stream(q.device))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

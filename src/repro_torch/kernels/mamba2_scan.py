@@ -11,11 +11,18 @@ never falls back.
 
 ``x``, ``Bmat`` and ``Cmat`` come out of a split of the mixer's projection
 and are not contiguous: the wrapper passes their batch and step strides to
-the kernel instead of copying them (their inner axes must be dense).
-``dt``, ``A``, ``D`` and ``h0`` are read as contiguous fp32 (cast or copied
-here if they are not; they are small).
+the kernel instead of copying them (their inner axes must be dense; in
+bf16, base pointers and strides must be 16-byte aligned, since rows are
+copied 16 bytes at a time).  ``dt``, ``A``, ``D`` and ``h0`` are read as
+contiguous fp32 (cast or copied here if they are not; they are small).
+
+The C entry point reports the device kernel it launched, read back as
+``mamba2_scan.last_kernel``: ``mamba2_scan_mma_kernel`` (bf16, the chunk
+products on the tensor cores) or ``mamba2_scan_kernel`` (fp32).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,6 +31,10 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)
 STATE_DIMS = (64,)
+# by the id the C entry point writes to its ``kernel`` out-parameter
+KERNELS = ("mamba2_scan_kernel", "mamba2_scan_mma_kernel")
+_route = ctypes.c_int(-1)
+_ROUTE_ADDR = ctypes.addressof(_route)
 
 
 def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -62,8 +73,21 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("mamba2_scan kernel: x must be dense over (H, dh) "
                          "and Bmat/Cmat over ds (batch and step strides are "
                          "free)")
+    strides = (x.stride(0), x.stride(1), Bmat.stride(0), Bmat.stride(1),
+               Cmat.stride(0), Cmat.stride(1))
+    if x.dtype == torch.bfloat16 and (
+            any(t.data_ptr() % 16 for t in (x, Bmat, Cmat))
+            or any(s % 8 for s in strides)):
+        raise ValueError("mamba2_scan kernel: bf16 x/Bmat/Cmat must start "
+                         "16-byte aligned with batch and step strides of a "
+                         "multiple of 8 elements (rows are copied 16 bytes "
+                         f"at a time); got strides {strides}")
     dt, A, D = (t.float().contiguous() for t in (dt, A, D))
-    h0 = None if h0 is None else h0.float().contiguous()
+    if h0 is not None and (h0.dtype != torch.float32
+                           or not h0.is_contiguous() or h0.data_ptr() % 16):
+        # fp32, contiguous and 16-byte aligned (the kernels read whole rows)
+        h0 = torch.empty(h0.shape, dtype=torch.float32,
+                         device=x.device).copy_(h0)
     y = torch.empty((B, S, H, dh), dtype=x.dtype, device=x.device)
     h_out = (torch.empty((B, H, ds, dh), dtype=torch.float32,
                          device=x.device) if return_state else None)
@@ -73,15 +97,15 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Cmat.data_ptr(), D.data_ptr(),
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  None if h_out is None else h_out.data_ptr(),
-                 B, S, H, dh, ds, x.stride(0), x.stride(1), Bmat.stride(0),
-                 Bmat.stride(1), Cmat.stride(0), Cmat.stride(1),
-                 DTYPES[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 B, S, H, dh, ds, *strides, DTYPES[x.dtype], _ROUTE_ADDR,
+                 _build.raw_stream(x.device))
         if err:
             raise RuntimeError(f"mamba2_scan kernel launch failed: CUDA "
                                f"error {err}")
         mamba2_scan.launches += 1
+        mamba2_scan.last_kernel = KERNELS[_route.value]
     return (y, h_out) if return_state else y
 
 
 mamba2_scan.launches = 0
+mamba2_scan.last_kernel = None

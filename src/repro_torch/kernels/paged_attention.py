@@ -81,7 +81,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
              page_table.data_ptr(), seq_lens.data_ptr(), part.data_ptr(),
              out.data_ptr(), B, H, Hkv, D, page, max_pages, PART_KEYS,
              float(scale), DTYPES[q.dtype], ctypes.byref(blocks),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _build.raw_stream(q.device))
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -295,6 +295,172 @@ def test_rwkv6_scan_kernel_strong_decay_stays_finite(cuda):
     close_scaled(got, want, 3e-4)
 
 
+# bf16 prefill on the tensor-core kernels, at the edges of their chunks
+# (64 steps) and K4's sub-chunks (16) and quadrants (8)
+EDGE_S = [15, 16, 63, 64, 65, 1000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", EDGE_S)
+def test_rwkv6_scan_bf16_chunk_edges(cuda, S):
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, torch.bfloat16, B=2, S=S, H=4,
+                                    seed=S)
+    y, s = ops.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    assert rw.rwkv6_scan.last_kernel == "rwkv6_scan_mma_kernel"
+    wy, ws = ref.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    close_scaled(y, wy, tol(torch.bfloat16))
+    close_scaled(s, ws, 3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", EDGE_S)
+def test_mamba2_scan_bf16_chunk_edges(cuda, S):
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, torch.bfloat16, B=2, S=S,
+                                           H=4, seed=S)
+    y, h = ops.mamba2_scan(x, dt, A, Bm, Cm, D, h0=h0, return_state=True)
+    assert m2.mamba2_scan.last_kernel == "mamba2_scan_mma_kernel"
+    wy, wh = ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, D, h0=h0,
+                                     return_state=True)
+    close_scaled(y, wy, tol(torch.bfloat16))
+    close_scaled(h, wh, 3e-4)
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_bf16_strong_decay_stays_finite(cuda):
+    """w = 0, bf16 denormal w and strong decays on the tensor-core kernel:
+    its logs take the 1e-30 floor, its diagonal blocks multiply the w's."""
+    r, k, v, _, u, s0 = rwkv_inputs(cuda, torch.bfloat16, B=1, S=200, H=2)
+    g = torch.Generator().manual_seed(9)
+    w = torch.exp(-torch.exp(torch.randn(1, 200, 2, 64, generator=g) * 2
+                             + 1.0))
+    w[0, 5:9] = 0.0
+    w[0, 40:44] = 1e-39
+    w = w.to(cuda, torch.bfloat16)
+    y, s = ops.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    assert rw.rwkv6_scan.last_kernel == "rwkv6_scan_mma_kernel"
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    wy, ws = ref.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    close_scaled(y, wy, tol(torch.bfloat16))
+    close_scaled(s, ws, 3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_decode_steps(cuda, dtype):
+    """S = 1 with a state in and out takes the decode kernel; two decode
+    steps give the state of one two-step scan."""
+    r, k, v, w, u, s0 = rwkv_inputs(cuda, dtype, B=4, S=2, H=32, seed=3)
+    y0, s1 = ops.rwkv6_scan(r[:, :1].contiguous(), k[:, :1].contiguous(),
+                            v[:, :1].contiguous(), w[:, :1].contiguous(), u,
+                            s0=s0, return_state=True)
+    assert rw.rwkv6_scan.last_kernel == "rwkv6_scan_decode_kernel"
+    y1, s2 = ops.rwkv6_scan(r[:, 1:].contiguous(), k[:, 1:].contiguous(),
+                            v[:, 1:].contiguous(), w[:, 1:].contiguous(), u,
+                            s0=s1, return_state=True)
+    wy, ws = ref.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    close_scaled(torch.cat([y0, y1], 1), wy, tol(dtype))
+    close_scaled(s2, ws, 3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,S,want", [
+    (torch.bfloat16, 100, "rwkv6_scan_mma_kernel"),
+    (torch.float32, 100, "rwkv6_scan_kernel"),
+    (torch.bfloat16, 1, "rwkv6_scan_decode_kernel"),
+    (torch.float32, 1, "rwkv6_scan_decode_kernel")])
+def test_rwkv6_scan_route(cuda, dtype, S, want):
+    r, k, v, w, u, _ = rwkv_inputs(cuda, dtype, B=1, S=S, H=2)
+    rw.rwkv6_scan(r, k, v, w, u)
+    assert rw.rwkv6_scan.last_kernel == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "mamba2_scan_mma_kernel"),
+    (torch.float32, "mamba2_scan_kernel")])
+def test_mamba2_scan_route(cuda, dtype, want):
+    x, dt, A, Bm, Cm, D, _ = mamba_inputs(cuda, dtype, B=1, S=70, H=2)
+    m2.mamba2_scan(x, dt, A, Bm, Cm, D)
+    assert m2.mamba2_scan.last_kernel == want
+
+
+def mixer_views(device, *, B, S, H, extra=0, offset=0, seed=4):
+    """x, B, C as the mixer hands them over in bf16: views into one
+    (B, S, offset + H*64 + 128 + extra) projection (ssm.py's split)."""
+    g = torch.Generator().manual_seed(seed)
+    xbc = torch.randn(B, S, offset + H * 64 + 128 + extra,
+                      generator=g).to(device, torch.bfloat16)
+    x, Bm, Cm = torch.split(xbc[..., offset:offset + H * 64 + 128],
+                            [H * 64, 64, 64], -1)
+    return x.reshape(B, S, H, 64), Bm, Cm
+
+
+@pytest.mark.gpu
+def test_mamba2_scan_bf16_takes_the_mixers_strided_views(cuda):
+    B, S, H = 2, 130, 4
+    xh, Bm, Cm = mixer_views(cuda, B=B, S=S, H=H)
+    assert not xh.is_contiguous() and not Bm.is_contiguous()
+    _, dt, A, _, _, D, h0 = mamba_inputs(cuda, torch.float32, B=B, S=S, H=H)
+    y, h = ops.mamba2_scan(xh, dt, A, Bm, Cm, D, h0=h0, return_state=True)
+    assert m2.mamba2_scan.last_kernel == "mamba2_scan_mma_kernel"
+    wy, wh = ref.mamba2_scan_chunked(xh.contiguous(), dt, A, Bm.contiguous(),
+                                     Cm.contiguous(), D, h0=h0,
+                                     return_state=True)
+    close_scaled(y, wy, tol(torch.bfloat16))
+    close_scaled(h, wh, 3e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra,offset", [(1, 0), (0, 1)])
+def test_mamba2_scan_bf16_refuses_a_misaligned_view(cuda, extra, offset):
+    """A step stride that is not a multiple of 8 bf16 (extra), or a base
+    pointer off 16 bytes (offset): the kernel copies 16-byte rows."""
+    B, S, H = 1, 20, 2
+    xh, Bm, Cm = mixer_views(cuda, B=B, S=S, H=H, extra=extra, offset=offset)
+    _, dt, A, _, _, D, _ = mamba_inputs(cuda, torch.float32, B=B, S=S, H=H)
+    with pytest.raises(ValueError, match="16-byte"):
+        m2.mamba2_scan(xh, dt, A, Bm, Cm, D)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_do_not_synchronise_and_replay_in_a_graph(cuda):
+    """K3 and K4 (bf16 prefill and the decode step) run under the sync
+    debug mode set to raise, and inside a captured CUDA graph whose replay
+    follows inputs changed in place."""
+    rk = rwkv_inputs(cuda, torch.bfloat16, B=2, S=100, H=4, seed=5)
+    rd = rwkv_inputs(cuda, torch.bfloat16, B=2, S=1, H=4, seed=6)
+    mk = mamba_inputs(cuda, torch.bfloat16, B=2, S=100, H=4, seed=7)
+    calls = [
+        (lambda a: rw.rwkv6_scan(*a[:5], s0=a[5], return_state=True),
+         lambda a: ref.rwkv6_scan(*a[:5], s0=a[5], return_state=True), rk),
+        (lambda a: rw.rwkv6_scan(*a[:5], s0=a[5], return_state=True),
+         lambda a: ref.rwkv6_scan(*a[:5], s0=a[5], return_state=True), rd),
+        (lambda a: m2.mamba2_scan(*a[:6], h0=a[6], return_state=True),
+         lambda a: ref.mamba2_scan_chunked(*a[:6], h0=a[6],
+                                           return_state=True), mk)]
+    for run, _, args in calls:
+        run(args)                                  # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for run, _, args in calls:
+            run(args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for run, plain, args in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run(args)
+        for t in args:
+            if t is not None and t.is_floating_point():
+                t.mul_(0.5 if t.dtype == torch.float32 else 0.75)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain(args)
+        close_scaled(out[0], want[0], tol(torch.bfloat16))
+        close_scaled(out[1], want[1], 3e-4)
+
+
 @pytest.mark.gpu
 def test_scan_kernels_refuse_what_they_do_not_build(cuda):
     r, k, v, w, u, _ = rwkv_inputs(cuda, torch.float32, B=1, S=4, H=2, dh=32)
