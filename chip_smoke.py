@@ -37,7 +37,23 @@ kernel of those paths against its plain PyTorch version:
      scans' routes on the main path (tensor-core kernels in prefill, K4's
      decode kernel in decode); a profiled prefill and decode step;
   6. reduced fp32 rwkv6, zamba2 and mamba2 models, shaped for the kernels,
-     served on the card and on the CPU from the same weights: same tokens.
+     served on the card and on the CPU from the same weights: same tokens;
+  7. (run before phase 5, while qwen2's weights are on the card) the
+     serving cluster: 8 qwen2-0.5b nodes (``ServingCluster``, one shared
+     weight copy) on a 2x2x2 torus, 32 requests; after three decode steps
+     four running requests migrate (their KV pages copied between the
+     nodes' pools on the card, priced on the shared packet-level fabric
+     timeline), the last after ``fail_link`` on its direct route, then
+     ``rebalance()`` once.  Every request finishes, every token stream
+     equals the run without migration, the faulted move's hops rise, the
+     counters show K1 on every decode layer of every node and K2 on every
+     whole-prefill layer; the same on the fluid tier with the torch rate
+     solver on the card;
+  8. the fluid tier at 512 nodes (8x8x8, 2000 flows) with the numpy and
+     the torch rate solver: the card's torch solves equal the same solver
+     on the host, bytes are conserved per class, the gap to the numpy
+     solver is reported; ms per solve for each (the torch solver's
+     host-side incidence build and its waterfill on the card apart).
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
@@ -935,6 +951,286 @@ def compare_with_cpu() -> None:
 
 
 # ----------------------------------------------------------------------------
+# phase 7: the serving cluster (live KV-page migration on the shared fabric)
+# ----------------------------------------------------------------------------
+
+CLUSTER_REQUESTS = 32
+CLUSTER_MAX_NEW = 32
+
+
+def run_cluster(cfg, params, *, migrate: bool, fidelity: str = "packet",
+                sim_kw: dict | None = None) -> dict:
+    """8 qwen2-0.5b nodes on a 2x2x2 torus sharing the one weight copy on
+    the card: 32 requests; with ``migrate``, after a few decode steps four
+    running requests move (the last after ``fail_link`` on its direct
+    route) and ``rebalance()`` runs once."""
+    import torch
+
+    from repro_torch.core.topology import Torus
+    from repro_torch.serving.cluster import ServingCluster
+    torus = Torus((2, 2, 2))
+    cl = ServingCluster(cfg, params, torus=torus, max_batch=8,
+                        max_seq=1024 + CLUSTER_MAX_NEW + 16, page_tokens=16,
+                        tp_axes=(), fidelity=fidelity, sim_kw=sim_kw,
+                        device="cuda")
+    reqs = make_requests(cfg, CLUSTER_REQUESTS, 128, 1024, CLUSTER_MAX_NEW,
+                         seed=5)
+    for r in reqs:
+        cl.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()                     # the cluster path's run starts here
+    t0 = time.perf_counter()
+    for _ in range(4):                 # prefill + three decode steps
+        cl.step()
+    reports, faulted = [], None
+    if migrate:
+        # four running requests, each to the source's +x neighbour; the
+        # last after its direct link fails, so it must detour
+        moves = []
+        for src in (0, 2, 5, 7):
+            rid = min(r.rid for r in cl.nodes[src].engine.running.values())
+            moves.append((rid, src, torus.neighbors(src)[0]))
+        for i, (rid, src, dst) in enumerate(moves):
+            if i == len(moves) - 1:
+                cl.fail_link(src, dst)
+                faulted = len(reports)
+            reports.append(cl.migrate(rid, dst))
+        moved = cl.rebalance()
+        if moved is not None:
+            reports.append(moved)
+    cl.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()             # ... and ends here
+    st = cl.stats()
+    steps = sum(n["decode_steps"] for n in st["nodes"].values())
+    return {"tokens": {r.rid: list(r.out_tokens) for r in cl.finished},
+            "finished": len(cl.finished), "counts": counts,
+            "decode_steps": steps, "wall_s": wall, "reports": reports,
+            "faulted": faulted, "stats": st}
+
+
+def cluster_phase(cfg, params) -> dict:
+    """Phase 7: the cluster with and without migrations, on the packet
+    tier and on the fluid tier with the torch rate solver on the card;
+    returns the migrating packet run's launch counts (the cluster path)."""
+    import numpy as np
+    base = run_cluster(cfg, params, migrate=False)
+    moved = run_cluster(cfg, params, migrate=True)
+    fluid = run_cluster(cfg, params, migrate=True, fidelity="fluid",
+                        sim_kw={"solver": "torch"})
+    L = cfg.n_layers
+    for name, run in (("no migration", base), ("packet", moved),
+                      ("fluid/torch solver", fluid)):
+        check(run["finished"] == CLUSTER_REQUESTS,
+              f"cluster ({name}): {run['finished']} of {CLUSTER_REQUESTS} "
+              "requests finished")
+        toks = np.concatenate([t for t in run["tokens"].values()])
+        check(all(len(t) == CLUSTER_MAX_NEW for t in run["tokens"].values())
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"cluster ({name}): wrong token count or token outside the "
+              "vocabulary")
+        c = run["counts"]
+        check(c["paged_attention"] == run["decode_steps"] * L,
+              f"cluster ({name}): K1 launched {c['paged_attention']} times, "
+              f"expected decode steps of all nodes x L = "
+              f"{run['decode_steps'] * L}")
+        check(c["flash_attention"] == CLUSTER_REQUESTS * L,
+              f"cluster ({name}): K2 launched {c['flash_attention']} times, "
+              f"expected one whole prefill a request x L = "
+              f"{CLUSTER_REQUESTS * L}")
+        check(c["mamba2_scan"] == c["rwkv6_scan"] == 0,
+              f"cluster ({name}): a scan kernel launched: {c}")
+    for name, run in (("packet", moved), ("fluid/torch solver", fluid)):
+        diff = [rid for rid in base["tokens"]
+                if run["tokens"][rid] != base["tokens"][rid]]
+        first = None
+        if diff:
+            a, b = base["tokens"][diff[0]], run["tokens"][diff[0]]
+            first = next(i for i in range(len(a)) if a[i] != b[i])
+        check(not diff, f"cluster ({name}): requests {diff} differ from the "
+              f"run without migration (first at step {first} of request "
+              f"{diff[0] if diff else None})")
+        check(len(run["reports"]) >= 4, f"cluster ({name}): "
+              f"{len(run['reports'])} migrations")
+        f = run["reports"][run["faulted"]]
+        check(f.hops > f.min_hops,
+              f"cluster ({name}): the faulted migration took {f.hops} hops "
+              f"(healthy {f.min_hops})")
+    gen = CLUSTER_REQUESTS * CLUSTER_MAX_NEW
+    for name, run in (("no migration", base), ("packet", moved),
+                      ("fluid/torch solver", fluid)):
+        out = {"run": name, "generated_tokens": gen, "wall_s": run["wall_s"],
+               "tokens_per_s": gen / run["wall_s"],
+               "decode_steps_all_nodes": run["decode_steps"],
+               "k1": run["counts"]["paged_attention"],
+               "k2": run["counts"]["flash_attention"],
+               "median_node_step_ms": float(np.median(
+                   [n["measured_step_s"] for n in
+                    run["stats"]["nodes"].values()])) * 1e3,
+               "modelled_fabric_s": run["stats"]["fabric_sim_now_s"]}
+        print(f"[cluster] {json.dumps(out)}")
+        for i, m in enumerate(run["reports"]):
+            print(f"[cluster {name}] migration {i} (modelled fabric time, "
+                  f"not card time): rid {m.rid} {m.src}->{m.dst} "
+                  f"{m.n_pages} pages {m.nbytes} B, hops {m.hops} "
+                  f"(min {m.min_hops}), modelled_s {m.modelled_s:.6e}, "
+                  f"isolated_s {m.isolated_s:.6e}, reprefill_s "
+                  f"{m.reprefill_s:.6e}, speedup {m.speedup:.2f}x")
+    print(f"[cluster] all {CLUSTER_REQUESTS} requests finished on both tiers"
+          "; migrated token streams == the run without migration")
+    return moved["counts"]
+
+
+# ----------------------------------------------------------------------------
+# phase 8: the fluid tier's rate solver at 512 nodes
+# ----------------------------------------------------------------------------
+
+SOLVER_DIMS = (8, 8, 8)
+SOLVER_FLOWS = 2000
+
+
+def solver_workload(seed: int = 0) -> list:
+    """2000 multi-class flows, 64 KB..2 MB, staggered starts on 8x8x8 (the
+    JAX package's ``benchmarks/simscale.py`` workload, same generator)."""
+    import random
+
+    from repro_torch.core.fabric import TrafficClass
+    rng = random.Random(seed)
+    n = 1
+    for d in SOLVER_DIMS:
+        n *= d
+    flows = []
+    for _ in range(SOLVER_FLOWS):
+        src = rng.randrange(n)
+        dst = rng.randrange(n)
+        while dst == src:
+            dst = rng.randrange(n)
+        nbytes = rng.randint(64 * 1024, 2 * 1024 * 1024)
+        cls = rng.choice(list(TrafficClass))
+        start = rng.randint(0, 4) * 200e-6
+        flows.append((src, dst, nbytes, cls, start))
+    return flows
+
+
+def fluid_run(flows, **kw):
+    """One ``FluidSim`` run of ``flows`` on the 8x8x8 torus; returns the
+    finish times, the sim (its flow ids are 0, 1, ... in ``flows`` order)
+    and its wall seconds."""
+    import numpy as np
+
+    from repro_torch.core import fabric
+    from repro_torch.core.topology import Torus
+    fabric.clear_route_cache()
+    t0 = time.perf_counter()
+    sim = fabric.make_sim(Torus(SOLVER_DIMS), fidelity="fluid",
+                          qos=fabric.QosPolicy(), **kw)
+    fids = [sim.inject(s, d, nb, cls=c, start_s=st)
+            for s, d, nb, c, st in flows]
+    sim.run()
+    wall = time.perf_counter() - t0
+    assert fids == list(range(len(flows)))
+    return np.array([sim.finish_s(f) for f in fids]), sim, wall
+
+
+def solver_phase() -> None:
+    """Phase 8: ``FluidSim`` with the numpy solver and with the torch solver
+    on the card, on one workload (the default settings, which the cluster
+    uses).
+
+    The torch solver ports the JAX package's jnp waterfill, thresholds
+    and all (a link saturates at 1e-6 of its rate, against the numpy
+    solver's 1e-9), and on this workload the two algorithms part: the
+    run's numpy-vs-torch gaps (per solve and in the finish times) are
+    reported, not held (ROADMAP §3; the CPU tests hold the torch solver to
+    the jnp one on the largest of these solves).  Held: the card's solves
+    against the same solver on the host (the three largest active sets,
+    rtol 1e-4: fp32 sums in another order), and bytes conserved per class
+    in both runs.  Timed: ms per solve of each solver, the torch solver's
+    host-side incidence build and its waterfill on the card apart."""
+    import numpy as np
+
+    from repro_torch.core import fabric
+    from repro_torch.core.fabric import fluid
+    flows = solver_workload()
+    spent = {k: [0, 0.0] for k in ("np", "torch", "waterfill")}
+    gap_np = [0.0]
+    largest: list = []                 # (alive flows, inputs, card rates)
+    saved = {"np": fluid.FluidSim._rates_np,
+             "torch": fluid.FluidSim._rates_torch,
+             "waterfill": fluid._torch_waterfill}
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)   # returns numpy: the card is synced
+            finally:
+                spent[key][0] += 1
+                spent[key][1] += time.perf_counter() - t0
+        return call
+
+    def rates_torch(self, act):
+        got = timed("torch", saved["torch"])(self, act)
+        want = saved["np"](self, act)  # not timed: the gap, reported
+        gap_np[0] = max(gap_np[0], float(np.max(np.abs(got - want) / want)))
+        return got
+
+    def waterfill(*args):
+        out = timed("waterfill", saved["waterfill"])(*args)
+        largest.append((int(args[4].sum()), args[:-1], out[0]))
+        largest.sort(key=lambda x: -x[0])
+        del largest[3:]
+        return out
+
+    fluid.FluidSim._rates_np = timed("np", saved["np"])
+    fluid.FluidSim._rates_torch = rates_torch
+    fluid._torch_waterfill = waterfill
+    try:
+        f_np, s_np, w_np = fluid_run(flows)
+        f_t, s_t, w_t = fluid_run(flows, solver="torch")
+    finally:
+        fluid.FluidSim._rates_np = saved["np"]
+        fluid.FluidSim._rates_torch = saved["torch"]
+        fluid._torch_waterfill = saved["waterfill"]
+    host_err = 0.0
+    for n_alive, args, card in largest:
+        host, _ = saved["waterfill"](*args, "cpu")
+        live = args[4] > 0
+        host_err = max(host_err, float(np.max(
+            np.abs(card[live] - host[live]) / host[live])))
+    (n_np, t_np), (n_t, t_t) = spent["np"], spent["torch"]
+    t_wf = spent["waterfill"][1]
+    # n_solves counts every solve; the solver runs in those with >= 2
+    # active flows (one flow takes the link rate)
+    out = {"dims": list(SOLVER_DIMS), "flows": SOLVER_FLOWS,
+           "links": len(s_t._lid_keys),
+           "card_vs_host_max_rel_err": host_err,
+           "card_vs_host_solves": [n for n, _, _ in largest],
+           "torch_vs_np_per_solve_max_rel_gap": gap_np[0],
+           "torch_vs_np_finish_max_rel_gap": float(
+               np.max(np.abs(f_t - f_np) / f_np)),
+           "np": {"n_solves": s_np.n_solves, "solver_calls": n_np,
+                  "sim_wall_s": w_np,
+                  "ms_per_solve": t_np / max(n_np, 1) * 1e3},
+           "torch": {"n_solves": s_t.n_solves, "solver_calls": n_t,
+                     "sim_wall_s": w_t, "ms_per_solve": t_t / n_t * 1e3,
+                     "host_build_ms_per_solve": (t_t - t_wf) / n_t * 1e3,
+                     "waterfill_ms_per_solve": t_wf / n_t * 1e3}}
+    print(f"[solver 512 nodes] {json.dumps(out)}")
+    check(s_t.device == "cuda", "the torch solver did not run on the card")
+    check(host_err <= 1e-4, f"512-node fluid: the torch solver on the card "
+          f"differs from itself on the host by {host_err:.3e} (rtol 1e-4)")
+    want = {c: 0.0 for c in fabric.TrafficClass}
+    for fid, (_, _, nb, c, _) in enumerate(flows):
+        want[c] += nb * s_t.flow(fid).hops
+    for sim in (s_np, s_t):
+        got = sim.class_stats()
+        check(all(abs(got[c] - want[c]) <= 1e-9 * want[c] for c in want),
+              f"512-node fluid: class bytes not conserved: {got} vs {want}")
+
+
+# ----------------------------------------------------------------------------
 # phases 5-6: recurrent serving (rwkv6, zamba2)
 # ----------------------------------------------------------------------------
 
@@ -1305,17 +1601,20 @@ def main() -> int:
           f"a kernel of the engine path never launched: {launches}")
     compare_paths(cfg, params)
     compare_with_cpu()
+    cluster_counts = cluster_phase(cfg, params)
     del params                         # one model on the card at a time
     torch.cuda.empty_cache()
 
     # each main path is read on its own: qwen2's engine (whole prefill, the
     # launcher's default), then rwkv6 and zamba2 served through get_model
-    paths = {"qwen2_engine": launches["whole"]}
+    paths = {"qwen2_engine": launches["whole"],
+             "qwen2_cluster": cluster_counts}
     for name in ("rwkv6-1.6b", "zamba2-1.2b"):
         torch.cuda.reset_peak_memory_stats()
         paths[name] = serve_recurrent(name)
         torch.cuda.empty_cache()
     compare_recurrent_with_cpu()
+    solver_phase()
     kernels = []
     for name, r in report.items():
         by_path = {p: c[name] for p, c in paths.items() if c[name]}

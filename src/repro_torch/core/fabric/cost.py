@@ -82,8 +82,12 @@ def estimate(schedule: CollectiveSchedule, nbytes: int,
 
     ``backend="analytic"`` (the fast path) prices every transfer in
     isolation with the closed-form model above; ``backend="sim"`` replays
-    the schedule on the event-driven link-level simulator, which this
-    package does not carry yet, so it raises ``NotImplementedError``.
+    the schedule on the event-driven link-level simulator
+    (``fabric.sim.simulate_schedule``) — same sequential-rounds rule, but
+    messages become per-link packet walks with credit flow control, so
+    transfers that share a link direction contend.  On single-flow
+    schedules the two must agree (the ``tests/fabric_checks.py``
+    differential); that agreement is the validation of both models.
 
     ``cls`` tags the traffic class (``fabric.qos.TrafficClass``) of the
     sim backend's flows; the analytic model ignores it — class weights
@@ -102,9 +106,11 @@ def estimate(schedule: CollectiveSchedule, nbytes: int,
         raise ValueError(f"unknown sim fidelity {fidelity!r}; "
                          f"expected one of {FIDELITIES}")
     if backend == "sim":
-        raise NotImplementedError(
-            "cost backend 'sim' needs the fabric simulators, which are not "
-            "ported yet (ROADMAP queue item 5)")
+        from repro_torch.core.fabric import sim as _sim
+        if cls is not None:
+            endpoint_kw["cls"] = cls
+        return _sim.simulate_schedule(schedule, nbytes, net,
+                                      fidelity=fidelity, **endpoint_kw)
     net = net or NetModel()
     phase_s = []
     for ph in schedule.phases:

@@ -22,7 +22,9 @@ Differences from the JAX engine, none of which changes a token:
     (inactive decode slots, padded chunk pages past the allocation) are
     left out by an explicit mask of the rows to write;
   * no ``jit``: each step runs eagerly.
-A shared fabric simulator (``sim=``) is not ported yet and raises.
+A shared fabric simulator (``sim=``, any tier of ``fabric.make_sim``)
+prices this node's migration PUTs and per-step TP collectives on one
+timeline with every other node's, as in the JAX engine.
 
 Engine scope: decoder-only transformer families (dense/moe/vlm).
 """
@@ -172,14 +174,11 @@ class PagedLM:
                  tp_axes: tuple[str, ...] | None = None,
                  rank: int = 0, net: NetModel | None = None,
                  sim=None,
+                 descriptor_bytes: float | None = None,
                  modelled: bool = False, device=None) -> None:
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(f"PagedLM serves dense/moe/vlm, not "
                              f"{cfg.family}")
-        if sim is not None:
-            raise NotImplementedError(
-                "a shared fabric simulator needs fabric.sim, which is not "
-                "ported yet (ROADMAP queue item 5)")
         self.cfg = cfg
         self.device = _resolve_device(device)
         self.modelled = modelled
@@ -212,7 +211,14 @@ class PagedLM:
         # whatever the pool dtype), so the TLB registration — and with it
         # every reported stat — matches bit for bit
         self.bytes_per_token = 2 * L * cfg.n_kv_heads * hd * 2
-        self.endpoint = RdmaEndpoint(self.torus, rank=rank, net=self.net)
+        # shared fabric timeline: a serving cluster passes ONE simulator
+        # (any tier of ``fabric.make_sim``; the surface is duck-typed) so
+        # this node's migration PUTs and decode-step TP collectives
+        # contend with every other node's traffic on the same links
+        self.sim = sim
+        self.endpoint = RdmaEndpoint(self.torus, rank=rank, net=self.net,
+                                     sim=sim,
+                                     descriptor_bytes=descriptor_bytes)
         self.allocator = PageAllocator(
             self.n_pages, page_tokens,
             bytes_per_token=self.bytes_per_token, endpoint=self.endpoint)
@@ -229,6 +235,8 @@ class PagedLM:
             self.tp_schedule = fabric.lower_all_reduce(self.torus,
                                                        self.tp_axes)
             ar_bytes = max_batch * cfg.d_model * cfg.dtype.itemsize
+            # per-decode-step TP wire bytes: one residual all-reduce per
+            # layer (the per-step traffic a shared sim injects as flows)
             self.tp_step_bytes = L * ar_bytes
             self._tp_base = self.tp_schedule   # healthy-fabric lowering
             self._tp_ar_bytes = ar_bytes
@@ -518,6 +526,12 @@ class Engine:
         self.prefill_chunks = 0
         self.decode_stall_s = 0.0   # non-decode work while a batch waited
         self._step_times: list[float] = []
+        # shared-timeline accounting (lm.sim attached): each decode step
+        # injects the node's TP collective traffic as flows; the timeline
+        # owner (the serving cluster) settles them per logical window
+        self.pending_comm_fids: list[int] = []
+        self.sim_tp_comm_s = 0.0    # settled, contention-priced TP comm
+        self.sim_comm_steps = 0
         # per-window accounting, read (and cleared) by a window owner
         self.window_first: list[Request] = []
         self.window_finished: list[Request] = []
@@ -651,6 +665,11 @@ class Engine:
             active[slot] = not req.done
         self.window_decode_tokens += int(active.sum())
         nxt = self.lm.decode_batch(tokens, active)
+        if self.lm.sim is not None and self.lm.tp_schedule is not None:
+            # this step's TP collectives enter the shared timeline at the
+            # current window start, tagged DECODE; settle_comm prices them
+            # with whatever traffic they contended against
+            self._inject_tp()
         self.steps += 1
         self._step_times.append(time.perf_counter() - t0)
         for slot, req in list(self.running.items()):
@@ -675,8 +694,32 @@ class Engine:
                 self.lm.free_slot(slot)
                 self.finished.append(self.running.pop(slot))
                 self.window_finished.append(req)
+        if self.lm.sim is not None and self.lm.tp_schedule is not None:
+            # the fabric twin is real even when the FLOPs are modelled
+            self._inject_tp()
         self.steps += 1
         self._step_times.append(time.perf_counter() - t0)
+
+    def _inject_tp(self) -> None:
+        self.pending_comm_fids.extend(fabric.inject_schedule(
+            self.lm.sim, self.lm.tp_schedule, self.lm.tp_step_bytes,
+            start_s=self.lm.sim.now, granularity="phase",
+            cls=fabric.TrafficClass.DECODE))
+        self.sim_comm_steps += 1
+
+    def settle_comm(self, window_start: float) -> float:
+        """Resolve this window's injected TP flows against the shared
+        timeline; accrues their contention-priced time and returns the
+        window's comm end (``window_start`` when idle).  Called by the
+        timeline owner (the serving cluster) once per logical window."""
+        if not self.pending_comm_fids:
+            return window_start
+        sim = self.lm.sim
+        sim.run()
+        end = max(sim.finish_s(f) for f in self.pending_comm_fids)
+        self.pending_comm_fids = []
+        self.sim_tp_comm_s += max(end - window_start, 0.0)
+        return end
 
     def run_to_completion(self, max_steps: int = 10_000) -> None:
         steps = 0
@@ -704,8 +747,8 @@ class Engine:
             "chunked_prefill": self.chunked_prefill,
             "prefill_chunks": self.prefill_chunks,
             "decode_stall_s": self.decode_stall_s,
-            # shared-timeline pricing needs the simulators (not ported):
-            # always 0 here, as in the JAX engine without a sim
-            "sim_tp_comm_s": 0.0,
-            "sim_comm_steps": 0,
+            # shared-timeline contention pricing (0.0 without a sim): TP
+            # comm as settled against every other node's traffic
+            "sim_tp_comm_s": self.sim_tp_comm_s,
+            "sim_comm_steps": self.sim_comm_steps,
         }

@@ -92,9 +92,18 @@ def test_partitioned_fabric_is_unroutable_in_both():
 
 
 def test_sim_backend_waits_for_the_simulator_slice():
-    s = tfab.lower_all_reduce(TTorus((4, 4)), ("x", "y"))
-    with pytest.raises(NotImplementedError):
-        tfab.estimate(s, 1024, backend="sim")
+    """The simulator slice has landed (the sim backend raised before it):
+    ``backend="sim"`` now prices the schedule on the port's own
+    simulators, equal to the JAX package's on every tier."""
+    js = jfab.lower_all_reduce(JTorus((4, 4)), ("x", "y"))
+    ts = tfab.lower_all_reduce(TTorus((4, 4)), ("x", "y"))
+    for fidelity in ("packet", "fluid", "hybrid"):
+        jfab.clear_route_cache()
+        tfab.clear_route_cache()
+        je = jfab.estimate(js, 1024, backend="sim", fidelity=fidelity)
+        te = tfab.estimate(ts, 1024, backend="sim", fidelity=fidelity)
+        assert repr(te) == repr(je)
+        assert te.total_s > 0.0
 
 
 def test_bucket_plans_identical():

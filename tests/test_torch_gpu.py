@@ -472,3 +472,112 @@ def test_scan_kernels_refuse_what_they_do_not_build(cuda):
                                           ds=32)
     with pytest.raises(ValueError, match="ds one of"):
         m2.mamba2_scan(x, dt, A, Bm, Cm, D)
+
+
+# ---------------------------------------------------------------------------
+# the fabric's torch rate solver and a serving cluster on the card
+# ---------------------------------------------------------------------------
+
+def _fluid_finishes(dims, n, seed, **kw):
+    import random
+
+    from repro_torch.core import fabric
+    from repro_torch.core.topology import Torus
+    fabric.clear_route_cache()
+    torus = Torus(dims)
+    rnd = random.Random(seed)
+    sim = fabric.make_sim(torus, fidelity="fluid", qos=fabric.QosPolicy(),
+                          **kw)
+    fids = []
+    for _ in range(n):
+        src = rnd.randrange(torus.size)
+        dst = rnd.randrange(torus.size - 1)
+        dst += dst >= src
+        fids.append(sim.inject(src, dst, rnd.randint(64 << 10, 2 << 20),
+                               cls=rnd.choice(list(fabric.TrafficClass)),
+                               start_s=rnd.randint(0, 4) * 200e-6))
+    sim.run()
+    return np.array([sim.finish_s(f) for f in fids]), sim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,n", [((4, 4), 12), ((4, 4, 4), 120),
+                                    ((8, 8, 8), 400)])
+def test_torch_solver_on_the_card_with_tf32_enabled(cuda, dims, n):
+    """TF32 matmuls on (a process-wide setting a caller may hold) must not
+    reach the solver: its finishes stay within 5e-4 of the numpy solver's,
+    and byte accounting is exact.  Every drain re-solves (``exact_below``
+    above the flow count): the default lazy re-solve schedule turns a
+    last-bit difference in the rates into a different schedule (the numpy
+    solver's own rates scaled by 1 + 1e-7 move finish times by 1.2 % at
+    8x8x8 x 400), so finish times are compared where the schedule is
+    exact."""
+    kw = {"exact_below": 10 ** 9}
+    want, ref_sim = _fluid_finishes(dims, n, n, **kw)
+    prec = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got, sim = _fluid_finishes(dims, n, n, solver="torch", **kw)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert sim.device == "cuda"
+    np.testing.assert_allclose(got, want, rtol=5e-4)
+    assert sim.class_stats() == ref_sim.class_stats()
+
+
+def _reduced_cluster_run(device, **kw):
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.core.topology import Torus
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.cluster import ServingCluster
+    from repro_torch.serving.engine import Request
+    cfg = configs.get_config("qwen2-0.5b").reduced(head_dim=64)  # K1's D
+    params = copy.deepcopy(init_lm(cfg, torch.Generator().manual_seed(0)))
+    cl = ServingCluster(cfg, params, torus=Torus((2, 2)), max_batch=2,
+                        max_seq=64, page_tokens=8, device=device, **kw)
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        cl.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, size=(5 + 3 * rid,)).astype(np.int32),
+            max_new_tokens=8))
+    for _ in range(3):
+        cl.step()
+    cl.fail_link(0, 1)
+    reps = [cl.migrate(next(iter(cl.nodes[0].engine.running.values())).rid,
+                       1)]
+    reps.append(cl.rebalance(threshold=1))
+    cl.run_to_completion()
+    wall = ("measured_step_s", "decode_stall_s")
+    stats = cl.stats()
+    for node in stats["nodes"].values():
+        for k in wall:
+            node.pop(k)
+    return {r.rid: r.out_tokens for r in cl.finished}, reps, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, {"fidelity": "fluid",
+                                     "sim_kw": {"solver": "torch"}}])
+def test_reduced_cluster_on_the_card_gives_the_cpus_run(cuda, kw):
+    """A reduced fp32 qwen2 cluster with a migration through a failed
+    link and a rebalance: the card (K1, K2) gives the CPU's tokens, and
+    the timeline numbers, host arithmetic, are equal (on the fluid tier
+    the torch solver runs on the card, the CPU's on the host, so the
+    timeline there is held to the solver's bar)."""
+    cpu_kw = dict(kw)
+    if "sim_kw" in kw:
+        cpu_kw["sim_kw"] = {"solver": "torch", "device": "cpu"}
+    want = _reduced_cluster_run("cpu", **cpu_kw)
+    got = _reduced_cluster_run("cuda", **kw)
+    assert got[0] == want[0] and len(got[0]) == 5
+    if not kw:
+        assert got[1] == want[1] and got[2] == want[2]
+    else:
+        for a, b in zip(got[1], want[1]):
+            assert a.hops == b.hops and a.nbytes == b.nbytes
+            assert a.modelled_s == pytest.approx(b.modelled_s, rel=5e-4)

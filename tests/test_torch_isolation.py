@@ -32,7 +32,10 @@ def test_port_modules_load_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels.paged_attention" in mods
     for m in ("kernels.mamba2_scan", "kernels.rwkv6_scan", "models.rwkv",
-              "models.ssm", "models.hybrid"):
+              "models.ssm", "models.hybrid", "core.rdma",
+              "core.fabric.sim", "core.fabric.fluid",
+              "core.fabric.telemetry", "core.fabric.qosctl",
+              "core.fabric.autotune", "serving.cluster", "serving.trace"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -81,12 +84,37 @@ def test_paged_lm_defaults_to_the_card():
 
 
 def test_paged_lm_shared_sim_is_not_ported():
+    """The shared fabric simulator is ported now (it raised before): a
+    ``PagedLM`` takes any tier of the port's own ``make_sim`` and hands
+    it to its RDMA endpoint, as the JAX engine does."""
     from repro_torch import configs
+    from repro_torch.core import fabric
+    from repro_torch.core.topology import Torus
     from repro_torch.serving.engine import PagedLM
     cfg = configs.get_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedLM(cfg, None, max_batch=2, max_seq=32, modelled=True,
-                sim=object(), device="cpu")
+    for fidelity in fabric.FIDELITIES:
+        sim = fabric.make_sim(Torus((4, 4)), fidelity=fidelity)
+        lm = PagedLM(cfg, None, max_batch=2, max_seq=32, modelled=True,
+                     sim=sim, device="cpu")
+        assert lm.sim is sim and lm.endpoint.sim is sim
+
+
+def test_cluster_and_torch_solver_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is then valid")
+    from repro_torch import configs
+    from repro_torch.core.fabric import make_sim
+    from repro_torch.core.topology import Torus
+    from repro_torch.serving.cluster import ServingCluster
+    cfg = configs.get_config("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingCluster(cfg, None, torus=Torus((2,)), modelled=True,
+                       n_params=1)
+    cl = ServingCluster(cfg, None, torus=Torus((2,)), modelled=True,
+                        n_params=1, device="cpu")
+    assert {n.lm.device.type for n in cl.nodes.values()} == {"cpu"}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_sim(Torus((2,)), fidelity="fluid", solver="torch")
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
