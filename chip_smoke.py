@@ -53,7 +53,19 @@ kernel of those paths against its plain PyTorch version:
      the torch rate solver: the card's torch solves equal the same solver
      on the host, bytes are conserved per class, the gap to the numpy
      solver is reported; ms per solve for each (the torch solver's
-     host-side incidence build and its waterfill on the card apart).
+     host-side incidence build and its waterfill on the card apart);
+  9. training: (a) K2-bwd (``csrc/flash_attention_bwd.cu``) vs autograd
+     through the plain attention at the training and prefill shapes and
+     their edges (bf16 under both compute dtypes, fp32, D=128 non-causal,
+     empty causal rows), timed beside its bound, the plain backward and
+     SDPA's; (b) qwen2-0.5b at full width, bf16, trained 10 steps through
+     ``Trainer(comm="single")`` (batch 8 x 1024, remat, AdamW): finite
+     falling losses, K2 2 x 24 and K2-bwd 24 launches a step and nothing
+     else, step ms, tokens/s, a profiled step, peak memory; (c)
+     checkpoint-restart: a second trainer resumes at step 3 and its steps
+     4-6 equal the first's bitwise (depth cut to 4 layers, so each
+     checkpoint is ~1.6 GB); (d) a reduced fp32 qwen2 trained 5 steps on
+     the card and on the CPU: losses within rtol 1e-4.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
@@ -62,6 +74,7 @@ package ``repro``.
 
     python3 chip_smoke.py --engine-ab PARENT   # PARENT: another checkout
     python3 chip_smoke.py --scan-ab PARENT
+    python3 chip_smoke.py --train-only        # phases 1 and 9 alone
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), or K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -134,7 +147,8 @@ FP32_LOGIT_TOL = 1e-2
 # rwkv6_scan_mma_kernel and rwkv6_scan_decode_kernel
 OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
                "K2": ("flash_attention",), "K3": ("mamba2_scan",),
-               "K4": ("rwkv6_scan",)}
+               "K4": ("rwkv6_scan",),
+               "K2-bwd": ("attn_bwd_",)}   # flash_attention_bwd.cu
 
 
 def check(cond: bool, what: str) -> None:
@@ -717,6 +731,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import rwkv6_scan as rw
     return {"paged_attention": pa.paged_attention,
             "flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "mamba2_scan": m2.mamba2_scan, "rwkv6_scan": rw.rwkv6_scan}
 
 
@@ -1452,6 +1467,315 @@ def compare_recurrent_with_cpu() -> None:
 
 
 # ----------------------------------------------------------------------------
+# phase 9: training (the fault-tolerant trainer, one rank, on the card)
+# ----------------------------------------------------------------------------
+
+# K2-bwd vs autograd through ref.mha_attention: max |got - want| <= bar *
+# max |want| for each of dq, dk, dv (the ROADMAP's kernel bars)
+K2_BWD_BARS = {"torch.float32": 3e-4, "torch.bfloat16": 6e-2}
+# qwen2-0.5b training: bf16 (the config's dtype), seed-0 weights, batch 8 x
+# 1024 tokens, remat, AdamW lr 3e-4 without warmup; every layer runs K2
+# twice a step (the forward, and its recompute under remat) and K2-bwd once
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
+# checkpoint-restart: depth cut to 4 layers, so a checkpoint (bf16 weights,
+# fp32 moments) is ~1.6 GB instead of ~5 GB at 24
+RESTART_LAYERS = 4
+
+
+def k2_bwd_case(B, H, Hkv, Sq, Skv, D, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda h, s: torch.randn(B, h, s, D, device="cuda",  # noqa: E731
+                                  generator=g).to(dtype)
+    return mk(H, Sq), mk(Hkv, Skv), mk(Hkv, Skv), mk(H, Sq)
+
+
+def k2_bwd_bound(q, k, causal: bool):
+    """Five products over the (query, key) pairs the mask leaves (S, dP,
+    dV, dK, dQ; causal halves them), at the bf16 dense peak; bytes: q, k,
+    v, out, dout and the fp32 LSE read once, dq, dk, dv written once."""
+    import torch
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if causal:      # query i sees keys 0 .. i + Skv - Sq
+        pairs = sum(max(0, min(Skv, i + 1 + Skv - Sq)) for i in range(Sq))
+    else:
+        pairs = Sq * Skv
+    flops = 5 * 2.0 * B * H * D * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * B * H * Sq
+    return (*bound(nbytes, flops, torch.bfloat16), nbytes, flops)
+
+
+def plain_attention_grads(q, k, v, dout, causal, cdt):
+    """The plain version: autograd through ref.mha_attention."""
+    from repro_torch.kernels import ref
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    ref.mha_attention(q, k, v, causal=causal,
+                      compute_dtype=cdt).backward(dout)
+    return q.grad, k.grad, v.grad
+
+
+def run_k2_bwd_checks(report: dict) -> dict:
+    """Phase 9a: K2-bwd vs the plain gradients at the training and prefill
+    shapes and their edges; timed at the training step's shape."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, (B, H, Hkv, Sq, Skv, D), dtype, compute, causal
+        ("qwen2 training B=8 S=1024 bf16", (8, 14, 2, 1024, 1024, 64), bf,
+         f32, True),
+        ("qwen2 training B=8 S=1024 bf16 compute_dtype=bf16",
+         (8, 14, 2, 1024, 1024, 64), bf, bf, True),
+        ("qwen2 prefill shape B=1 S=2048 bf16", (1, 14, 2, 2048, 2048, 64),
+         bf, f32, True),
+        ("qwen2 prefill shape B=1 S=2048 bf16 compute_dtype=bf16",
+         (1, 14, 2, 2048, 2048, 64), bf, bf, True),
+        ("ragged S=1000 bf16", (1, 14, 2, 1000, 1000, 64), bf, f32, True),
+        ("ragged S=1000 fp32", (1, 14, 2, 1000, 1000, 64), f32, f32, True),
+        ("fp32 B=8 S=1024", (8, 14, 2, 1024, 1024, 64), f32, f32, True),
+        ("D=128 non-causal bf16 Sq=512 Skv=700", (1, 8, 2, 512, 700, 128),
+         bf, f32, False),
+        ("D=128 non-causal fp32 Sq=77 Skv=200", (1, 8, 1, 77, 200, 128), f32,
+         f32, False),
+        ("causal Sq=300 > Skv=100 bf16: empty rows",
+         (1, 4, 4, 300, 100, 64), bf, f32, True),
+    ]
+    errs = []
+    for i, (name, shape, dtype, cdt, causal) in enumerate(cases):
+        q, k, v, dout = k2_bwd_case(*shape, dtype, seed=90 + i)
+        lse = torch.empty(q.shape[:3], dtype=f32, device="cuda")
+        out = fa._forward(q, k, v, causal, shape[-1] ** -0.5, cdt, lse)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                     compute_dtype=cdt)
+        want = plain_attention_grads(q, k, v, dout, causal, cdt)
+        torch.cuda.synchronize()
+        bar = max(K2_BWD_BARS[str(dtype)], K2_BWD_BARS[str(cdt)])
+        ratios, e_max = [], 0.0
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            e = max_err(g, w)
+            m = float(w.float().abs().max())
+            ratios.append(e / (bar * m))
+            e_max = max(e_max, e)
+            check(bool(torch.isfinite(g).all()),
+                  f"K2-bwd: non-finite {gname}: {name}")
+        print(f"[K2-bwd] {name}: max_abs_err={e_max:.3e} err/bar (dq, dk, "
+              f"dv) = {', '.join(f'{r:.3f}' for r in ratios)} (bar {bar:g} "
+              "max|want|)")
+        check(max(ratios) <= 1, f"K2-bwd disagrees with the plain "
+              f"gradients: {name}")
+        if causal and shape[3] > shape[4]:
+            check(not got[0][:, :, :shape[3] - shape[4]].any(),
+                  f"K2-bwd: a row with no key has a gradient: {name}")
+        errs.append(e_max)
+        del q, k, v, dout, out, got, want
+
+    # timed at the training step's shape (and prefill's, for reference)
+    def timings(shape, dtype, cdt, causal=True, seed=0):
+        q, k, v, dout = k2_bwd_case(*shape, dtype, seed=seed)
+        lse = torch.empty(q.shape[:3], dtype=f32, device="cuda")
+        out = fa._forward(q, k, v, causal, shape[-1] ** -0.5, cdt, lse)
+        bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, dout, lse, causal=causal, compute_dtype=cdt)
+        ms = time_ms(bwd, iters=10)
+        ms_graph = time_graph_ms(bwd, iters=5, reps=3)
+        # the plain version and the library: forward + backward, less the
+        # forward alone, on the same inputs; the library's pair is taken
+        # three times in turns and the medians kept (single differences
+        # spread by 2-3x between calls)
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def plain_fb():
+            torch.autograd.grad(ref.mha_attention(
+                qg, kg, vg, causal=causal, compute_dtype=cdt),
+                (qg, kg, vg), dout)
+
+        def plain_f():
+            with torch.no_grad():
+                ref.mha_attention(q, k, v, causal=causal, compute_dtype=cdt)
+
+        def sdpa_fb():
+            torch.autograd.grad(F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal, enable_gqa=True),
+                (qg, kg, vg), dout)
+
+        def sdpa_f():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                               enable_gqa=True)
+
+        plain = time_ms(plain_fb, iters=3, warmup=1) \
+            - time_ms(plain_f, iters=3, warmup=1)
+        fb, f = [], []
+        for _ in range(3):
+            fb.append(time_ms(sdpa_fb, iters=20, warmup=3))
+            f.append(time_ms(sdpa_f, iters=20, warmup=3))
+        lib = statistics.median(fb) - statistics.median(f)
+        b_ms, b_by, nbytes, flops = k2_bwd_bound(q, k, causal)
+        return {"ms": ms, "ms_graph": ms_graph, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes, "flops": flops}
+
+    train_t = timings((TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), bf,
+                      f32)
+    pre_t = timings((1, 14, 2, 2048, 2048, 64), bf, f32, seed=1)
+    cb_t = timings((TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), bf, bf,
+                   seed=2)
+    r = dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:85",
+             max_abs_err=max(errs), **train_t,
+             ms_compute_bf16=cb_t["ms"], ms_graph_compute_bf16=cb_t["ms_graph"],
+             **{f"{k}_prefill_shape": v for k, v in pre_t.items()
+                if k != "bound_by"})
+    r["kernel_ms"] = r["ms"]
+    print(f"[K2-bwd] timed at the training shape B={TRAIN_BATCH} H=14 Hkv=2 "
+          f"S={TRAIN_SEQ} D=64 bf16 causal: ms={r['ms']:.4f} ms_graph="
+          f"{r['ms_graph']:.4f} (compute_dtype=bf16 {r['ms_compute_bf16']:.4f}"
+          f"); plain {r['plain_ms']:.3f}; SDPA fwd+bwd - fwd "
+          f"{r['library_ms']:.4f}; bound {r['bound_ms']:.5f} "
+          f"({r['bound_by']}, {train_t['flops']:.4g} flops, "
+          f"{train_t['bytes']} bytes), {r['bound_ms'] / r['ms_graph']:.3f} "
+          f"of the bound; prefill shape B=1 S=2048: ms={pre_t['ms']:.4f} "
+          f"ms_graph={pre_t['ms_graph']:.4f} SDPA {pre_t['library_ms']:.4f} "
+          f"bound {pre_t['bound_ms']:.5f}")
+    report["flash_attention_bwd"] = r
+    return r
+
+
+def train_phases(report: dict) -> dict:
+    """Phase 9 (a)-(d); returns the launches of the training run (b)."""
+    run_k2_bwd_checks(report)
+    counts = train_phase()
+    restart_phase()
+    train_with_cpu()
+    return counts
+
+
+def train_config(cfg, ckpt: str, **kw):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import TrainerConfig
+    return TrainerConfig(**{
+        "ckpt_dir": str(ROOT / "build" / "chip_smoke_ckpt" / ckpt),
+        "ckpt_every": 0, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+        "remat": True, "comm": "single",
+        "opt": AdamWConfig(lr=3e-4, warmup_steps=0), **kw})
+
+
+def train_phase() -> dict:
+    """Phase 9b: qwen2-0.5b at full width trained on the card through
+    ``Trainer(comm="single")``; returns the kernels' launches of that run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = configs.get_config("qwen2-0.5b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_config(cfg, "main"))
+    torch.cuda.synchronize()
+    print(f"[train] qwen2-0.5b: {tr.n_params} parameters, {cfg.dtype}, init "
+          f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat, AdamW lr 3e-4")
+    reset_counts()                     # the main path's run starts here
+    ms = tr.train(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()             # ... and ends here
+    losses = [m["loss"] for m in ms]
+    L = cfg.n_layers
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = 2 * L * TRAIN_STEPS
+    want["flash_attention_bwd"] = L * TRAIN_STEPS
+    check(counts == want, f"train: launches {counts}, expected {want} (K2 "
+          "twice a layer a step under remat, K2-bwd once; K1/K3/K4 never)")
+    step_s = float(np.median([m["step_time_s"] for m in ms]))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(tr.train_step, 2)
+    out = {"losses": losses,
+           "grad_norms": [m["grad_norm"] for m in ms],
+           "lrs": [m["lr"] for m in ms], "median_step_ms": step_s * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "max_memory_allocated_bytes": peak,
+           "launches": {k: v for k, v in counts.items() if v},
+           "step_profile": prof, "card": gpu_name_power()}
+    print(f"[train] {json.dumps(out)}")
+    del tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def restart_phase() -> None:
+    """Phase 9c: checkpoint at step 3, a second trainer resumes from it on
+    the card, and its steps 4-6 equal the first trainer's bitwise."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = dataclasses.replace(configs.get_config("qwen2-0.5b"),
+                              n_layers=RESTART_LAYERS)
+    ck = ROOT / "build" / "chip_smoke_ckpt" / "restart"
+    shutil.rmtree(ck, ignore_errors=True)
+    a = Trainer(cfg, train_config(cfg, "restart", ckpt_every=3,
+                                  keep_last=1))
+    a.train(3)                          # checkpoint @ step 3 (waited for)
+    a.tcfg.ckpt_every = 0
+    b = Trainer(cfg, train_config(cfg, "restart"))
+    b.resume()
+    check(b.data.step == 3, f"restart: resumed at step {b.data.step}")
+    lb = [m["loss"] for m in b.train(3)]
+    la = [m["loss"] for m in a.train(3)]
+    print(f"[restart] {RESTART_LAYERS}-layer qwen2 at full width: steps 4-6 "
+          f"of the first trainer {la}, of the resumed one {lb}")
+    check(la == lb, "restart: the resumed trainer's losses differ")
+    check(all(torch.equal(p, q) for p, q in zip(a.params.parameters(),
+                                                b.params.parameters())),
+          "restart: the resumed trainer's weights differ")
+    del a, b
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def train_with_cpu() -> None:
+    """Phase 9d: a reduced fp32 qwen2 (D=64 heads, so K2 takes it) trained
+    5 steps on the card and, from the same weights, on the CPU: losses
+    within rtol 1e-4 (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.runtime.trainer import Trainer
+    cfg = configs.get_config("qwen2-0.5b").reduced(head_dim=64)
+    init = api.get_model(cfg).init(torch.Generator().manual_seed(3))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tc = train_config(cfg, f"reduced_{dev}", batch=4, seq_len=128)
+        tr = Trainer(cfg, tc, device=dev, init_params=init)
+        losses[dev] = [m["loss"] for m in tr.train(5)]
+    rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
+                       / np.abs(losses["cpu"])))
+    print(f"[compare] reduced fp32 qwen2 training: card {losses['cuda']} vs "
+          f"CPU {losses['cpu']}, largest relative gap {rel:.3e} (tol 1e-4)")
+    check(rel <= 1e-4, "reduced fp32 training: card and CPU losses differ")
+
+
+# ----------------------------------------------------------------------------
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
@@ -1546,6 +1870,8 @@ def main() -> int:
                     help="K3's and K4's times alone, for PARENT's port and "
                          "this one")
     ap.add_argument("--scans-only", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--train-only", action="store_true",
+                    help="the build and phase 9 (training) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1578,6 +1904,10 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.train_only:
+        train_phases(report)
+        print(card)
+        return 0
     run_kernel_checks(report)
     run_scan_checks(report)
     launches: dict = {}                # per engine run: whole, chunked
@@ -1615,6 +1945,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     compare_recurrent_with_cpu()
     solver_phase()
+    paths["qwen2_train"] = train_phases(report)
     kernels = []
     for name, r in report.items():
         by_path = {p: c[name] for p, c in paths.items() if c[name]}

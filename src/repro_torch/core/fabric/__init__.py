@@ -15,10 +15,13 @@
         telemetry.* counters, spans and the Perfetto export
         qosctl.*    the closed-loop QoS controller
         autotune.*  the pinned-config reader (``best_configs.json``)
+        execute.*   the schedule as ``torch.distributed`` point-to-point
+                    rounds over a ``Mesh`` (fused dual-DMA rounds)
 
-Copies of the JAX package's modules of the same names; their timelines
-are bit-identical to the reference.  The executor (``execute``) and the
-autotuner's search are not ported yet (ROADMAP §1, items 7 and 10).
+Ports of the JAX package's modules of the same names; their timelines
+are bit-identical to the reference, and the executor's sums equal the
+JAX executor's.  The autotuner's search is not ported yet (ROADMAP §1,
+item 10).
 """
 from repro_torch.core.fabric.cost import (BACKENDS, CostEstimate,
                                           OverlapEstimate,
@@ -27,6 +30,13 @@ from repro_torch.core.fabric.cost import (BACKENDS, CostEstimate,
                                           hostif_descriptors, message_time)
 from repro_torch.core.fabric.fluid import (FIDELITIES, FluidSim, HybridSim,
                                            make_sim)
+from repro_torch.core.fabric.execute import (execute, execute_all_gather,
+                                             execute_all_reduce,
+                                             execute_all_to_all,
+                                             execute_halo_exchange,
+                                             execute_reduce_scatter,
+                                             make_bucket_grad_hook,
+                                             ring_slot)
 from repro_torch.core.fabric.fault import (UnroutableError,
                                            fault_map_from_lofamo, rewrite)
 from repro_torch.core.fabric.lower import (axis_fault_penalty, live_ring,
@@ -58,6 +68,9 @@ __all__ = [
     "A2A", "AG", "AR", "HALO", "P2P", "RS",
     "Bucket", "BucketPlan", "CollectiveSchedule", "FaultMap", "Phase",
     "Step", "Transfer",
+    "execute", "execute_all_gather", "execute_all_reduce",
+    "execute_all_to_all", "execute_halo_exchange", "execute_reduce_scatter",
+    "make_bucket_grad_hook", "ring_slot",
     "BACKENDS", "CostEstimate", "OverlapEstimate", "algorithmic_bandwidth",
     "estimate", "estimate_overlapped", "hostif_descriptors", "message_time",
     "UnroutableError", "fault_map_from_lofamo", "rewrite",

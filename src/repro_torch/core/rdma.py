@@ -9,19 +9,65 @@ serving engine's page allocator, and the bulk page transfers of KV-page
 migration (``put_pages``, ``get_time``), priced in closed form or on a
 shared fabric simulator.
 
-A copy of the host half of the JAX package's ``core/rdma.py``.  The
-per-shard device primitives (``put_shift``, ``put_coords``,
-``send_recv``) wait for the collectives slice of the port.
+A copy of the host half of the JAX package's ``core/rdma.py``, and its
+device half as per-rank primitives over a ``Mesh``
+(``repro_torch.launch.mesh``): ``put_shift``, ``put_coords`` and
+``send_recv`` are lists of ``dist.P2POp`` run by
+``dist.batch_isend_irecv`` — a neighbour put inside the axis line's
+process group, where JAX's are ``lax.ppermute`` inside ``shard_map``.  A
+multi-hop transfer is a chain of neighbour puts following the
+dimension-ordered route, like the APEnet+ router's store-and-forward.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import torch
+
 from repro_torch.core import apelink
+from repro_torch.core.fabric.execute import ppermute_round
 from repro_torch.core.fabric.qos import TrafficClass
 from repro_torch.core.tlb import PAGE_BYTES, Tlb
 from repro_torch.core.topology import Torus
+
+
+# ----------------------------------------------------------------------------
+# per-rank device primitives (torch.distributed point-to-point)
+# ----------------------------------------------------------------------------
+
+def put_shift(x: torch.Tensor, axis_name: str, mesh,
+              step: int = +1) -> torch.Tensor:
+    """One-sided put to the ring neighbour at signed offset ``step``.
+
+    Multi-hop |step| is realised as |step| single-hop writes (neighbour
+    links are the only physical channels on the torus)."""
+    n = mesh.shape[axis_name]
+    hop = +1 if step >= 0 else -1
+    perm = [(i, (i + hop) % n) for i in range(n)]
+    for _ in range(abs(step)):
+        (x,) = ppermute_round([(x, perm)], axis_name, mesh)
+    return x
+
+
+def put_coords(x: torch.Tensor, axis_names: Sequence[str], mesh,
+               delta: Sequence[int]) -> torch.Tensor:
+    """Dimension-ordered multi-axis put: shift by ``delta[i]`` hops along
+    ``axis_names[i]``, X first then Y then Z (the APEnet+ routing order)."""
+    if len(axis_names) != len(delta):
+        raise ValueError("axis/delta arity mismatch")
+    for ax, d in zip(axis_names, delta):
+        if d:
+            x = put_shift(x, ax, mesh, d)
+    return x
+
+
+def send_recv(x: torch.Tensor, axis_name: str, mesh,
+              pairs: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """Explicit (src, dst) one-sided writes; ranks not addressed receive
+    zeros (RDMA semantics: untouched remote memory, here a fresh buffer)."""
+    (out,) = ppermute_round([(x, list(pairs))], axis_name, mesh)
+    return out
 
 
 @dataclasses.dataclass

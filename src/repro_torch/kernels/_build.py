@@ -20,8 +20,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("paged_attention", "flash_attention", "mamba2_scan",
-           "rwkv6_scan")
+KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
+           "mamba2_scan", "rwkv6_scan")
 # no --use_fast_math / -ftz: flushing denormals to zero would break the
 # scans' guards (the exponent selected before exp, w floored before log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -35,14 +35,30 @@ SIGNATURES = {
                         [_vp] * 7 + [_i] * 7
                         + [_f, _i, ctypes.POINTER(_i), _vp]),
     "flash_attention": ("flash_attention_launch",
-                        [_vp, _vp, _vp, _vp,
-                         _i, _i, _i, _i, _i, _i, _i, _f, _i, _i, _vp]),
+                        [_vp] * 5 + [_i] * 7 + [_f, _i, _i, _vp]),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_vp] * 10 + [_i] * 7 + [_f, _i, _i, _vp]),
     "mamba2_scan": ("mamba2_scan_launch",
                     [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
     "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp, _vp]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+# where the backward kernels the card still lacks stand in ROADMAP.md
+NO_BACKWARD = "ROADMAP item 12 (backward kernels for K1, K3 and K4)"
+
+
+def refuse_grad(name: str, hint: str, *tensors) -> None:
+    """A wrapper's output is a fresh tensor filled through ctypes, cut off
+    from its inputs' graph: raise where autograd would need a gradient
+    through it, instead of letting that gradient go missing."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} kernel: its output would carry no gradient; {hint}")
 
 
 def raw_stream(device) -> int:

@@ -59,7 +59,10 @@
 // Both kernels: causal keys are right-aligned (query i sees keys <= i +
 // Skv - Sq); ragged tails are masked (no divisibility requirement); a row
 // that sees no key writes 0, like the Pallas kernel; GQA: query head h
-// reads KV head h / (H / Hkv).
+// reads KV head h / (H / Hkv).  With a non-null `lse` (training) both also
+// write each row's log-sum-exp of its scaled logits, fp32 (B, H, Sq), +inf
+// for a row that sees no key: the backward (csrc/flash_attention_bwd.cu)
+// recomputes the probabilities from it.  Serving passes null.
 //
 // Resources (ptxas -v, CUDA 12.8, sm_90a): D = 64 capped at 128 registers
 // (so 4 blocks, 512 threads, fit an SM; 20 bytes of spill stores), D = 128
@@ -170,8 +173,9 @@ __global__ void __launch_bounds__(kWarps * 32, D == 64 ? 4 : 1)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
-                           int H, int Hkv, int Sq, int Skv, int causal,
-                           float scale, int compute_bf16) {
+                           float* __restrict__ lse, int H, int Hkv, int Sq,
+                           int Skv, int causal, float scale,
+                           int compute_bf16) {
   constexpr int BQ = 16 * kWarps;  // query rows a block
   constexpr int BK = kTileKeys;
   constexpr int NT = 32 * kWarps;
@@ -207,6 +211,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       const int r = q0 + i / D;
       if (r < Sq) ob[(size_t)r * D + i % D] = __float2bfloat16(0.f);
     }
+    if (lse != nullptr && tid < BQ && q0 + tid < Sq)
+      lse[((size_t)b * H + h) * Sq + q0 + tid] = INFINITY;
     return;
   }
 
@@ -239,7 +245,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   cp_async_commit();
 
   // the logits' scale, folded into exp2's argument: p = 2^(s*sl2 - m*sl2)
-  const float sl2 = (compute_bf16 ? 1.f : scale) * kLog2e;
+  const float sc = compute_bf16 ? 1.f : scale;
+  const float sl2 = sc * kLog2e;
   const int row0 = q0 + warp * 16 + g;  // rows of c0/c1; c2/c3: row0 + 8
   const int warp_first = q0 + warp * 16, warp_last = warp_first + 15;
 
@@ -376,6 +383,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const int row = row0 + 8 * i;
+    if (lse != nullptr && row < Sq && t4 == 0)  // natural log, scaled logits
+      lse[((size_t)b * H + h) * Sq + row] =
+          l > 0.f ? m_run[i] * sc + logf(l) : INFINITY;
     if (row < Sq) {
 #pragma unroll
       for (int j = 0; j < DTILE; ++j) {
@@ -389,9 +399,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int Hkv, int Sq, int Skv, int causal, float scale,
-               int compute_bf16, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int H, int Hkv, int Sq, int Skv, int causal,
+               float scale, int compute_bf16, cudaStream_t stream) {
   constexpr int smem = (16 * kWarps + 4 * kTileKeys) * (D + 8) * 2;
   static std::atomic<unsigned long long> smem_set{0};
   auto kernel = flash_attention_mma_kernel<D>;
@@ -400,8 +410,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (Sq + 16 * kWarps - 1) / (16 * kWarps));
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, Hkv, Sq,
-      Skv, causal, scale, compute_bf16);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
+      (float*)lse, H, Hkv, Sq, Skv, causal, scale, compute_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -426,8 +436,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int H, int Hkv, int Sq, int Skv, int causal,
-                       float scale, int compute_bf16) {
+                       float* __restrict__ lse, int H, int Hkv, int Sq,
+                       int Skv, int causal, float scale, int compute_bf16) {
   constexpr int QS = D + 1;    // padded rows: no bank conflicts on row reads
   constexpr int KS = D + 1;
   constexpr int PS = kBK + 1;
@@ -576,6 +586,9 @@ flash_attention_kernel(const float* __restrict__ q,
     const int qi = q0 + ty + 16 * i;
     if (qi >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (lse != nullptr && tx == 0)  // m, l are in units of the scaled logits
+      lse[((size_t)b * H + h) * Sq + qi] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
       ob[(size_t)qi * D + tx + 16 * jj] = acc[i][jj] * inv;
@@ -584,7 +597,7 @@ flash_attention_kernel(const float* __restrict__ q,
 
 template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                int B, int H, int Hkv, int Sq, int Skv, int causal,
+                void* lse, int B, int H, int Hkv, int Sq, int Skv, int causal,
                 float scale, int compute_bf16, cudaStream_t stream) {
   constexpr int smem =
       sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
@@ -595,33 +608,34 @@ int launch_fp32(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, H, Hkv,
-      Sq, Skv, causal, scale, compute_bf16);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out,
+      (float*)lse, H, Hkv, Sq, Skv, causal, scale, compute_bf16);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); -1 for a D or dtype this file does not build.
+// dtype: 0 = float32, 1 = bfloat16; lse: null, or fp32 (B, H, Sq).
+// Returns cudaGetLastError() after the launch (0 on success); -1 for a D
+// or dtype this file does not build.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
-                                      int Hkv, int Sq, int Skv, int D,
-                                      int causal, float scale,
+                                      const void* v, void* out, void* lse,
+                                      int B, int H, int Hkv, int Sq, int Skv,
+                                      int D, int causal, float scale,
                                       int compute_bf16, int dtype,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0 && D == 64)
-    return launch_fp32<64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, scale,
-                           compute_bf16, s);
+    return launch_fp32<64>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
+                           causal, scale, compute_bf16, s);
   if (dtype == 0 && D == 128)
-    return launch_fp32<128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, scale,
-                            compute_bf16, s);
+    return launch_fp32<128>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
+                            causal, scale, compute_bf16, s);
   if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, scale,
-                          compute_bf16, s);
+    return launch_mma<64>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
+                          causal, scale, compute_bf16, s);
   if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, out, B, H, Hkv, Sq, Skv, causal, scale,
-                           compute_bf16, s);
+    return launch_mma<128>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
+                           causal, scale, compute_bf16, s);
   return -1;
 }

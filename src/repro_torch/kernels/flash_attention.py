@@ -1,13 +1,21 @@
-"""K2: blocked causal GQA attention — wrapper of ``csrc/flash_attention.cu``.
+"""K2: blocked causal GQA attention — wrapper of ``csrc/flash_attention.cu``,
+and its backward K2-bwd — wrapper of ``csrc/flash_attention_bwd.cu``.
 
 The CUDA counterpart of the JAX package's Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention``, computing the
 function of ``repro/kernels/ref.py::mha_attention`` that whole-prompt
-prefill runs, ``compute_dtype`` included.  Unlike the Pallas kernel it
-needs no block-divisible sequence lengths: ragged tails are masked.  Its
-plain version is ``kernels/ref.py::mha_attention``; ``kernels/ops.py``
-picks between them by the tensors' device.  This wrapper takes CUDA tensors
-only and never falls back.
+prefill and every training layer run, ``compute_dtype`` included.  Unlike
+the Pallas kernel it needs no block-divisible sequence lengths: ragged
+tails are masked.  Its plain version is ``kernels/ref.py::mha_attention``;
+``kernels/ops.py`` picks between them by the tensors' device.
+
+The Pallas kernel has no backward (JAX trains through the jnp attention).
+Here the gradient is a kernel too: ``FlashAttentionFn`` runs the forward
+with its per-row log-sum-exp and the backward through
+``flash_attention_bwd``, so a training step on the card never leaves the
+hand-written kernels; its plain version is autograd through
+``ref.mha_attention``.  The wrappers take CUDA tensors only and never fall
+back.
 """
 from __future__ import annotations
 
@@ -20,41 +28,43 @@ COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None,
-                    compute_dtype: torch.dtype = torch.float32
-                    ) -> torch.Tensor:
-    """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D) in q.dtype."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           compute_dtype: torch.dtype, what: str = "flash_attention"):
     if any(t.device.type != "cuda" or t.device != q.device
            for t in (q, k, v)):
-        raise ValueError("flash_attention kernel: q, k, v must lie on the "
-                         "same CUDA device")
+        raise ValueError(f"{what} kernel: q, k, v must lie on the same CUDA "
+                         "device")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel: q/k/v must share a dtype "
-                        f"in {list(DTYPES)}, got {q.dtype}, {k.dtype}, "
+        raise TypeError(f"{what} kernel: q/k/v must share a dtype in "
+                        f"{list(DTYPES)}, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if compute_dtype not in COMPUTE_DTYPES:
-        raise TypeError(f"flash_attention kernel: compute_dtype must be one "
-                        f"of {list(COMPUTE_DTYPES)}, got {compute_dtype}")
+        raise TypeError(f"{what} kernel: compute_dtype must be one of "
+                        f"{list(COMPUTE_DTYPES)}, got {compute_dtype}")
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("flash_attention kernel: expected q (B,H,Sq,D), "
-                         "k/v (B,Hkv,Skv,D)")
+        raise ValueError(f"{what} kernel: expected q (B,H,Sq,D), k/v "
+                         "(B,Hkv,Skv,D)")
     B, H, Sq, D = q.shape
     Bk, Hkv, Skv, Dk = k.shape
     if D not in HEAD_DIMS or Dk != D or Bk != B or v.shape != k.shape \
             or H % Hkv:
         raise ValueError(
-            f"flash_attention kernel: unsupported shapes q {tuple(q.shape)}, "
+            f"{what} kernel: unsupported shapes q {tuple(q.shape)}, "
             f"k {tuple(k.shape)}, v {tuple(v.shape)} (D must be one of "
             f"{HEAD_DIMS})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel: tensors must be contiguous")
-    scale = scale if scale is not None else D ** -0.5
+        raise ValueError(f"{what} kernel: tensors must be contiguous")
+
+
+def _forward(q, k, v, causal, scale, compute_dtype, lse):
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     fn = _build.load("flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             0 if lse is None else lse.data_ptr(),
              B, H, Hkv, Sq, Skv, D, int(causal), float(scale),
              COMPUTE_DTYPES[compute_dtype], DTYPES[q.dtype],
              _build.raw_stream(q.device))
@@ -65,4 +75,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    compute_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D) in q.dtype.  The
+    output carries no gradient, so under grad it raises: training goes
+    through ``FlashAttentionFn`` (``ops.flash_attention`` picks it)."""
+    _build.refuse_grad("flash_attention", "differentiate through "
+                       "FlashAttentionFn (ops.flash_attention picks it)",
+                       q, k, v)
+    _check(q, k, v, compute_dtype)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _forward(q, k, v, causal, scale, compute_dtype, None)
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        scale: float | None = None,
+                        compute_dtype: torch.dtype = torch.float32):
+    """K2-bwd: (dq, dk, dv) of ``ref.mha_attention`` at (q, k, v), given the
+    forward's ``out`` and fp32 ``lse`` (B, H, Sq) and the output gradient
+    ``dout`` (q's shape and dtype).  One count per call (three kernels)."""
+    _check(q, k, v, compute_dtype, "flash_attention_bwd")
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd kernel: out and dout must have "
+                         "q's shape and dtype")
+    if lse.dtype != torch.float32 or lse.shape != q.shape[:3]:
+        raise ValueError("flash_attention_bwd kernel: lse must be fp32 "
+                         f"{tuple(q.shape[:3])}")
+    if any(t.device != q.device or not t.is_contiguous()
+           for t in (out, dout, lse)):
+        raise ValueError("flash_attention_bwd kernel: out, dout and lse "
+                         "must be contiguous on q's device")
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_attention_bwd")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), di.data_ptr(), B, H, Hkv, Sq, Skv, D,
+             int(causal), float(scale), COMPUTE_DTYPES[compute_dtype],
+             DTYPES[q.dtype], _build.raw_stream(q.device))
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K2 forward (with its log-sum-exp) and K2-bwd as one differentiable
+    function of (q, k, v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, compute_dtype):
+        _check(q, k, v, compute_dtype)
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, scale, compute_dtype, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.compute_dtype = causal, scale, compute_dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+            scale=ctx.scale, compute_dtype=ctx.compute_dtype)
+        return dq, dk, dv, None, None, None
+

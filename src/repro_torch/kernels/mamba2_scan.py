@@ -44,6 +44,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (B,H,ds,dh) or None -> y (B,S,H,dh) contiguous in x.dtype [, final state
     (B,H,ds,dh) fp32]."""
     ts = (x, dt, A, Bmat, Cmat, D) + ((h0,) if h0 is not None else ())
+    _build.refuse_grad("mamba2_scan", f"see {_build.NO_BACKWARD}", *ts)
     if any(t.device.type != "cuda" or t.device != x.device for t in ts):
         raise ValueError("mamba2_scan kernel: every tensor must lie on the "
                          "same CUDA device")

@@ -2,7 +2,11 @@
 
   * tensors on the CPU take the plain PyTorch version (``kernels/ref.py``);
   * tensors on a CUDA device take the CUDA kernel, which raises if it cannot
-    build or launch — there is no quiet fallback to the plain version;
+    build or launch — there is no quiet fallback to the plain version; with
+    grad enabled and an input requiring grad, attention takes K2 with its
+    backward kernel K2-bwd, and the kernels without a backward (K1, K3, K4)
+    raise (in their wrappers) rather than return an output cut off from the
+    graph;
   * any other device raises.
 
 Signatures and layouts are the JAX package's ``kernels/ops.py``, without
@@ -31,10 +35,19 @@ def _on_cuda(x: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no implementation for device {x.device}")
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                     compute_dtype: torch.dtype = torch.float32):
-    """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D)."""
+    """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D).  On the card with
+    grad enabled and an input requiring grad, K2 runs inside an autograd
+    Function whose backward is K2-bwd."""
     if _on_cuda(q, "flash_attention"):
+        if _wants_grad(q, k, v):
+            return _fa.FlashAttentionFn.apply(q, k, v, causal, scale,
+                                              compute_dtype)
         return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                    compute_dtype=compute_dtype)
     return ref.mha_attention(q, k, v, causal=causal, scale=scale,

@@ -36,6 +36,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
     Page ids are trusted (the caller's page table must hold ids < P), as
     the Pallas kernel trusts its scalar-prefetched table."""
+    _build.refuse_grad("paged_attention", f"see {_build.NO_BACKWARD}", q,
+                       k_pages, v_pages)
     tensors = (q, k_pages, v_pages, page_table, seq_lens)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("paged_attention kernel: every tensor must lie on "

@@ -39,6 +39,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r/k/v/w: (B,S,H,dh) of one dtype, contiguous; u: (H,dh); s0:
     (B,H,dh,dh) or None -> y (B,S,H,dh) in r.dtype [, final state (B,H,dh,dh)
     fp32].  ``u`` and ``s0`` are read as fp32 (cast here if they are not)."""
+    _build.refuse_grad("rwkv6_scan", f"see {_build.NO_BACKWARD}", r, k, v,
+                       w, u, s0)
     dev = r.device
     if dev.type != "cuda" or k.device != dev or v.device != dev \
             or w.device != dev or u.device != dev \

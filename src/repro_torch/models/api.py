@@ -8,6 +8,10 @@ until its slice lands.  The JAX module's ShapeDtypeStruct input specs serve
 its dry-run, which the port replaces last (ROADMAP queue item 10).
 
 ``init`` takes a ``torch.Generator`` and builds the weights on its device;
+``train_loss(p, b, remat=True)`` takes JAX's ``remat`` knob, which the
+transformer families read (per-layer ``torch.utils.checkpoint``) and the
+recurrent ones accept and leave (their scans have no backward kernel on
+the card yet, ROADMAP item 12);
 ``init_decode_state(batch, max_len, device="cuda")`` builds zero state on
 the card unless the caller asks for the CPU.
 """
@@ -41,7 +45,8 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: transformer.init_lm(cfg, gen),
-            train_loss=lambda p, b: transformer.train_loss(cfg, p, b),
+            train_loss=lambda p, b, **kw: transformer.train_loss(cfg, p, b,
+                                                                 **kw),
             prefill=lambda p, b, **kw: transformer.prefill(cfg, p, b, **kw),
             decode_step=lambda p, t, s, pos: transformer.decode_step(
                 cfg, p, t, s, pos),
@@ -53,7 +58,7 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: ssm.init_lm(cfg, gen),
-            train_loss=lambda p, b: ssm.train_loss(cfg, p, b),
+            train_loss=lambda p, b, remat=True: ssm.train_loss(cfg, p, b),
             prefill=lambda p, b: ssm.prefill(cfg, p, b),
             decode_step=lambda p, t, s, pos: ssm.decode_step(cfg, p, t, s,
                                                              pos),
@@ -65,7 +70,7 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: rwkv.init_lm(cfg, gen),
-            train_loss=lambda p, b: rwkv.train_loss(cfg, p, b),
+            train_loss=lambda p, b, remat=True: rwkv.train_loss(cfg, p, b),
             prefill=lambda p, b: rwkv.prefill(cfg, p, b),
             decode_step=lambda p, t, s, pos: rwkv.decode_step(cfg, p, t, s,
                                                               pos),
@@ -77,7 +82,7 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: hybrid.init_lm(cfg, gen),
-            train_loss=lambda p, b: hybrid.train_loss(cfg, p, b),
+            train_loss=lambda p, b, remat=True: hybrid.train_loss(cfg, p, b),
             prefill=lambda p, b, **kw: hybrid.prefill(cfg, p, b, **kw),
             decode_step=lambda p, t, s, pos: hybrid.decode_step(cfg, p, t, s,
                                                                 pos),

@@ -134,7 +134,9 @@ class Params(nn.Module):
     """One named group of parameters — one dict of the JAX pytree.
 
     Indexing (``p["wq"]``) and membership (``"bias" in p``) read like the
-    JAX code.  Parameters carry no gradient: this slice of the port serves.
+    JAX code.  Parameters are made without gradient, so the serving entry
+    points build no graph; the trainer turns ``requires_grad`` on for the
+    parameters it owns.
     """
 
     def __init__(self, **tensors: torch.Tensor) -> None:

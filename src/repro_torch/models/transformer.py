@@ -9,15 +9,17 @@ Entry points:
   * ``prefill``     — full forward that also returns the KV cache;
   * ``decode_step`` — one token against the dense KV cache (written in
     place, where JAX returns an updated copy).
-The paged decode path lives in ``serving/engine.py``.  Rematerialisation,
-the hand-SPMD ``manual_sp`` stack and sharding constraints wait for the
-training slice of the port; the configs' ``tp_activations`` and
-``moe_impl`` knobs are not read here.
+The paged decode path lives in ``serving/engine.py``.  ``remat=True``
+recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
+``jax.checkpoint`` over the scan body).  The hand-SPMD ``manual_sp`` stack
+and the sharding constraints wait for the GSPMD slice (ROADMAP item 8);
+the configs' ``tp_activations`` and ``moe_impl`` knobs are not read here.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
@@ -67,23 +69,36 @@ def _mix(cfg: ArchCfg, lp: Block, h: torch.Tensor, *,
     return common.apply_mlp(cfg, lp.mlp, x2)
 
 
+def _layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
+               causal: bool):
+    a, _ = attn.attn_full(cfg, lp.attn, common.apply_norm(cfg, lp.ln1, h),
+                          freqs=freqs, causal=causal)
+    h = h + a
+    x2 = common.apply_norm(cfg, lp.ln2, h)
+    if cfg.moe is not None:
+        m, aux = moe.apply_moe(cfg, lp.moe, x2)
+    else:
+        m = common.apply_mlp(cfg, lp.mlp, x2)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + m, aux
+
+
 def forward(cfg: ArchCfg, params: TransformerLM, h: torch.Tensor, *,
-            causal: bool = True):
-    """Run the layer stack over embeddings h: (B, S, d) -> (h, aux_loss)."""
+            causal: bool = True, remat: bool = False):
+    """Run the layer stack over embeddings h: (B, S, d) -> (h, aux_loss).
+
+    ``remat`` (under grad) keeps only each layer's input and recomputes the
+    layer in the backward, as JAX's ``nothing_saveable`` checkpoint does."""
     freqs = common.rope_freqs(cfg, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = remat and torch.is_grad_enabled()
     for lp in params.layers:
-        a, _ = attn.attn_full(cfg, lp.attn,
-                              common.apply_norm(cfg, lp.ln1, h),
-                              freqs=freqs, causal=causal)
-        h = h + a
-        x2 = common.apply_norm(cfg, lp.ln2, h)
-        if cfg.moe is not None:
-            m, a_l = moe.apply_moe(cfg, lp.moe, x2)
-            aux = aux + a_l
+        if remat:
+            h, a = checkpoint(_layer_fwd, cfg, lp, h, freqs, causal,
+                              use_reentrant=False)
         else:
-            m = common.apply_mlp(cfg, lp.mlp, x2)
-        h = h + m
+            h, a = _layer_fwd(cfg, lp, h, freqs, causal)
+        aux = aux + a
     return common.apply_norm(cfg, params.final_norm, h), aux
 
 
@@ -101,9 +116,10 @@ def embed_inputs(cfg: ArchCfg, params: TransformerLM, batch: dict):
     return h, labels
 
 
-def train_loss(cfg: ArchCfg, params: TransformerLM, batch: dict):
+def train_loss(cfg: ArchCfg, params: TransformerLM, batch: dict, *,
+               remat: bool = True):
     h, labels = embed_inputs(cfg, params, batch)
-    h, aux = forward(cfg, params, h, causal=True)
+    h, aux = forward(cfg, params, h, causal=True, remat=remat)
     logits = common.lm_head(cfg, params.embed, h)
     return common.cross_entropy(logits, labels) + aux
 

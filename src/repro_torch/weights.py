@@ -1,5 +1,6 @@
 """Weights bridge: a JAX parameter pytree (as numpy arrays) -> the port's
-model module (``TransformerLM``, ``RwkvLM``, ``MambaLM`` or ``HybridLM``).
+model module (``TransformerLM``, ``RwkvLM``, ``MambaLM`` or ``HybridLM``),
+and the optimizer state and checkpoint layout back and forth.
 
 The JAX package stacks every layer's parameters along a leading L axis
 (for ``lax.scan``): ``layers`` for the transformers, rwkv6 and mamba2,
@@ -9,6 +10,17 @@ axis and loads the result by name (``strict=True``), so both packages
 compute the same function from the same weights.  It takes numpy arrays,
 so this module needs no JAX: ``jax.tree.map(np.asarray, params)`` on the
 JAX side.
+
+The trainer keeps its optimizer state in the JAX pytree's layout, one
+tensor per JAX leaf, keyed by the leaf's path (``"layers/attn/wq"``):
+``jax_leaves`` names, in ``jax.tree`` order, the port's parameters behind
+each leaf (stacked along the layer axis where JAX stacks), so AdamW's
+rules that read a leaf's shape (no weight decay below two dimensions, the
+ZeRO-1 chunk of a flattened leaf) see JAX's shapes.
+``from_jax_opt_state`` turns JAX's ``{"m", "v", "step"}`` (single layout:
+the leaves' shapes; apex layout: flat ``(dp * chunk,)`` buffers, of which
+a rank keeps its chunk) into that state; ``to_jax_opt_state`` and
+``to_jax_params`` go back to JAX's nested trees of numpy arrays.
 """
 from __future__ import annotations
 
@@ -38,14 +50,36 @@ def to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _flatten(tree, prefix: str = ""):
+def _flatten(tree, prefix: str = "", sep: str = "."):
     for k in sorted(tree):
         v = tree[k]
         name = f"{prefix}{k}"
         if isinstance(v, dict):
-            yield from _flatten(v, name + ".")
+            yield from _flatten(v, name + sep, sep)
         else:
             yield name, v
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b": x} -> {"a": {"b": x}}."""
+    out: dict = {}
+    for path, v in flat.items():
+        *head, last = path.split("/")
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = v
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 as ``ml_dtypes``'
+    bfloat16, the dtype JAX's arrays convert to."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
@@ -74,3 +108,100 @@ def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
     model = cls(cfg, device=device)
     model.load_state_dict(state, strict=True)
     return model
+
+
+# ----------------------------------------------------------------------------
+# the JAX pytree's leaves over the port's parameters
+# ----------------------------------------------------------------------------
+
+def stacked_axis(cfg: ArchCfg) -> str:
+    """Name of the pytree key whose leaves JAX stacks along the layers."""
+    return _LM[cfg.family][1]
+
+
+def jax_leaves(cfg: ArchCfg, model) -> dict[str, list[torch.nn.Parameter]]:
+    """The JAX pytree's leaves in ``jax.tree`` order (sorted keys at every
+    level): leaf path -> the port's parameters that make it, in layer order
+    for a leaf JAX stacks along the layer axis, else the one parameter."""
+    stacked = stacked_axis(cfg)
+    groups: dict[str, list] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == stacked:
+            key, order = "/".join([stacked] + parts[2:]), int(parts[1])
+        else:
+            key, order = "/".join(parts), 0
+        groups.setdefault(key, []).append((order, p))
+    return {k: [p for _, p in sorted(groups[k], key=lambda t: t[0])]
+            for k in sorted(groups, key=lambda k: tuple(k.split("/")))}
+
+
+def leaf_tensor(cfg: ArchCfg, path: str, params: list) -> torch.Tensor:
+    """One JAX leaf's value from its parameters (a stacked copy for a
+    layer-stacked leaf); ``params`` may be the parameters' gradients."""
+    if path.startswith(stacked_axis(cfg) + "/"):
+        return torch.stack(list(params))
+    (p,) = params
+    return p
+
+
+def assign_leaf(cfg: ArchCfg, path: str, params: list,
+                value: torch.Tensor) -> None:
+    """Copy one JAX leaf's value back into its parameters, in place."""
+    with torch.no_grad():
+        if path.startswith(stacked_axis(cfg) + "/"):
+            for p, v in zip(params, value.reshape(
+                    (len(params),) + params[0].shape)):
+                p.copy_(v)
+        else:
+            params[0].copy_(value.reshape(params[0].shape))
+
+
+def to_jax_params(cfg: ArchCfg, model) -> dict:
+    """The inverse of ``from_jax_params``: JAX's nested parameter tree of
+    numpy arrays (layer-stacked leaves stacked)."""
+    return _nest({path: to_numpy(leaf_tensor(cfg, path, ps))
+                  for path, ps in jax_leaves(cfg, model).items()})
+
+
+def from_jax_opt_state(state, *, dp: int = 1, rank: int = 0,
+                       device="cuda") -> dict:
+    """JAX's optimizer state ``{"m", "v", "step"}`` (nested trees of numpy
+    arrays, or flat dicts keyed by leaf path) -> the port's: ``m`` and
+    ``v`` as {leaf path: fp32 tensor}, ``step`` a 0-d int32 tensor.
+
+    ``dp > 1`` reads the apex (ZeRO-1) layout, where every leaf is a flat
+    ``(dp * chunk,)`` buffer of which DP rank ``rank`` keeps the chunk
+    ``[rank * chunk, (rank + 1) * chunk)`` — the slice ``shard_map`` hands
+    that rank.  The default lands on the card, as ``from_jax_params``."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("from_jax_opt_state: no CUDA device is available; "
+                           "pass device='cpu'")
+
+    def leaves(tree):
+        tree = dict(_flatten(tree, sep="/"))
+        out = {}
+        for path, a in tree.items():
+            t = to_torch(a).to(device=device, dtype=torch.float32)
+            if dp > 1:
+                if t.dim() != 1 or t.numel() % dp:
+                    raise ValueError(f"{path}: apex moments are flat "
+                                     f"(dp * chunk,) buffers, got "
+                                     f"{tuple(t.shape)} for dp={dp}")
+                chunk = t.numel() // dp
+                t = t[rank * chunk:(rank + 1) * chunk].clone()
+            out[path] = t
+        return out
+
+    return {"m": leaves(state["m"]), "v": leaves(state["v"]),
+            "step": torch.as_tensor(np.asarray(state["step"]),
+                                    dtype=torch.int32).to(device)}
+
+
+def to_jax_opt_state(state) -> dict:
+    """The port's optimizer state -> JAX's nested ``{"m", "v", "step"}`` of
+    numpy arrays.  Apex moments must be gathered to the global
+    ``(dp * chunk,)`` layout first (``Trainer`` does so for checkpoints)."""
+    return {"m": _nest({k: to_numpy(v) for k, v in state["m"].items()}),
+            "v": _nest({k: to_numpy(v) for k, v in state["v"].items()}),
+            "step": np.asarray(to_numpy(state["step"]), np.int32)}

@@ -581,3 +581,147 @@ def test_reduced_cluster_on_the_card_gives_the_cpus_run(cuda, kw):
         for a, b in zip(got[1], want[1]):
             assert a.hops == b.hops and a.nbytes == b.nbytes
             assert a.modelled_s == pytest.approx(b.modelled_s, rel=5e-4)
+
+
+# ----------------------------------------------------------------------------
+# K2-bwd and the training path on the card
+# ----------------------------------------------------------------------------
+
+def grad_bar_held(got, want, dtype, compute):
+    """max |got - want| <= bar * max |want|, bar 3e-4 (fp32) or 6e-2 (bf16
+    inputs or compute)."""
+    bar = max(tol(dtype), tol(compute))
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= bar * float(w.float().abs().max()), (err, bar)
+
+
+def plain_grads(q, k, v, dout, causal, compute):
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    ref.mha_attention(q, k, v, causal=causal,
+                      compute_dtype=compute).backward(dout)
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,D,causal", [
+    (2, 14, 2, 100, 100, 64, True), (1, 4, 2, 129, 129, 64, True),
+    (1, 4, 4, 300, 100, 64, True), (1, 8, 1, 77, 200, 128, False),
+    (1, 4, 2, 70, 150, 128, True)])
+def test_flash_attention_gradient_matches_plain(cuda, B, H, Hkv, Sq, Skv, D,
+                                                causal, dtype, compute):
+    """ops.flash_attention under grad goes through K2 with its LSE and
+    K2-bwd; its gradients hold the plain version's (autograd through
+    ref.mha_attention): GQA, tile edges, empty causal rows (Sq > Skv),
+    right-aligned causal keys, non-causal D = 128."""
+    g = torch.Generator().manual_seed(Sq + Skv + D)
+    mk = lambda h, s: torch.randn(B, h, s, D, generator=g).to(  # noqa: E731
+        cuda, dtype).requires_grad_(True)
+    q, k, v = mk(H, Sq), mk(Hkv, Skv), mk(Hkv, Skv)
+    dout = torch.randn(B, H, Sq, D, generator=g).to(cuda, dtype)
+    n_f, n_b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = ops.flash_attention(q, k, v, causal=causal, compute_dtype=compute)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    assert fa.flash_attention.launches == n_f + 1
+    assert fa.flash_attention_bwd.launches == n_b + 1
+    want = plain_grads(q, k, v, dout, causal, compute)
+    grad_bar_held((q.grad, k.grad, v.grad), want, dtype, compute)
+    if causal and Sq > Skv:          # rows that see no key: zero gradient
+        assert not q.grad[:, :, :Sq - Skv].any()
+
+
+@pytest.mark.gpu
+def test_flash_attention_lse_is_the_rows_logsumexp(cuda):
+    g = torch.Generator().manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, 4, 150, 64, generator=g).to(cuda, dtype)
+        k = torch.randn(1, 2, 90, 64, generator=g).to(cuda, dtype)
+        lse = torch.empty(1, 4, 150, device=cuda)
+        fa._forward(q, k, k, True, 64 ** -0.5, torch.float32, lse)
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float() * 64 ** -0.5,
+                         k.float().repeat_interleave(2, 1))
+        qi = torch.arange(150, device=cuda)[:, None] - 60
+        s = s.masked_fill(torch.arange(90, device=cuda)[None] > qi,
+                          float("-inf"))
+        want = torch.logsumexp(s, -1)
+        assert bool(torch.isinf(lse[..., :60]).all())
+        torch.testing.assert_close(lse[..., 60:], want[..., 60:], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_reruns_bitwise(cuda):
+    """No floating-point atomics: the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn(2, 14, 257, 64, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(2, 2, 257, 64, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(2, 2, 257, 64, generator=g).to(cuda, torch.bfloat16)
+    dout = torch.randn(2, 14, 257, 64, generator=g).to(cuda, torch.bfloat16)
+    lse = torch.empty(2, 14, 257, device=cuda)
+    out = fa._forward(q, k, v, True, 0.125, torch.float32, lse)
+    a = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    b = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """No output cut off from its inputs' graph: K1, K3 and K4 have no
+    backward kernel yet, so they raise when autograd would need one."""
+    args = paged_inputs(cuda, torch.float32, B=2, H=4, Hkv=2, D=64, page=8,
+                        seq_lens=[3, 9])
+    q = args[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        ops.paged_attention(q, *args[1:])
+    B, S, H, dh, ds = 1, 8, 2, 64, 64
+    x = torch.randn(B, S, H, dh, device=cuda, requires_grad=True)
+    dt = torch.rand(B, S, H, device=cuda)
+    A, D = -torch.rand(H, device=cuda), torch.rand(H, device=cuda)
+    Bm, Cm = (torch.randn(B, S, ds, device=cuda) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        ops.mamba2_scan(x, dt, A, Bm, Cm, D)
+    r = torch.randn(B, S, H, 64, device=cuda, requires_grad=True)
+    w = torch.rand(B, S, H, 64, device=cuda)
+    u = torch.randn(H, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        ops.rwkv6_scan(r, r.detach(), r.detach(), w, u)
+    # the wrappers themselves refuse, K2's plain one included (its
+    # gradient is FlashAttentionFn's)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        rw.rwkv6_scan(r, r.detach(), r.detach(), w, u)
+    qa = torch.randn(1, 2, 8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="FlashAttentionFn"):
+        fa.flash_attention(qa, qa.detach(), qa.detach())
+    with torch.no_grad():           # inference is unaffected
+        ops.rwkv6_scan(r, r, r, w, u)
+        ops.paged_attention(q, *args[1:])
+        fa.flash_attention(qa, qa, qa)
+
+
+@pytest.mark.gpu
+def test_reduced_trainer_on_the_card_gives_the_cpus_losses(cuda, tmp_path):
+    """A reduced fp32 qwen2 (D = 64 heads, so K2 takes it) trained on the
+    card and on the CPU from the same weights: losses within rtol 1e-4,
+    with TF32 off."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config("qwen2-0.5b").reduced(head_dim=64)
+    init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tc = TrainerConfig(ckpt_dir=str(tmp_path / dev), ckpt_every=0,
+                           batch=4, seq_len=96, comm="single",
+                           opt=AdamWConfig(lr=3e-3, warmup_steps=0))
+        n_b = fa.flash_attention_bwd.launches
+        tr = Trainer(cfg, tc, device=dev, init_params=init)
+        losses[dev] = [m["loss"] for m in tr.train(4)]
+        if dev == "cuda":
+            assert fa.flash_attention_bwd.launches == n_b + 4 * cfg.n_layers
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

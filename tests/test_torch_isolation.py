@@ -35,7 +35,10 @@ def test_port_modules_load_no_jax_and_no_repro():
               "models.ssm", "models.hybrid", "core.rdma",
               "core.fabric.sim", "core.fabric.fluid",
               "core.fabric.telemetry", "core.fabric.qosctl",
-              "core.fabric.autotune", "serving.cluster", "serving.trace"):
+              "core.fabric.autotune", "serving.cluster", "serving.trace",
+              "core.lofamo", "core.collectives", "core.fabric.execute",
+              "data.pipeline", "checkpoint.store", "optim.adamw",
+              "launch.mesh", "launch.train", "runtime.trainer"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -142,3 +145,15 @@ def test_serve_launcher_runs_on_cpu(capsys):
                      "--max-new", "4"])
     assert rc == 0
     assert "requests=3" in capsys.readouterr().out
+
+
+def test_trainer_and_weight_bridges_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is then valid")
+    from repro_torch import configs, weights
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = configs.get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainerConfig(ckpt_dir="unused", comm="single"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        weights.from_jax_opt_state({"m": {}, "v": {}, "step": 0})

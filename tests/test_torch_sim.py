@@ -53,6 +53,16 @@ TORCH = types.SimpleNamespace(
     name="torch", F=t_fabric, sim=t_sim, fluid=t_fluid, apelink=t_apelink,
     hw=t_hw, autotune=t_autotune, Torus=TTorus, Endpoint=TEndpoint)
 
+@pytest.fixture(autouse=True)
+def _no_stale_jnp_solver():
+    """The JAX package caches its compiled jnp rate solver under a key that
+    omits the link rate (ROADMAP §3). Leave that cache empty after each
+    test, so a later test in the same process (the JAX package's own
+    ``tests/test_fluid_sim.py``) compiles its solver for its own links."""
+    yield
+    j_fluid._JNP_CACHE.clear()
+
+
 TIERS = ("packet", "fluid", "hybrid")
 MESHES = [(8,), (2, 4), (2, 2, 2), (4, 4), (2, 2, 4)]   # simscale._MESHES
 

@@ -1,0 +1,572 @@
+"""Multi-rank checks of the PyTorch port's collectives and trainer against
+the JAX package — run as subprocesses by ``test_torch_collectives.py`` and
+``test_torch_trainer.py``; each mode is also directly runnable:
+
+    # the JAX references (8 forced host devices), into OUT/
+    PYTHONPATH=src XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python tests/torch_dist_checks.py jax-collectives OUT
+    PYTHONPATH=src XLA_FLAGS=... python tests/torch_dist_checks.py \\
+        jax-trainer OUT
+    # the port: one process per rank, 8 gloo ranks meeting at a file store
+    PYTHONPATH=src python tests/torch_dist_checks.py rank-collectives OUT \\
+        RANK 8 STORE_FILE              # for RANK in 0..7
+    PYTHONPATH=src python tests/torch_dist_checks.py rank-trainer OUT \\
+        RANK 8 STORE_FILE
+
+Both sides draw their inputs from the same numpy seeds and write what they
+computed to ``OUT`` (``.npz`` / ``.json``); the tests compare the files.
+The port's side imports no JAX, the JAX side no torch.
+"""
+import json
+import os
+import sys
+
+import numpy as np
+
+# 1D (8), 2D (2, 4) and 3D (2, 2, 2) meshes, as tests/fabric_checks.py
+MESHES = {"1d": ((8,), ("x",)), "2d": ((2, 4), ("a", "b")),
+          "3d": ((2, 2, 2), ("u", "v", "w"))}
+SHIFTS = (1, -1, 3)
+DEAD_NODE, DEAD_LINK = 3, (2, 3)
+BUCKET_SHAPES = [(13,), (3, 5), (4, 4, 2), (25,), (7,)]
+
+
+def inputs(tag: str):
+    """Every collective case's inputs, from one seed per mesh: Gaussian
+    (``g_*``, for the comparison with JAX) and integer-valued (``i_*``,
+    whose sums are exact in fp32, so any summation order gives the numpy
+    oracle's value)."""
+    shape, _ = MESHES[tag]
+    rng = np.random.default_rng({"1d": 1, "2d": 2, "3d": 3}[tag])
+    out = {}
+    for kind in ("g", "i"):
+        def mk(s, kind=kind):
+            if kind == "g":
+                return rng.normal(size=s).astype(np.float32)
+            return rng.integers(-8, 8, size=s).astype(np.float32)
+        out[f"{kind}_ar"] = mk(shape + (51,))
+        out[f"{kind}_rsag"] = mk(shape + (37,))
+        if tag == "1d":
+            out[f"{kind}_own"] = mk((8, 64))
+            out[f"{kind}_a2a"] = mk((8, 8, 3))
+            out[f"{kind}_halo"] = mk((8, 5, 4))
+            out[f"{kind}_fault"] = mk((8, 100))
+            out[f"{kind}_shift"] = mk((8, 6))
+    return out
+
+
+def bucket_inputs(tag: str):
+    shape, _ = MESHES[tag]
+    rng = np.random.default_rng(11 if tag == "1d" else 12)
+    return [rng.normal(size=shape + s).astype(np.float32)
+            for s in BUCKET_SHAPES]
+
+
+def _save_npz(path: str, arrays: dict) -> None:
+    """Written whole, then renamed: a reader polling for ``path`` never
+    sees a part of it."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.rename(tmp, path)
+
+
+def _save_json(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.rename(path + ".tmp", path)
+
+
+def wait_for(path: str, timeout: float = 600.0) -> str:
+    """Poll until ``path`` exists (the JAX reference writes it)."""
+    import time
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+    return path
+
+
+def launch(mode: str, out_dir: str, *, world: int = 8,
+           timeout: float = 600.0) -> None:
+    """Run the JAX reference of ``mode`` ("collectives" or "trainer") and
+    the port's ``world`` gloo ranks side by side; raise with the logs if
+    any process fails."""
+    import subprocess
+    import tempfile
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+    jax_env = dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        "--xla_force_host_platform_device_count=8"))
+    me = os.path.abspath(__file__)
+    store = os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
+    procs = [subprocess.Popen(
+        [sys.executable, me, f"jax-{mode}", out_dir], env=jax_env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen(
+        [sys.executable, me, f"rank-{mode}", out_dir, str(r), str(world),
+         store], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs, failed = [], False
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            logs.append(out)
+            failed |= p.returncode != 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise RuntimeError("\n".join(
+            f"--- {i}: exit {p.returncode}\n{log[-3000:]}"
+            for i, (p, log) in enumerate(zip(procs, logs))))
+
+
+# ----------------------------------------------------------------------------
+# JAX references
+# ----------------------------------------------------------------------------
+
+def jax_collectives(out_dir: str) -> None:
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.core import fabric, jaxcompat
+    from repro.core import rdma as jrdma
+    from repro.core.topology import Torus
+    from repro.launch.mesh import make_mesh
+
+    assert jax.device_count() == 8, jax.device_count()
+    res = {}
+
+    def run(mesh, axes, fn, x):
+        lead = len(axes)
+        spec = P(*axes)
+
+        def per_shard(v):
+            return fn(v.reshape(v.shape[lead:])).reshape(v.shape)
+
+        return np.asarray(jax.jit(jaxcompat.shard_map(
+            per_shard, mesh=mesh, in_specs=(spec,), out_specs=spec))(x))
+
+    def run_rows(mesh, fn, x):
+        """1D: rank r's output (any shape) as row r."""
+        return np.asarray(jax.jit(jaxcompat.shard_map(
+            lambda v: fn(v[0])[None], mesh=mesh, in_specs=(P("x"),),
+            out_specs=P("x")))(x))
+
+    for tag, (shape, axes) in MESHES.items():
+        mesh, torus = make_mesh(shape, axes), Torus(shape)
+        for kind, x in inputs(tag).items():
+            if not kind.startswith("g_"):
+                continue
+            name = kind[2:]
+            if name == "ar":
+                for bidi in (True, False):
+                    s = fabric.lower_all_reduce(torus, axes,
+                                                bidirectional=bidi)
+                    res[f"{tag}/ar/{int(bidi)}"] = run(
+                        mesh, axes,
+                        lambda v, s=s: fabric.execute_all_reduce(s, v), x)
+            elif name == "rsag":
+                rs = fabric.lower_reduce_scatter(torus, axes)
+                ag = fabric.lower_all_gather(
+                    torus, tuple(reversed(axes)),
+                    axis_dims=tuple(reversed(range(len(axes)))))
+
+                def rt(v, rs=rs, ag=ag):
+                    c, sizes = fabric.execute_reduce_scatter(rs, v)
+                    return fabric.execute_all_gather(ag, c, sizes) \
+                        .reshape(v.shape)
+
+                res[f"{tag}/rsag"] = run(mesh, axes, rt, x)
+            elif name == "own":
+                s = fabric.lower_reduce_scatter(torus, axes)
+                res[f"{tag}/own"] = run_rows(
+                    mesh, lambda v, s=s: fabric.execute_reduce_scatter(s, v)[0],
+                    x)
+            elif name == "a2a":
+                s = fabric.lower_all_to_all(torus, "x")
+                res[f"{tag}/a2a"] = run(
+                    mesh, axes,
+                    lambda v, s=s: fabric.execute_all_to_all(s, v), x)
+            elif name == "halo":
+                s = fabric.lower_halo_exchange(torus, "x")
+                res[f"{tag}/halo"] = run_rows(
+                    mesh, lambda v, s=s: jax.numpy.stack(
+                        fabric.execute_halo_exchange(s, v, halo=2)), x)
+            elif name == "fault":
+                clean = fabric.lower_all_reduce(torus, axes)
+                fm_l = fabric.FaultMap.normalized(links=[DEAD_LINK])
+                fm_n = fabric.FaultMap.normalized(nodes=[DEAD_NODE])
+                for key, s in (
+                        ("detour", fabric.rewrite(clean, fm_l)),
+                        ("shrunk", fabric.rewrite(clean, fm_n)),
+                        ("shrunk_mean", fabric.rewrite(
+                            fabric.lower_all_reduce(torus, axes, mean=True),
+                            fm_n))):
+                    res[f"{tag}/{key}"] = run(
+                        mesh, axes,
+                        lambda v, s=s: fabric.execute_all_reduce(s, v), x)
+                res["detour_max_hops"] = np.asarray(
+                    fabric.rewrite(clean, fm_l).max_hops)
+            elif name == "shift":
+                for st in SHIFTS:
+                    res[f"{tag}/shift/{st}"] = run(
+                        mesh, axes,
+                        lambda v, st=st: jrdma.put_shift(v, "x", st), x)
+    # put_coords on 3D
+    shape, axes = MESHES["3d"]
+    x = inputs("3d")["g_ar"]
+    res["3d/coords"] = run(make_mesh(shape, axes), axes,
+                           lambda v: jrdma.put_coords(v, axes, (1, 0, -1)), x)
+    np.savez(os.path.join(out_dir, "jax_collectives.npz"), **res)
+
+
+TINY = dict(name="tiny", family="dense", n_layers=2, d_model=32, n_heads=4,
+            n_kv_heads=2, d_ff=64, vocab=257)
+# leaves of 12 * 257 elements: not a multiple of 8 (ROADMAP §3)
+ODD = dict(TINY, d_model=12, n_heads=2, n_kv_heads=1)
+OPT = dict(lr=1e-3, warmup_steps=0, total_steps=50)
+APEX = dict(batch=8, seq_len=32, comm="apex", dp_axis="x")
+
+
+def jax_trainer(out_dir: str) -> None:
+    import shutil
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import fabric
+    from repro.core.topology import Torus
+    from repro.launch.mesh import make_mesh
+    from repro.models.common import ArchCfg
+    from repro.optim import AdamWConfig
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    assert jax.device_count() == 8, jax.device_count()
+    cfg = ArchCfg(**TINY, dtype=jnp.float32)
+    opt = AdamWConfig(**OPT)
+    res: dict = {}
+
+    def flat(tree):
+        leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+        return {"/".join(str(getattr(p, "key", p)) for p in path):
+                np.asarray(leaf) for path, leaf in leaves}
+
+    # the reroute's hop count, as the trainer computes it
+    t8 = Torus((8,))
+    fm = fabric.FaultMap.normalized(links=[DEAD_LINK])
+    res["reroute_max_hops"] = max(fabric.rewrite(s, fm).max_hops for s in (
+        fabric.lower_reduce_scatter(t8, ("x",), mean=True),
+        fabric.lower_all_gather(t8, ("x",)),
+        fabric.lower_all_reduce(t8, ("x",), mean=True)))
+    # apex: the init every port run starts from, 4 fault-free losses (a
+    # checkpoint at step 3), then an elastic re-mesh after a dead node
+    ck = f"{out_dir}/jax_remesh"
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=ck, ckpt_every=3, opt=opt,
+                                    **APEX), mesh=make_mesh((8,), ("x",)))
+    _save_npz(os.path.join(out_dir, "jax_init.npz"), flat(tr.params))
+    res["apex_losses"] = [m["loss"] for m in tr.train(4)]
+    res["apex_predicted_comm_s"] = tr.predicted_comm_s
+    tr.store.wait()
+    # published whole (rename), since the port's ranks poll for it
+    shutil.copytree(f"{ck}/step_00000003", f"{out_dir}/tmp_apex_ckpt/"
+                    "step_00000003")
+    os.rename(f"{out_dir}/tmp_apex_ckpt", f"{out_dir}/jax_apex_ckpt")
+
+    def fault(i, tr=tr):
+        if i == 1:
+            tr.lofamo.kill_node(5)
+
+    res["remesh_post"] = [m["loss"] for m in tr.train(4, fault_hook=fault)]
+    res["remesh_events"] = tr.events
+    res["remesh_moment_shapes"] = {k: list(v.shape) for k, v in
+                                   flat(tr.opt_state["m"]).items()}
+    # the same with leaves whose size 8 does not divide
+    odd = ArchCfg(**ODD, dtype=jnp.float32)
+    tr = Trainer(odd, TrainerConfig(ckpt_dir=f"{out_dir}/jax_odd",
+                                    ckpt_every=1, opt=opt, **APEX),
+                 mesh=make_mesh((8,), ("x",)))
+    _save_npz(os.path.join(out_dir, "jax_init_odd.npz"), flat(tr.params))
+    tr.train(1)
+
+    def fault_odd(i, tr=tr):
+        tr.lofamo.kill_node(5)
+
+    try:
+        tr.train(1, fault_hook=fault_odd)
+        res["odd_remesh_error"] = None
+    except Exception as e:   # the reference's own failure, recorded
+        res["odd_remesh_error"] = type(e).__name__
+    res["odd_events"] = tr.events
+    # single: 6 losses, and a checkpoint written at step 3 + the next loss
+    single = Trainer(cfg, TrainerConfig(ckpt_dir=f"{out_dir}/jax_single",
+                                        ckpt_every=3, batch=8, seq_len=32,
+                                        opt=opt, comm="single"))
+    res["single_losses"] = [m["loss"] for m in single.train(3)]
+    single.store.wait()
+    shutil.copytree(f"{out_dir}/jax_single/step_00000003",
+                    f"{out_dir}/tmp_single_ckpt/step_00000003")
+    os.rename(f"{out_dir}/tmp_single_ckpt", f"{out_dir}/jax_single_ckpt")
+    res["single_losses"] += [m["loss"] for m in single.train(3)]
+    _save_json(os.path.join(out_dir, "jax_trainer.json"), res)
+
+
+# ----------------------------------------------------------------------------
+# the port, one process per rank
+# ----------------------------------------------------------------------------
+
+def _init(rank: int, world: int, store: str):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    return torch, dist
+
+
+def rank_collectives(out_dir: str, rank: int, world: int, store: str):
+    torch, dist = _init(rank, world, store)
+    from repro_torch.core import collectives as C
+    from repro_torch.core import fabric
+    from repro_torch.core import rdma
+    from repro_torch.core.topology import Torus
+    from repro_torch.launch.mesh import make_mesh
+
+    res = {}
+    T = torch.from_numpy
+
+    def mine(x, mesh, axes):
+        return T(x[tuple(mesh.axis_index(a) for a in axes)].copy())
+
+    for tag, (shape, axes) in MESHES.items():
+        mesh, torus = make_mesh(shape, axes), Torus(shape)
+        for kind, x in inputs(tag).items():
+            k, name = kind.split("_", 1)
+            v = mine(x, mesh, axes)
+            if name == "ar":
+                for bidi in (True, False):
+                    s = fabric.lower_all_reduce(torus, axes,
+                                                bidirectional=bidi)
+                    res[f"{k}/{tag}/ar/{int(bidi)}"] = \
+                        fabric.execute_all_reduce(s, v, mesh)
+                    # the wrappers take the same path
+                    res[f"{k}/{tag}/ar_wrap/{int(bidi)}"] = \
+                        C.make_stacked_all_reduce(
+                            mesh, axes, bidirectional=bidi)(T(x))
+            elif name == "rsag":
+                c, sizes = C.dim_ordered_reduce_scatter(v, axes, mesh)
+                res[f"{k}/{tag}/rsag"] = C.dim_ordered_all_gather(
+                    c, axes, sizes, mesh).reshape(v.shape)
+            elif name == "own":
+                res[f"{k}/{tag}/own"] = C.ring_reduce_scatter(v, "x", mesh)
+            elif name == "a2a":
+                res[f"{k}/{tag}/a2a"] = C.ring_all_to_all(v, "x", mesh)
+            elif name == "halo":
+                res[f"{k}/{tag}/halo"] = torch.stack(
+                    C.halo_exchange(v, "x", mesh, halo=2))
+            elif name == "fault":
+                clean = fabric.lower_all_reduce(torus, axes)
+                fm_l = fabric.FaultMap.normalized(links=[DEAD_LINK])
+                fm_n = fabric.FaultMap.normalized(nodes=[DEAD_NODE])
+                res[f"{k}/{tag}/clean"] = fabric.execute_all_reduce(
+                    clean, v, mesh)
+                for key, s in (
+                        ("detour", fabric.rewrite(clean, fm_l)),
+                        ("shrunk", fabric.rewrite(clean, fm_n)),
+                        ("shrunk_mean", fabric.rewrite(
+                            fabric.lower_all_reduce(torus, axes, mean=True),
+                            fm_n))):
+                    res[f"{k}/{tag}/{key}"] = fabric.execute_all_reduce(
+                        s, v, mesh)
+            elif name == "shift":
+                for st in SHIFTS:
+                    res[f"{k}/{tag}/shift/{st}"] = rdma.put_shift(
+                        v, "x", mesh, st)
+                res[f"{k}/{tag}/send_recv"] = rdma.send_recv(
+                    v, "x", mesh, [(0, 5), (5, 0), (2, 3)])
+        res[f"i/{tag}/tree"] = C.tree_all_reduce(
+            {"a": mine(inputs(tag)["i_ar"], mesh, axes)}, axes, mesh)["a"]
+        if tag == "3d":
+            res["g/3d/coords"] = rdma.put_coords(
+                mine(inputs(tag)["g_ar"], mesh, axes), axes, mesh,
+                (1, 0, -1))
+
+    # every round of a bidirectional RS is ONE batch carrying both
+    # directions (dual DMA); a unidirectional one carries one
+    rounds = {}
+    real = dist.batch_isend_irecv
+    mesh = make_mesh((8,), ("x",))
+    torus = Torus((8,))
+    for bidi in (True, False):
+        log = []
+
+        def spy(ops, log=log):
+            log.append(sorted((op.op.__name__, op.peer) for op in ops))
+            return real(ops)
+
+        dist.batch_isend_irecv = spy
+        try:
+            s = fabric.lower_reduce_scatter(torus, ("x",),
+                                            bidirectional=bidi)
+            fabric.execute_reduce_scatter(s, torch.ones(64), mesh)
+        finally:
+            dist.batch_isend_irecv = real
+        rounds[str(int(bidi))] = {"steps": len(s.phases[0].steps),
+                                  "batches": log}
+
+    # the bucketed grad hook equals the sequential per-leaf RS, bitwise
+    for tag, dim in (("1d", 0), ("2d", 1)):
+        shape, axes = MESHES[tag]
+        mesh, torus = make_mesh(shape, axes), Torus(shape)
+        sched = fabric.lower_reduce_scatter(torus, (axes[dim],),
+                                            axis_dims=(dim,), mean=True)
+        m = torus.dims[dim]
+        gs = [mine(g, mesh, axes) for g in bucket_inputs(tag)]
+        plan = fabric.plan_buckets([int(np.prod(s)) for s in BUCKET_SHAPES],
+                                   40 * 4, itemsize=4)
+        assert plan.n_buckets > 1
+        params = [torch.zeros_like(g, requires_grad=True) for g in gs]
+        handles = fabric.make_bucket_grad_hook(plan, sched, mesh)(
+            [[p] for p in params])
+        sum((p * g).sum() for p, g in zip(params, gs)).backward()
+        for h in handles:
+            h.remove()
+        slot = fabric.ring_slot(sched.phases[0], mesh)
+        for i, g in enumerate(gs):
+            chunk, _ = fabric.execute_reduce_scatter(sched, g, mesh)
+            full = torch.zeros(chunk.numel() * m)
+            full[slot * chunk.numel():(slot + 1) * chunk.numel()] = chunk
+            res[f"g/{tag}/bucket/{i}"] = params[i].grad
+            res[f"g/{tag}/bucket_seq/{i}"] = full[:g.numel()].reshape(
+                g.shape)
+
+    np.savez(os.path.join(out_dir, f"rank{rank}_collectives.npz"),
+             **{k: v.numpy() for k, v in res.items()})
+    with open(os.path.join(out_dir, f"rank{rank}_rounds.json"), "w") as f:
+        json.dump(rounds, f)
+    dist.destroy_process_group()
+
+
+def rank_trainer(out_dir: str, rank: int, world: int, store: str):
+    torch, dist = _init(rank, world, store)
+    from repro_torch import weights
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import ArchCfg
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = ArchCfg(**TINY, dtype=torch.float32)
+    opt = AdamWConfig(**OPT)
+    res: dict = {}
+
+    def load_init(name, c):
+        with np.load(os.path.join(out_dir, name)) as z:
+            flat = {k: z[k] for k in z.files}
+        nested: dict = {}
+        for path, a in flat.items():
+            *head, last = path.split("/")
+            d = nested
+            for h in head:
+                d = d.setdefault(h, {})
+            d[last] = a
+        return weights.from_jax_params(c, nested, device="cpu")
+
+    wait_for(os.path.join(out_dir, "jax_init.npz"))
+    init = load_init("jax_init.npz", cfg)
+
+    def trainer(tag, c=cfg, params=init, **kw):
+        tc = TrainerConfig(ckpt_dir=os.path.join(out_dir, f"port_{tag}"),
+                           **{"ckpt_every": 0, "opt": opt, **APEX, **kw})
+        return Trainer(c, tc, mesh=make_mesh((8,), ("x",)), device="cpu",
+                       init_params=params)
+
+    # a dead link under reroute: same losses, the detour's hops
+    tr = trainer("reroute", fault_mode="reroute")
+
+    def kill_link(i, tr=tr):
+        if i == 1:
+            tr.lofamo.kill_link(*DEAD_LINK)
+
+    res["reroute_losses"] = [m["loss"] for m in tr.train(
+        4, fault_hook=kill_link)]
+    res["reroute_events"] = tr.events
+    res["reroute_max_hops"] = max(
+        s.max_hops for s in tr.apex_schedules.values())
+    # overlap (bucketed hooks) vs sequential: bitwise
+    seq, ov = trainer("seq"), trainer("ov", overlap=True, bucket_mb=0.05)
+    res["n_buckets"] = ov.bucket_plan.n_buckets
+    ls, lo = seq.train(3), ov.train(3)
+    res["seq_losses"] = [m["loss"] for m in ls]
+    res["ov_losses"] = [m["loss"] for m in lo]
+    res["ov_metrics"] = {k: v for k, v in lo[-1].items()
+                         if isinstance(v, float)}
+    res["ov_params_equal"] = all(
+        torch.equal(a, b) for a, b in zip(seq.params.parameters(),
+                                          ov.params.parameters()))
+    # apex, fault-free (a checkpoint at step 3), then an elastic re-mesh
+    # after a dead node
+    tr = trainer("remesh", ckpt_every=3)
+    res["apex_losses"] = [m["loss"] for m in tr.train(4)]
+    res["apex_predicted_comm_s"] = tr.predicted_comm_s
+
+    def kill_node(i, tr=tr):
+        if i == 1:
+            tr.lofamo.kill_node(5)
+
+    res["remesh_post"] = [m["loss"] for m in tr.train(
+        4, fault_hook=kill_node)]
+    res["remesh_events"] = tr.events
+    res["remesh_active"] = tr.active
+    if tr.active:
+        res["remesh_mesh"] = list(tr.mesh.ranks)
+        res["remesh_moment_shapes"] = {
+            k: list(v.shape) for k, v in tr._global_moments()["m"].items()}
+    # the same with leaves whose size 8 does not divide
+    odd_cfg = ArchCfg(**ODD, dtype=torch.float32)
+    wait_for(os.path.join(out_dir, "jax_init_odd.npz"))
+    tr = trainer("odd", c=odd_cfg, params=load_init("jax_init_odd.npz",
+                                                    odd_cfg), ckpt_every=1)
+    tr.train(1)
+
+    def kill_odd(i, tr=tr):
+        tr.lofamo.kill_node(5)
+
+    try:
+        tr.train(1, fault_hook=kill_odd)
+        res["odd_remesh_error"] = None
+    except Exception as e:
+        res["odd_remesh_error"] = type(e).__name__
+        res["odd_remesh_message"] = str(e)
+    res["odd_events"] = tr.events
+    # JAX's apex checkpoint (step 3, global moment layout) resumed on 8
+    # ranks: the next loss is JAX's step-4 loss
+    tr = trainer("interop")
+    tr.store.directory = wait_for(os.path.join(out_dir, "jax_apex_ckpt"))
+    tr.resume()
+    res["interop_step"] = tr.data.step
+    res["interop_loss"] = tr.train(1)[0]["loss"]
+    _save_json(os.path.join(out_dir, f"rank{rank}_trainer.json"), res)
+    dist.destroy_process_group()
+
+
+def main(argv) -> None:
+    mode, out_dir = argv[1], argv[2]
+    if mode == "jax-collectives":
+        jax_collectives(out_dir)
+    elif mode == "jax-trainer":
+        jax_trainer(out_dir)
+    elif mode in ("rank-collectives", "rank-trainer"):
+        rank, world, store = int(argv[3]), int(argv[4]), argv[5]
+        fn = rank_collectives if mode == "rank-collectives" else rank_trainer
+        fn(out_dir, rank, world, store)
+    else:
+        raise SystemExit(f"unknown mode {mode}")
+    print(f"{mode} done")
+
+
+if __name__ == "__main__":
+    main(sys.argv)
