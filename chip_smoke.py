@@ -57,8 +57,10 @@ kernel of those paths against its plain PyTorch version:
   9. training: (a) K2-bwd (``csrc/flash_attention_bwd.cu``) vs autograd
      through the plain attention at the training and prefill shapes and
      their edges (bf16 under both compute dtypes, fp32, D=128 non-causal,
-     empty causal rows), timed beside its bound, the plain backward and
-     SDPA's; (b) qwen2-0.5b at full width, bf16, trained 10 steps through
+     empty causal rows), each call's route checked (the wgmma pair for
+     bf16 with D=64, the FMA pair otherwise), timed beside its bound, the
+     plain backward and SDPA's (eager, and graph-replayed); (b)
+     qwen2-0.5b at full width, bf16, trained 10 steps through
      ``Trainer(comm="single")`` (batch 8 x 1024, remat, AdamW): finite
      falling losses, K2 2 x 24 and K2-bwd 24 launches a step and nothing
      else, step ms, tokens/s, a profiled step, peak memory; (c)
@@ -74,14 +76,16 @@ package ``repro``.
 
     python3 chip_smoke.py --engine-ab PARENT   # PARENT: another checkout
     python3 chip_smoke.py --scan-ab PARENT
+    python3 chip_smoke.py --bwd-ab PARENT
     python3 chip_smoke.py --train-only        # phases 1 and 9 alone
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
-decode step), or K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
-and K4 prefill and K4's decode step at the timed shapes), for the port of
-PARENT and of this checkout, each in a process of its own, in the order
-PARENT, this, this, PARENT: two versions compared on one card in one
-call.
+decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
+and K4 prefill and K4's decode step at the timed shapes), or K2-bwd's
+(``ms`` and ``ms_graph`` at the training and prefill shapes under both
+compute dtypes), for the port of PARENT and of this checkout, each in a
+process of its own, in the order PARENT, this, this, PARENT: two versions
+compared on one card in one call.
 """
 from __future__ import annotations
 
@@ -914,11 +918,17 @@ def device_profile(fn, steps: int) -> dict:
     ours = {tag: sum(ms for k, ms in rows if any(n in k for n in names))
             for tag, names in OUR_KERNELS.items()}
     ours = {tag: ms for tag, ms in ours.items() if ms}
+    by_name: dict = {}
+    for k, ms in rows:        # "(anonymous namespace)::name<...>(...)"
+        short = k.split("::")[-1].split("<")[0].split("(")[0]
+        if any(n in short for names in OUR_KERNELS.values() for n in names):
+            by_name[short] = by_name.get(short, 0.0) + ms
     return {"step_wall_ms": wall_ms,
             "step_wall_ms_under_profiler": prof_wall_ms,
             "device_ms": dev_ms if rows else "not measured",
             "device_busy_share": dev_ms / wall_ms if rows else "not measured",
             "our_kernels_device_ms": ours,
+            "our_kernels_by_name": by_name,
             "our_kernels_device_share": {
                 tag: ms / dev_ms for tag, ms in ours.items()},
             "top_device_ms": [[k, ms] for k, ms in
@@ -1554,6 +1564,11 @@ def run_k2_bwd_checks(report: dict) -> dict:
         out = fa._forward(q, k, v, causal, shape[-1] ** -0.5, cdt, lse)
         got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                      compute_dtype=cdt)
+        # bf16 with D = 64 (the training shape's) takes the wgmma pair
+        route = fa.BWD_KERNELS[int(dtype == bf and shape[-1] == 64)]
+        check(fa.flash_attention_bwd.last_kernel == route,
+              f"K2-bwd {name}: launched {fa.flash_attention_bwd.last_kernel}"
+              f", expected {route}")
         want = plain_attention_grads(q, k, v, dout, causal, cdt)
         torch.cuda.synchronize()
         bar = max(K2_BWD_BARS[str(dtype)], K2_BWD_BARS[str(cdt)])
@@ -1567,7 +1582,7 @@ def run_k2_bwd_checks(report: dict) -> dict:
                   f"K2-bwd: non-finite {gname}: {name}")
         print(f"[K2-bwd] {name}: max_abs_err={e_max:.3e} err/bar (dq, dk, "
               f"dv) = {', '.join(f'{r:.3f}' for r in ratios)} (bar {bar:g} "
-              "max|want|)")
+              f"max|want|); {' + '.join(route)}")
         check(max(ratios) <= 1, f"K2-bwd disagrees with the plain "
               f"gradients: {name}")
         if causal and shape[3] > shape[4]:
@@ -1618,10 +1633,16 @@ def run_k2_bwd_checks(report: dict) -> dict:
             fb.append(time_ms(sdpa_fb, iters=20, warmup=3))
             f.append(time_ms(sdpa_f, iters=20, warmup=3))
         lib = statistics.median(fb) - statistics.median(f)
+        # the same difference in device time alone, from CUDA-graph
+        # replays: the yardstick that the host does not move (profiler
+        # rows undercount here once a process has run many profiles)
+        lib_dev = time_graph_ms(sdpa_fb, iters=5, reps=3) \
+            - time_graph_ms(sdpa_f, iters=5, reps=3)
         b_ms, b_by, nbytes, flops = k2_bwd_bound(q, k, causal)
         return {"ms": ms, "ms_graph": ms_graph, "plain_ms": plain,
-                "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                "bytes": nbytes, "flops": flops}
+                "library_ms": lib, "library_ms_graph": lib_dev,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops}
 
     train_t = timings((TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), bf,
                       f32)
@@ -1631,21 +1652,26 @@ def run_k2_bwd_checks(report: dict) -> dict:
     r = dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:85",
-             max_abs_err=max(errs), **train_t,
-             ms_compute_bf16=cb_t["ms"], ms_graph_compute_bf16=cb_t["ms_graph"],
+             device_kernels=fa.BWD_KERNELS[1], max_abs_err=max(errs),
+             **train_t, ms_compute_bf16=cb_t["ms"],
+             ms_graph_compute_bf16=cb_t["ms_graph"],
+             library_ms_graph_compute_bf16=cb_t["library_ms_graph"],
              **{f"{k}_prefill_shape": v for k, v in pre_t.items()
                 if k != "bound_by"})
     r["kernel_ms"] = r["ms"]
     print(f"[K2-bwd] timed at the training shape B={TRAIN_BATCH} H=14 Hkv=2 "
           f"S={TRAIN_SEQ} D=64 bf16 causal: ms={r['ms']:.4f} ms_graph="
           f"{r['ms_graph']:.4f} (compute_dtype=bf16 {r['ms_compute_bf16']:.4f}"
-          f"); plain {r['plain_ms']:.3f}; SDPA fwd+bwd - fwd "
-          f"{r['library_ms']:.4f}; bound {r['bound_ms']:.5f} "
+          f" / {r['ms_graph_compute_bf16']:.4f}); plain {r['plain_ms']:.3f}; "
+          f"SDPA fwd+bwd - fwd {r['library_ms']:.4f} eager, "
+          f"{r['library_ms_graph']:.4f} graph-replayed; bound "
+          f"{r['bound_ms']:.5f} "
           f"({r['bound_by']}, {train_t['flops']:.4g} flops, "
           f"{train_t['bytes']} bytes), {r['bound_ms'] / r['ms_graph']:.3f} "
           f"of the bound; prefill shape B=1 S=2048: ms={pre_t['ms']:.4f} "
           f"ms_graph={pre_t['ms_graph']:.4f} SDPA {pre_t['library_ms']:.4f} "
-          f"bound {pre_t['bound_ms']:.5f}")
+          f"eager, {pre_t['library_ms_graph']:.4f} graph-replayed; bound "
+          f"{pre_t['bound_ms']:.5f}")
     report["flash_attention_bwd"] = r
     return r
 
@@ -1816,6 +1842,39 @@ def scans_only(src: str) -> None:
     print(f"[scan-ab] {json.dumps(res)}")
 
 
+# K2-bwd's timed shapes for --bwd-ab: (label, (B, H, Hkv, Sq, Skv, D),
+# compute_dtype name), bf16 inputs, causal
+BWD_AB_SHAPES = [
+    ("training", (TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), "float32"),
+    ("training", (TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), "bfloat16"),
+    ("prefill", (1, 14, 2, 2048, 2048, 64), "float32"),
+    ("prefill", (1, 14, 2, 2048, 2048, 64), "bfloat16")]
+
+
+def bwd_only(src: str) -> None:
+    """K2-bwd's ``ms`` and ``ms_graph`` at BWD_AB_SHAPES with the port under
+    ``src``: one ``[bwd-ab]`` line."""
+    sys.path.insert(0, src)
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    _build.build_all(("flash_attention", "flash_attention_bwd"))
+    res: dict = {"package": str(Path(repro_torch.__file__).parent)}
+    for i, (label, shape, cname) in enumerate(BWD_AB_SHAPES):
+        cdt = getattr(torch, cname)
+        q, k, v, dout = k2_bwd_case(*shape, torch.bfloat16, seed=i)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+        out = fa._forward(q, k, v, True, shape[-1] ** -0.5, cdt, lse)
+        bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, dout, lse, causal=True, compute_dtype=cdt)
+        res[f"{label} compute {cname}"] = {
+            "ms": time_ms(bwd, iters=10),
+            "ms_graph": time_graph_ms(bwd, iters=5, reps=3)}
+    print(f"[bwd-ab] {json.dumps(res)}")
+
+
 def ab_runs(parent: str, only: str, tag: str) -> list:
     """``chip_smoke.py --<only> SRC`` for PARENT's port and this one, each in
     a process of its own, in the order PARENT, this, this, PARENT; returns
@@ -1846,6 +1905,14 @@ def scan_ab(parent: str) -> None:
               f"ms_graph {k4['ms_graph_decode']:.5f}")
 
 
+def bwd_ab(parent: str) -> None:
+    """K2-bwd's times for PARENT's port and this one, on one card."""
+    for label, r in ab_runs(parent, "bwd-only", "bwd-ab"):
+        print(f"[bwd-ab {label}] " + "; ".join(
+            f"{k}: ms {v['ms']:.5f} ms_graph {v['ms_graph']:.5f}"
+            for k, v in r.items() if k != "package"))
+
+
 def engine_ab(parent: str) -> None:
     """Phases 3-4 for PARENT's port and this one, on one card."""
     for label, r in ab_runs(parent, "engine-only", "engine-ab"):
@@ -1870,6 +1937,10 @@ def main() -> int:
                     help="K3's and K4's times alone, for PARENT's port and "
                          "this one")
     ap.add_argument("--scans-only", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--bwd-ab", metavar="PARENT",
+                    help="K2-bwd's times alone, for PARENT's port and this "
+                         "one")
+    ap.add_argument("--bwd-only", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--train-only", action="store_true",
                     help="the build and phase 9 (training) alone")
     args = ap.parse_args()
@@ -1888,6 +1959,12 @@ def main() -> int:
         return 0
     if args.scan_ab:
         scan_ab(args.scan_ab)
+        return 0
+    if args.bwd_only:
+        bwd_only(args.bwd_only)
+        return 0
+    if args.bwd_ab:
+        bwd_ab(args.bwd_ab)
         return 0
     from repro_torch import configs
     from repro_torch.kernels import _build

@@ -37,7 +37,7 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_vp] * 5 + [_i] * 7 + [_f, _i, _i, _vp]),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
-                            [_vp] * 10 + [_i] * 7 + [_f, _i, _i, _vp]),
+                            [_vp] * 10 + [_i] * 7 + [_f, _i, _i, _vp, _vp]),
     "mamba2_scan": ("mamba2_scan_launch",
                     [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
     "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp, _vp]),

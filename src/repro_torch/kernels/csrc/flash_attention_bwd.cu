@@ -15,22 +15,22 @@
 //
 // Three kernels, launched back to back on the caller's stream, with no
 // floating-point atomics, so a rerun is bitwise equal:
-//   1. `attn_bwd_dot_kernel`: D_i = rowsum(dO * O) in fp32, one warp a row;
-//   2. dK, dV: one block per (64-key tile, KV head, b).  K and V stay in the
-//      block; it walks the GQA group's query heads and, for each, the query
-//      tiles that can see the key tile (causal: from the diagonal down).  It
-//      recomputes S = (q * scale) K^T and P = exp(S - LSE) from the saved
-//      LSE, dP = dO V^T and dS = P * (dP - D_i), and accumulates dV += P^T
-//      dO and dK += dS^T (q * scale) in registers: the group's sum happens
+//   1. a pre-pass: D_i = rowsum(dO * O) in fp32, one warp a row;
+//   2. dK, dV: a block owns one 64-key tile of one KV head.  K and V stay in
+//      the block; it walks the GQA group's query heads and, for each, the
+//      query tiles that can see the key tile (causal: from the diagonal
+//      down).  It recomputes S = (q * scale) K^T and P = exp(S - LSE) from
+//      the saved LSE, dP = dO V^T and dS = P * (dP - D_i), and accumulates
+//      dV += P^T dO and dK += dS^T (q * scale): the group's sum happens
 //      in-block;
-//   3. dQ: one block per (64-query tile, head, b) walks the visible key
-//      tiles and accumulates dQ = scale * dS K.
-// Two routes, by input dtype and D:
+//   3. dQ: a block owns query rows of one head, walks the visible key tiles
+//      and accumulates dQ = scale * dS K.
+// Two routes, by input dtype and D; the C entry point reports the one it
+// launched (`flash_attention_bwd.last_kernel`):
 //   * bf16, D = 64 (the main path: qwen2 training) takes
-//     `attn_bwd_dkdv_mma_kernel` / `attn_bwd_dq_mma_kernel`, the forward's
-//     tensor-core design (`mma.sync`, `ldmatrix`, a `cp.async` ring; see
-//     the section below); P and dS enter their products rounded once to
-//     bf16;
+//     `attn_bwd_dkdv_wgmma_kernel` / `attn_bwd_dq_wgmma_kernel`: `wgmma`
+//     fed by TMA, warp-specialised (see the section below); P and dS enter
+//     their products rounded once to bf16;
 //   * fp32 inputs, and bf16 with D = 128, take `attn_bwd_dkdv_kernel` /
 //     `attn_bwd_dq_kernel`: fp32 FMAs on the CUDA cores, 4x4 register tiles
 //     over fp32 tiles in shared memory (the forward's fp32 kernel's layout),
@@ -44,10 +44,14 @@
 // nothing: their dq is 0, as the forward's output is.
 //
 // Layouts (all contiguous): q, out, dout, dq (B, H, Sq, D); k, v, dk, dv
-// (B, Hkv, Skv, D); lse and the D_i scratch (B, H, Sq) fp32.  D is 64 or
-// 128; the input dtype is fp32 or bf16 (dq, dk, dv in the same dtype).
+// (B, Hkv, Skv, D); lse (B, H, Sq) fp32.  D is 64 or 128; the input dtype is
+// fp32 or bf16 (dq, dk, dv in the same dtype).  `scratch` is fp32 workspace
+// from the caller: D_i (B, H, Sq) on the FMA route; on the wgmma route
+// LSE * log2(e) and D_i, each (B, H, Sq rounded up to 64), and under
+// compute_dtype=bf16 then bf16(q * scale) in q's layout.
 
 #include <atomic>
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -382,68 +386,58 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs, D = 64 (qwen2's and zamba2's heads): tensor-core products
+// bf16 inputs, D = 64 (qwen2's and zamba2's heads): wgmma, TMA, warp roles
 // ---------------------------------------------------------------------------
-// The forward's building blocks (csrc/flash_attention.cu): `mma.sync.m16n8k16`
-// bf16 -> fp32 with operands through `ldmatrix`, tiles by `cp.async`, and
-// the accumulator fragments re-packed as A-fragments for the next product.
-//   * dK/dV: a block is 4 warps and 64 keys, 16 a warp; the warp's K and V
-//     rows stay in registers as A-fragments.  Query tiles (Q and dO, 64
-//     rows) of the group's heads stream through a two-stage cp.async ring.
-//     S^T = K Q^T and dP^T = V dO^T on the tensor cores; P^T and dS^T
-//     elementwise in the accumulators' layout; dV += P^T dO and
-//     dK += dS^T Q with P^T, dS^T re-packed as A and dO, Q as B through
-//     `ldmatrix.trans`;
-//   * dQ: a block is 4 warps and 64 query rows; Q and dO stay in registers,
-//     K/V tiles stream through the ring; S = Q K^T, dP = dO V^T, then
-//     dQ += dS K with K through `ldmatrix.trans`.
-// P and dS enter their products rounded once to bf16: at most 2^-9 of
-// each term, far inside the bf16 bar (6e-2 of the largest gradient).
+// A block is two consumer warpgroups and one producer warpgroup.  One thread
+// of the producer issues TMA copies of whole 64 x 64 bf16 tiles into a ring
+// of shared memory (128-byte swizzled by the tensor map; the wgmma
+// descriptors name the same swizzle) and their byte counts to `mbarrier`s;
+// `setmaxnreg` moves registers from it to the consumers.  The consumers
+// run every product as `wgmma` m64n64k16 (bf16 in, fp32 accumulators):
+//   * dK/dV (`attn_bwd_dkdv_wgmma_kernel`): one block per (64-key tile, KV
+//     head, b), K and V resident.  The (query head, query tile) pairs that
+//     see the key tile are dealt to the two consumer warpgroups in turn
+//     (pair i to warpgroup i % 2), each with its own Q/dO ring and its own
+//     dK/dV accumulators.  Per pair: S^T = K Q^T and dP^T = V dO^T (keys are
+//     wgmma's 64 rows, queries its N; both operands from shared memory,
+//     K-major); P^T and dS^T elementwise in the accumulators; then dV +=
+//     P^T dO and dK += dS^T Q with P^T, dS^T packed to bf16 as the register
+//     A operand and dO, Q as the shared-memory B operand, MN-major (the
+//     transpose bit).  At the end each warpgroup leaves one of its sums in
+//     its own ring and adds the other's: dK = dK_0 + dK_1 and dV = dV_1 +
+//     dV_0, one addition each, the same bits every run.  Key tiles are
+//     issued heaviest first (blockIdx.z = key tile: under the causal mask
+//     tile 0 sees every query tile).
+//   * dQ (`attn_bwd_dq_wgmma_kernel`): one block per (128 query rows, head,
+//     b), 64 rows a consumer warpgroup; Q and dO resident, K/V tiles stream
+//     through a two-stage ring.  S = Q K^T and dP = dO V^T from shared
+//     memory, P and dS in the accumulators, dQ += dS K with dS as the
+//     register A operand and K MN-major.  Heaviest row blocks first.
+// Q and dO (and K, V) are mapped as 3-D tensors (D, S, B * heads), so a
+// tile's rows past a head's S are zero-filled by TMA instead of read from
+// the next head.  The pre-pass `attn_bwd_prep_kernel` writes LSE * log2(e)
+// (+inf past Sq) and D_i (0 past Sq) padded to whole tiles, which the
+// producer copies with plain bulk copies, and under compute_dtype=bf16 the
+// operand bf16(q * scale) that both kernels then read in place of q.
+// The elementwise work stays branch-free: a thread's 16 LSE and D_i values
+// are read into registers while the products run, P = ex2.approx(.) and the
+// mask is a select (a masked `exp2f` compiled into a branch region per
+// element, which about doubled the kernels' time on the H100).  Each
+// warpgroup waits for a pair's dV/dK products before it issues the next
+// pair's S^T/dP^T: issuing those first measured slower on the H100.
+// ptxas (-Xptxas -v, sm_90a): dK/dV 168 registers at launch (setmaxnreg:
+// 232 for the consumers, 40 for the producer), no spills, 85 064 bytes of
+// dynamic shared memory; dQ 168 registers, no spills, 66 600 bytes.
 
-constexpr int kMmaWarps = 4;
+constexpr int kD = 64;                     // head dim of this route
+constexpr int kTileBytes = kTile * kD * 2; // one 64 x 64 bf16 tile: 8 KB
+constexpr int kWG = 2;                     // consumer warpgroups a block
+constexpr int kStages = 2;  // ring depth (a warpgroup's, in dK/dV)
+constexpr int kWsThreads = (kWG + 1) * 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
@@ -453,437 +447,712 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
   return __bfloat1622float2(v);
 }
-// q * scale rounded to bf16, on a fragment (compute_dtype=bf16)
-__device__ __forceinline__ void scale_frag(uint32_t (&r)[4], float s) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float2 f = unpack_bf16(r[c]);
-    r[c] = pack_bf16(f.x * s, f.y * s);
-  }
+
+// mbarriers: parity waits (a wait on parity p returns once the phase of
+// parity p has completed)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
-// A-fragment (16 rows x 16 cols kk*16 ..) from accumulator n-tiles 2kk and
-// 2kk + 1 (Fragment layouts: see csrc/flash_attention.cu)
-template <int NTILE>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
-                                       const float (&x)[NTILE][4], int kk) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one 64 x 64 tile (D, row, head) of a 3-D tensor map into shared memory
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(head)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) in one copy
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled bf16 tile of 128-byte rows (as
+// TMA writes it): rows 128 bytes apart, 8-row groups 1024 bytes apart (the
+// stride byte offset, for the K-major A/B here and for the MN-major B,
+// whose K runs down the rows), leading byte offset unused (one swizzle atom
+// spans the 64 columns), 1024-byte-aligned tiles (base offset 0)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of d across the asynchronous
+// products that write it
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x, flushing results below 2^-126 to 0 (no P that small moves a bf16
+// gradient); without exp2f's slow path the probabilities stay branch-free
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps A fragments in their registers until the products reading them
+// have completed (a wait_group before this)
+__device__ __forceinline__ void keep_frags(const uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" ::"r"(a[i][r]) : "memory");
+}
+
+// d (64 x 64 fp32) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (16 x 64, shared,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+// Fragment layouts (PTX ISA, wgmma .m64nNk16): accumulator element d[4j + c]
+// of thread t (warp w = t / 32 of the warpgroup, g = lane / 4, t4 = lane % 4)
+// sits at row 16 w + g + 8 (c / 2), column 8 j + 2 t4 + c % 2; the register
+// A fragment of k-slice kk (columns 16 kk ..) is the accumulator's columns
+// 16 kk .. + 15 packed pairwise: a[r] = (d[4 (2 kk + r / 2) + 2 (r % 2)],
+// the next), as for mma.sync.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[32],
+                                       int kk) {
 #pragma unroll
   for (int r = 0; r < 4; ++r)
-    a[r] = pack_bf16(x[2 * kk + (r >> 1)][2 * (r & 1)],
-                     x[2 * kk + (r >> 1)][2 * (r & 1) + 1]);
+    a[r] = pack_bf16(x[4 * (2 * kk + (r >> 1)) + 2 * (r & 1)],
+                     x[4 * (2 * kk + (r >> 1)) + 2 * (r & 1) + 1]);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-attn_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int Hkv, int Sq,
-                         int Skv, int causal, float scale, int compute_bf16) {
-  constexpr int BK = 16 * kMmaWarps;  // keys a block
-  constexpr int BQ = 64;              // query rows a tile
-  constexpr int NT = 32 * kMmaWarps;
-  constexpr int LD = D + 8;
-  constexpr int CH = D / 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NTILE = BQ / 8;       // 8-query column tiles of S^T
-  constexpr int DTILE = D / 8;
-
-  const int k0 = blockIdx.x * BK;
-  const int hkv = blockIdx.y, b = blockIdx.z;
-  const int group = H / Hkv;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int offs = Skv - Sq;
-  const bool rnd = compute_bf16 != 0;
-  // compute fp32: logits = scale * (q . k); compute bf16: bf16(q*scale) . k
-  const float sl2 = (rnd ? 1.f : scale) * kLog2e;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // BK x LD
-  bf16* v_s = k_s + BK * LD;                       // BK x LD
-  bf16* q_s = v_s + BK * LD;                       // 2 stages x BQ x LD
-  bf16* g_s = q_s + 2 * BQ * LD;                   // 2 stages x BQ x LD: dO
-  float* l_s = reinterpret_cast<float*>(g_s + 2 * BQ * LD);  // LSE log2(e)
-  float* d_s = l_s + 2 * BQ;                                  // D_i
-
-  const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
-  for (int i = tid; i < BK * CH; i += NT) {  // rows past Skv zero-filled
-    const int r = i / CH, c = i % CH;
-    const bool ok = k0 + r < Skv;
-    const size_t off = kv_off + (ok ? (size_t)(k0 + r) * D + c * 8 : 0);
-    cp_async16(smem_addr(k_s + r * LD + c * 8), k + off, ok ? 16 : 0);
-    cp_async16(smem_addr(v_s + r * LD + c * 8), v + off, ok ? 16 : 0);
+// LSE * log2(e) and D_i per row, padded to whole 64-row tiles (+inf and 0
+// past Sq), and under compute_dtype=bf16 qs = bf16(q * scale); eight
+// threads a row, 16 bytes each
+__global__ void __launch_bounds__(256)
+attn_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ out,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ lse2,
+                     float* __restrict__ di, bf16* __restrict__ qs, int Sq,
+                     int sq_pad, float scale) {
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
+  const int part = threadIdx.x % 8;
+  const unsigned group = 0xffu << (threadIdx.x % 32 & 24);  // the row's lanes
+  const long long bh = row / sq_pad;
+  const int i = (int)(row % sq_pad);
+  if (i >= Sq) {
+    if (part == 0) {
+      lse2[row] = INFINITY;
+      di[row] = 0.f;
+    }
+    return;
   }
-  cp_async_commit();
+  const long long src = bh * Sq + i;
+  const uint4 o = reinterpret_cast<const uint4*>(out + src * kD)[part];
+  const uint4 g = reinterpret_cast<const uint4*>(dout + src * kD)[part];
+  const uint32_t ow[4] = {o.x, o.y, o.z, o.w}, gw[4] = {g.x, g.y, g.z, g.w};
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float2 a = unpack_bf16(ow[c]), b = unpack_bf16(gw[c]);
+    s = fmaf(a.y, b.y, fmaf(a.x, b.x, s));
+  }
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1) s += __shfl_xor_sync(group, s, w);
+  if (part == 0) {
+    lse2[row] = lse[src] * kLog2e;
+    di[row] = s;
+  }
+  if (qs != nullptr) {
+    const uint4 x = reinterpret_cast<const uint4*>(q + src * kD)[part];
+    const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
+    uint32_t y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float2 f = unpack_bf16(xw[c]);
+      y[c] = pack_bf16(f.x * scale, f.y * scale);
+    }
+    reinterpret_cast<uint4*>(qs + src * kD)[part] =
+        make_uint4(y[0], y[1], y[2], y[3]);
+  }
+}
 
-  // the (head, query tile) pairs that see the key tile, one after another
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int qt0 = causal ? min(n_qt, max(0, k0 - offs) / BQ) : 0;
-  const int nq = n_qt - qt0;
-  const int n_iter = group * nq;
-  auto load_tile = [&](int it) {  // rows past Sq zero-filled, LSE = +inf
-    const int h = hkv * group + it / nq;
-    const int q0 = (qt0 + it % nq) * BQ;
-    const int st = it & 1;
-    const size_t q_off = ((size_t)b * H + h) * (size_t)Sq * D;
-    for (int i = tid; i < BQ * CH; i += NT) {
-      const int r = i / CH, c = i % CH;
-      const bool ok = q0 + r < Sq;
-      const size_t off = q_off + (ok ? (size_t)(q0 + r) * D + c * 8 : 0);
-      cp_async16(smem_addr(q_s + (st * BQ + r) * LD + c * 8), q + off,
-                 ok ? 16 : 0);
-      cp_async16(smem_addr(g_s + (st * BQ + r) * LD + c * 8), dout + off,
-                 ok ? 16 : 0);
+__device__ __forceinline__ uint32_t align1024(uint32_t a) {
+  return (a + 1023u) & ~1023u;
+}
+
+// shared memory of the dK/dV kernel, from a 1024-aligned base: K, V; then
+// per warpgroup w and stage s a Q and a dO tile; then LSE/D_i rows; then
+// the barriers
+constexpr int kRingBytes = kStages * 2 * kTileBytes;  // one warpgroup's ring
+constexpr int kDkdvRows = 2 * kTileBytes + kWG * kRingBytes;
+constexpr int kDkdvBars = kDkdvRows + kWG * kStages * 2 * kTile * 4;
+constexpr int kDkdvSmem = 1024 + kDkdvBars + (1 + 2 * kWG * kStages) * 8;
+static_assert(kWG == 2, "the dK/dV sum below pairs two warpgroups");
+static_assert(kRingBytes >= 32 * 128 * 4, "a ring holds one 64 x 64 fp32 sum");
+
+// acc + the other warpgroup's sum (left in shared memory in acc's
+// layout), times mul, as bf16 rows key0 and key0 + 8 of dst (rows < n)
+__device__ __forceinline__ void store_sum(float (&acc)[32], const float* other,
+                                          bf16* dst, float mul, int key0,
+                                          int n, int t4) {
+  const int wt = threadIdx.x % 128;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] += other[r * 128 + wt];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int key = key0 + 8 * h2;
+    if (key >= n) continue;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int r = 4 * j8 + 2 * h2;
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)key * kD + j8 * 8 +
+                                         2 * t4) =
+          __floats2bfloat162_rn(acc[r] * mul, acc[r + 1] * mul);
     }
-    const size_t r_off = ((size_t)b * H + h) * (size_t)Sq;
-    for (int r = tid; r < BQ; r += NT) {
-      const bool ok = q0 + r < Sq;
-      l_s[st * BQ + r] = ok ? lse[r_off + q0 + r] * kLog2e : INFINITY;
-      d_s[st * BQ + r] = ok ? di[r_off + q0 + r] : 0.f;
-    }
+  }
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const float* __restrict__ lse2,
+                           const float* __restrict__ di,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, int Hkv, int Sq, int Skv, int sq_pad,
+                           int causal, float scale, int compute_bf16) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = align1024(raw);
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t k_s = base, v_s = base + kTileBytes;
+  auto q_s = [&](int w, int s) {
+    return base + 2 * kTileBytes + w * kRingBytes + s * 2 * kTileBytes;
   };
-  if (n_iter > 0) load_tile(0);
-  cp_async_commit();
+  auto rows_off = [&](int w, int s) {  // LSE row, then D_i row (bytes)
+    return kDkdvRows + (w * kStages + s) * 2 * kTile * 4;
+  };
+  const uint32_t bar_kv = base + kDkdvBars;
+  auto bar_full = [&](int w, int s) {
+    return bar_kv + 8 * (1 + w * kStages + s);
+  };
+  auto bar_empty = [&](int w, int s) {
+    return bar_kv + 8 * (1 + kWG * kStages + w * kStages + s);
+  };
 
-  const int wk_first = k0 + warp * 16;
-  const int key0 = wk_first + g;  // keys of c0/c1; c2/c3: key0 + 8
-  uint32_t kf[KSTEPS][4], vf[KSTEPS][4];
-  float acc_k[DTILE][4], acc_v[DTILE][4];
-#pragma unroll
-  for (int j = 0; j < DTILE; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[j][c] = acc_v[j][c] = 0.f;
+  const int hkv = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;  // heaviest (key tile 0) first
+  const int group = H / Hkv;
+  const int offs = Skv - Sq;
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  // causal: query row i sees key k0 from i = k0 - offs on
+  const int qt0 = causal ? min(n_qt, max(0, k0 - offs) / kTile) : 0;
+  const int nq = n_qt - qt0;
+  const int n_items = group * nq;  // (head, query tile) pairs, head-major
+  const int tid = threadIdx.x, wg = tid / 128;
 
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) load_tile(it + 1);
-    cp_async_commit();   // (maybe empty) group: the count stays uniform
-    cp_async_wait<1>();  // K, V and tile it have landed
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int s = 0; s < KSTEPS; ++s) {
-        const uint32_t off = (warp * 16 + (lane & 15)) * LD + s * 16 +
-                             (lane >> 4) * 8;
-        ldmatrix_x4(kf[s], smem_addr(k_s + off));
-        ldmatrix_x4(vf[s], smem_addr(v_s + off));
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int w = 0; w < kWG; ++w)
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(bar_full(w, s), 1);
+        mbar_init(bar_empty(w, s), 128);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kWG) {  // producer: warp w feeds consumer warpgroup w
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pw = (tid % 128) / 32;
+    if (pw < kWG && tid % 32 == 0) {
+      if (pw == 0) {
+        mbar_expect_tx(bar_kv, 2 * kTileBytes);
+        tma_tile(k_s, &tm_k, bar_kv, k0, b * Hkv + hkv);
+        tma_tile(v_s, &tm_v, bar_kv, k0, b * Hkv + hkv);
+      }
+      for (int i = pw, j = 0; i < n_items; i += kWG, ++j) {
+        const int s = j % kStages;
+        mbar_wait(bar_empty(pw, s), ((j / kStages) & 1) ^ 1);
+        const int bh = b * H + hkv * group + i / nq;
+        const int q0 = (qt0 + i % nq) * kTile;
+        const uint32_t full = bar_full(pw, s);
+        mbar_expect_tx(full, 2 * kTileBytes + 2 * kTile * 4);
+        tma_tile(q_s(pw, s), &tm_q, full, q0, bh);
+        tma_tile(q_s(pw, s) + kTileBytes, &tm_do, full, q0, bh);
+        const size_t r = (size_t)bh * sq_pad + q0;
+        bulk_copy(base + rows_off(pw, s), lse2 + r, kTile * 4, full);
+        bulk_copy(base + rows_off(pw, s) + kTile * 4, di + r, kTile * 4, full);
       }
     }
-    const int st = it & 1;
-    const int q0 = (qt0 + it % nq) * BQ;
-    const bf16* qs = q_s + st * BQ * LD;
-    const bf16* gs = g_s + st * BQ * LD;
-    const float* ls = l_s + st * BQ;
-    const float* dd = d_s + st * BQ;
-    // a warp none of whose keys any row of this tile sees skips it
-    const bool visible = wk_first < Skv &&
-                         (!causal || wk_first <= min(q0 + BQ, Sq) - 1 + offs);
-    if (visible) {
-      float s[NTILE][4], dp[NTILE][4];
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool rnd = compute_bf16 != 0;
+    // compute fp32: logits = scale * (q . k); compute bf16: bf16(q*scale) . k
+    const float sl2 = (rnd ? 1.f : scale) * kLog2e;
+    const int key_w = k0 + warp * 16;  // this warp's first key
+    const int key0 = key_w + g;        // keys of d[4j], d[4j+1]; +8: the rest
+    float acc_k[32], acc_v[32], st[32], dpt[32];
 #pragma unroll
-      for (int j = 0; j < NTILE; ++j)
+    for (int r = 0; r < 32; ++r) acc_k[r] = acc_v[r] = st[r] = dpt[r] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    for (int i = wg, j = 0; i < n_items; i += kWG, ++j) {
+      const int s = j % kStages;
+      const int q0 = (qt0 + i % nq) * kTile;
+      const uint32_t qa = q_s(wg, s), ga = qa + kTileBytes;
+      const float* ls =
+          reinterpret_cast<const float*>(gbase + rows_off(wg, s));
+      const float* dd = ls + kTile;
+      mbar_wait(bar_full(wg, s), (j / kStages) & 1);
+      // S^T = K Q^T and dP^T = V dO^T: keys x queries, over D in 4 k-steps
+      fence_acc(st);
+      fence_acc(dpt);
+      wg_fence();
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(st, sw128_desc(k_s + 32 * kk), sw128_desc(qa + 32 * kk),
+                 kk);
+      wg_commit();
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(dpt, sw128_desc(v_s + 32 * kk), sw128_desc(ga + 32 * kk),
+                 kk);
+      wg_commit();
+      // mask only tiles at the diagonal or a tail
+      const bool straddles = k0 + kTile > Skv || q0 + kTile > Sq ||
+                             (causal && key_w + 15 > q0 + offs);
+      // LSE * log2(e) of this thread's 16 query columns 8 j8 + 2 t4 + e
+      float lq[16];
 #pragma unroll
-        for (int np = 0; np < NTILE / 2; ++np) {
-          uint32_t bq[4], bg[4];  // query n-tiles 2np, 2np+1 at k-step kk
-          const uint32_t off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                   LD + kk * 16 + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(bq, smem_addr(qs + off));
-          ldmatrix_x4(bg, smem_addr(gs + off));
-          if (rnd) scale_frag(bq, scale);
-          mma_bf16(s[2 * np], kf[kk], bq[0], bq[1]);
-          mma_bf16(s[2 * np + 1], kf[kk], bq[2], bq[3]);
-          mma_bf16(dp[2 * np], vf[kk], bg[0], bg[1]);
-          mma_bf16(dp[2 * np + 1], vf[kk], bg[2], bg[3]);
-        }
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const float2 x = *reinterpret_cast<const float2*>(ls + j8 * 8 + 2 * t4);
+        lq[2 * j8] = x.x;
+        lq[2 * j8 + 1] = x.y;
       }
-      // P^T and dS^T in place; mask only tiles at the diagonal or a tail
-      const bool straddles = k0 + BK > Skv || q0 + BQ > Sq ||
-                             (causal && wk_first + 15 > q0 + offs);
+      wg_wait<1>();
+      fence_acc(st);
+      // P^T in place
 #pragma unroll
-      for (int j = 0; j < NTILE; ++j)
+      for (int j8 = 0; j8 < 8; ++j8)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int qc = j * 8 + 2 * t4 + (c & 1);
+          const int qc = j8 * 8 + 2 * t4 + (c & 1);
           const int key = key0 + 8 * (c >> 1);
           const bool ok = !straddles ||
                           (key < Skv && q0 + qc < Sq &&
                            (!causal || key <= q0 + qc + offs));
-          const float p = ok ? exp2f(fmaf(s[j][c], sl2, -ls[qc])) : 0.f;
-          const float gp = rnd ? __bfloat162float(__float2bfloat16(dp[j][c]))
-                               : dp[j][c];
-          s[j][c] = p;
-          dp[j][c] = p * (gp - dd[qc]);
+          const int r = 4 * j8 + c;
+          const float p = ex2(fmaf(st[r], sl2, -lq[2 * j8 + (c & 1)]));
+          st[r] = ok ? p : 0.f;
         }
-      // dV += P^T dO, dK += dS^T Q: queries kk*16 .. +15 are the k-step
+      // dV += P^T dO: queries 16 kk .. + 15 are the k-step (dO's rows)
+      uint32_t pa[4][4];
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pack_a<NTILE>(pa, s, kk);
-        pack_a<NTILE>(sa, dp, kk);
+      for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], st, kk);
+      fence_acc(acc_v);
+      wg_fence();
 #pragma unroll
-        for (int dq = 0; dq < DTILE / 2; ++dq) {
-          uint32_t bg[4], bq[4];  // d-tiles 2dq, 2dq+1 at queries kk*16 ..
-          const uint32_t off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   LD + dq * 16 + (lane >> 4) * 8;
-          ldmatrix_x4_trans(bg, smem_addr(gs + off));
-          ldmatrix_x4_trans(bq, smem_addr(qs + off));
-          if (rnd) scale_frag(bq, scale);
-          mma_bf16(acc_v[2 * dq], pa, bg[0], bg[1]);
-          mma_bf16(acc_v[2 * dq + 1], pa, bg[2], bg[3]);
-          mma_bf16(acc_k[2 * dq], sa, bq[0], bq[1]);
-          mma_bf16(acc_k[2 * dq + 1], sa, bq[2], bq[3]);
-        }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_v, pa[kk], sw128_desc(ga + 2048 * kk));
+      wg_commit();
+      float dl[16];  // D_i of the same columns
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const float2 x = *reinterpret_cast<const float2*>(dd + j8 * 8 + 2 * t4);
+        dl[2 * j8] = x.x;
+        dl[2 * j8 + 1] = x.y;
       }
+      wg_wait<1>();  // dP^T has landed (dV may still run)
+      fence_acc(dpt);
+      // dS^T = P^T * (dP^T - D_i)
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = 4 * j8 + c;
+          const float gp =
+              rnd ? __bfloat162float(__float2bfloat16(dpt[r])) : dpt[r];
+          dpt[r] = st[r] * (gp - dl[2 * j8 + (c & 1)]);
+        }
+      // dK += dS^T Q
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(sa[kk], dpt, kk);
+      fence_acc(acc_k);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_k, sa[kk], sw128_desc(qa + 2048 * kk));
+      wg_commit();
+      wg_wait<0>();
+      keep_frags(pa);
+      keep_frags(sa);
+      fence_acc(acc_k);
+      fence_acc(acc_v);
+      mbar_arrive(bar_empty(wg, s));  // the stage's tiles are consumed
     }
-    __syncthreads();  // stage it & 1 is free for tile it + 2
-  }
 
-  // dK = scale * dS^T q (compute fp32) or dS^T bf16(q * scale)
-  const float ks = rnd ? 1.f : scale;
+    // the two warpgroups' sums: warpgroup 0 leaves its dV in its ring,
+    // warpgroup 1 its dK in its own; each adds the other's and writes one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    float* mine = reinterpret_cast<float*>(
+        gbase + (q_s(wg, 0) - base));  // this warpgroup's ring, now free
+    float* other = reinterpret_cast<float*>(gbase + (q_s(wg ^ 1, 0) - base));
+    const int wt = tid % 128;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 8 * i;
-    if (key >= Skv) continue;
-#pragma unroll
-    for (int j = 0; j < DTILE; ++j) {
-      const size_t o = kv_off + (size_t)key * D + j * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(
-          acc_k[j][2 * i] * ks, acc_k[j][2 * i + 1] * ks);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(acc_v[j][2 * i], acc_v[j][2 * i + 1]);
-    }
+    for (int r = 0; r < 32; ++r)
+      mine[r * 128 + wt] = wg == 0 ? acc_v[r] : acc_k[r];
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWG * 128) : "memory");
+    const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * kD;
+    // dK = scale * dS^T q (compute fp32) or dS^T bf16(q * scale)
+    if (wg == 0)
+      store_sum(acc_k, other, dk + kv_off, rnd ? 1.f : scale, key0, Skv, t4);
+    else
+      store_sum(acc_v, other, dv + kv_off, 1.f, key0, Skv, t4);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ di, bf16* __restrict__ dq,
-                       int H, int Hkv, int Sq, int Skv, int causal,
-                       float scale, int compute_bf16) {
-  constexpr int BQ = 16 * kMmaWarps;  // query rows a block
-  constexpr int BK = 64;              // keys a tile
-  constexpr int NT = 32 * kMmaWarps;
-  constexpr int LD = D + 8;
-  constexpr int CH = D / 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NTILE = BK / 8;
-  constexpr int DTILE = D / 8;
+// shared memory of the dQ kernel, from a 1024-aligned base: Q and dO of
+// each consumer warpgroup; then per stage a K and a V tile; then barriers
+constexpr int kDqKv = kWG * 2 * kTileBytes;
+constexpr int kDqBars = kDqKv + kStages * 2 * kTileBytes;
+constexpr int kDqSmem = 1024 + kDqBars + (1 + 2 * kStages) * 8;
 
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.z) * BQ;  // heaviest tiles first
+__global__ void __launch_bounds__(kWsThreads, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ di, bf16* __restrict__ dq,
+                         int H, int Hkv, int Sq, int Skv, int sq_pad,
+                         int causal, float scale, int compute_bf16) {
+  constexpr int BQ = kWG * kTile;  // query rows a block
   const int h = blockIdx.x, b = blockIdx.y;
+  const int n_qb = (Sq + BQ - 1) / BQ;
+  const int q0b = (n_qb - 1 - (int)blockIdx.z) * BQ;  // heaviest first
   const int hkv = h / (H / Hkv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
   const int offs = Skv - Sq;
-  const bool rnd = compute_bf16 != 0;
-  const float sl2 = (rnd ? 1.f : scale) * kLog2e;
-
-  const size_t q_off = ((size_t)b * H + h) * (size_t)Sq * D;
-  const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
-  const size_t r_off = ((size_t)b * H + h) * (size_t)Sq;
-  bf16* dqb = dq + q_off;
-
-  const int nk = (Skv + BK - 1) / BK;
-  int n_tiles = nk;
-  if (causal) {
-    const int last_key = min(q0 + BQ, Sq) - 1 + offs;
-    n_tiles = last_key < 0 ? 0 : min(nk, last_key / BK + 1);
-  }
+  const int n_kt = (Skv + kTile - 1) / kTile;
+  // key tiles up to the diagonal of row `last` (all of them if not causal)
+  auto tiles_to = [&](int last) {
+    if (!causal) return n_kt;
+    const int last_key = last + offs;
+    return last_key < 0 ? 0 : min(n_kt, last_key / kTile + 1);
+  };
+  const int n_tiles = tiles_to(min(q0b + BQ, Sq) - 1);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const size_t q_off = ((size_t)b * H + h) * (size_t)Sq * kD;
   if (n_tiles == 0) {  // no row of the block sees a key: zero gradient
-    for (int i = tid; i < BQ * D; i += NT) {
-      const int r = q0 + i / D;
-      if (r < Sq) dqb[(size_t)r * D + i % D] = __float2bfloat16(0.f);
+    for (int i = tid; i < BQ * kD; i += kWsThreads) {
+      const int r = q0b + i / kD;
+      if (r < Sq) dq[q_off + (size_t)r * kD + i % kD] = __float2bfloat16(0.f);
     }
     return;
   }
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
-  bf16* g_s = q_s + BQ * LD;                       // BQ x LD: dO
-  bf16* k_s = g_s + BQ * LD;                       // 2 stages x BK x LD
-  bf16* v_s = k_s + 2 * BK * LD;                   // 2 stages x BK x LD
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = align1024(smem_addr(smem_raw));
+  auto k_s = [&](int s) { return base + kDqKv + s * 2 * kTileBytes; };
+  const uint32_t bar_q = base + kDqBars;
+  auto bar_full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8 * (1 + kStages + s); };
+  // warpgroups whose rows start past Sq have no tile to load
+  const int n_wg_rows = min(kWG, (Sq - q0b + kTile - 1) / kTile);
 
-  for (int i = tid; i < BQ * CH; i += NT) {  // rows past Sq zero-filled
-    const int r = i / CH, c = i % CH;
-    const bool ok = q0 + r < Sq;
-    const size_t off = q_off + (ok ? (size_t)(q0 + r) * D + c * 8 : 0);
-    cp_async16(smem_addr(q_s + r * LD + c * 8), q + off, ok ? 16 : 0);
-    cp_async16(smem_addr(g_s + r * LD + c * 8), dout + off, ok ? 16 : 0);
-  }
-  cp_async_commit();
-  auto load_tile = [&](int kt) {  // K/V rows past Skv zero-filled
-    const int k0 = kt * BK;
-    bf16* ks = k_s + (kt & 1) * BK * LD;
-    bf16* vs = v_s + (kt & 1) * BK * LD;
-    for (int i = tid; i < BK * CH; i += NT) {
-      const int r = i / CH, c = i % CH;
-      const bool ok = k0 + r < Skv;
-      const size_t off = kv_off + (ok ? (size_t)(k0 + r) * D + c * 8 : 0);
-      cp_async16(smem_addr(ks + r * LD + c * 8), k + off, ok ? 16 : 0);
-      cp_async16(smem_addr(vs + r * LD + c * 8), v + off, ok ? 16 : 0);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), kWG * 128);
     }
-  };
-  load_tile(0);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + g;  // rows of c0/c1; c2/c3: row0 + 8
-  const int warp_first = q0 + warp * 16, warp_last = warp_first + 15;
-  float l2[2], dd[2];  // LSE * log2(e) and D_i of this thread's two rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    l2[i] = row < Sq ? lse[r_off + row] * kLog2e : INFINITY;
-    dd[i] = row < Sq ? di[r_off + row] : 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  uint32_t qf[KSTEPS][4], gf[KSTEPS][4];
-  float acc[DTILE][4];
-#pragma unroll
-  for (int j = 0; j < DTILE; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  __syncthreads();
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) load_tile(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and tile kt have landed
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int s = 0; s < KSTEPS; ++s) {
-        const uint32_t off = (warp * 16 + (lane & 15)) * LD + s * 16 +
-                             (lane >> 4) * 8;
-        ldmatrix_x4(qf[s], smem_addr(q_s + off));
-        ldmatrix_x4(gf[s], smem_addr(g_s + off));
-        if (rnd) scale_frag(qf[s], scale);
+  if (wg == kWG) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid % 128 == 0) {
+      mbar_expect_tx(bar_q, n_wg_rows * 2 * kTileBytes);
+      for (int w = 0; w < n_wg_rows; ++w) {
+        tma_tile(base + w * 2 * kTileBytes, &tm_q, bar_q, q0b + w * kTile,
+                 b * H + h);
+        tma_tile(base + w * 2 * kTileBytes + kTileBytes, &tm_do, bar_q,
+                 q0b + w * kTile, b * H + h);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(bar_empty(s), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full(s), 2 * kTileBytes);
+        tma_tile(k_s(s), &tm_k, bar_full(s), t * kTile, b * Hkv + hkv);
+        tma_tile(k_s(s) + kTileBytes, &tm_v, bar_full(s), t * kTile,
+                 b * Hkv + hkv);
       }
     }
-    const int k0 = kt * BK;
-    const bf16* ks = k_s + (kt & 1) * BK * LD;
-    const bf16* vs = v_s + (kt & 1) * BK * LD;
-    const bool visible = warp_first < Sq &&
-                         (!causal || k0 <= min(warp_last, Sq - 1) + offs);
-    if (visible) {
-      float s[NTILE][4], dp[NTILE][4];
+  } else {  // consumers: warpgroup wg owns rows q0 .. q0 + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool rnd = compute_bf16 != 0;
+    const float sl2 = (rnd ? 1.f : scale) * kLog2e;
+    const int q0 = q0b + wg * kTile;
+    const int my_tiles = q0 < Sq ? tiles_to(min(q0 + kTile, Sq) - 1) : 0;
+    const int warp_first = q0 + warp * 16;
+    const int row0 = warp_first + g;  // rows of d[4j], d[4j+1]; +8: the rest
+    const uint32_t qa = base + wg * 2 * kTileBytes, ga = qa + kTileBytes;
+    float l2[2], dd[2];  // LSE * log2(e) and D_i of this thread's two rows
+    const size_t r_off = ((size_t)b * H + h) * sq_pad;
 #pragma unroll
-      for (int j = 0; j < NTILE; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-        for (int np = 0; np < NTILE / 2; ++np) {
-          uint32_t bk[4], bv[4];  // key n-tiles 2np, 2np+1 at k-step kk
-          const uint32_t off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                   LD + kk * 16 + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(bk, smem_addr(ks + off));
-          ldmatrix_x4(bv, smem_addr(vs + off));
-          mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-          mma_bf16(dp[2 * np], gf[kk], bv[0], bv[1]);
-          mma_bf16(dp[2 * np + 1], gf[kk], bv[2], bv[3]);
-        }
-      }
-      const bool straddles =
-          k0 + BK > Skv || (causal && k0 + BK - 1 > warp_first + offs);
-#pragma unroll
-      for (int j = 0; j < NTILE; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + j * 8 + 2 * t4 + (c & 1);
-          const int row = row0 + (c >> 1) * 8;
-          const bool ok = !straddles ||
-                          (key < Skv && (!causal || key <= row + offs));
-          const float p = ok ? exp2f(fmaf(s[j][c], sl2, -l2[c >> 1])) : 0.f;
-          const float gp = rnd ? __bfloat162float(__float2bfloat16(dp[j][c]))
-                               : dp[j][c];
-          dp[j][c] = p * (gp - dd[c >> 1]);
-        }
-      // dQ += dS K: keys kk*16 .. +15 are the k-step
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t sa[4];
-        pack_a<NTILE>(sa, dp, kk);
-#pragma unroll
-        for (int dn = 0; dn < DTILE / 2; ++dn) {
-          uint32_t bk[4];  // d-tiles 2dn, 2dn+1 at keys kk*16 ..
-          const uint32_t off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   LD + dn * 16 + (lane >> 4) * 8;
-          ldmatrix_x4_trans(bk, smem_addr(ks + off));
-          mma_bf16(acc[2 * dn], sa, bk[0], bk[1]);
-          mma_bf16(acc[2 * dn + 1], sa, bk[2], bk[3]);
-        }
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;  // < sq_pad whenever q0 < Sq
+      l2[i] = q0 < Sq ? lse2[r_off + row] : INFINITY;
+      dd[i] = q0 < Sq ? di[r_off + row] : 0.f;
     }
-    __syncthreads();  // stage kt & 1 is free for tile kt + 2
-  }
+    float acc[32], s_[32], dp[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = s_[r] = dp[r] = 0.f;
+    if (my_tiles > 0) mbar_wait(bar_q, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      mbar_wait(bar_full(s), (t / kStages) & 1);
+      if (t < my_tiles) {
+        const int k0 = t * kTile;
+        const uint32_t ka = k_s(s), va = ka + kTileBytes;
+        fence_acc(s_);
+        fence_acc(dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss(s_, sw128_desc(qa + 32 * kk), sw128_desc(ka + 32 * kk),
+                   kk);
+        wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss(dp, sw128_desc(ga + 32 * kk), sw128_desc(va + 32 * kk),
+                   kk);
+        wg_commit();
+        const bool straddles =
+            k0 + kTile > Skv || (causal && k0 + kTile - 1 > warp_first + offs);
+        wg_wait<1>();
+        fence_acc(s_);
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int key = k0 + j8 * 8 + 2 * t4 + (c & 1);
+            const int row = row0 + 8 * (c >> 1);
+            const bool ok =
+                !straddles || (key < Skv && (!causal || key <= row + offs));
+            const int r = 4 * j8 + c;
+            const float p = ex2(fmaf(s_[r], sl2, -l2[c >> 1]));
+            s_[r] = ok ? p : 0.f;
+          }
+        wg_wait<0>();
+        fence_acc(dp);
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int r = 4 * j8 + c;
+            const float gp =
+                rnd ? __bfloat162float(__float2bfloat16(dp[r])) : dp[r];
+            dp[r] = s_[r] * (gp - dd[c >> 1]);
+          }
+        // dQ += dS K: keys 16 kk .. + 15 are the k-step (K's rows)
+        uint32_t sa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pack_a(sa[kk], dp, kk);
+        fence_acc(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(acc, sa[kk], sw128_desc(ka + 2048 * kk));
+        wg_commit();
+        wg_wait<0>();
+        keep_frags(sa);
+        fence_acc(acc);
+      }
+      mbar_arrive(bar_empty(s));  // the stage's K and V are consumed
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= Sq) continue;
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < DTILE; ++j) {
-      float x = acc[j][2 * i], y = acc[j][2 * i + 1];
-      if (rnd) {  // the gradient of q*scale's bf16 rounding, then the scale
-        x = __bfloat162float(__float2bfloat16(x));
-        y = __bfloat162float(__float2bfloat16(y));
+      for (int j8 = 0; j8 < 8; ++j8) {
+        float x = acc[4 * j8 + 2 * i], y = acc[4 * j8 + 2 * i + 1];
+        if (rnd) {  // the gradient of q*scale's bf16 rounding, then the scale
+          x = __bfloat162float(__float2bfloat16(x));
+          y = __bfloat162float(__float2bfloat16(y));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dq + q_off + (size_t)row * kD +
+                                           j8 * 8 + 2 * t4) =
+            __floats2bfloat162_rn(x * scale, y * scale);
       }
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row * D + j * 8 +
-                                         2 * t4) =
-          __floats2bfloat162_rn(x * scale, y * scale);
     }
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const void* lse, void* dq, void* dk,
-               void* dv, void* di, int B, int H, int Hkv, int Sq, int Skv,
-               int causal, float scale, int compute_bf16,
-               cudaStream_t stream) {
-  constexpr int LD = D + 8;
-  constexpr int smem_dkdv =
-      (2 * 16 * kMmaWarps + 4 * 64) * LD * 2 + 4 * 64 * (int)sizeof(float);
-  constexpr int smem_dq = (2 * 16 * kMmaWarps + 4 * 64) * LD * 2;
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links nothing beyond the CUDA runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  EncodeTiled f = fn.load(std::memory_order_acquire);
+  if (f != nullptr) return f;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  f = reinterpret_cast<EncodeTiled>(p);
+  fn.store(f, std::memory_order_release);
+  return f;
+}
+
+// (D, rows, heads) bf16 tensor, 64 x 64 boxes, 128-byte swizzle; rows past
+// `rows` read as zeros
+bool head_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int rows,
+              long long heads) {
+  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2,
+                                 (cuuint64_t)rows * kD * 2};
+  const cuuint32_t box[3] = {kD, kTile, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
+                 const void* dout, const void* lse, void* dq, void* dk,
+                 void* dv, void* scratch, int B, int H, int Hkv, int Sq,
+                 int Skv, int causal, float scale, int compute_bf16,
+                 cudaStream_t stream) {
   static std::atomic<unsigned long long> set_dkdv{0}, set_dq{0};
-  auto k_dkdv = attn_bwd_dkdv_mma_kernel<D>;
-  auto k_dq = attn_bwd_dq_mma_kernel<D>;
-  cudaError_t err = allow_dynamic_smem(set_dkdv, (const void*)k_dkdv,
-                                       smem_dkdv);
+  cudaError_t err = allow_dynamic_smem(
+      set_dkdv, (const void*)attn_bwd_dkdv_wgmma_kernel, kDkdvSmem);
   if (err != cudaSuccess) return (int)err;
-  err = allow_dynamic_smem(set_dq, (const void*)k_dq, smem_dq);
+  err = allow_dynamic_smem(set_dq, (const void*)attn_bwd_dq_wgmma_kernel,
+                           kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+
+  const int sq_pad = (Sq + kTile - 1) / kTile * kTile;
+  const long long rows_pad = (long long)B * H * sq_pad;
+  float* lse2 = (float*)scratch;
+  float* di = lse2 + rows_pad;
+  bf16* qs = compute_bf16 ? (bf16*)(di + rows_pad) : nullptr;
+  attn_bwd_prep_kernel<<<(unsigned)(rows_pad / 32), 256, 0, stream>>>(
+      (const bf16*)q, (const bf16*)out, (const bf16*)dout, (const float*)lse,
+      lse2, di, qs, Sq, sq_pad, scale);  // rows_pad: a multiple of 64
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const long long rows = (long long)B * H * Sq;
-  const int per_block = kThreads / 32;
-  attn_bwd_dot_kernel<bf16><<<(unsigned)((rows + per_block - 1) / per_block),
-                              kThreads, 0, stream>>>(
-      (const bf16*)out, (const bf16*)dout, (float*)di, rows, D);
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  if (!head_map(&tm_q, enc, qs ? (const void*)qs : q, Sq, (long long)B * H) ||
+      !head_map(&tm_do, enc, dout, Sq, (long long)B * H) ||
+      !head_map(&tm_k, enc, k, Skv, (long long)B * Hkv) ||
+      !head_map(&tm_v, enc, v, Skv, (long long)B * Hkv))
+    return (int)cudaErrorInvalidValue;
+  const dim3 g_kv(Hkv, B, (Skv + kTile - 1) / kTile);
+  attn_bwd_dkdv_wgmma_kernel<<<g_kv, kWsThreads, kDkdvSmem, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, lse2, di, (bf16*)dk, (bf16*)dv, H, Hkv, Sq,
+      Skv, sq_pad, causal, scale, compute_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 g_kv((Skv + 16 * kMmaWarps - 1) / (16 * kMmaWarps), Hkv, B);
-  k_dkdv<<<g_kv, kMmaWarps * 32, smem_dkdv, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)di, (bf16*)dk, (bf16*)dv, H, Hkv, Sq,
-      Skv, causal, scale, compute_bf16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 g_q(H, B, (Sq + 16 * kMmaWarps - 1) / (16 * kMmaWarps));
-  k_dq<<<g_q, kMmaWarps * 32, smem_dq, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)di, (bf16*)dq, H, Hkv, Sq, Skv, causal,
-      scale, compute_bf16);
+  const dim3 g_q(H, B, (Sq + kWG * kTile - 1) / (kWG * kTile));
+  attn_bwd_dq_wgmma_kernel<<<g_q, kWsThreads, kDqSmem, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, lse2, di, (bf16*)dq, H, Hkv, Sq, Skv, sq_pad,
+      causal, scale, compute_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -930,26 +1199,32 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  `di` is fp32 scratch of B * H * Sq.
-// Returns cudaGetLastError() after the launches (0 on success); -1 for a D
-// or dtype this file does not build.
+// dtype: 0 = float32, 1 = bfloat16.  `scratch`: fp32 workspace of at least
+// 2 * B * H * Sq_pad floats (Sq_pad: Sq rounded up to 64), plus
+// B * H * Sq * D / 2 under compute_bf16.  `kernel` receives the route
+// launched: 0 the FMA pair, 1 the wgmma pair.  Returns cudaGetLastError()
+// after the launches (0 on success); -1 for a D or dtype this file does not
+// build.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
-    const void* dout, const void* lse, void* dq, void* dk, void* dv, void* di,
-    int B, int H, int Hkv, int Sq, int Skv, int D, int causal, float scale,
-    int compute_bf16, int dtype, void* stream) {
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* scratch, int B, int H, int Hkv, int Sq, int Skv, int D, int causal,
+    float scale, int compute_bf16, int dtype, int* kernel, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1 && D == 64) {
+    *kernel = 1;
+    return launch_wgmma(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, H,
+                        Hkv, Sq, Skv, causal, scale, compute_bf16, s);
+  }
+  *kernel = 0;
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, dout, lse, dq, dk, dv, di, B, H,
-                             Hkv, Sq, Skv, causal, scale, compute_bf16, s);
+    return launch<float, 64>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
+                             H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, dout, lse, dq, dk, dv, di, B, H,
-                              Hkv, Sq, Skv, causal, scale, compute_bf16, s);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, out, dout, lse, dq, dk, dv, di, B, H, Hkv,
-                          Sq, Skv, causal, scale, compute_bf16, s);
+    return launch<float, 128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
+                              H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
   if (dtype == 1 && D == 128)
-    return launch<bf16, 128>(q, k, v, out, dout, lse, dq, dk, dv, di, B, H,
-                             Hkv, Sq, Skv, causal, scale, compute_bf16, s);
+    return launch<bf16, 128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
+                             H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
   return -1;
 }

@@ -19,6 +19,8 @@ back.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
@@ -26,6 +28,12 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+# K2-bwd's device kernels (dK/dV, dQ), by the id its C entry point writes to
+# its ``kernel`` out-parameter: the FMA pair, the wgmma pair (bf16, D = 64)
+BWD_KERNELS = (("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"),
+               ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"))
+_bwd_route = ctypes.c_int(-1)
+_BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,7 +106,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         compute_dtype: torch.dtype = torch.float32):
     """K2-bwd: (dq, dk, dv) of ``ref.mha_attention`` at (q, k, v), given the
     forward's ``out`` and fp32 ``lse`` (B, H, Sq) and the output gradient
-    ``dout`` (q's shape and dtype).  One count per call (three kernels)."""
+    ``dout`` (q's shape and dtype).  One count per call (three kernels);
+    ``flash_attention_bwd.last_kernel`` names the dK/dV and dQ kernels the
+    call launched."""
     _check(q, k, v, compute_dtype, "flash_attention_bwd")
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
@@ -117,21 +127,33 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    di = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # TMA copies need 16-byte-aligned tensors: a view that starts off that
+    # grid is copied (fresh allocations are aligned)
+    q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (q, k, v, out, dout))
+    # fp32 workspace: per row LSE * log2(e) and D_i, padded to whole 64-row
+    # tiles, and under compute_dtype=bf16 the operand bf16(q * scale)
+    sq_pad = -(-Sq // 64) * 64
+    n = 2 * B * H * sq_pad
+    if compute_dtype == torch.bfloat16:
+        n += q.numel() // 2
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device)
     fn = _build.load("flash_attention_bwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), di.data_ptr(), B, H, Hkv, Sq, Skv, D,
+             dv.data_ptr(), scratch.data_ptr(), B, H, Hkv, Sq, Skv, D,
              int(causal), float(scale), COMPUTE_DTYPES[compute_dtype],
-             DTYPES[q.dtype], _build.raw_stream(q.device))
+             DTYPES[q.dtype], _BWD_ROUTE_ADDR, _build.raw_stream(q.device))
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.last_kernel = None
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -15,6 +15,13 @@ of its loops (not code of the main path), the claims its design rests on:
   atomics;
 * on the tensor-core route (bf16, D = 64) P and dS enter their products
   rounded once to bf16, which stays inside the bf16 bar;
+* that route's dK/dV block deals its (query head, query tile) pairs to its
+  consumer warpgroups in turn (pair i to warpgroup i % split), each with
+  its own accumulators, and sums those in a fixed order at the end: the
+  dealing is even (per-warpgroup counts differ by at most one), every pair
+  is dealt once, and the sum is the gradient; its key tiles are issued
+  heaviest first; its dQ blocks hold 128 query rows, 64 a warpgroup, each
+  half walking the key tiles up to its own diagonal;
 * a row that sees no key (causal, Sq > Skv) has LSE = +inf: P = 0, and
   the row adds nothing to dK, dV and gets dQ = 0 — the zero output's
   gradient, as ``jax.vjp`` of the JAX reference gives it too (whose
@@ -85,11 +92,21 @@ def pad_rows(x, r0, n):
     return out
 
 
+def n_pairs(Sq, Skv, k0, group, causal):
+    """(query head, query tile) pairs that see the key tile at k0, in the
+    kernel's head-major order, and the first query tile."""
+    n_qt = -(-Sq // TILE)
+    qt0 = min(n_qt, max(0, k0 - (Skv - Sq)) // TILE) if causal else 0
+    return group * (n_qt - qt0), qt0
+
+
 def bwd_model(q, k, v, out, dout, lse, *, causal, scale, bf16,
-              tensor_cores=False):
+              tensor_cores=False, split=1, dq_rows=TILE):
     """The kernel's three passes, tile by tile, in fp32.  ``tensor_cores``
     models the bf16 D = 64 route: P and dS enter their products rounded
-    once to bf16."""
+    once to bf16.  ``split`` consumer warpgroups share a key tile, pair i
+    going to warpgroup i % split, and their sums are added in warpgroup
+    order; ``dq_rows`` query rows make a dQ block."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -103,27 +120,33 @@ def bwd_model(q, k, v, out, dout, lse, *, causal, scale, bf16,
             for k0 in range(0, Skv, TILE):
                 kf = pad_rows(rnd(k[b, hkv].float(), bf16), k0, Skv)
                 vf = pad_rows(rnd(v[b, hkv].float(), bf16), k0, Skv)
-                acc_k = torch.zeros(TILE, D)
-                acc_v = torch.zeros(TILE, D)
-                qt0 = max(0, k0 - offs) // TILE if causal else 0
-                for h in range(hkv * group, (hkv + 1) * group):
-                    for q0 in range(qt0 * TILE, Sq, TILE):
-                        qs = pad_rows(rnd(q[b, h].float() * scale, bf16),
-                                      q0, Sq)
-                        do = pad_rows(dout[b, h].float(), q0, Sq)
-                        ls = torch.where(torch.arange(q0, q0 + TILE) < Sq,
-                                         pad_rows(lse[b, h], q0, Sq), inf)
-                        d_i = pad_rows(di[b, h], q0, Sq)
-                        p, ds = tile_scores(qs, do, kf, vf, ls, d_i, q0, k0,
-                                            Sq, Skv, causal, bf16)
-                        acc_v += rnd(p, bf16 or tensor_cores).T @ do
-                        acc_k += rnd(ds, tensor_cores).T @ qs
+                acc_k = torch.zeros(split, TILE, D)
+                acc_v = torch.zeros(split, TILE, D)
+                n_items, qt0 = n_pairs(Sq, Skv, k0, group, causal)
+                nq = n_items // group
+                for i in range(n_items):
+                    h = hkv * group + i // nq
+                    q0 = (qt0 + i % nq) * TILE
+                    qs = pad_rows(rnd(q[b, h].float() * scale, bf16), q0, Sq)
+                    do = pad_rows(dout[b, h].float(), q0, Sq)
+                    ls = torch.where(torch.arange(q0, q0 + TILE) < Sq,
+                                     pad_rows(lse[b, h], q0, Sq), inf)
+                    d_i = pad_rows(di[b, h], q0, Sq)
+                    p, ds = tile_scores(qs, do, kf, vf, ls, d_i, q0, k0, Sq,
+                                        Skv, causal, bf16)
+                    acc_v[i % split] += rnd(p, bf16 or tensor_cores).T @ do
+                    acc_k[i % split] += rnd(ds, tensor_cores).T @ qs
+                gk, gv = acc_k[0], acc_v[0]
+                for w in range(1, split):       # the fixed-order sum
+                    gk, gv = gk + acc_k[w], gv + acc_v[w]
                 n = min(TILE, Skv - k0)
-                dk[b, hkv, k0:k0 + n] = rnd(acc_k, bf16)[:n]
-                dv[b, hkv, k0:k0 + n] = rnd(acc_v, bf16)[:n]
+                dk[b, hkv, k0:k0 + n] = rnd(gk, bf16)[:n]
+                dv[b, hkv, k0:k0 + n] = rnd(gv, bf16)[:n]
         for h in range(H):                                # pass 3
             hkv = h // group
-            for q0 in range(0, Sq, TILE):
+            q0s = [q0 for qb in range(0, Sq, dq_rows)
+                   for q0 in range(qb, min(qb + dq_rows, Sq), TILE)]
+            for q0 in q0s:      # each 64-row half to its own diagonal
                 qs = pad_rows(rnd(q[b, h].float() * scale, bf16), q0, Sq)
                 do = pad_rows(dout[b, h].float(), q0, Sq)
                 ls = torch.where(torch.arange(q0, q0 + TILE) < Sq,
@@ -285,3 +308,77 @@ def test_tiled_backward_equals_jax_vjp(causal):
     want = [torch.from_numpy(np.array(g))
             for g in vjp(jnp.asarray(dout.numpy()))]
     held(got, want, 1e-5)
+
+
+SPLIT_SHAPES = {  # Sq, Skv, group, causal
+    "qwen2 training S=1024": (1024, 1024, 7, True),
+    "qwen2 prefill S=2048": (2048, 2048, 7, True),
+    "ragged S=1000": (1000, 1000, 7, True),
+    "S=65": (65, 65, 7, True),
+    "MHA S=127": (127, 127, 1, True),
+    "empty rows Sq=300 Skv=100": (300, 100, 1, True),
+    "right-aligned Sq=70 Skv=150": (70, 150, 2, True),
+    "non-causal Sq=77 Skv=200": (77, 200, 8, False),
+}
+
+
+@pytest.mark.parametrize("split", [2, 3])
+@pytest.mark.parametrize("name", list(SPLIT_SHAPES))
+def test_pairs_are_dealt_evenly_and_once(name, split):
+    """Every (head, query tile) pair that sees a key tile goes to exactly
+    one warpgroup, and the warpgroups' counts differ by at most one."""
+    Sq, Skv, group, causal = SPLIT_SHAPES[name]
+    for k0 in range(0, Skv, TILE):
+        n_items, qt0 = n_pairs(Sq, Skv, k0, group, causal)
+        dealt = [list(range(w, n_items, split)) for w in range(split)]
+        assert sorted(i for d in dealt for i in d) == list(range(n_items))
+        counts = [len(d) for d in dealt]
+        assert max(counts) - min(counts) <= 1
+        # the query tiles dealt are those with a row that sees key k0
+        if causal:
+            assert all(k0 > r + Skv - Sq for r in range(qt0 * TILE))
+            assert n_items == 0 or k0 <= min(Sq, (qt0 + 1) * TILE) - 1 \
+                + Skv - Sq
+
+
+@pytest.mark.parametrize("name", list(SPLIT_SHAPES))
+def test_key_tiles_are_issued_heaviest_first(name):
+    """blockIdx.z is the key tile: its pair count never grows with it, so
+    the heaviest blocks start first."""
+    Sq, Skv, group, causal = SPLIT_SHAPES[name]
+    work = [n_pairs(Sq, Skv, k0, group, causal)[0]
+            for k0 in range(0, Skv, TILE)]
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("split,dq_rows", [(2, 128), (3, 128), (2, 64)])
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_backward_equals_autograd_fp32(name, split, dq_rows):
+    """The warpgroups' partial sums, added in a fixed order, and the
+    128-row dQ blocks give the gradient in fp32."""
+    B, H, Hkv, Sq, Skv, D, causal = CASES[name]
+    q, k, v, dout = case(7, B, H, Hkv, Sq, Skv, D)
+    out, want = autograd(q, k, v, dout, causal, torch.float32)
+    lse = lse_model(q, k, causal, D ** -0.5, False)
+    got = bwd_model(q, k, v, out, dout, lse, causal=causal, scale=D ** -0.5,
+                    bf16=False, split=split, dq_rows=dq_rows)
+    held(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["causal GQA 7:1 ragged S=100",
+                                  "causal right-aligned Sq=70 Skv=150",
+                                  "causal MHA two tiles S=128"])
+@pytest.mark.parametrize("cdt", ["fp32", "bf16"])
+def test_split_tensor_core_backward_within_the_bf16_bar(name, cdt):
+    """The wgmma route's arithmetic: bf16 inputs, P and dS rounded once to
+    bf16, two warpgroups a key tile, 128-row dQ blocks."""
+    B, H, Hkv, Sq, Skv, D, causal = CASES[name]
+    q, k, v, dout = case(8, B, H, Hkv, Sq, Skv, D, torch.bfloat16)
+    bf16 = cdt == "bf16"
+    c = torch.bfloat16 if bf16 else torch.float32
+    out, want = autograd(q, k, v, dout, causal, c)
+    lse = lse_model(q, k, causal, D ** -0.5, bf16)
+    got = bwd_model(q, k, v, out, dout, lse, causal=causal, scale=D ** -0.5,
+                    bf16=bf16, tensor_cores=True, split=2, dq_rows=128)
+    held(got, want, 6e-2)
+

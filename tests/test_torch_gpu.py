@@ -652,19 +652,82 @@ def test_flash_attention_lse_is_the_rows_logsumexp(cuda):
                                    atol=1e-5)
 
 
+def bwd_inputs(cuda, B, H, Hkv, Sq, Skv, seed, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda h, s: torch.randn(B, h, s, 64, generator=g).to(  # noqa: E731
+        cuda, dtype)
+    return mk(H, Sq), mk(Hkv, Skv), mk(Hkv, Skv), mk(H, Sq)
+
+
 @pytest.mark.gpu
 def test_flash_attention_backward_reruns_bitwise(cuda):
-    """No floating-point atomics: the same inputs give the same bits."""
-    g = torch.Generator().manual_seed(6)
-    q = torch.randn(2, 14, 257, 64, generator=g).to(cuda, torch.bfloat16)
-    k = torch.randn(2, 2, 257, 64, generator=g).to(cuda, torch.bfloat16)
-    v = torch.randn(2, 2, 257, 64, generator=g).to(cuda, torch.bfloat16)
-    dout = torch.randn(2, 14, 257, 64, generator=g).to(cuda, torch.bfloat16)
-    lse = torch.empty(2, 14, 257, device=cuda)
+    """No floating-point atomics: the same inputs give the same bits, at a
+    ragged shape and at qwen2's training shape (batch 8 x 1024)."""
+    for B, S in ((2, 257), (8, 1024)):
+        q, k, v, dout = bwd_inputs(cuda, B, 14, 2, S, S, 6)
+        for compute in (torch.float32, torch.bfloat16):
+            lse = torch.empty(B, 14, S, device=cuda)
+            out = fa._forward(q, k, v, True, 0.125, compute, lse)
+            a = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                       compute_dtype=compute)
+            b = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                       compute_dtype=compute)
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv", [
+    (1, 14, 2, 65, 65), (1, 14, 2, 127, 127), (1, 14, 2, 1000, 1000),
+    (2, 14, 2, 1024, 1024), (1, 4, 4, 300, 100), (1, 4, 4, 127, 127),
+    (1, 4, 2, 70, 150)])
+def test_flash_attention_backward_wgmma_route(cuda, B, H, Hkv, Sq, Skv,
+                                              compute):
+    """bf16 with D = 64 takes the wgmma pair: ragged tails (65, 127, 1000),
+    whole tiles, GQA 7:1 and 1:1, empty causal rows (Sq > Skv) with zero
+    gradients, right-aligned keys (Skv > Sq); held to the plain version."""
+    q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, Sq, Skv, Sq + Skv + H)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    out = fa._forward(q, k, v, True, 0.125, compute, lse)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                 compute_dtype=compute)
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[1] == (
+        "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
+    want = plain_grads(q, k, v, dout, True, compute)
+    grad_bar_held(got, want, torch.bfloat16, compute)
+    if Sq > Skv:                     # rows that see no key: zero gradient
+        assert not got[0][:, :, :Sq - Skv].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 128)])
+def test_flash_attention_backward_fma_route(cuda, dtype, D):
+    """fp32 inputs, and bf16 with D = 128, keep the FMA pair."""
+    g = torch.Generator().manual_seed(D)
+    q, k, v, dout = (torch.randn(1, 4, 70, D, generator=g).to(cuda, dtype)
+                     for _ in range(4))
+    lse = torch.empty(1, 4, 70, device=cuda)
+    out = fa._forward(q, k, v, True, D ** -0.5, torch.float32, lse)
+    fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[0]
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_takes_a_misaligned_view(cuda):
+    """A contiguous view that starts off the 16-byte grid TMA needs is
+    copied, not refused."""
+    q, k, v, dout = bwd_inputs(cuda, 1, 4, 2, 96, 96, 11)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qv = buf[1:].view(q.shape)
+    qv.copy_(q)
+    assert qv.data_ptr() % 16
+    lse = torch.empty(1, 4, 96, device=cuda)
     out = fa._forward(q, k, v, True, 0.125, torch.float32, lse)
-    a = fa.flash_attention_bwd(q, k, v, out, dout, lse)
-    b = fa.flash_attention_bwd(q, k, v, out, dout, lse)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    got = fa.flash_attention_bwd(qv, k, v, out, dout, lse)
+    want = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.gpu
