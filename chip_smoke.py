@@ -4,10 +4,11 @@
     python3 chip_smoke.py        # needs one card
 
 Drives the port's main paths at full width and depth, bf16, random weights
-from a seed — paged serving (``PagedLM`` + ``Engine``) of qwen2-0.5b, and
+from a seed — paged serving (``PagedLM`` + ``Engine``) of qwen2-0.5b,
 recurrent serving (``api.get_model``: prefill, then greedy ``decode_step``s
-against an O(1) state) of rwkv6-1.6b and zamba2-1.2b — and holds every CUDA
-kernel of those paths against its plain PyTorch version:
+against an O(1) state) of rwkv6-1.6b and zamba2-1.2b, training, and
+whisper-large-v3 served and trained — and holds every CUDA kernel of those
+paths against its plain PyTorch version:
 
   1. set-up: the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
@@ -67,7 +68,29 @@ kernel of those paths against its plain PyTorch version:
      checkpoint-restart: a second trainer resumes at step 3 and its steps
      4-6 equal the first's bitwise (depth cut to 4 layers, so each
      checkpoint is ~1.6 GB); (d) a reduced fp32 qwen2 trained 5 steps on
-     the card and on the CPU: losses within rtol 1e-4.
+     the card and on the CPU: losses within rtol 1e-4;
+ 10. whisper-large-v3 (the encoder-decoder family), last, alone on the
+     card: (a) served through ``api.get_model`` at full width, 8 segments
+     of 1500 frames and a 224-token prompt prefilled, then 64 greedy steps;
+     K2 exactly 96 a prefill (encoder, decoder self- and cross-attention)
+     and 32 a decode step (cross-attention), nothing else; prefill and
+     first decode logits through the kernels vs the plain version (bf16
+     against two plain versions' spread, fp32 tightly); encoder, prefill
+     and decode times, a profiled prefill and decode step; (b) a reduced
+     fp32 whisper (head_dim 64, 200 frames) gives the CPU's tokens; (c)
+     trained 3 steps through ``Trainer(comm="single")`` (batch 2 x (1500
+     frames + 448 tokens), remat, AdamW): finite losses, K2 192 and K2-bwd
+     96 launches a step; (d) the reduced fp32 whisper trained 3 steps on
+     the card and on the CPU: losses within rtol 1e-4. Phases 2 and 9a
+     hold K2 and K2-bwd at every shape whisper's main paths give them
+     (serving at batch 8: the encoder S = 1500, the causal decoder prefill
+     S = 224, cross Sq = 224 / 1 against 1500 frames; training at batch 2:
+     the encoder, the causal decoder S = 448, cross 448 x 1500) and time
+     them.
+
+Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
+each kernel's cost on the main paths, launches x (ms - bound) at the
+shape timed for each path's calls (``[ranking]``).
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises, and the script exits non-zero
@@ -146,6 +169,16 @@ N_PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 1024, 32
 # zamba2 at full size on an H100) with the same argmax on every row.
 REC_SPREAD_FACTOR = 3.0
 FP32_LOGIT_TOL = 1e-2
+# whisper-large-v3 (phase 10; arXiv:2212.04356): 8 segments of 1500 frames
+# (30 s of audio each, whisper's n_audio_ctx), a 224-token prompt
+# (n_text_ctx // 2, the previous-window conditioning of long-form
+# transcription), then 64 greedy steps: max_len 288, within n_text_ctx 448.
+# Its bf16 logits are held as the recurrent models' are, against the
+# spread of two plain versions of K2's function (ref.mha_attention, and
+# the same softmax summed over key blocks), and tightly in fp32.
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 8, 224, 64
+# training: batch 2 x 448 tokens (n_text_ctx) and 2 x 1500 frames, 3 steps
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 2, 448, 3
 # device kernels of each of our wrappers, by a part of their names: K3's
 # mamba2_scan_kernel and mamba2_scan_mma_kernel, K4's rwkv6_scan_kernel,
 # rwkv6_scan_mma_kernel and rwkv6_scan_decode_kernel
@@ -158,6 +191,18 @@ OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+PHASE_WALLS: dict = {}      # phase -> wall seconds, printed at the end
+
+
+def phase(name: str, fn, *args):
+    """fn(*args), its wall time kept under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_WALLS[name] = round(time.perf_counter() - t0, 1)
+    print(f"[phase] {name}: {PHASE_WALLS[name]} s")
+    return out
 
 
 def gpu_name_power() -> str:
@@ -212,6 +257,14 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
+    """The (query, key) pairs an attention's mask leaves; causal keys are
+    right-aligned: query i sees keys 0 .. i + Skv - Sq."""
+    if not causal:
+        return Sq * Skv
+    return sum(max(0, min(Skv, i + 1 + Skv - Sq)) for i in range(Sq))
 
 
 def max_err(a, b) -> float:
@@ -372,7 +425,7 @@ def run_kernel_checks(report: dict) -> dict:
         plain_ms=time_ms(lambda: ref.paged_attention(q, kp, vp, pt, sl)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, **timed)
 
-    # -- K2: causal prefill attention at the slice's shapes --------------------
+    # -- K2: attention at the main paths' shapes ------------------------------
     def fa_case(B, H, Hkv, Sq, Skv, D, dtype):
         mk = lambda h, s: torch.randn(B, h, s, D, device="cuda").to(dtype)
         return mk(H, Sq), mk(Hkv, Skv), mk(Hkv, Skv)
@@ -382,6 +435,32 @@ def run_kernel_checks(report: dict) -> dict:
     zamba = fa_case(4, 32, 32, 1024, 1024, 64, torch.bfloat16)
     s1024 = fa_case(1, 14, 2, 1024, 1024, 64, torch.bfloat16)  # engine's
                                                                # longest
+    # whisper-large-v3 (phase 10) at each shape its main paths give K2:
+    # serving at batch 8 (the encoder over 1500 frames, a ragged key tail;
+    # the decoder's causal self-attention over the prompt; cross-attention
+    # in prefill and in every decode step, Sq = 1) and training at batch 2
+    # (448 tokens); name: (timing tag, causal, (B, Sq, Skv))
+    W, P, WT, T = (WHISPER_BATCH, WHISPER_PROMPT, WHISPER_TRAIN_BATCH,
+                   WHISPER_TRAIN_SEQ)
+    whisper_shapes = {
+        "encoder B=8 S=1500": ("whisper_encoder", False, (W, 1500, 1500)),
+        f"decoder self prefill B=8 S={P}": ("whisper_decoder_prefill", True,
+                                            (W, P, P)),
+        f"cross prefill B=8 Sq={P} Skv=1500": ("whisper_cross_prefill",
+                                               False, (W, P, 1500)),
+        "cross decode B=8 Sq=1 Skv=1500": ("whisper_cross_decode", False,
+                                           (W, 1, 1500)),
+        "training encoder B=2 S=1500": ("whisper_train_encoder", False,
+                                        (WT, 1500, 1500)),
+        f"training decoder self B=2 S={T}": ("whisper_train_decoder", True,
+                                             (WT, T, T)),
+        f"training cross B=2 Sq={T} Skv=1500": ("whisper_train_cross", False,
+                                                (WT, T, 1500))}
+    whisper = {w: fa_case(B, 20, 20, Sq, Skv, 64, torch.bfloat16)
+               for w, (_, _, (B, Sq, Skv)) in whisper_shapes.items()}
+    # qwen2-0.5b training's forward (phase 9): batch 8 x 1024, causal
+    q_train = fa_case(TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64,
+                      torch.bfloat16)
     cases = [
         ("qwen2 prefill S=2048 bf16", main, True, torch.float32, BF16_TOL),
         ("qwen2 prefill S=2048 bf16 compute_dtype=bf16", main, True,
@@ -415,6 +494,17 @@ def run_kernel_checks(report: dict) -> dict:
         ("fp32 non-causal Sq=77 Skv=200",
          fa_case(1, 8, 1, 77, 200, 64, torch.float32), False, torch.float32,
          FP32_TOL),
+        *(("whisper " + w, whisper[w], c, torch.float32, BF16_TOL)
+          for w, (_, c, _) in whisper_shapes.items()),
+        *((f"whisper {w} compute_dtype=bf16", whisper[w],
+           whisper_shapes[w][1], torch.bfloat16, None)
+          for w in ("encoder B=8 S=1500", "cross decode B=8 Sq=1 Skv=1500",
+                    f"decoder self prefill B=8 S={P}")),
+        ("qwen2 training B=8 S=1024 bf16", q_train, True, torch.float32,
+         BF16_TOL),
+        ("non-causal Skv=0: no key, zeros",
+         fa_case(2, 4, 4, 5, 0, 64, torch.bfloat16), False, torch.float32,
+         BF16_TOL),
     ]
     for name, (q, k, v), causal, cdt, tol in cases:
         got = fa.flash_attention(q, k, v, causal=causal, compute_dtype=cdt)
@@ -432,6 +522,8 @@ def run_kernel_checks(report: dict) -> dict:
               f"{float(want.float().abs().max()):.3e} err/tol={s:.3f} "
               f"(tol {tol_txt})")
         check(s <= 1, f"K2 disagrees with its plain version: {name}")
+        if k.shape[2] == 0:
+            check(not got.any(), f"K2: a row with no key is not 0: {name}")
         errs.append(e)
 
     def k2_bound(q, k):
@@ -452,9 +544,46 @@ def run_kernel_checks(report: dict) -> dict:
         return time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), iters=50)
 
+    def shape_times(tag, q, k, v, causal):
+        """K2 at one more shape of a main path: ms, ms_graph, the bound (4
+        B H D flops over the (query, key) pairs the mask leaves; q, k, v
+        read, out written), the plain version and SDPA."""
+        B, H, Sq, D = q.shape
+        Skv = k.shape[2]
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        flops = 4.0 * B * H * D * attn_pairs(Sq, Skv, causal)
+        b, by = bound(nbytes, flops, q.dtype)
+        call = lambda: fa.flash_attention(  # noqa: E731
+            q, k, v, causal=causal)
+        out = {f"ms_{tag}": time_ms(call, iters=50),
+               f"ms_graph_{tag}": time_graph_ms(call, iters=20),
+               f"bound_ms_{tag}": b, f"bound_by_{tag}": by,
+               f"plain_ms_{tag}": time_ms(lambda: ref.mha_attention(
+                   q, k, v, causal=causal), iters=3, warmup=1),
+               f"library_ms_{tag}": time_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal, enable_gqa=True),
+                   iters=50)}
+        print(f"[K2] {tag}: B={B} H={H} Hkv={k.shape[1]} Sq={Sq} Skv={Skv} "
+              f"D={D} bf16 {'causal' if causal else 'non-causal'}, {nbytes} "
+              f"bytes, {flops:.4g} flops: ms={out[f'ms_{tag}']:.5f} "
+              f"ms_graph={out[f'ms_graph_{tag}']:.5f} bound {b:.5f} ({by}),"
+              f" {b / out[f'ms_graph_{tag}']:.3f} of the bound; plain "
+              f"{out[f'plain_ms_{tag}']:.4f}; SDPA "
+              f"{out[f'library_ms_{tag}']:.5f}")
+        return out
+
+    shape_t = {}
+    for w, (tag, causal, _) in whisper_shapes.items():
+        shape_t.update(shape_times(tag, *whisper[w], causal))
+    del whisper
+    shape_t.update(shape_times("qwen2_train", *q_train, True))
+    shape_t.update(shape_times("qwen2_s1024", *s1024, True))
+    shape_t.update(shape_times("zamba2_shape", *zamba, True))
+    del q_train
+
     q, k, v = main
     b_ms, b_by = k2_bound(q, k)
-    zb_ms, _ = k2_bound(zamba[0], zamba[1])
     lib_ms = sdpa_ms(q, k, v)
     results["flash_attention"] = r = dict(
         name="flash_attention", route="cuda",
@@ -467,10 +596,7 @@ def run_kernel_checks(report: dict) -> dict:
         ms_graph=time_graph_ms(lambda: fa.flash_attention(q, k, v),
                                iters=20),
         ms_compute_bf16=fa_ms(q, k, v, torch.bfloat16),
-        library_ms_repeat=sdpa_ms(q, k, v),
-        ms_zamba2_shape=fa_ms(*zamba), bound_ms_zamba2_shape=zb_ms,
-        library_ms_zamba2_shape=sdpa_ms(*zamba),
-        ms_qwen2_s1024=fa_ms(*s1024), library_ms_qwen2_s1024=sdpa_ms(*s1024))
+        library_ms_repeat=sdpa_ms(q, k, v), **shape_t)
     print(f"[K2] qwen2 prefill shape: ms={r['ms']:.5f} (compute fp32; "
           f"graph-replayed {r['ms_graph']:.5f}), compute_dtype=bf16 "
           f"{r['ms_compute_bf16']:.5f}; SDPA {lib_ms:.5f} / "
@@ -748,13 +874,14 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def through_plain(fn, *, oracle: bool = False):
+def through_plain(fn, *, oracle: bool = False, attention=None):
     """Run fn() with every kernel of ``ops`` swapped for its plain version
     (the CPU path's functions, here on the card's tensors); ``oracle``
-    takes the scans' sequential oracles instead of their chunked forms."""
+    takes the scans' sequential oracles instead of their chunked forms,
+    ``attention`` another plain version of K2's function."""
     from repro_torch.kernels import ops, ref
     plain = {"paged_attention": ref.paged_attention,
-             "flash_attention": ref.mha_attention,
+             "flash_attention": attention or ref.mha_attention,
              "mamba2_scan": ref.mamba2_scan if oracle
              else ref.mamba2_scan_chunked,
              "rwkv6_scan": ref.rwkv6_scan if oracle
@@ -888,9 +1015,11 @@ def compare_paths(cfg, params) -> dict:
 def device_profile(fn, steps: int) -> dict:
     """Where a call's time goes: wall time per call (host clock around
     synchronised calls, without the profiler), device time by kernel
-    (torch.profiler, over the same number of calls) and the device's busy
-    share of the unprofiled wall time.  fn() must leave the state it reads
-    as it found it (or rewrite the same rows), so the calls do not drift."""
+    (torch.profiler, over the same number of calls), the device's busy
+    share of the unprofiled wall time, and the host operators that take
+    the most of the host's own time (under the profiler).  fn() must leave
+    the state it reads as it found it (or rewrite the same rows), so the
+    calls do not drift."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -923,8 +1052,16 @@ def device_profile(fn, steps: int) -> dict:
         short = k.split("::")[-1].split("<")[0].split("(")[0]
         if any(n in short for names in OUR_KERNELS.values() for n in names):
             by_name[short] = by_name.get(short, 0.0) + ms
+    # host-side operators by their own time (a call's host cost where the
+    # device waits), with their calls a step
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps,
+                    e.count / steps) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda r: -r[1])
     return {"step_wall_ms": wall_ms,
             "step_wall_ms_under_profiler": prof_wall_ms,
+            "host_ops_per_step": sum(n for _, _, n in host),
+            "top_host_ms": [[k, ms, n] for k, ms, n in host[:8]],
             "device_ms": dev_ms if rows else "not measured",
             "device_busy_share": dev_ms / wall_ms if rows else "not measured",
             "our_kernels_device_ms": ours,
@@ -1259,15 +1396,20 @@ def solver_phase() -> None:
 # phases 5-6: recurrent serving (rwkv6, zamba2)
 # ----------------------------------------------------------------------------
 
-def expected_launches(cfg) -> dict:
-    """The launches one prefill of (N_PROMPTS, PROMPT_LEN) and DECODE_STEPS
-    greedy decode steps must show, per kernel."""
+def expected_launches(cfg, decode_steps: int = DECODE_STEPS) -> dict:
+    """The launches one prefill and ``decode_steps`` greedy decode steps
+    must show, per kernel."""
     want = dict.fromkeys(kernel_wrappers(), 0)
     if cfg.family == "rwkv6":      # K4: every layer, prefill and decode
-        want["rwkv6_scan"] = cfg.n_layers * (1 + DECODE_STEPS)
+        want["rwkv6_scan"] = cfg.n_layers * (1 + decode_steps)
     if cfg.family == "zamba2":     # K3 every backbone layer, K2 every
         want["mamba2_scan"] = cfg.n_layers  # shared block, prefill only
         want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":     # K2: every encoder layer and every
+        # decoder layer's self- and cross-attention in prefill; a decode
+        # step's cross-attention (its self-attention is inline PyTorch)
+        want["flash_attention"] = (cfg.n_enc_layers + 2 * cfg.n_layers
+                                   + decode_steps * cfg.n_layers)
     return want
 
 
@@ -1490,6 +1632,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 # checkpoint-restart: depth cut to 4 layers, so a checkpoint (bf16 weights,
 # fp32 moments) is ~1.6 GB instead of ~5 GB at 24
 RESTART_LAYERS = 4
+# whisper-large-v3 training's attention shapes ((B, H, Hkv, Sq, Skv, D),
+# causal), one for each third of its K2-bwd launches: the encoder over 1500
+# frames, the 448-token decoder's causal self-attention, and its
+# cross-attention against the frames
+WHISPER_BWD_SHAPES = {
+    "encoder B=2 S=1500": ((2, 20, 20, 1500, 1500, 64), False),
+    "decoder self B=2 S=448": ((2, 20, 20, 448, 448, 64), True),
+    "cross B=2 Sq=448 Skv=1500": ((2, 20, 20, 448, 1500, 64), False)}
 
 
 def k2_bwd_case(B, H, Hkv, Sq, Skv, D, dtype, seed):
@@ -1506,12 +1656,7 @@ def k2_bwd_bound(q, k, causal: bool):
     v, out, dout and the fp32 LSE read once, dq, dk, dv written once."""
     import torch
     B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    if causal:      # query i sees keys 0 .. i + Skv - Sq
-        pairs = sum(max(0, min(Skv, i + 1 + Skv - Sq)) for i in range(Sq))
-    else:
-        pairs = Sq * Skv
-    flops = 5 * 2.0 * B * H * D * pairs
+    flops = 5 * 2.0 * B * H * D * attn_pairs(Sq, k.shape[2], causal)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + 4 * B * H * Sq
     return (*bound(nbytes, flops, torch.bfloat16), nbytes, flops)
@@ -1556,6 +1701,10 @@ def run_k2_bwd_checks(report: dict) -> dict:
          f32, False),
         ("causal Sq=300 > Skv=100 bf16: empty rows",
          (1, 4, 4, 300, 100, 64), bf, f32, True),
+        # whisper-large-v3 training (phase 10), on the wgmma pair
+        *((f"whisper {w} bf16{c}", shape, bf, cdt, causal)
+          for w, (shape, causal) in WHISPER_BWD_SHAPES.items()
+          for c, cdt in (("", f32), (" compute_dtype=bf16", bf))),
     ]
     errs = []
     for i, (name, shape, dtype, cdt, causal) in enumerate(cases):
@@ -1644,6 +1793,21 @@ def run_k2_bwd_checks(report: dict) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                 "flops": flops}
 
+    whisper_t = {}
+    for w, (shape, causal) in WHISPER_BWD_SHAPES.items():
+        tag = "whisper_" + w.split()[0]
+        t = timings(shape, bf, f32, causal=causal, seed=3)
+        whisper_t.update({f"{k}_{tag}": t[k] for k in
+                          ("ms", "ms_graph", "plain_ms", "library_ms",
+                           "library_ms_graph", "bound_ms", "bound_by")})
+        print(f"[K2-bwd] timed at whisper's {w} (B, H, Hkv, Sq, Skv, D) = "
+              f"{shape} bf16 {'causal' if causal else 'non-causal'}, "
+              f"{' + '.join(fa.BWD_KERNELS[1])}: "
+              f"ms={t['ms']:.4f} ms_graph={t['ms_graph']:.4f}; plain "
+              f"{t['plain_ms']:.3f}; SDPA fwd+bwd - fwd {t['library_ms']:.4f}"
+              f" eager, {t['library_ms_graph']:.4f} graph-replayed; bound "
+              f"{t['bound_ms']:.5f} ({t['bound_by']}, {t['flops']:.4g} "
+              f"flops), {t['bound_ms'] / t['ms_graph']:.3f} of the bound")
     train_t = timings((TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), bf,
                       f32)
     pre_t = timings((1, 14, 2, 2048, 2048, 64), bf, f32, seed=1)
@@ -1657,7 +1821,7 @@ def run_k2_bwd_checks(report: dict) -> dict:
              ms_graph_compute_bf16=cb_t["ms_graph"],
              library_ms_graph_compute_bf16=cb_t["library_ms_graph"],
              **{f"{k}_prefill_shape": v for k, v in pre_t.items()
-                if k != "bound_by"})
+                if k != "bound_by"}, **whisper_t)
     r["kernel_ms"] = r["ms"]
     print(f"[K2-bwd] timed at the training shape B={TRAIN_BATCH} H=14 Hkv=2 "
           f"S={TRAIN_SEQ} D=64 bf16 causal: ms={r['ms']:.4f} ms_graph="
@@ -1802,6 +1966,361 @@ def train_with_cpu() -> None:
 
 
 # ----------------------------------------------------------------------------
+# phase 10: the encoder-decoder family (whisper-large-v3), served and trained
+# ----------------------------------------------------------------------------
+
+def whisper_batch(cfg, B: int, S: int, seed: int, device="cuda") -> dict:
+    """Stub-frontend frames (seeded normal, fp32) and prompt tokens."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((B, cfg.n_frames, cfg.d_model),
+                                 dtype=np.float32)
+    tokens = rng.integers(0, cfg.vocab, size=(B, S))
+    return {"frames": torch.from_numpy(frames).to(device),
+            "tokens": torch.from_numpy(tokens).to(device)}
+
+
+def blocked_attention(q, k, v, *, causal: bool = True, scale=None,
+                      compute_dtype=None, block: int = 256):
+    """A second plain version of K2's function (compute fp32): the keys in
+    blocks of ``block``, each block's exponentials summed against the
+    running maximum and combined by rescaling, in fp32 — the function of
+    ``ref.mha_attention``, summed in another order."""
+    import torch
+    check(compute_dtype in (None, torch.float32),
+          "blocked_attention: compute fp32 only")
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(H // Hkv, 1)
+    vf = v.float().repeat_interleave(H // Hkv, 1)
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    m = torch.full((B, H, Sq, 1), float("-inf"), device=q.device)
+    den = torch.zeros((B, H, Sq, 1), device=q.device)
+    acc = torch.zeros((B, H, Sq, D), device=q.device)
+    for k0 in range(0, Skv, block):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block])
+        if causal:
+            ki = torch.arange(k0, min(Skv, k0 + block), device=q.device)
+            s = s.masked_fill(ki[None] > qi, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(torch.isfinite(m_new), m_new,
+                           torch.zeros_like(m_new))
+        p = torch.exp(s - base)
+        alpha = torch.exp(m - base)
+        den = den * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p,
+                                         vf[:, :, k0:k0 + block])
+        m = m_new
+    return (acc / torch.where(den == 0, torch.ones_like(den), den)) \
+        .to(q.dtype)
+
+
+def whisper_first_logits(model, params, batch, kw, *, plain=None):
+    """Last-token logits of the prefill and of one decode step from the
+    kernels' prefill state (each call rewrites the same cache row), through
+    the kernels or, with ``plain``, through that plain version of K2."""
+    run = (lambda f: f()) if plain is None else \
+        (lambda f: through_plain(f, attention=plain))
+    lk, state = model.prefill(params, batch, **kw)
+    tok = lk[:, -1].argmax(-1)[:, None]
+    pre = run(lambda: model.prefill(params, batch, **kw))[0]
+    dec = run(lambda: model.decode_step(params, tok, state,
+                                        WHISPER_PROMPT))[0]
+    return pre[:, -1].float(), dec[:, -1].float()
+
+
+def compare_whisper_paths(cfg, model, params, batch, kw) -> None:
+    """Prefill and first decode logits through the kernels vs through the
+    plain version: in bf16 (the served weights) against the spread of two
+    plain versions, and in fp32 (the same weights, upcast) tightly."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import api
+    kern = whisper_first_logits(model, params, batch, kw)
+    plain = whisper_first_logits(model, params, batch, kw,
+                                 plain=ref.mha_attention)
+    blocked = whisper_first_logits(model, params, batch, kw,
+                                   plain=blocked_attention)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = type(params)(cfg32, device="cuda")
+    p32.load_state_dict(params.state_dict())
+    m32 = api.get_model(cfg32)
+    kern32 = whisper_first_logits(m32, p32, batch, kw)
+    plain32 = whisper_first_logits(m32, p32, batch, kw,
+                                   plain=ref.mha_attention)
+    del p32
+    torch.cuda.synchronize()
+    for i, what in enumerate(("prefill", "decode")):
+        k, p, o = kern[i], plain[i], blocked[i]
+        spread = max_err(p, o)
+        tol = max(REC_SPREAD_FACTOR * spread, LOGIT_TOL)
+        e = max_err(k, p)
+        top2 = p.topk(2, dim=-1).values
+        gaps = top2[:, 0] - top2[:, 1]
+        same = k.argmax(-1) == p.argmax(-1)
+        clear = gaps > tol
+        print(f"[compare whisper] bf16 {what} logits: max_abs_err={e:.3e} "
+              f"max|logit|={float(p.abs().max()):.3f}; two plain versions "
+              f"(ref vs key blocks) {spread:.3e} apart, tol {tol:.3e}; "
+              f"argmax agreement {int(same.sum())}/{len(same)}, on the "
+              f"{int(clear.sum())} rows with a top-2 gap above tol "
+              f"{int(same[clear].sum())}")
+        check(e <= tol, f"whisper: bf16 {what} logits of the kernels and "
+              f"the plain version differ by {e:.3e} > {tol:.3e}")
+        check(bool(same[clear].all()),
+              f"whisper: bf16 {what} argmax differs on a row whose top-2 "
+              f"gap exceeds {tol:.3e}")
+        k, p = kern32[i], plain32[i]
+        e = max_err(k, p)
+        agree = int((k.argmax(-1) == p.argmax(-1)).sum())
+        print(f"[compare whisper] fp32 {what} logits: max_abs_err={e:.3e} "
+              f"max|logit|={float(p.abs().max()):.3f} argmax agreement "
+              f"{agree}/{k.shape[0]} (tol {FP32_LOGIT_TOL})")
+        check(e <= FP32_LOGIT_TOL and agree == k.shape[0],
+              f"whisper: fp32 {what} logits of the kernels and the plain "
+              f"version disagree ({e:.3e}, argmax {agree}/{k.shape[0]})")
+
+
+def serve_whisper() -> dict:
+    """whisper-large-v3 at full width through ``api.get_model``: prefill
+    WHISPER_BATCH x (1500 frames + WHISPER_PROMPT tokens), then
+    WHISPER_STEPS greedy decode steps; returns the kernels' launches of
+    that run."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api, encdec
+    cfg = configs.get_config("whisper-large-v3")
+    model = api.get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"[whisper] {cfg.name}: {n_par} parameters ({n_par * 2 / 1e9:.2f} "
+          f"GB bf16), init {time.perf_counter() - t0:.1f} s")
+    batch = whisper_batch(cfg, WHISPER_BATCH, WHISPER_PROMPT, seed=5)
+    kw = {"max_len": WHISPER_PROMPT + WHISPER_STEPS}
+    model.prefill(params, batch, **kw)         # warm: cuBLAS, first launches
+    torch.cuda.synchronize()
+
+    reset_counts()                             # the main path's run
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, batch, **kw)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre_counts = read_counts()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(WHISPER_STEPS):
+        logits, state = model.decode_step(params, tok, state,
+                                          WHISPER_PROMPT + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    counts = read_counts()                     # ... ends here
+    want = expected_launches(cfg, decode_steps=0)
+    check(pre_counts == want, f"whisper prefill: launches {pre_counts}, "
+          f"expected {want}")
+    want = expected_launches(cfg, decode_steps=WHISPER_STEPS)
+    check(counts == want, f"whisper: launches {counts}, expected {want}")
+    toks = torch.cat(out, 1).cpu().numpy()
+    check(tuple(logits.shape) == (WHISPER_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "whisper: decode logits not finite or of the wrong shape")
+    check(toks.shape == (WHISPER_BATCH, WHISPER_STEPS + 1)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "whisper: a token lies outside the vocabulary")
+    enc_ms = time_ms(lambda: encdec.encode(cfg, params, batch["frames"]),
+                     iters=3, warmup=1)
+    res = {"model": cfg.name, "segments": WHISPER_BATCH,
+           "frames": cfg.n_frames, "prompt_len": WHISPER_PROMPT,
+           "decode_steps": WHISPER_STEPS, "prefill_ms": pre_s * 1e3,
+           "encoder_ms": enc_ms,
+           "decoder_prefill_ms (prefill - encoder)": pre_s * 1e3 - enc_ms,
+           "decode_ms_per_step": dec_s * 1e3 / WHISPER_STEPS,
+           "generated_tokens_per_s": WHISPER_BATCH * WHISPER_STEPS / dec_s,
+           "launches_prefill": {k: v for k, v in pre_counts.items() if v},
+           "launches": {k: v for k, v in counts.items() if v},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": gpu_name_power()}
+    print(f"[serve whisper] {json.dumps(res)}")
+
+    compare_whisper_paths(cfg, model, params, batch, kw)
+    _, state = model.prefill(params, batch, **kw)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    prof = {"prefill": device_profile(
+        lambda: model.prefill(params, batch, **kw), 1),
+        "decode step": device_profile(
+        lambda: model.decode_step(params, tok, state, WHISPER_PROMPT), 3)}
+    for what, p in prof.items():
+        print(f"[profile whisper {what}] {json.dumps(p)}")
+    del params, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compare_whisper_with_cpu() -> None:
+    """A reduced fp32 whisper shaped for the kernels (head_dim 64, 200
+    frames: ragged key tails) served on the card and, from the same
+    weights, on the CPU: the same tokens, logits within rtol 1e-4."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_config("whisper-large-v3").reduced(head_dim=64,
+                                                         n_frames=200)
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator(device="cpu").manual_seed(3))
+    batch = whisper_batch(cfg, 2, 24, seed=7, device="cpu")
+    S, steps = 24, 8
+    toks, logits_by = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = type(params)(cfg, device=dev)
+        p.load_state_dict(params.state_dict())
+        reset_counts()
+        logits, state = model.prefill(
+            p, {k: v.to(dev) for k, v in batch.items()}, max_len=S + steps)
+        seq, lg = [], [logits.cpu()]
+        for i in range(steps):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            seq.append(tok.cpu())
+            logits, state = model.decode_step(p, tok, state, S + i)
+            lg.append(logits.cpu())
+        toks[dev], logits_by[dev] = torch.cat(seq, 1), torch.cat(lg, 1)
+        if dev == "cuda":
+            launched = read_counts()
+    want = expected_launches(cfg, decode_steps=steps)
+    check(launched == want, f"reduced whisper: launches {launched}, "
+          f"expected {want}")
+    check(torch.equal(toks["cuda"], toks["cpu"]),
+          "reduced fp32 whisper: card and CPU tokens differ")
+    rel = float(((logits_by["cuda"] - logits_by["cpu"]).abs()
+                 / (logits_by["cpu"].abs() + 1e-4)).max())
+    check(torch.allclose(logits_by["cuda"], logits_by["cpu"], rtol=1e-4,
+                         atol=1e-4),
+          f"reduced fp32 whisper: card and CPU logits differ ({rel:.3e})")
+    print(f"[compare] reduced fp32 whisper (head_dim 64, 200 frames): card "
+          f"tokens == CPU tokens over {steps} decode steps, logits within "
+          f"rtol 1e-4 (largest |diff| / (|cpu| + 1e-4) {rel:.3e}); "
+          f"kernels launched on the card: "
+          f"{ {k: v for k, v in launched.items() if v} }")
+
+
+def train_whisper() -> dict:
+    """whisper-large-v3 at full width trained on the card through
+    ``Trainer(comm="single")``; returns the kernels' launches of that run."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = configs.get_config("whisper-large-v3")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_config(cfg, "whisper", batch=WHISPER_TRAIN_BATCH,
+                                   seq_len=WHISPER_TRAIN_SEQ))
+    torch.cuda.synchronize()
+    print(f"[train whisper] {tr.n_params} parameters, {cfg.dtype}, init "
+          f"{time.perf_counter() - t0:.1f} s; batch {WHISPER_TRAIN_BATCH} x "
+          f"({cfg.n_frames} frames + {WHISPER_TRAIN_SEQ} tokens), remat, "
+          "AdamW lr 3e-4")
+    reset_counts()                     # the main path's run starts here
+    ms = tr.train(WHISPER_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()             # ... and ends here
+    losses = [m["loss"] for m in ms]
+    check(all(np.isfinite(losses)), f"whisper train: a loss is not finite: "
+          f"{losses}")
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = 2 * n_attn * WHISPER_TRAIN_STEPS
+    want["flash_attention_bwd"] = n_attn * WHISPER_TRAIN_STEPS
+    check(counts == want, f"whisper train: launches {counts}, expected "
+          f"{want} (K2 {2 * n_attn} and K2-bwd {n_attn} a step)")
+    step_s = float(np.median([m["step_time_s"] for m in ms]))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(tr.train_step, 1)
+    probe = copy.deepcopy(tr.data)     # the host's batch, on its own
+    t0 = time.perf_counter()
+    probe.next_batch()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    out = {"losses": losses,
+           "grad_norms": [m["grad_norm"] for m in ms],
+           "step_ms": [m["step_time_s"] * 1e3 for m in ms],
+           "host_batch_ms": batch_ms,
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ / step_s,
+           "frames_per_s": WHISPER_TRAIN_BATCH * cfg.n_frames / step_s,
+           "launches_per_step": {k: v // WHISPER_TRAIN_STEPS
+                                 for k, v in counts.items() if v},
+           "max_memory_allocated_bytes": peak, "step_profile": prof,
+           "card": gpu_name_power()}
+    print(f"[train whisper] {json.dumps(out)}")
+    del tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_whisper_with_cpu() -> None:
+    """Phase 10d: the reduced fp32 whisper of phase 10b trained 3 steps on
+    the card and, from the same weights, on the CPU: losses within rtol
+    1e-4 (TF32 off), K2 twice and K2-bwd once an attention a step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.runtime.trainer import Trainer
+    cfg = configs.get_config("whisper-large-v3").reduced(head_dim=64,
+                                                         n_frames=200)
+    init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
+    steps, n_attn = 3, cfg.n_enc_layers + 2 * cfg.n_layers
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tc = train_config(cfg, f"whisper_reduced_{dev}", batch=2, seq_len=40)
+        tr = Trainer(cfg, tc, device=dev, init_params=init)
+        reset_counts()
+        losses[dev] = [m["loss"] for m in tr.train(steps)]
+        if dev == "cuda":
+            launched = read_counts()
+    want = dict.fromkeys(launched, 0)
+    want["flash_attention"] = 2 * n_attn * steps
+    want["flash_attention_bwd"] = n_attn * steps
+    check(launched == want, f"reduced whisper training: launches "
+          f"{launched}, expected {want}")
+    rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
+                       / np.abs(losses["cpu"])))
+    print(f"[compare] reduced fp32 whisper training (head_dim 64, 200 "
+          f"frames): card {losses['cuda']} vs CPU {losses['cpu']}, largest "
+          f"relative gap {rel:.3e} (tol 1e-4)")
+    check(all(np.isfinite(losses["cuda"])) and rel <= 1e-4,
+          "reduced fp32 whisper training: card and CPU losses differ")
+
+
+def whisper_phases() -> dict:
+    """Phase 10; returns the launches of its two main paths."""
+    paths = {"whisper_serve": phase("10a whisper serving", serve_whisper)}
+    phase("10b reduced whisper card vs CPU", compare_whisper_with_cpu)
+    paths["whisper_train"] = phase("10c whisper training", train_whisper)
+    phase("10d reduced whisper training card vs CPU", train_whisper_with_cpu)
+    return paths
+
+
+# ----------------------------------------------------------------------------
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
@@ -1927,6 +2446,64 @@ def engine_ab(parent: str) -> None:
               f"{d['our_kernels_device_ms']}")
 
 
+def kernel_ranking(report: dict, paths: dict) -> dict:
+    """Each kernel's cost on the main paths: launches x (ms - bound) summed
+    over the paths, each path's calls at the shape timed for them (eager
+    ``ms``; ``ms_graph``, the device alone, in ``excess_ms_graph``).  The
+    engine's and the cluster's K1 calls take the engine's batch of 8, and
+    their K2 calls its longest prompt (S = 1024; prompts are 128-1024
+    tokens), so K2's is an upper estimate there.  A path's calls at no
+    timed shape are counted apart, not measured."""
+    from repro_torch import configs
+    wh = configs.get_config("whisper-large-v3")
+    E, L = wh.n_enc_layers, wh.n_layers
+    rw = configs.get_config("rwkv6-1.6b").n_layers
+    fw = 2 * WHISPER_TRAIN_STEPS          # K2 twice a layer a step (remat)
+    # kernel -> path -> {timed shape's key suffix: launches (None: all)}
+    split = {
+        "paged_attention": {"qwen2_engine": {"_engine_shape": None},
+                            "qwen2_cluster": {"_engine_shape": None}},
+        "flash_attention": {
+            "qwen2_engine": {"_qwen2_s1024": None},
+            "qwen2_cluster": {"_qwen2_s1024": None},
+            "zamba2-1.2b": {"_zamba2_shape": None},
+            "qwen2_train": {"_qwen2_train": None},
+            "whisper_serve": {"_whisper_encoder": E,
+                              "_whisper_decoder_prefill": L,
+                              "_whisper_cross_prefill": L,
+                              "_whisper_cross_decode": L * WHISPER_STEPS},
+            "whisper_train": {"_whisper_train_encoder": fw * E,
+                              "_whisper_train_decoder": fw * L,
+                              "_whisper_train_cross": fw * L}},
+        "flash_attention_bwd": {
+            "qwen2_train": {"": None},
+            "whisper_train": {"_whisper_encoder": WHISPER_TRAIN_STEPS * E,
+                              "_whisper_decoder": WHISPER_TRAIN_STEPS * L,
+                              "_whisper_cross": WHISPER_TRAIN_STEPS * L}},
+        "mamba2_scan": {"zamba2-1.2b": {"": None}},
+        "rwkv6_scan": {"rwkv6-1.6b": {"": rw, "_decode": rw * DECODE_STEPS}}}
+    out = {}
+    for name, r in report.items():
+        row = {"excess_ms": 0.0, "excess_ms_graph": 0.0, "by_path": {},
+               "launches_not_timed": 0}
+        for path, counts in paths.items():
+            n = counts[name]
+            shapes = split.get(name, {}).get(path, {})
+            for suf, k in shapes.items():
+                k = n if k is None else k
+                b = r["bound_ms" + suf]
+                ex = k * (r["ms" + suf] - b)
+                row["excess_ms"] += ex
+                row["excess_ms_graph"] += k * (r["ms_graph" + suf] - b)
+                row["by_path"][path] = row["by_path"].get(path, 0.0) + ex
+                n -= k
+            check(n >= 0, f"ranking: {path} launched {name} {counts[name]} "
+                  f"times, fewer than its timed shapes' share")
+            row["launches_not_timed"] += n
+        out[name] = row
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["excess_ms"]))
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1985,8 +2562,8 @@ def main() -> int:
         train_phases(report)
         print(card)
         return 0
-    run_kernel_checks(report)
-    run_scan_checks(report)
+    phase("2 kernels vs plain", run_kernel_checks, report)
+    phase("2 scans vs plain", run_scan_checks, report)
     launches: dict = {}                # per engine run: whole, chunked
     cfg = configs.get_config("qwen2-0.5b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1997,8 +2574,10 @@ def main() -> int:
     print(f"[engine] qwen2-0.5b: {n_par} parameters "
           f"({n_par * 2 / 1e9:.2f} GB bf16), init "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     whole, _ = run_engine(cfg, params, chunked=False, launches=launches)
     chunked, _ = run_engine(cfg, params, chunked=True, launches=launches)
+    PHASE_WALLS["3 engine"] = round(time.perf_counter() - t0, 1)
     same = sum(whole[i] == chunked[i] for i in whole)
     print(f"[engine] whole vs chunked prefill: {same}/{len(whole)} "
           "requests with identical tokens (bf16)")
@@ -2006,9 +2585,9 @@ def main() -> int:
     check(launches["whole"]["paged_attention"] > 0
           and launches["whole"]["flash_attention"] > 0,
           f"a kernel of the engine path never launched: {launches}")
-    compare_paths(cfg, params)
-    compare_with_cpu()
-    cluster_counts = cluster_phase(cfg, params)
+    phase("4 engine kernels vs plain", compare_paths, cfg, params)
+    phase("4 reduced qwen2 card vs CPU", compare_with_cpu)
+    cluster_counts = phase("7 cluster", cluster_phase, cfg, params)
     del params                         # one model on the card at a time
     torch.cuda.empty_cache()
 
@@ -2018,11 +2597,16 @@ def main() -> int:
              "qwen2_cluster": cluster_counts}
     for name in ("rwkv6-1.6b", "zamba2-1.2b"):
         torch.cuda.reset_peak_memory_stats()
-        paths[name] = serve_recurrent(name)
+        paths[name] = phase(f"5 {name}", serve_recurrent, name)
         torch.cuda.empty_cache()
-    compare_recurrent_with_cpu()
-    solver_phase()
-    paths["qwen2_train"] = train_phases(report)
+    phase("6 reduced recurrent card vs CPU", compare_recurrent_with_cpu)
+    phase("8 solver", solver_phase)
+    paths["qwen2_train"] = phase("9 training", train_phases, report)
+    # whisper last, once every other model has left the card
+    paths.update(whisper_phases())
+    print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+    ranking = kernel_ranking(report, paths)
+    print(f"[ranking] {json.dumps(ranking)}")
     kernels = []
     for name, r in report.items():
         by_path = {p: c[name] for p, c in paths.items() if c[name]}
@@ -2037,6 +2621,7 @@ def main() -> int:
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         # further shapes and variants: *_decode, ms_engine_shape, ...
         entry.update({k: v for k, v in r.items() if k not in entry})
+        entry["main_paths_excess"] = ranking[name]
         kernels.append(entry)
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main paths never launched: {paths}")

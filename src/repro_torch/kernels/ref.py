@@ -22,6 +22,8 @@ def _softmax_rows(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis of the unmasked entries; a row with no
     unmasked entry gives all zeros (not NaN)."""
     logits = logits.masked_fill(~mask, float("-inf"))
+    if logits.shape[-1] == 0:      # no key at all: nothing to weigh
+        return logits
     m = logits.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - m)

@@ -1,32 +1,29 @@
 """Uniform model API: family dispatch.
 
 ``get_model(cfg)`` returns a ``Model`` facade with the JAX package's five
-entry points (``models/api.py``) for the families the port carries: the
-decoder-only transformers (dense, moe, vlm), the recurrent ``mamba2`` and
-``rwkv6``, and the ``zamba2`` hybrid.  The encoder-decoder family raises
-until its slice lands.  The JAX module's ShapeDtypeStruct input specs serve
-its dry-run, which the port replaces last (ROADMAP queue item 10).
+entry points (``models/api.py``) for every family: the decoder-only
+transformers (dense, moe, vlm), the recurrent ``mamba2`` and ``rwkv6``,
+the ``zamba2`` hybrid and the ``encdec`` encoder-decoder (whisper), whose
+decode state comes from ``prefill(..., max_len=)`` alone, as in JAX.  The
+JAX module's ShapeDtypeStruct input specs serve its dry-run, which the
+port replaces last (ROADMAP queue item 10).
 
 ``init`` takes a ``torch.Generator`` and builds the weights on its device;
 ``train_loss(p, b, remat=True)`` takes JAX's ``remat`` knob, which the
-transformer families read (per-layer ``torch.utils.checkpoint``) and the
-recurrent ones accept and leave (their scans have no backward kernel on
-the card yet, ROADMAP item 12);
+transformer and encoder-decoder families read (per-layer
+``torch.utils.checkpoint``) and the recurrent ones accept and leave
+(their scans have no backward kernel on the card yet, ROADMAP item 12);
 ``init_decode_state(batch, max_len, device="cuda")`` builds zero state on
-the card unless the caller asks for the CPU.
+the card unless the caller asks for the CPU (encdec raises ``TypeError``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.models import attention, hybrid, rwkv, ssm, transformer
+from repro_torch.models import (attention, encdec, hybrid, rwkv, ssm,
+                                transformer)
 from repro_torch.models.common import ArchCfg
-
-# where each family not ported yet stands in ROADMAP.md
-_NOT_PORTED = {
-    "encdec": "queue item 9 (encoder-decoder family)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +34,14 @@ class Model:
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]   # (params, token, state, pos)
     init_decode_state: Callable[..., Any]
+
+
+def _state_from_prefill(*args, **kwargs):
+    """encdec has no zero decode state: its cross-attention K/V are the
+    encoder's output, which only ``prefill`` computes."""
+    raise TypeError("encdec: the decode state comes from "
+                    "prefill(params, batch, max_len=...), which encodes the "
+                    "frames; there is no init_decode_state")
 
 
 def get_model(cfg: ArchCfg) -> Model:
@@ -89,8 +94,14 @@ def get_model(cfg: ArchCfg) -> Model:
             init_decode_state=lambda batch, max_len, device="cuda":
                 hybrid.init_state(cfg, batch, max_len, device=device),
         )
-    if fam in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported to PyTorch yet: ROADMAP "
-            f"{_NOT_PORTED[fam]}")
+    if fam == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda gen: encdec.init_lm(cfg, gen),
+            train_loss=lambda p, b, **kw: encdec.train_loss(cfg, p, b, **kw),
+            prefill=lambda p, b, **kw: encdec.prefill(cfg, p, b, **kw),
+            decode_step=lambda p, t, s, pos: encdec.decode_step(cfg, p, t, s,
+                                                                pos),
+            init_decode_state=_state_from_prefill,
+        )
     raise ValueError(f"unknown family {fam}")

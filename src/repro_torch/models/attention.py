@@ -7,7 +7,10 @@ plain version on the CPU.  ``attn_decode`` is one token against a dense
 (B, S_max, Hkv, hd) cache, inline PyTorch as the JAX version is inline
 jnp; unlike JAX it writes the new K/V row into the cache in place.  The
 serving engine decodes through its paged pool instead (K1).
-Cross-attention (``attn_cross``) is not ported yet.
+``attn_cross`` (the encoder-decoder family) is non-causal attention of the
+decoder's queries against the encoder's precomputed K/V, through the same
+``ops.flash_attention``; it takes those K/V in the kernel's (B, Hkv, F, hd)
+layout, where JAX keeps (B, F, Hkv, hd), so a decode step copies none.
 """
 from __future__ import annotations
 
@@ -72,6 +75,25 @@ def attn_full(cfg: ArchCfg, p: Params, x: torch.Tensor, *, freqs=None,
                               compute_dtype=compute_dtype(cfg))
     out = out.transpose(1, 2).reshape(B, S, -1)
     return out @ p["wo"], (k, v)
+
+
+def attn_cross(cfg: ArchCfg, p: Params, x: torch.Tensor, kv_cache):
+    """Cross-attention against precomputed (k, v) from the encoder.
+
+    x: (B, S, d); k, v: contiguous (B, Hkv, F, hd), the kernel's layout.
+    Non-causal, so a query row sees every key: only F = 0 leaves a row
+    empty, and that row gives 0 (``ref.mha_attention``, K2)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2).contiguous()
+    k, v = kv_cache
+    out = ops.flash_attention(q, k, v, causal=False,
+                              compute_dtype=compute_dtype(cfg))
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    return out @ p["wo"]
 
 
 def init_kv_cache(cfg: ArchCfg, batch: int, max_len: int, *, layers: int,

@@ -1,13 +1,16 @@
 """Weights bridge: a JAX parameter pytree (as numpy arrays) -> the port's
-model module (``TransformerLM``, ``RwkvLM``, ``MambaLM`` or ``HybridLM``),
-and the optimizer state and checkpoint layout back and forth.
+model module (``TransformerLM``, ``RwkvLM``, ``MambaLM``, ``HybridLM`` or
+``EncDecLM``), and the optimizer state and checkpoint layout back and
+forth.
 
 The JAX package stacks every layer's parameters along a leading L axis
 (for ``lax.scan``): ``layers`` for the transformers, rwkv6 and mamba2,
-``mamba`` for the zamba2 backbone (its ``shared`` block is not stacked).
-The port keeps one module per layer.  ``from_jax_params`` unstacks that
-axis and loads the result by name (``strict=True``), so both packages
-compute the same function from the same weights.  It takes numpy arrays,
+``mamba`` for the zamba2 backbone (its ``shared`` block is not stacked),
+``enc_layers`` (``n_enc_layers`` deep) and ``dec_layers`` (``n_layers``
+deep) for encdec.  The port keeps one module per layer.
+``from_jax_params`` unstacks those axes and loads the result by name
+(``strict=True``), so both packages compute the same function from the
+same weights.  It takes numpy arrays,
 so this module needs no JAX: ``jax.tree.map(np.asarray, params)`` on the
 JAX side.
 
@@ -27,15 +30,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models import hybrid, rwkv, ssm
+from repro_torch.models import encdec, hybrid, rwkv, ssm
 from repro_torch.models.common import ArchCfg
 from repro_torch.models.transformer import TransformerLM
 
-# family -> (module class, name of the stacked layer axis)
-_LM = {"dense": (TransformerLM, "layers"), "moe": (TransformerLM, "layers"),
-       "vlm": (TransformerLM, "layers"), "rwkv6": (rwkv.RwkvLM, "layers"),
-       "mamba2": (ssm.MambaLM, "layers"),
-       "zamba2": (hybrid.HybridLM, "mamba")}
+# family -> (module class, {stacked key: name of the config's depth field})
+_DECODER = {"layers": "n_layers"}
+_LM = {"dense": (TransformerLM, _DECODER), "moe": (TransformerLM, _DECODER),
+       "vlm": (TransformerLM, _DECODER), "rwkv6": (rwkv.RwkvLM, _DECODER),
+       "mamba2": (ssm.MambaLM, _DECODER),
+       "zamba2": (hybrid.HybridLM, {"mamba": "n_layers"}),
+       "encdec": (encdec.EncDecLM, {"enc_layers": "n_enc_layers",
+                                    "dec_layers": "n_layers"})}
 
 
 def to_torch(a) -> torch.Tensor:
@@ -92,17 +98,18 @@ def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
     if cfg.family not in _LM:
         raise NotImplementedError(f"family {cfg.family!r}: no model module "
                                   "in the port yet")
-    cls, stacked = _LM[cfg.family]
+    cls = _LM[cfg.family][0]
+    depths = stacked_axes(cfg)
     state = {}
     for name, a in _flatten(params):
         t = to_torch(a)
-        if name.startswith(stacked + "."):
-            if t.shape[0] != cfg.n_layers:
+        key, _, rest = name.partition(".")
+        if key in depths:
+            if t.shape[0] != depths[key]:
                 raise ValueError(f"{name}: leading axis {t.shape[0]} != "
-                                 f"n_layers {cfg.n_layers}")
-            rest = name[len(stacked) + 1:]
-            for i in range(cfg.n_layers):
-                state[f"{stacked}.{i}.{rest}"] = t[i]
+                                 f"the {depths[key]} layers of {key}")
+            for i in range(depths[key]):
+                state[f"{key}.{i}.{rest}"] = t[i]
         else:
             state[name] = t
     model = cls(cfg, device=device)
@@ -114,21 +121,27 @@ def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
 # the JAX pytree's leaves over the port's parameters
 # ----------------------------------------------------------------------------
 
-def stacked_axis(cfg: ArchCfg) -> str:
-    """Name of the pytree key whose leaves JAX stacks along the layers."""
-    return _LM[cfg.family][1]
+def stacked_axes(cfg: ArchCfg) -> dict[str, int]:
+    """The pytree keys whose leaves JAX stacks along a layer axis, each with
+    its depth (JAX's ``sharding.STACKED_KEYS`` for the family)."""
+    return {k: getattr(cfg, depth)
+            for k, depth in _LM[cfg.family][1].items()}
+
+
+def _stacked(cfg: ArchCfg, path: str) -> bool:
+    """Whether the JAX leaf at ``path`` is stacked along a layer axis."""
+    return path.split("/", 1)[0] in _LM[cfg.family][1]
 
 
 def jax_leaves(cfg: ArchCfg, model) -> dict[str, list[torch.nn.Parameter]]:
     """The JAX pytree's leaves in ``jax.tree`` order (sorted keys at every
     level): leaf path -> the port's parameters that make it, in layer order
-    for a leaf JAX stacks along the layer axis, else the one parameter."""
-    stacked = stacked_axis(cfg)
+    for a leaf JAX stacks along a layer axis, else the one parameter."""
     groups: dict[str, list] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == stacked:
-            key, order = "/".join([stacked] + parts[2:]), int(parts[1])
+        if _stacked(cfg, parts[0]):
+            key, order = "/".join([parts[0]] + parts[2:]), int(parts[1])
         else:
             key, order = "/".join(parts), 0
         groups.setdefault(key, []).append((order, p))
@@ -139,7 +152,7 @@ def jax_leaves(cfg: ArchCfg, model) -> dict[str, list[torch.nn.Parameter]]:
 def leaf_tensor(cfg: ArchCfg, path: str, params: list) -> torch.Tensor:
     """One JAX leaf's value from its parameters (a stacked copy for a
     layer-stacked leaf); ``params`` may be the parameters' gradients."""
-    if path.startswith(stacked_axis(cfg) + "/"):
+    if _stacked(cfg, path):
         return torch.stack(list(params))
     (p,) = params
     return p
@@ -149,7 +162,7 @@ def assign_leaf(cfg: ArchCfg, path: str, params: list,
                 value: torch.Tensor) -> None:
     """Copy one JAX leaf's value back into its parameters, in place."""
     with torch.no_grad():
-        if path.startswith(stacked_axis(cfg) + "/"):
+        if _stacked(cfg, path):
             for p, v in zip(params, value.reshape(
                     (len(params),) + params[0].shape)):
                 p.copy_(v)

@@ -788,3 +788,52 @@ def test_reduced_trainer_on_the_card_gives_the_cpus_losses(cuda, tmp_path):
         if dev == "cuda":
             assert fa.flash_attention_bwd.launches == n_b + 4 * cfg.n_layers
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ----------------------------------------------------------------------------
+# the encoder-decoder family (whisper): K2 and K2-bwd at its shapes
+# ----------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv", [(1500, 1500), (224, 1500), (1, 1500),
+                                    (1, 200), (5, 0)])
+def test_flash_attention_kernel_whisper_shapes(cuda, Sq, Skv, dtype,
+                                               compute):
+    """Non-causal at whisper's shapes: the encoder (1500 frames, a ragged
+    key tail), cross-attention in prefill (Sq = 224) and in a decode step
+    (Sq = 1, 63 of the query tile's 64 rows masked), and no key at all
+    (Skv = 0: zeros)."""
+    g = torch.Generator().manual_seed(Sq + Skv)
+    q = torch.randn(2, 4, Sq, 64, generator=g).to(cuda, dtype)
+    k = torch.randn(2, 4, Skv, 64, generator=g).to(cuda, dtype)
+    v = torch.randn(2, 4, Skv, 64, generator=g).to(cuda, dtype)
+    n = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=False, compute_dtype=compute)
+    assert fa.flash_attention.launches == n + 1
+    want = ref.mha_attention(q, k, v, causal=False, compute_dtype=compute)
+    t = max(tol(dtype), tol(compute))
+    torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+    if Skv == 0:
+        assert not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv", [
+    (1, 4, 4, 1500, 1500), (1, 4, 4, 448, 1500), (1, 4, 2, 70, 150),
+    (1, 4, 4, 150, 70), (2, 4, 4, 1, 1500)])
+def test_flash_attention_backward_wgmma_route_non_causal(cuda, B, H, Hkv, Sq,
+                                                         Skv, compute):
+    """The wgmma pair without the causal mask, at whisper's training shapes
+    (the encoder's 1500 frames; cross-attention Sq = 448 against 1500) and
+    Sq far from Skv either way; held to the plain version."""
+    q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, Sq, Skv, Sq + 2 * Skv)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    out = fa._forward(q, k, v, False, 0.125, compute, lse)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False,
+                                 compute_dtype=compute)
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[1]
+    want = plain_grads(q, k, v, dout, False, compute)
+    grad_bar_held(got, want, torch.bfloat16, compute)

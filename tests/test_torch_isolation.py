@@ -32,7 +32,7 @@ def test_port_modules_load_no_jax_and_no_repro():
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels.paged_attention" in mods
     for m in ("kernels.mamba2_scan", "kernels.rwkv6_scan", "models.rwkv",
-              "models.ssm", "models.hybrid", "core.rdma",
+              "models.ssm", "models.hybrid", "models.encdec", "core.rdma",
               "core.fabric.sim", "core.fabric.fluid",
               "core.fabric.telemetry", "core.fabric.qosctl",
               "core.fabric.autotune", "serving.cluster", "serving.trace",

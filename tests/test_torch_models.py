@@ -6,7 +6,6 @@ The JAX parameter pytree goes across as numpy arrays
 3e-4, and 6e-2 where bf16 rounds inside the computation (bf16 weights, or
 ``attn_dtype="bf16"``), the bars of ``tests/test_kernels.py``.
 """
-import dataclasses
 import functools
 
 import numpy as np
@@ -153,14 +152,6 @@ def test_init_lm_is_seeded_and_scaled():
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.2 * \
         cfg.d_model ** -0.5
     assert abs(float(m1.embed["tok"].std()) - 0.02) < 0.004
-
-
-@pytest.mark.parametrize("family", ["encdec"])
-def test_families_not_ported_raise(family):
-    name = {"encdec": "whisper-large-v3"}[family]
-    cfg = dataclasses.replace(tconfigs.get_config(name), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.get_model(cfg)
 
 
 DECODE_CASES = [  # name, overrides, tolerance
