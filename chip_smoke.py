@@ -6,9 +6,10 @@
 Drives the port's main paths at full width and depth, bf16, random weights
 from a seed — paged serving (``PagedLM`` + ``Engine``) of qwen2-0.5b,
 recurrent serving (``api.get_model``: prefill, then greedy ``decode_step``s
-against an O(1) state) of rwkv6-1.6b and zamba2-1.2b, training, and
-whisper-large-v3 served and trained — and holds every CUDA kernel of those
-paths against its plain PyTorch version:
+against an O(1) state) of rwkv6-1.6b and zamba2-1.2b, training of qwen2,
+whisper-large-v3 served and trained, and rwkv6-1.6b and zamba2-1.2b
+trained — and holds every CUDA kernel of those paths against its plain
+PyTorch version:
 
   1. set-up: the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
@@ -86,7 +87,23 @@ paths against its plain PyTorch version:
      (serving at batch 8: the encoder S = 1500, the causal decoder prefill
      S = 224, cross Sq = 224 / 1 against 1500 frames; training at batch 2:
      the encoder, the causal decoder S = 448, cross 448 x 1500) and time
-     them.
+     them;
+ 11. the recurrent families trained: (a) K4-bwd (``csrc/rwkv6_scan_bwd.cu``)
+     and K3-bwd (``csrc/mamba2_scan_bwd.cu``) vs the plain backward
+     (autograd through the chunked forms) at rwkv6's training shape (B=4,
+     S=1024, H=32) and zamba2's (B=4, S=1024, H=64, ds=64, x/B/C as the
+     mixer's strided views) and their edges (S = 1, S = 37, a state in and
+     its gradient out, fp32 and bf16, w under the floor), each gradient
+     within bar * max|want| (fp32 3e-4, bf16 6e-2), reruns bitwise, timed
+     (eager and graph-replayed) beside the bound and the plain backward;
+     (b, c) rwkv6-1.6b, then zamba2-1.2b, at full width, bf16, trained 3
+     steps through ``Trainer(comm="single")`` (batch 4 x 1024, remat,
+     AdamW): finite losses, per step exactly K4 48 and K4-bwd 24 (rwkv6),
+     K3 76, K3-bwd 38, K2 6 and K2-bwd 6 (zamba2), step ms, tokens/s, a
+     profiled step, peak memory; (d) reduced fp32 rwkv6, mamba2 and zamba2
+     (kernel-shaped) trained 3 steps on the card and on the CPU: losses
+     within rtol 1e-4, the launches exact.  Phase 9a holds K2-bwd at
+     zamba2's shared-block shape too.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -100,7 +117,7 @@ package ``repro``.
     python3 chip_smoke.py --engine-ab PARENT   # PARENT: another checkout
     python3 chip_smoke.py --scan-ab PARENT
     python3 chip_smoke.py --bwd-ab PARENT
-    python3 chip_smoke.py --train-only        # phases 1 and 9 alone
+    python3 chip_smoke.py --train-only        # phases 1, 9 and 11 alone
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -179,13 +196,15 @@ FP32_LOGIT_TOL = 1e-2
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 8, 224, 64
 # training: batch 2 x 448 tokens (n_text_ctx) and 2 x 1500 frames, 3 steps
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 2, 448, 3
-# device kernels of each of our wrappers, by a part of their names: K3's
-# mamba2_scan_kernel and mamba2_scan_mma_kernel, K4's rwkv6_scan_kernel,
-# rwkv6_scan_mma_kernel and rwkv6_scan_decode_kernel
+# device kernels of each of our wrappers, by a part of their names
 OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
-               "K2": ("flash_attention",), "K3": ("mamba2_scan",),
-               "K4": ("rwkv6_scan",),
-               "K2-bwd": ("attn_bwd_",)}   # flash_attention_bwd.cu
+               "K2": ("flash_attention",),
+               "K3": ("mamba2_scan_kernel", "mamba2_scan_mma_kernel"),
+               "K4": ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
+                      "rwkv6_scan_decode_kernel"),
+               "K2-bwd": ("attn_bwd_",),   # flash_attention_bwd.cu
+               "K3-bwd": ("mamba2_scan_bwd",),   # and its head sum
+               "K4-bwd": ("rwkv6_scan_bwd", "rwkv6_du_reduce")}
 
 
 def check(cond: bool, what: str) -> None:
@@ -862,7 +881,10 @@ def kernel_wrappers() -> dict:
     return {"paged_attention": pa.paged_attention,
             "flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "mamba2_scan": m2.mamba2_scan, "rwkv6_scan": rw.rwkv6_scan}
+            "mamba2_scan": m2.mamba2_scan,
+            "mamba2_scan_bwd": m2.mamba2_scan_bwd,
+            "rwkv6_scan": rw.rwkv6_scan,
+            "rwkv6_scan_bwd": rw.rwkv6_scan_bwd}
 
 
 def reset_counts() -> None:
@@ -1701,6 +1723,10 @@ def run_k2_bwd_checks(report: dict) -> dict:
          f32, False),
         ("causal Sq=300 > Skv=100 bf16: empty rows",
          (1, 4, 4, 300, 100, 64), bf, f32, True),
+        # zamba2-1.2b training (phase 11): the shared block, B=4, MHA
+        ("zamba2 training B=4 H=32 S=1024 bf16",
+         (REC_TRAIN_BATCH, 32, 32, REC_TRAIN_SEQ, REC_TRAIN_SEQ, 64), bf, f32,
+         True),
         # whisper-large-v3 training (phase 10), on the wgmma pair
         *((f"whisper {w} bf16{c}", shape, bf, cdt, causal)
           for w, (shape, causal) in WHISPER_BWD_SHAPES.items()
@@ -1808,6 +1834,15 @@ def run_k2_bwd_checks(report: dict) -> dict:
               f" eager, {t['library_ms_graph']:.4f} graph-replayed; bound "
               f"{t['bound_ms']:.5f} ({t['bound_by']}, {t['flops']:.4g} "
               f"flops), {t['bound_ms'] / t['ms_graph']:.3f} of the bound")
+    zamba_t = timings((REC_TRAIN_BATCH, 32, 32, REC_TRAIN_SEQ, REC_TRAIN_SEQ,
+                       64), bf, f32, seed=4)
+    print(f"[K2-bwd] timed at zamba2's training shape B={REC_TRAIN_BATCH} "
+          f"H=Hkv=32 S={REC_TRAIN_SEQ} D=64 bf16 causal: ms="
+          f"{zamba_t['ms']:.4f} ms_graph={zamba_t['ms_graph']:.4f}; plain "
+          f"{zamba_t['plain_ms']:.3f}; SDPA fwd+bwd - fwd "
+          f"{zamba_t['library_ms']:.4f} eager, "
+          f"{zamba_t['library_ms_graph']:.4f} graph-replayed; bound "
+          f"{zamba_t['bound_ms']:.5f} ({zamba_t['bound_by']})")
     train_t = timings((TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), bf,
                       f32)
     pre_t = timings((1, 14, 2, 2048, 2048, 64), bf, f32, seed=1)
@@ -1821,7 +1856,10 @@ def run_k2_bwd_checks(report: dict) -> dict:
              ms_graph_compute_bf16=cb_t["ms_graph"],
              library_ms_graph_compute_bf16=cb_t["library_ms_graph"],
              **{f"{k}_prefill_shape": v for k, v in pre_t.items()
-                if k != "bound_by"}, **whisper_t)
+                if k != "bound_by"}, **whisper_t,
+             **{f"{k}_zamba2": zamba_t[k] for k in
+                ("ms", "ms_graph", "plain_ms", "library_ms",
+                 "library_ms_graph", "bound_ms", "bound_by")})
     r["kernel_ms"] = r["ms"]
     print(f"[K2-bwd] timed at the training shape B={TRAIN_BATCH} H=14 Hkv=2 "
           f"S={TRAIN_SEQ} D=64 bf16 causal: ms={r['ms']:.4f} ms_graph="
@@ -2321,6 +2359,346 @@ def whisper_phases() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 11: the recurrent families trained (K3-bwd, K4-bwd)
+# ----------------------------------------------------------------------------
+
+# K3-bwd and K4-bwd vs the plain backward (autograd through the chunked
+# forms): max |got - want| <= bar * max |want| for each gradient, the
+# ROADMAP's kernel bars
+SCAN_BWD_BARS = {"torch.float32": 3e-4, "torch.bfloat16": 6e-2}
+# rwkv6-1.6b and zamba2-1.2b training: bf16 (the configs' dtype), seed-0
+# weights, batch 4 x 1024 tokens, remat, AdamW lr 3e-4 without warmup, 3
+# steps; per step, rwkv6 runs K4 twice a layer (the forward and its
+# recompute) and K4-bwd once, zamba2 K3 twice and K3-bwd once a mamba layer
+# and K2 and K2-bwd once an application of its shared block (not
+# recomputed, as in JAX)
+REC_TRAIN_BATCH, REC_TRAIN_SEQ, REC_TRAIN_STEPS = 4, 1024, 3
+
+
+def rwkv_bwd_case(B, S, H, dtype, *, state: bool, seed: int,
+                  floor: bool = False):
+    """K4-bwd's inputs: rwkv_case's, the output gradient, and with
+    ``state`` s0 and the final state's gradient; ``floor`` puts w = 0 and a
+    bf16/fp32 denormal (under the plain version's 1e-30 floor) in every few
+    entries."""
+    import torch
+    r, k, v, w, u, s0 = rwkv_case(B, S, H, dtype, s0=state, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    if floor:
+        w = w.clone()
+        w.view(-1)[::7] = 0.0
+        w.view(-1)[3::11] = 1e-39
+    dy = torch.randn(r.shape, device="cuda", generator=g).to(dtype)
+    ds_out = (torch.randn(B, H, 64, 64, device="cuda", generator=g)
+              if state else None)
+    return r, k, v, w, u, s0, dy, ds_out
+
+
+def mamba_bwd_case(B, S, H, dtype, *, state: bool, seed: int,
+                   views: bool = False):
+    """K3-bwd's inputs: mamba_case's (as the mixer's strided views with
+    ``views``), the output gradient, and with ``state`` h0 and the final
+    state's gradient."""
+    import torch
+    case = mamba_case(B, S, H, dtype, h0=state, seed=seed)
+    if views:
+        case = mixer_views(case)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dy = torch.randn(B, S, H, 64, device="cuda", generator=g).to(dtype)
+    dh_out = (torch.randn(B, H, 64, 64, device="cuda", generator=g)
+              if state else None)
+    return (*case, dy, dh_out)
+
+
+def scan_bwd_bound(x, n_vec_in, n_vec_out, extra_bytes, dtype):
+    """The least time for a scan's gradient: ``n_vec_in`` (B,S,H,64) inputs
+    read and ``n_vec_out`` written once, plus ``extra_bytes``; 14 dh^2
+    operations a step and head (the state's forward recurrence and the
+    gradient's: three products and three updates of a 64 x 64 state, less
+    what they share), at the inputs' type's peak."""
+    nbytes = (n_vec_in + n_vec_out) * x.numel() * x.element_size() \
+        + extra_bytes
+    B, S, H, dh = x.shape
+    flops = 14.0 * dh * dh * B * S * H
+    return (*bound(nbytes, flops, dtype), nbytes, flops)
+
+
+def run_scan_bwd_checks(report: dict) -> None:
+    """Phase 11a: K4-bwd and K3-bwd vs the plain backward at the training
+    shapes and their edges (S = 1, S = 37, a state in and its gradient
+    out, fp32 and bf16, the mixer's strided views, w under the floor);
+    reruns bitwise; timed at the training shapes."""
+    import torch
+
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def held(tag, name, got, want, names, dtype):
+        bar = SCAN_BWD_BARS[str(dtype)]
+        ratios, e_max = [], 0.0
+        for gname, g, w in zip(names, got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{tag} {name}: {gname} is {g.dtype} {tuple(g.shape)}, the "
+                  f"plain version's {w.dtype} {tuple(w.shape)}")
+            check(bool(torch.isfinite(g).all()),
+                  f"{tag}: non-finite {gname}: {name}")
+            e = max_err(g, w)
+            ratios.append(e / (bar * float(w.float().abs().max())))
+            e_max = max(e_max, e)
+        print(f"[{tag}] {name}: max_abs_err={e_max:.3e} err/bar "
+              f"({', '.join(names)}) = {', '.join(f'{r:.3f}' for r in ratios)}"
+              f" (bar {bar:g} max|want|)")
+        check(max(ratios) <= 1, f"{tag} disagrees with the plain backward: "
+              f"{name}")
+        return e_max
+
+    # -- K4-bwd: rwkv6 training B=4 S=1024 H=32 ------------------------------
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    cases = [
+        ("rwkv6 training B=4 S=1024 H=32 bf16",
+         rwkv_bwd_case(4, 1024, 32, bf, state=False, seed=60)),
+        ("S=1 bf16, s0 and ds_out", rwkv_bwd_case(4, 1, 32, bf, state=True,
+                                                 seed=61)),
+        ("S=37 bf16, s0 and ds_out", rwkv_bwd_case(2, 37, 8, bf, state=True,
+                                                  seed=62)),
+        ("S=1024 bf16, s0 and ds_out",
+         rwkv_bwd_case(2, 1024, 8, bf, state=True, seed=63)),
+        ("fp32 B=2 S=300 H=8, s0 and ds_out",
+         rwkv_bwd_case(2, 300, 8, f32, state=True, seed=64)),
+        ("fp32 S=37", rwkv_bwd_case(2, 37, 8, f32, state=False, seed=65)),
+        ("w under the floor (0, 1e-39) bf16 S=200, s0 and ds_out",
+         rwkv_bwd_case(2, 200, 8, bf, state=True, seed=66, floor=True)),
+        ("w under the floor (0, 1e-39) fp32 S=200",
+         rwkv_bwd_case(2, 200, 8, f32, state=False, seed=67, floor=True))]
+    errs = []
+    for name, (r, k, v, w, u, s0, dy, ds_out) in cases:
+        got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+        check(rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[0],
+              f"K4-bwd {name}: launched {rw.rwkv6_scan_bwd.last_kernel}")
+        want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+        torch.cuda.synchronize()
+        errs.append(held("K4-bwd", name, got, want, names, r.dtype))
+        if "floor" in name:
+            under = w.float() < 1e-30
+            check(bool(under.any()) and not got[3][under].any(),
+                  f"K4-bwd: a gradient of w under the floor: {name}")
+        del got, want
+    r, k, v, w, u, s0, dy, ds_out = cases[0][1]
+    call = lambda: rw.rwkv6_scan_bwd(r, k, v, w, u, dy,  # noqa: E731
+                                     need_ds0=False)
+    a, b = call(), call()
+    check(all(torch.equal(x, y) for x, y in zip(a[:5], b[:5])),
+          "K4-bwd: two runs at the training shape differ")
+    del a, b
+    B, S, H, dh = r.shape
+    b_ms, b_by, nbytes, flops = scan_bwd_bound(r, 5, 4, 2 * H * dh * 4, bf)
+    report["rwkv6_scan_bwd"] = dict(
+        name="rwkv6_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:59",
+        device_kernels=list(rw.BWD_KERNELS), max_abs_err=max(errs),
+        ms=time_ms(call, iters=5, warmup=1),
+        ms_graph=time_graph_ms(call, iters=3, reps=3),
+        plain_ms=time_ms(lambda: ref.rwkv6_scan_bwd(r, k, v, w, u, dy),
+                         iters=2, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes,
+        flops=flops)
+
+    # -- K3-bwd: zamba2 training B=4 S=1024 H=64, the mixer's views --------
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+    cases = [
+        ("zamba2 training B=4 S=1024 H=64 bf16, the mixer's strided views",
+         mamba_bwd_case(4, 1024, 64, bf, state=False, seed=70, views=True)),
+        ("S=1 bf16, h0 and dh_out", mamba_bwd_case(4, 1, 64, bf, state=True,
+                                                  seed=71)),
+        ("S=37 bf16, h0 and dh_out", mamba_bwd_case(2, 37, 8, bf, state=True,
+                                                   seed=72)),
+        ("S=1024 bf16, h0 and dh_out, strided views",
+         mamba_bwd_case(2, 1024, 8, bf, state=True, seed=73, views=True)),
+        ("fp32 B=2 S=300 H=8, h0 and dh_out",
+         mamba_bwd_case(2, 300, 8, f32, state=True, seed=74)),
+        ("fp32 S=37, strided views",
+         mamba_bwd_case(2, 37, 8, f32, state=False, seed=75, views=True))]
+    errs = []
+    for name, (x, dt, A, Bm, Cm, D, h0, dy, dh_out) in cases:
+        got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
+                                 dh_out=dh_out)
+        check(m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[0],
+              f"K3-bwd {name}: launched {m2.mamba2_scan_bwd.last_kernel}")
+        want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
+                                   dh_out=dh_out)
+        torch.cuda.synchronize()
+        want = tuple(t.contiguous() for t in want)
+        errs.append(held("K3-bwd", name, got, want, names, x.dtype))
+        del got, want
+    x, dt, A, Bm, Cm, D, h0, dy, dh_out = cases[0][1]
+    call = lambda: m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy,  # noqa: E731
+                                      need_dh0=False)
+    a, b = call(), call()
+    check(all(torch.equal(p, q) for p, q in zip(a[:6], b[:6])),
+          "K3-bwd: two runs at the training shape differ")
+    del a, b
+    B, S, H, dh = x.shape
+    # x, dy in and dx out; B, C in and dB, dC out; dt in and ddt out
+    extra = 4 * B * S * 64 * x.element_size() + 2 * B * S * H * 4 + 4 * H * 4
+    b_ms, b_by, nbytes, flops = scan_bwd_bound(x, 2, 1, extra, bf)
+    report["mamba2_scan_bwd"] = dict(
+        name="mamba2_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba2_scan_bwd.cu",
+        replaces="src/repro/kernels/mamba2_scan.py:69",
+        device_kernels=list(m2.BWD_KERNELS), max_abs_err=max(errs),
+        ms=time_ms(call, iters=5, warmup=1),
+        ms_graph=time_graph_ms(call, iters=3, reps=3),
+        plain_ms=time_ms(lambda: ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D,
+                                                     dy),
+                         iters=2, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes,
+        flops=flops)
+    for key in ("rwkv6_scan_bwd", "mamba2_scan_bwd"):
+        r_ = report[key]
+        r_["kernel_ms"] = r_["ms"]
+        print(f"[{key}] timed at the training shape: ms={r_['ms']:.4f} "
+              f"ms_graph={r_['ms_graph']:.4f} plain_ms={r_['plain_ms']:.3f} "
+              f"bound_ms={r_['bound_ms']:.5f} ({r_['bound_by']}; "
+              f"{r_['bytes']} bytes, {r_['flops']:.4g} operations), "
+              f"{r_['bound_ms'] / r_['ms_graph']:.4f} of the bound; library: "
+              f"none (no single PyTorch call computes the scan's gradient)")
+
+
+def train_recurrent(name: str) -> dict:
+    """Phase 11b/c: ``name`` at full width trained REC_TRAIN_STEPS steps on
+    the card through ``Trainer(comm="single")``; returns the kernels'
+    launches of that run."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import hybrid
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = configs.get_config(name)
+    gc.collect()                       # earlier phases' tensors, not ours
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, train_config(cfg, name, batch=REC_TRAIN_BATCH,
+                                   seq_len=REC_TRAIN_SEQ))
+    torch.cuda.synchronize()
+    print(f"[train {name}] {tr.n_params} parameters, {cfg.dtype}, init "
+          f"{time.perf_counter() - t0:.1f} s; batch {REC_TRAIN_BATCH} x "
+          f"{REC_TRAIN_SEQ}, remat, AdamW lr 3e-4")
+    reset_counts()                     # the main path's run starts here
+    ms = tr.train(REC_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()             # ... and ends here
+    losses = [m["loss"] for m in ms]
+    check(all(np.isfinite(losses)), f"{name} train: a loss is not finite: "
+          f"{losses}")
+    n = REC_TRAIN_STEPS
+    want = dict.fromkeys(counts, 0)
+    if cfg.family == "rwkv6":
+        want["rwkv6_scan"] = 2 * cfg.n_layers * n
+        want["rwkv6_scan_bwd"] = cfg.n_layers * n
+    else:
+        apps = hybrid.n_shared_applications(cfg)
+        want["mamba2_scan"] = 2 * cfg.n_layers * n
+        want["mamba2_scan_bwd"] = cfg.n_layers * n
+        want["flash_attention"] = apps * n
+        want["flash_attention_bwd"] = apps * n
+    check(counts == want, f"{name} train: launches {counts}, expected "
+          f"{want}")
+    step_s = float(np.median([m["step_time_s"] for m in ms]))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(tr.train_step, 1)
+    out = {"losses": losses,
+           "grad_norms": [m["grad_norm"] for m in ms],
+           "step_ms": [m["step_time_s"] * 1e3 for m in ms],
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": REC_TRAIN_BATCH * REC_TRAIN_SEQ / step_s,
+           "launches_per_step": {k: v // n for k, v in counts.items() if v},
+           "max_memory_allocated_bytes": peak, "step_profile": prof,
+           "card": gpu_name_power()}
+    print(f"[train {name}] {json.dumps(out)}")
+    del tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_recurrent_with_cpu() -> None:
+    """Phase 11d: reduced fp32 rwkv6, mamba2 and zamba2 shaped for the
+    kernels (head_dim 64; ssm head_dim 64, d_state 64) trained 3 steps on
+    the card and, from the same weights, on the CPU: losses within rtol
+    1e-4 (TF32 off), the scans and their backward kernels on every layer."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api, hybrid
+    from repro_torch.models.common import SsmCfg
+    from repro_torch.runtime.trainer import Trainer
+    ssm = SsmCfg(d_state=64, head_dim=64)
+    cases = [("rwkv6-1.6b", None, dict(head_dim=64)),
+             ("zamba2-1.2b", "mamba2", dict(ssm=ssm)),
+             ("zamba2-1.2b", None, dict(head_dim=64, ssm=ssm))]
+    steps = 3
+    for name, family, over in cases:
+        cfg = configs.get_config(name)
+        if family:
+            cfg = dataclasses.replace(cfg, family=family)
+        cfg = cfg.reduced(**over)
+        init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            tc = train_config(cfg, f"{cfg.family}_reduced_{dev}", batch=2,
+                              seq_len=70)
+            tr = Trainer(cfg, tc, device=dev, init_params=init)
+            reset_counts()
+            losses[dev] = [m["loss"] for m in tr.train(steps)]
+            if dev == "cuda":
+                launched = read_counts()
+        L = cfg.n_layers
+        want = dict.fromkeys(launched, 0)
+        if cfg.family == "rwkv6":
+            want.update(rwkv6_scan=2 * L * steps, rwkv6_scan_bwd=L * steps)
+        else:
+            want.update(mamba2_scan=2 * L * steps, mamba2_scan_bwd=L * steps)
+        if cfg.family == "zamba2":
+            apps = hybrid.n_shared_applications(cfg)
+            want.update(flash_attention=apps * steps,
+                        flash_attention_bwd=apps * steps)
+        check(launched == want, f"reduced {cfg.family} training: launches "
+              f"{launched}, expected {want}")
+        rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
+                           / np.abs(losses["cpu"])))
+        print(f"[compare] reduced fp32 {cfg.family} training (kernel "
+              f"shapes): card {losses['cuda']} vs CPU {losses['cpu']}, "
+              f"largest relative gap {rel:.3e} (tol 1e-4); launches "
+              f"{ {k: v for k, v in launched.items() if v} }")
+        check(all(np.isfinite(losses["cuda"])) and rel <= 1e-4,
+              f"reduced fp32 {cfg.family} training: card and CPU losses "
+              "differ")
+
+
+def recurrent_train_phases(report: dict) -> dict:
+    """Phase 11; returns the launches of its two main paths."""
+    phase("11a scan backward kernels vs plain", run_scan_bwd_checks, report)
+    paths = {}
+    for name, path in (("rwkv6-1.6b", "rwkv6_train"),
+                       ("zamba2-1.2b", "zamba2_train")):
+        paths[path] = phase(f"11 {name} training", train_recurrent, name)
+    phase("11d reduced recurrent training card vs CPU",
+          train_recurrent_with_cpu)
+    return paths
+
+
+# ----------------------------------------------------------------------------
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
@@ -2467,6 +2845,7 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
             "qwen2_engine": {"_qwen2_s1024": None},
             "qwen2_cluster": {"_qwen2_s1024": None},
             "zamba2-1.2b": {"_zamba2_shape": None},
+            "zamba2_train": {"_zamba2_shape": None},
             "qwen2_train": {"_qwen2_train": None},
             "whisper_serve": {"_whisper_encoder": E,
                               "_whisper_decoder_prefill": L,
@@ -2477,11 +2856,18 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
                               "_whisper_train_cross": fw * L}},
         "flash_attention_bwd": {
             "qwen2_train": {"": None},
+            "zamba2_train": {"_zamba2": None},
             "whisper_train": {"_whisper_encoder": WHISPER_TRAIN_STEPS * E,
                               "_whisper_decoder": WHISPER_TRAIN_STEPS * L,
                               "_whisper_cross": WHISPER_TRAIN_STEPS * L}},
-        "mamba2_scan": {"zamba2-1.2b": {"": None}},
-        "rwkv6_scan": {"rwkv6-1.6b": {"": rw, "_decode": rw * DECODE_STEPS}}}
+        # the training forwards take the prefill's timed shape (B=4,
+        # S=1024, no state in; training returns no state)
+        "mamba2_scan": {"zamba2-1.2b": {"": None},
+                        "zamba2_train": {"": None}},
+        "rwkv6_scan": {"rwkv6-1.6b": {"": rw, "_decode": rw * DECODE_STEPS},
+                       "rwkv6_train": {"": None}},
+        "mamba2_scan_bwd": {"zamba2_train": {"": None}},
+        "rwkv6_scan_bwd": {"rwkv6_train": {"": None}}}
     out = {}
     for name, r in report.items():
         row = {"excess_ms": 0.0, "excess_ms_graph": 0.0, "by_path": {},
@@ -2519,7 +2905,7 @@ def main() -> int:
                          "one")
     ap.add_argument("--bwd-only", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--train-only", action="store_true",
-                    help="the build and phase 9 (training) alone")
+                    help="the build and phases 9 and 11 (training) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2560,6 +2946,8 @@ def main() -> int:
     report: dict = {}
     if args.train_only:
         train_phases(report)
+        recurrent_train_phases(report)
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
         print(card)
         return 0
     phase("2 kernels vs plain", run_kernel_checks, report)
@@ -2602,8 +2990,10 @@ def main() -> int:
     phase("6 reduced recurrent card vs CPU", compare_recurrent_with_cpu)
     phase("8 solver", solver_phase)
     paths["qwen2_train"] = phase("9 training", train_phases, report)
-    # whisper last, once every other model has left the card
+    # whisper once every other model has left the card, then the
+    # recurrent families trained
     paths.update(whisper_phases())
+    paths.update(recurrent_train_phases(report))
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")

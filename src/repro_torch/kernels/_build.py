@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "mamba2_scan", "rwkv6_scan")
+           "mamba2_scan", "mamba2_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
 # no --use_fast_math / -ftz: flushing denormals to zero would break the
 # scans' guards (the exponent selected before exp, w floored before log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -40,14 +40,20 @@ SIGNATURES = {
                             [_vp] * 10 + [_i] * 7 + [_f, _i, _i, _vp, _vp]),
     "mamba2_scan": ("mamba2_scan_launch",
                     [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
+    "mamba2_scan_bwd": ("mamba2_scan_bwd_launch",
+                        [_vp] * 17 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
     "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp, _vp]),
+    "rwkv6_scan_bwd": ("rwkv6_scan_bwd_launch",
+                       [_vp] * 16 + [_i] * 5 + [_vp, _vp]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 
 
-# where the backward kernels the card still lacks stand in ROADMAP.md
-NO_BACKWARD = "ROADMAP item 12 (backward kernels for K1, K3 and K4)"
+# where the one kernel without a backward stands in ROADMAP.md: K1, which
+# only serving runs
+NO_BACKWARD = "ROADMAP section 2 (K1, paged attention, has no backward " \
+    "kernel: only serving runs it)"
 
 
 def refuse_grad(name: str, hint: str, *tensors) -> None:
@@ -59,6 +65,18 @@ def refuse_grad(name: str, hint: str, *tensors) -> None:
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name} kernel: its output would carry no gradient; {hint}")
+
+
+def fp32(t):
+    """``t`` as a contiguous, 16-byte aligned fp32 tensor, copied only where
+    it is not one (the scan kernels read their fp32 states and vectors a
+    whole row at a time); None stays None."""
+    import torch
+    if t is None or (t.dtype == torch.float32 and t.is_contiguous()
+                     and t.data_ptr() % 16 == 0):
+        return t
+    return torch.empty(t.shape, dtype=torch.float32,
+                       device=t.device).copy_(t)
 
 
 def raw_stream(device) -> int:

@@ -19,6 +19,13 @@ contiguous fp32 (cast or copied here if they are not; they are small).
 The C entry point reports the device kernel it launched, read back as
 ``mamba2_scan.last_kernel``: ``mamba2_scan_mma_kernel`` (bf16, the chunk
 products on the tensor cores) or ``mamba2_scan_kernel`` (fp32).
+
+Its backward is K3-bwd (``csrc/mamba2_scan_bwd.cu``, wrapper
+``mamba2_scan_bwd``; plain version ``ref.mamba2_scan_bwd``), which reads
+x, B and C by their strides too (no alignment needed: it loads them an
+element at a time) and gives their gradients as contiguous tensors.
+``Mamba2ScanFn`` joins K3 and K3-bwd as one differentiable function, which
+``ops.mamba2_scan`` takes under grad.
 """
 from __future__ import annotations
 
@@ -35,26 +42,27 @@ STATE_DIMS = (64,)
 KERNELS = ("mamba2_scan_kernel", "mamba2_scan_mma_kernel")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
+# K3-bwd: one device kernel (and its sum over heads); steps a checkpoint
+BWD_KERNELS = ("mamba2_scan_bwd_kernel",)
+CHUNK_BWD = 8
+_bwd_route = ctypes.c_int(-1)
+_BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
 
 
-def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
-                h0: torch.Tensor | None = None, return_state: bool = False):
-    """x: (B,S,H,dh); dt: (B,S,H); A, D: (H,); Bmat, Cmat: (B,S,ds); h0:
-    (B,H,ds,dh) or None -> y (B,S,H,dh) contiguous in x.dtype [, final state
-    (B,H,ds,dh) fp32]."""
+def _check(x, dt, A, Bmat, Cmat, D, h0, name: str):
+    """Device, dtype, shape and layout checks shared by K3 and K3-bwd;
+    returns (B, S, H, dh, ds, the batch and step strides of x, B, C)."""
     ts = (x, dt, A, Bmat, Cmat, D) + ((h0,) if h0 is not None else ())
-    _build.refuse_grad("mamba2_scan", f"see {_build.NO_BACKWARD}", *ts)
     if any(t.device.type != "cuda" or t.device != x.device for t in ts):
-        raise ValueError("mamba2_scan kernel: every tensor must lie on the "
+        raise ValueError(f"{name} kernel: every tensor must lie on the "
                          "same CUDA device")
     if x.dtype not in DTYPES or Bmat.dtype != x.dtype \
             or Cmat.dtype != x.dtype:
-        raise TypeError(f"mamba2_scan kernel: x/Bmat/Cmat must share a dtype "
+        raise TypeError(f"{name} kernel: x/Bmat/Cmat must share a dtype "
                         f"in {list(DTYPES)}, got {x.dtype}, {Bmat.dtype}, "
                         f"{Cmat.dtype}")
     if x.dim() != 4 or Bmat.dim() != 3:
-        raise ValueError("mamba2_scan kernel: expected x (B,S,H,dh), "
+        raise ValueError(f"{name} kernel: expected x (B,S,H,dh), "
                          "Bmat/Cmat (B,S,ds)")
     B, S, H, dh = x.shape
     ds = Bmat.shape[-1]
@@ -65,17 +73,27 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or tuple(D.shape) != (H,) \
             or (h0 is not None and tuple(h0.shape) != (B, H, ds, dh)):
         raise ValueError(
-            f"mamba2_scan kernel: unsupported shapes x {tuple(x.shape)}, dt "
+            f"{name} kernel: unsupported shapes x {tuple(x.shape)}, dt "
             f"{tuple(dt.shape)}, Bmat {tuple(Bmat.shape)}, Cmat "
             f"{tuple(Cmat.shape)}, A {tuple(A.shape)}, D {tuple(D.shape)} "
             f"(dh must be one of {HEAD_DIMS}, ds one of {STATE_DIMS})")
     if x.stride(3) != 1 or x.stride(2) != dh or Bmat.stride(2) != 1 \
             or Cmat.stride(2) != 1:
-        raise ValueError("mamba2_scan kernel: x must be dense over (H, dh) "
+        raise ValueError(f"{name} kernel: x must be dense over (H, dh) "
                          "and Bmat/Cmat over ds (batch and step strides are "
                          "free)")
-    strides = (x.stride(0), x.stride(1), Bmat.stride(0), Bmat.stride(1),
-               Cmat.stride(0), Cmat.stride(1))
+    return B, S, H, dh, ds, (x.stride(0), x.stride(1), Bmat.stride(0),
+                             Bmat.stride(1), Cmat.stride(0), Cmat.stride(1))
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
+                h0: torch.Tensor | None = None, return_state: bool = False):
+    """x: (B,S,H,dh); dt: (B,S,H); A, D: (H,); Bmat, Cmat: (B,S,ds); h0:
+    (B,H,ds,dh) or None -> y (B,S,H,dh) contiguous in x.dtype [, final state
+    (B,H,ds,dh) fp32]."""
+    B, S, H, dh, ds, strides = _check(x, dt, A, Bmat, Cmat, D, h0,
+                                      "mamba2_scan")
     if x.dtype == torch.bfloat16 and (
             any(t.data_ptr() % 16 for t in (x, Bmat, Cmat))
             or any(s % 8 for s in strides)):
@@ -83,12 +101,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "16-byte aligned with batch and step strides of a "
                          "multiple of 8 elements (rows are copied 16 bytes "
                          f"at a time); got strides {strides}")
-    dt, A, D = (t.float().contiguous() for t in (dt, A, D))
-    if h0 is not None and (h0.dtype != torch.float32
-                           or not h0.is_contiguous() or h0.data_ptr() % 16):
-        # fp32, contiguous and 16-byte aligned (the kernels read whole rows)
-        h0 = torch.empty(h0.shape, dtype=torch.float32,
-                         device=x.device).copy_(h0)
+    dt, A, D, h0 = (_build.fp32(t) for t in (dt, A, D, h0))
     y = torch.empty((B, S, H, dh), dtype=x.dtype, device=x.device)
     h_out = (torch.empty((B, H, ds, dh), dtype=torch.float32,
                          device=x.device) if return_state else None)
@@ -110,3 +123,92 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 mamba2_scan.launches = 0
 mamba2_scan.last_kernel = None
+
+
+def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor,
+                    dy: torch.Tensor, *, h0: torch.Tensor | None = None,
+                    dh_out: torch.Tensor | None = None,
+                    need_dh0: bool = True):
+    """K3-bwd: the gradient of ``mamba2_scan`` at (x, dt, A, Bmat, Cmat, D,
+    h0) for the output gradient ``dy`` (x's shape and dtype) and
+    ``dh_out``, the final state's (B,H,ds,dh) or None (zero) -> (dx, ddt,
+    dA, dB, dC, dD, dh0): dx, dB, dC contiguous in x.dtype; ddt, dA, dD
+    and dh0 fp32 (dh0 None unless ``need_dh0``).  x, Bmat and Cmat are
+    read by their strides.  Any S >= 1; one count a call (two device
+    kernels)."""
+    B, S, H, dh, ds, strides = _check(x, dt, A, Bmat, Cmat, D, h0,
+                                      "mamba2_scan_bwd")
+    dev = x.device
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev \
+            or (dh_out is not None and (dh_out.shape != (B, H, ds, dh)
+                                        or dh_out.device != dev)):
+        raise ValueError("mamba2_scan_bwd kernel: dy must have x's shape, "
+                         "dtype and device, dh_out the state's shape")
+    dy = dy.contiguous()
+    dt, A, D, h0, dh_out = (_build.fp32(t)
+                            for t in (dt, A, D, h0, dh_out))
+    dx = torch.empty((B, S, H, dh), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dB, dC = (torch.empty((B, S, ds), dtype=x.dtype, device=dev)
+              for _ in range(2))
+    dA, dD = (torch.zeros(H, dtype=torch.float32, device=dev)
+              for _ in range(2))
+    dh0 = (torch.zeros((B, H, ds, dh), dtype=torch.float32, device=dev)
+           if need_dh0 else None)
+    if B * H == 0 or S == 0:
+        return (dx.zero_(), ddt.zero_(), dA, dB.zero_(), dC.zero_(), dD,
+                dh0)
+    # scratch: each head's parts of dB and dC, the batch's dA and dD
+    # partials, the state at every CHUNK_BWD-th step
+    n_chunks = -(-S // CHUNK_BWD)
+    scratch = torch.empty(2 * B * S * H * ds + 2 * B * H
+                          + B * H * n_chunks * ds * dh,
+                          dtype=torch.float32, device=dev)
+    fn = _build.load("mamba2_scan_bwd")
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+             Cmat.data_ptr(), D.data_ptr(),
+             None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+             None if dh_out is None else dh_out.data_ptr(), dx.data_ptr(),
+             ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+             dD.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+             scratch.data_ptr(), B, S, H, dh, ds, *strides, DTYPES[x.dtype],
+             _BWD_ROUTE_ADDR, _build.raw_stream(dev))
+    if err:
+        raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    mamba2_scan_bwd.launches += 1
+    mamba2_scan_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
+    return dx, ddt, dA, dB, dC, dD, dh0
+
+
+mamba2_scan_bwd.launches = 0
+mamba2_scan_bwd.last_kernel = None
+
+
+class Mamba2ScanFn(torch.autograd.Function):
+    """K3 forward and K3-bwd as one differentiable function of (x, dt, A,
+    Bmat, Cmat, D, h0); with ``return_state`` the final state is an output
+    too, and a missing gradient of it counts as zero.  The gradients of the
+    strided views x, Bmat and Cmat come back contiguous; every gradient in
+    its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, D, h0, return_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, D, h0)
+        return mamba2_scan(x, dt, A, Bmat, Cmat, D, h0=h0,
+                           return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, dy, dh_out=None):
+        x, dt, A, Bmat, Cmat, D, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        need_dh0 = h0 is not None and ctx.needs_input_grad[6]
+        dx, ddt, dA, dB, dC, dD, dh0 = mamba2_scan_bwd(
+            x, dt, A, Bmat, Cmat, D, dy.to(x.dtype), h0=h0, dh_out=dh_out,
+            need_dh0=need_dh0)
+        return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
+                dD.to(D.dtype), dh0.to(h0.dtype) if need_dh0 else None,
+                None)

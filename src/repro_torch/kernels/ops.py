@@ -4,8 +4,10 @@
   * tensors on a CUDA device take the CUDA kernel, which raises if it cannot
     build or launch — there is no quiet fallback to the plain version; with
     grad enabled and an input requiring grad, attention takes K2 with its
-    backward kernel K2-bwd, and the kernels without a backward (K1, K3, K4)
-    raise (in their wrappers) rather than return an output cut off from the
+    backward kernel K2-bwd, the Mamba2 scan K3 with K3-bwd and the RWKV6
+    scan K4 with K4-bwd (each pair an autograd Function), and paged
+    attention (K1, which only serving runs, and which has no backward)
+    raises in its wrapper rather than return an output cut off from the
     graph;
   * any other device raises.
 
@@ -36,7 +38,8 @@ def _on_cuda(x: torch.Tensor, name: str) -> bool:
 
 
 def _wants_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
@@ -68,8 +71,13 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
 def mamba2_scan(x, dt, A, Bmat, Cmat, D, *, h0=None,
                 return_state: bool = False):
     """x: (B,S,H,dh), dt: (B,S,H), A/D: (H,), Bmat/Cmat: (B,S,ds), h0:
-    (B,H,ds,dh) -> y like x [, final state (B,H,ds,dh) fp32]."""
+    (B,H,ds,dh) -> y like x [, final state (B,H,ds,dh) fp32].  On the card
+    with grad enabled and an input requiring grad, K3 runs inside an
+    autograd Function whose backward is K3-bwd."""
     if _on_cuda(x, "mamba2_scan"):
+        if _wants_grad(x, dt, A, Bmat, Cmat, D, h0):
+            return _m2.Mamba2ScanFn.apply(x, dt, A, Bmat, Cmat, D, h0,
+                                          return_state)
         return _m2.mamba2_scan(x, dt, A, Bmat, Cmat, D, h0=h0,
                                return_state=return_state)
     return ref.mamba2_scan_chunked(x, dt, A, Bmat, Cmat, D, h0=h0,
@@ -78,8 +86,12 @@ def mamba2_scan(x, dt, A, Bmat, Cmat, D, *, h0=None,
 
 def rwkv6_scan(r, k, v, w, u, *, s0=None, return_state: bool = False):
     """r/k/v/w: (B,S,H,dh), u: (H,dh), s0: (B,H,dh,dh) -> y like r
-    [, final state (B,H,dh,dh) fp32]."""
+    [, final state (B,H,dh,dh) fp32].  On the card with grad enabled and an
+    input requiring grad, K4 runs inside an autograd Function whose
+    backward is K4-bwd."""
     if _on_cuda(r, "rwkv6_scan"):
+        if _wants_grad(r, k, v, w, u, s0):
+            return _rw.Rwkv6ScanFn.apply(r, k, v, w, u, s0, return_state)
         return _rw.rwkv6_scan(r, k, v, w, u, s0=s0,
                               return_state=return_state)
     return ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,

@@ -6,7 +6,10 @@ attention functions of the serving path, and the two recurrent scans
 ``ops`` runs them for tensors on the CPU (the tests; the chunked forms for
 the scans, as JAX's ``impl="auto"`` does off the TPU), and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.  The
-main path never runs them when a card is present.
+scans' backward kernels (K3-bwd, K4-bwd) are held against
+``mamba2_scan_bwd`` and ``rwkv6_scan_bwd``: autograd through the chunked
+forms, as JAX differentiates its chunked references.  The main path never
+runs any of them when a card is present.
 
 One deliberate difference from the JAX references: a query row that sees
 no key (``seq_len == 0``, or causal ``Sq > Skv`` above the first key)
@@ -286,3 +289,56 @@ def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + torch.einsum("bjhk,bjhv->bhkv", kc * decay_end, vc)
     y = torch.cat(ys, 1)[:, :S].to(r.dtype)
     return (y, s) if return_state else y
+
+
+# ----------------------------------------------------------------------------
+# the scans' gradients (the plain versions of K3-bwd and K4-bwd)
+# ----------------------------------------------------------------------------
+
+def _grads(fn, inputs, state, out_grads):
+    """autograd.grad of ``fn(*inputs, state)`` -> (y, final state) for
+    ``out_grads`` = (dy, d final state or None); the gradients of
+    ``inputs`` and of ``state``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in inputs]
+        st = state.detach().requires_grad_(True)
+        outs = fn(*ins, st)
+        pairs = [(o, g) for o, g in zip(outs, out_grads) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   ins + [st], [g for _, g in pairs],
+                                   allow_unused=True)
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                   s0: torch.Tensor | None = None,
+                   ds_out: torch.Tensor | None = None):
+    """The gradient of ``rwkv6_scan_chunked`` at (r, k, v, w, u, s0) for
+    the output gradient ``dy`` and ``ds_out`` (the final state's; None:
+    zero) -> (dr, dk, dv, dw, du, ds0), each in its input's dtype (ds0
+    fp32 when s0 is None).  Where w < 1e-30 the chunked form's floor gives
+    dw = 0."""
+    B, _, H, dh = r.shape
+    state = _state(s0, (B, H, dh, dh), r.device)
+    g = _grads(lambda r_, k_, v_, w_, u_, s_: rwkv6_scan_chunked(
+        r_, k_, v_, w_, u_, s0=s_, return_state=True),
+        (r, k, v, w, u), state, (dy, ds_out))
+    ds0 = g[5] if s0 is None else g[5].to(s0.dtype)
+    return (*g[:5], ds0)
+
+
+def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor,
+                    dy: torch.Tensor, h0: torch.Tensor | None = None,
+                    dh_out: torch.Tensor | None = None):
+    """The gradient of ``mamba2_scan_chunked`` at (x, dt, A, Bmat, Cmat, D,
+    h0) for the output gradient ``dy`` and ``dh_out`` (the final state's;
+    None: zero) -> (dx, ddt, dA, dB, dC, dD, dh0), each in its input's
+    dtype (dh0 fp32 when h0 is None)."""
+    B, _, H, dh = x.shape
+    state = _state(h0, (B, H, Bmat.shape[-1], dh), x.device)
+    g = _grads(lambda x_, dt_, A_, B_, C_, D_, h_: mamba2_scan_chunked(
+        x_, dt_, A_, B_, C_, D_, h0=h_, return_state=True),
+        (x, dt, A, Bmat, Cmat, D), state, (dy, dh_out))
+    dh0 = g[6] if h0 is None else g[6].to(h0.dtype)
+    return (*g[:6], dh0)

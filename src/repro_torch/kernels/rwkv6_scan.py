@@ -8,6 +8,11 @@ contract (the Pallas kernel takes no state and gives none back) for any
 ``kernels/ops.py`` picks between them by the tensors' device.  This wrapper
 takes CUDA tensors only and never falls back.
 
+Its backward is K4-bwd (``csrc/rwkv6_scan_bwd.cu``, wrapper
+``rwkv6_scan_bwd``; plain version ``ref.rwkv6_scan_bwd``), and
+``Rwkv6ScanFn`` joins the two as one differentiable function, which
+``ops.rwkv6_scan`` takes under grad.
+
 The C entry point picks one of three device kernels and reports it, read
 back as ``rwkv6_scan.last_kernel``: ``rwkv6_scan_mma_kernel`` (bf16,
 S > 1: chunk-parallel on the tensor cores), ``rwkv6_scan_decode_kernel``
@@ -31,6 +36,45 @@ KERNELS = ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
            "rwkv6_scan_decode_kernel")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
+# K4-bwd: one device kernel (and its du reduction); steps a checkpoint
+BWD_KERNELS = ("rwkv6_scan_bwd_kernel",)
+CHUNK_BWD = 8
+_bwd_route = ctypes.c_int(-1)
+_BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
+
+
+def _check(r, k, v, w, u, s0, name: str) -> tuple[int, int, int, int]:
+    """Device, dtype, shape and layout checks shared by K4 and K4-bwd;
+    returns (B, S, H, dh)."""
+    dev = r.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev \
+            or w.device != dev or u.device != dev \
+            or (s0 is not None and s0.device != dev):
+        raise ValueError(f"{name} kernel: every tensor must lie on the "
+                         "same CUDA device")
+    dtype = r.dtype
+    if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype \
+            or w.dtype != dtype:
+        raise TypeError(f"{name} kernel: r/k/v/w must share a dtype in "
+                        f"{list(DTYPES)}, got {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {w.dtype}")
+    shape = r.shape
+    if len(shape) != 4 or k.shape != shape or v.shape != shape \
+            or w.shape != shape:
+        raise ValueError(f"{name} kernel: r/k/v/w must be (B,S,H,dh) of "
+                         f"one shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    B, S, H, dh = shape
+    if dh not in HEAD_DIMS or u.shape != (H, dh) or (
+            s0 is not None and s0.shape != (B, H, dh, dh)):
+        raise ValueError(
+            f"{name} kernel: unsupported shapes r {tuple(r.shape)}, u "
+            f"{tuple(u.shape)}, s0 {None if s0 is None else tuple(s0.shape)}"
+            f" (dh must be one of {HEAD_DIMS})")
+    if not (r.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and w.is_contiguous()):
+        raise ValueError(f"{name} kernel: r/k/v/w must be contiguous")
+    return B, S, H, dh
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,42 +83,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r/k/v/w: (B,S,H,dh) of one dtype, contiguous; u: (H,dh); s0:
     (B,H,dh,dh) or None -> y (B,S,H,dh) in r.dtype [, final state (B,H,dh,dh)
     fp32].  ``u`` and ``s0`` are read as fp32 (cast here if they are not)."""
-    _build.refuse_grad("rwkv6_scan", f"see {_build.NO_BACKWARD}", r, k, v,
-                       w, u, s0)
+    B, S, H, dh = _check(r, k, v, w, u, s0, "rwkv6_scan")
     dev = r.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev \
-            or w.device != dev or u.device != dev \
-            or (s0 is not None and s0.device != dev):
-        raise ValueError("rwkv6_scan kernel: every tensor must lie on the "
-                         "same CUDA device")
-    dtype = r.dtype
-    if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype \
-            or w.dtype != dtype:
-        raise TypeError(f"rwkv6_scan kernel: r/k/v/w must share a dtype in "
-                        f"{list(DTYPES)}, got {r.dtype}, {k.dtype}, "
-                        f"{v.dtype}, {w.dtype}")
-    shape = r.shape
-    if len(shape) != 4 or k.shape != shape or v.shape != shape \
-            or w.shape != shape:
-        raise ValueError(f"rwkv6_scan kernel: r/k/v/w must be (B,S,H,dh) of "
-                         f"one shape, got "
-                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
-    B, S, H, dh = shape
-    if dh not in HEAD_DIMS or u.shape != (H, dh) or (
-            s0 is not None and s0.shape != (B, H, dh, dh)):
-        raise ValueError(
-            f"rwkv6_scan kernel: unsupported shapes r {tuple(r.shape)}, u "
-            f"{tuple(u.shape)}, s0 {None if s0 is None else tuple(s0.shape)}"
-            f" (dh must be one of {HEAD_DIMS})")
-    if not (r.is_contiguous() and k.is_contiguous() and v.is_contiguous()
-            and w.is_contiguous()):
-        raise ValueError("rwkv6_scan kernel: r/k/v/w must be contiguous")
-    if u.dtype != torch.float32 or not u.is_contiguous():
-        u = u.float().contiguous()
-    if s0 is not None and (s0.dtype != torch.float32
-                           or not s0.is_contiguous() or s0.data_ptr() % 16):
-        # fp32, contiguous and 16-byte aligned (the kernels read whole rows)
-        s0 = torch.empty(s0.shape, dtype=torch.float32, device=dev).copy_(s0)
+    u, s0 = _build.fp32(u), _build.fp32(s0)
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr())
     if any(p % 16 for p in ptrs):
         raise ValueError("rwkv6_scan kernel: r/k/v/w must be 16-byte "
@@ -86,7 +97,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = _build.load("rwkv6_scan")
         err = fn(*ptrs, u.data_ptr(), None if s0 is None else s0.data_ptr(),
                  y.data_ptr(), None if s_out is None else s_out.data_ptr(),
-                 B, S, H, dh, DTYPES[dtype], _ROUTE_ADDR,
+                 B, S, H, dh, DTYPES[r.dtype], _ROUTE_ADDR,
                  _build.raw_stream(dev))
         if err:
             raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA "
@@ -98,3 +109,77 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 rwkv6_scan.launches = 0
 rwkv6_scan.last_kernel = None
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
+                   s0: torch.Tensor | None = None,
+                   ds_out: torch.Tensor | None = None,
+                   need_ds0: bool = True):
+    """K4-bwd: the gradient of ``rwkv6_scan`` at (r, k, v, w, u, s0) for
+    the output gradient ``dy`` (r's shape and dtype) and ``ds_out``, the
+    final state's (B,H,dh,dh) or None (zero) -> (dr, dk, dv, dw) in r.dtype,
+    du (H,dh) fp32 and ds0 (B,H,dh,dh) fp32 (None unless ``need_ds0``).
+    Any S >= 1; one count a call (two device kernels)."""
+    B, S, H, dh = _check(r, k, v, w, u, s0, "rwkv6_scan_bwd")
+    dev = r.device
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != dev \
+            or (ds_out is not None and (ds_out.shape != (B, H, dh, dh)
+                                        or ds_out.device != dev)):
+        raise ValueError("rwkv6_scan_bwd kernel: dy must have r's shape, "
+                         "dtype and device, ds_out the state's shape")
+    dy = dy.contiguous()
+    u, s0, ds_out = (_build.fp32(t) for t in (u, s0, ds_out))
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    du = torch.zeros((H, dh), dtype=torch.float32, device=dev)
+    ds0 = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=dev)
+           if need_ds0 else None)
+    if B * H == 0 or S == 0:
+        return (dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(), du, ds0)
+    # scratch: the batch's du partials, then S at every 8th step
+    n_chunks = -(-S // CHUNK_BWD)
+    scratch = torch.empty(B * H * dh * (1 + n_chunks * dh),
+                          dtype=torch.float32, device=dev)
+    fn = _build.load("rwkv6_scan_bwd")
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), None if s0 is None else s0.data_ptr(),
+             dy.data_ptr(), None if ds_out is None else ds_out.data_ptr(),
+             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+             du.data_ptr(), None if ds0 is None else ds0.data_ptr(),
+             scratch.data_ptr(), scratch[B * H * dh:].data_ptr(), B, S, H,
+             dh, DTYPES[r.dtype], _BWD_ROUTE_ADDR, _build.raw_stream(dev))
+    if err:
+        raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    rwkv6_scan_bwd.launches += 1
+    rwkv6_scan_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
+    return dr, dk, dv, dw, du, ds0
+
+
+rwkv6_scan_bwd.launches = 0
+rwkv6_scan_bwd.last_kernel = None
+
+
+class Rwkv6ScanFn(torch.autograd.Function):
+    """K4 forward and K4-bwd as one differentiable function of (r, k, v, w,
+    u, s0); with ``return_state`` the final state is an output too, and a
+    missing gradient of it counts as zero.  Gradients come back in the
+    inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, return_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return rwkv6_scan(r, k, v, w, u, s0=s0, return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, dy, ds_out=None):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        need_ds0 = s0 is not None and ctx.needs_input_grad[5]
+        dr, dk, dv, dw, du, ds0 = rwkv6_scan_bwd(
+            r, k, v, w, u, dy.to(r.dtype), s0=s0, ds_out=ds_out,
+            need_ds0=need_ds0)
+        return (dr, dk, dv, dw, du.to(u.dtype),
+                ds0.to(s0.dtype) if need_ds0 else None, None)

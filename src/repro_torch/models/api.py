@@ -9,10 +9,9 @@ JAX module's ShapeDtypeStruct input specs serve its dry-run, which the
 port replaces last (ROADMAP queue item 10).
 
 ``init`` takes a ``torch.Generator`` and builds the weights on its device;
-``train_loss(p, b, remat=True)`` takes JAX's ``remat`` knob, which the
-transformer and encoder-decoder families read (per-layer
-``torch.utils.checkpoint``) and the recurrent ones accept and leave
-(their scans have no backward kernel on the card yet, ROADMAP item 12);
+``train_loss(p, b, remat=True)`` takes JAX's ``remat`` knob, which every
+family reads (per-layer ``torch.utils.checkpoint``; zamba2 recomputes its
+mamba layers and not its shared block, as JAX does);
 ``init_decode_state(batch, max_len, device="cuda")`` builds zero state on
 the card unless the caller asks for the CPU (encdec raises ``TypeError``).
 """
@@ -63,7 +62,8 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: ssm.init_lm(cfg, gen),
-            train_loss=lambda p, b, remat=True: ssm.train_loss(cfg, p, b),
+            train_loss=lambda p, b, remat=True: ssm.train_loss(
+                cfg, p, b, remat=remat),
             prefill=lambda p, b: ssm.prefill(cfg, p, b),
             decode_step=lambda p, t, s, pos: ssm.decode_step(cfg, p, t, s,
                                                              pos),
@@ -75,7 +75,8 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: rwkv.init_lm(cfg, gen),
-            train_loss=lambda p, b, remat=True: rwkv.train_loss(cfg, p, b),
+            train_loss=lambda p, b, remat=True: rwkv.train_loss(
+                cfg, p, b, remat=remat),
             prefill=lambda p, b: rwkv.prefill(cfg, p, b),
             decode_step=lambda p, t, s, pos: rwkv.decode_step(cfg, p, t, s,
                                                               pos),
@@ -87,7 +88,8 @@ def get_model(cfg: ArchCfg) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: hybrid.init_lm(cfg, gen),
-            train_loss=lambda p, b, remat=True: hybrid.train_loss(cfg, p, b),
+            train_loss=lambda p, b, remat=True: hybrid.train_loss(
+                cfg, p, b, remat=remat),
             prefill=lambda p, b, **kw: hybrid.prefill(cfg, p, b, **kw),
             decode_step=lambda p, t, s, pos: hybrid.decode_step(cfg, p, t, s,
                                                                 pos),

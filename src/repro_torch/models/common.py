@@ -20,6 +20,7 @@ from typing import Any, Literal
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # ----------------------------------------------------------------------------
 # configuration
@@ -257,6 +258,15 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def lm_head(cfg: ArchCfg, p: Params, h: torch.Tensor) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (h @ w).float()
+
+
+def run_layer(fn, remat: bool, *args):
+    """fn(*args); with ``remat`` under grad only the arguments are kept and
+    fn is recomputed in the backward (``torch.utils.checkpoint``), as JAX's
+    ``jax.checkpoint`` with the ``nothing_saveable`` policy does."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

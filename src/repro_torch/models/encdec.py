@@ -28,7 +28,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common
@@ -86,13 +85,6 @@ def init_lm(cfg: ArchCfg, generator: torch.Generator) -> EncDecLM:
     return EncDecLM(cfg, device=generator.device, generator=generator)
 
 
-def _run(fn, remat: bool, *args):
-    """fn(*args), recomputed in the backward when ``remat`` under grad."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
-
-
 def _enc_layer(cfg: ArchCfg, lp: EncLayer, h: torch.Tensor) -> torch.Tensor:
     a, _ = attn.attn_full(cfg, lp.attn, common.apply_norm(cfg, lp.ln1, h),
                           freqs=None, causal=False)
@@ -106,7 +98,7 @@ def encode(cfg: ArchCfg, params: EncDecLM, frames: torch.Tensor, *,
     """frames: (B, n_frames, d) stub embeddings -> encoder output."""
     h = frames.to(cfg.dtype) + params.enc_pos[None]
     for lp in params.enc_layers:
-        h = _run(_enc_layer, remat, cfg, lp, h)
+        h = common.run_layer(_enc_layer, remat, cfg, lp, h)
     return common.apply_norm(cfg, params.enc_norm, h)
 
 
@@ -144,7 +136,7 @@ def decode_stack(cfg: ArchCfg, params: EncDecLM, h: torch.Tensor,
                  ) -> torch.Tensor:
     freqs = common.rope_freqs(cfg, h.device)
     for lp in params.dec_layers:
-        h = _run(_dec_layer, remat, cfg, lp, h, enc_out, freqs)[0]
+        h = common.run_layer(_dec_layer, remat, cfg, lp, h, enc_out, freqs)[0]
     return common.apply_norm(cfg, params.final_norm, h)
 
 

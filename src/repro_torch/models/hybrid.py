@@ -2,10 +2,13 @@
 
 The counterpart of the JAX package's ``models/hybrid.py``.  The backbone is
 a stack of Mamba2 mixer layers (``models/ssm.py``; their prefill scans run
-the kernel K3 on the card); one shared transformer block (full attention +
-MLP, one parameter set) is applied after every ``attn_every`` backbone
-layers.  Its prefill attention goes through ``attn_full``, so through the
-kernel K2 on the card.
+the kernel K3 on the card, their gradients K3-bwd); one shared transformer
+block (full attention + MLP, one parameter set) is applied after every
+``attn_every`` backbone layers.  Its prefill attention goes through
+``attn_full``, so through the kernel K2 on the card (K2-bwd under grad).
+Training (``train_loss(..., remat=True)``, JAX's default) recomputes each
+mamba layer in the backward and keeps the shared block's activations, as
+JAX checkpoints its mamba scan body and not the shared block.
 
 Decode state: per-layer Mamba states (O(1)) and one dense KV cache per
 shared-block application, padded to ``max_len`` at prefill.  ``decode_step``
@@ -76,20 +79,24 @@ def _shared_full(cfg: ArchCfg, sp: SharedBlock, h: torch.Tensor, freqs):
     return h, kv
 
 
-def forward(cfg: ArchCfg, params: HybridLM, h: torch.Tensor) -> torch.Tensor:
+def forward(cfg: ArchCfg, params: HybridLM, h: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
+    """The stack over embeddings h: (B, S, d); ``remat`` (under grad)
+    recomputes each mamba layer in the backward, not the shared block."""
     freqs = common.rope_freqs(cfg, h.device)
     for lo, hi, shared in _spans(cfg):
         for lp in params.mamba[lo:hi]:
-            h = h + ssm.apply_mamba(cfg, lp.mixer,
-                                    common.apply_norm(cfg, lp.ln, h))
+            h = common.run_layer(ssm.layer, remat, cfg, lp, h)
         if shared:
             h, _ = _shared_full(cfg, params.shared, h, freqs)
     return common.apply_norm(cfg, params.final_norm, h)
 
 
-def train_loss(cfg: ArchCfg, params: HybridLM, batch: dict) -> torch.Tensor:
+def train_loss(cfg: ArchCfg, params: HybridLM, batch: dict, *,
+               remat: bool = True) -> torch.Tensor:
     h = common.embed_tokens(params.embed, batch["tokens"])
-    logits = common.lm_head(cfg, params.embed, forward(cfg, params, h))
+    logits = common.lm_head(cfg, params.embed,
+                            forward(cfg, params, h, remat=remat))
     return common.cross_entropy(logits, batch["labels"])
 
 

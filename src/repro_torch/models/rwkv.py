@@ -10,7 +10,9 @@ one-token step; the port sends every step, prefill and decode, through
 (the same function).  The configs' ``scan_impl`` knob is not read: the
 tensors' device picks the implementation.  The layer stack is an
 ``nn.ModuleList`` walked with a Python loop (JAX: ``lax.scan`` over stacked
-parameters), without rematerialisation.
+parameters).  Training (``train_loss(..., remat=True)``, JAX's default)
+recomputes each layer in the backward, as JAX checkpoints its scan body;
+on the card the scan's gradient is K4-bwd, through ``ops``.
 """
 from __future__ import annotations
 
@@ -148,16 +150,25 @@ def channel_mix(cfg: ArchCfg, p: Params, x: torch.Tensor, *, state=None,
 # LM stack
 # ----------------------------------------------------------------------------
 
-def forward(cfg: ArchCfg, params: RwkvLM, h: torch.Tensor) -> torch.Tensor:
+def _layer(cfg: ArchCfg, lp: RwkvBlock, h: torch.Tensor) -> torch.Tensor:
+    h = h + time_mix(cfg, lp.tm, common.apply_norm(cfg, lp.ln1, h))
+    return h + channel_mix(cfg, lp.cm, common.apply_norm(cfg, lp.ln2, h))
+
+
+def forward(cfg: ArchCfg, params: RwkvLM, h: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
+    """The layer stack over embeddings h: (B, S, d); ``remat`` (under grad)
+    recomputes each layer in the backward."""
     for lp in params.layers:
-        h = h + time_mix(cfg, lp.tm, common.apply_norm(cfg, lp.ln1, h))
-        h = h + channel_mix(cfg, lp.cm, common.apply_norm(cfg, lp.ln2, h))
+        h = common.run_layer(_layer, remat, cfg, lp, h)
     return common.apply_norm(cfg, params.final_norm, h)
 
 
-def train_loss(cfg: ArchCfg, params: RwkvLM, batch: dict) -> torch.Tensor:
+def train_loss(cfg: ArchCfg, params: RwkvLM, batch: dict, *,
+               remat: bool = True) -> torch.Tensor:
     h = common.embed_tokens(params.embed, batch["tokens"])
-    logits = common.lm_head(cfg, params.embed, forward(cfg, params, h))
+    logits = common.lm_head(cfg, params.embed,
+                            forward(cfg, params, h, remat=remat))
     return common.cross_entropy(logits, batch["labels"])
 
 

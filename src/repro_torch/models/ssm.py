@@ -5,11 +5,14 @@ projection giving (z, x, B, C, dt), a depthwise causal conv over
 (x | B | C), softplus dt, the SSD scan, a gated RMSNorm and the output
 projection.  The scan goes through ``ops.mamba2_scan``: the CUDA kernel K3
 on the card (state in and out included), the chunked plain version on the
-CPU.  ``x``, ``B`` and ``C`` reach it as strided views of the conv output
-(the kernel takes their strides; nothing is copied).  The configs'
-``scan_impl`` knob is not read: the tensors' device picks the
-implementation.  One-token decode (``mamba_decode_step``) is inline
-PyTorch, as the JAX version is inline jnp: no kernel.
+CPU; under grad on the card its gradient is K3-bwd.  ``x``, ``B`` and
+``C`` reach it as strided views of the conv output (the kernels take their
+strides; nothing is copied).  The configs' ``scan_impl`` knob is not read:
+the tensors' device picks the implementation.  Training
+(``train_loss(..., remat=True)``, JAX's default) recomputes each layer in
+the backward, as JAX checkpoints its scan body.  One-token decode
+(``mamba_decode_step``) is inline PyTorch, as the JAX version is inline
+jnp: no kernel.
 """
 from __future__ import annotations
 
@@ -154,15 +157,25 @@ def init_lm(cfg: ArchCfg, generator: torch.Generator) -> MambaLM:
     return MambaLM(cfg, device=generator.device, generator=generator)
 
 
-def forward(cfg: ArchCfg, params: MambaLM, h: torch.Tensor) -> torch.Tensor:
+def layer(cfg: ArchCfg, lp: MambaBlock, h: torch.Tensor) -> torch.Tensor:
+    """One backbone layer with its residual: h + mixer(ln(h))."""
+    return h + apply_mamba(cfg, lp.mixer, common.apply_norm(cfg, lp.ln, h))
+
+
+def forward(cfg: ArchCfg, params: MambaLM, h: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
+    """The layer stack over embeddings h: (B, S, d); ``remat`` (under grad)
+    recomputes each layer in the backward."""
     for lp in params.layers:
-        h = h + apply_mamba(cfg, lp.mixer, common.apply_norm(cfg, lp.ln, h))
+        h = common.run_layer(layer, remat, cfg, lp, h)
     return common.apply_norm(cfg, params.final_norm, h)
 
 
-def train_loss(cfg: ArchCfg, params: MambaLM, batch: dict) -> torch.Tensor:
+def train_loss(cfg: ArchCfg, params: MambaLM, batch: dict, *,
+               remat: bool = True) -> torch.Tensor:
     h = common.embed_tokens(params.embed, batch["tokens"])
-    logits = common.lm_head(cfg, params.embed, forward(cfg, params, h))
+    logits = common.lm_head(cfg, params.embed,
+                            forward(cfg, params, h, remat=remat))
     return common.cross_entropy(logits, batch["labels"])
 
 

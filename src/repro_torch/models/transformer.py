@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
@@ -91,13 +90,8 @@ def forward(cfg: ArchCfg, params: TransformerLM, h: torch.Tensor, *,
     layer in the backward, as JAX's ``nothing_saveable`` checkpoint does."""
     freqs = common.rope_freqs(cfg, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    remat = remat and torch.is_grad_enabled()
     for lp in params.layers:
-        if remat:
-            h, a = checkpoint(_layer_fwd, cfg, lp, h, freqs, causal,
-                              use_reentrant=False)
-        else:
-            h, a = _layer_fwd(cfg, lp, h, freqs, causal)
+        h, a = common.run_layer(_layer_fwd, remat, cfg, lp, h, freqs, causal)
         aux = aux + a
     return common.apply_norm(cfg, params.final_norm, h), aux
 

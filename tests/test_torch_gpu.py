@@ -732,34 +732,19 @@ def test_flash_attention_backward_takes_a_misaligned_view(cuda):
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """No output cut off from its inputs' graph: K1, K3 and K4 have no
-    backward kernel yet, so they raise when autograd would need one."""
+    """No output cut off from its inputs' graph: K1 (paged attention, which
+    only serving runs) has no backward kernel, so it raises when autograd
+    would need one; K3 and K4 now go through their backward kernels."""
     args = paged_inputs(cuda, torch.float32, B=2, H=4, Hkv=2, D=64, page=8,
                         seq_lens=[3, 9])
     q = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="K1"):
         ops.paged_attention(q, *args[1:])
-    B, S, H, dh, ds = 1, 8, 2, 64, 64
-    x = torch.randn(B, S, H, dh, device=cuda, requires_grad=True)
-    dt = torch.rand(B, S, H, device=cuda)
-    A, D = -torch.rand(H, device=cuda), torch.rand(H, device=cuda)
-    Bm, Cm = (torch.randn(B, S, ds, device=cuda) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        ops.mamba2_scan(x, dt, A, Bm, Cm, D)
-    r = torch.randn(B, S, H, 64, device=cuda, requires_grad=True)
-    w = torch.rand(B, S, H, 64, device=cuda)
-    u = torch.randn(H, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        ops.rwkv6_scan(r, r.detach(), r.detach(), w, u)
-    # the wrappers themselves refuse, K2's plain one included (its
-    # gradient is FlashAttentionFn's)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        rw.rwkv6_scan(r, r.detach(), r.detach(), w, u)
+    # K2's plain wrapper refuses too (its gradient is FlashAttentionFn's)
     qa = torch.randn(1, 2, 8, 64, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="FlashAttentionFn"):
         fa.flash_attention(qa, qa.detach(), qa.detach())
     with torch.no_grad():           # inference is unaffected
-        ops.rwkv6_scan(r, r, r, w, u)
         ops.paged_attention(q, *args[1:])
         fa.flash_attention(qa, qa, qa)
 
@@ -837,3 +822,200 @@ def test_flash_attention_backward_wgmma_route_non_causal(cuda, B, H, Hkv, Sq,
     assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[1]
     want = plain_grads(q, k, v, dout, False, compute)
     grad_bar_held(got, want, torch.bfloat16, compute)
+
+
+# ----------------------------------------------------------------------------
+# K3-bwd and K4-bwd: the scans' backward kernels
+# ----------------------------------------------------------------------------
+
+def rwkv_bwd_inputs(device, dtype, *, B, S, H, seed=0, floor=False):
+    """K4-bwd's inputs: rwkv6's decay (w ~ 0.95), and with ``floor`` w = 0
+    and denormal w (under the plain version's 1e-30 floor) every few
+    entries."""
+    r, k, v, w, u, s0 = rwkv_inputs("cpu", torch.float32, B=B, S=S, H=H,
+                                    seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    w = torch.exp(-torch.exp(-3.0 + 0.5 * torch.randn(w.shape, generator=g)))
+    if floor:
+        w.view(-1)[::7] = 0.0
+        w.view(-1)[3::11] = 1e-39
+    dy = torch.randn(r.shape, generator=g)
+    ds_out = torch.randn(s0.shape, generator=g)
+    lo = lambda t: t.to(device, dtype)  # noqa: E731
+    return (lo(r), lo(k), lo(v), lo(w), u.to(device), s0.to(device), lo(dy),
+            ds_out.to(device))
+
+
+def grads_within(got, want, bar, names):
+    """max |got - want| <= bar * max |want| for each named gradient."""
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= bar * float(w.float().abs().max()), (name, err, bar)
+
+
+RWKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
+MAMBA_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 8, 9, 37, 130])
+def test_rwkv6_scan_backward_kernel_matches_plain(cuda, S, dtype, state):
+    r, k, v, w, u, s0, dy, ds_out = rwkv_bwd_inputs(cuda, dtype, B=2, S=S,
+                                                    H=3, seed=S)
+    s0, ds_out = (s0, ds_out) if state else (None, None)
+    n = rw.rwkv6_scan_bwd.launches
+    got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    assert rw.rwkv6_scan_bwd.launches == n + 1
+    assert rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[0]
+    want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    grads_within(got, want, tol(dtype), RWKV_GRADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_backward_kernel_under_the_floor(cuda, dtype):
+    """w = 0 and denormal w: dw is 0 there, as the plain version's floor
+    gives it, and every gradient stays within the bar."""
+    r, k, v, w, u, s0, dy, ds_out = rwkv_bwd_inputs(
+        cuda, dtype, B=2, S=70, H=2, seed=3, floor=True)
+    got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    under = w.float() < 1e-30
+    assert under.any() and not got[3][under].any()
+    grads_within(got, want, tol(dtype), RWKV_GRADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 8, 9, 37, 130])
+def test_mamba2_scan_backward_kernel_matches_plain(cuda, S, dtype, state):
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, dtype, B=2, S=S, H=3,
+                                           seed=S)
+    g = torch.Generator().manual_seed(S + 1)
+    dy = torch.randn(x.shape, generator=g).to(cuda, dtype)
+    dh_out = torch.randn(h0.shape, generator=g).to(cuda)
+    h0, dh_out = (h0, dh_out) if state else (None, None)
+    n = m2.mamba2_scan_bwd.launches
+    got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0, dh_out=dh_out)
+    assert m2.mamba2_scan_bwd.launches == n + 1
+    assert m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[0]
+    want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
+                               dh_out=dh_out)
+    grads_within(got, want, tol(dtype), MAMBA_GRADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_scan_backward_kernel_takes_strided_views(cuda, dtype):
+    """x, B and C as the mixer hands them over (views into one projection):
+    read in place, their gradients contiguous and equal to the contiguous
+    inputs' bitwise."""
+    B, S, H, dh, ds = 2, 70, 3, 64, 64
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, dtype, B=B, S=S, H=H,
+                                           seed=8)
+    xbc = torch.cat([x.reshape(B, S, H * dh), Bm, Cm], -1)
+    xv, bv, cv = torch.split(xbc, [H * dh, ds, ds], -1)
+    xv = xv.reshape(B, S, H, dh)
+    assert not xv.is_contiguous() and not bv.is_contiguous()
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)) \
+        .to(cuda, dtype)
+    got = m2.mamba2_scan_bwd(xv, dt, A, bv, cv, D, dy, h0=h0)
+    same = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0)
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
+    assert got[0].is_contiguous() and got[3].is_contiguous()
+    want = ref.mamba2_scan_bwd(xv, dt, A, bv, cv, D, dy, h0=h0)
+    grads_within(got, want, tol(dtype), MAMBA_GRADS)
+
+
+@pytest.mark.gpu
+def test_scan_backward_kernels_rerun_bitwise(cuda):
+    """No atomics: the same inputs give the same bits (du, dA, dD, dB, dC
+    are sums in a fixed order), at the models' training shapes' widths."""
+    args = rwkv_bwd_inputs(cuda, torch.bfloat16, B=2, S=257, H=32, seed=4)
+    r, k, v, w, u, s0, dy, ds_out = args
+    a = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    b = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, torch.bfloat16, B=2,
+                                           S=257, H=64, seed=5)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)) \
+        .to(cuda, torch.bfloat16)
+    a = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0)
+    b = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("return_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_functions_under_grad_reach_the_backward_kernels(
+        cuda, dtype, return_state):
+    """ops.rwkv6_scan and ops.mamba2_scan under grad on the card: K3/K4
+    forward, K3-bwd/K4-bwd backward (one launch each), every gradient in its
+    input's dtype and within the bar of autograd through the plain
+    versions; a final state without a gradient counts as zero."""
+    r, k, v, w, u, s0, dy, _ = rwkv_bwd_inputs(cuda, dtype, B=2, S=40, H=2,
+                                               seed=10)
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    n_f, n_b = rw.rwkv6_scan.launches, rw.rwkv6_scan_bwd.launches
+    out = ops.rwkv6_scan(*ins[:5], s0=ins[5], return_state=return_state)
+    y = out[0] if return_state else out
+    (y.float() * dy.float()).sum().backward()
+    assert rw.rwkv6_scan.launches == n_f + 1
+    assert rw.rwkv6_scan_bwd.launches == n_b + 1
+    want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0)
+    grads_within([t.grad for t in ins], want, tol(dtype), RWKV_GRADS)
+
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, dtype, B=2, S=40, H=2,
+                                           seed=11)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(12)) \
+        .to(cuda, dtype)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm, D, h0)]
+    n_f, n_b = m2.mamba2_scan.launches, m2.mamba2_scan_bwd.launches
+    out = ops.mamba2_scan(*ins[:6], h0=ins[6], return_state=return_state)
+    y = out[0] if return_state else out
+    (y.float() * dy.float()).sum().backward()
+    assert m2.mamba2_scan.launches == n_f + 1
+    assert m2.mamba2_scan_bwd.launches == n_b + 1
+    want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0)
+    grads_within([t.grad for t in ins], want, tol(dtype), MAMBA_GRADS)
+
+
+@pytest.mark.gpu
+def test_reduced_recurrent_training_on_the_card_gives_the_cpus_losses(
+        cuda, tmp_path):
+    """Reduced fp32 rwkv6 and zamba2, shaped for the kernels, trained 3 steps
+    on the card (K3/K4 twice a layer a step under remat, K3-bwd/K4-bwd
+    once) and on the CPU from the same weights: losses within rtol 1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models.common import SsmCfg
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, over, fwd, bwd in (
+            ("rwkv6-1.6b", dict(head_dim=64), rw.rwkv6_scan,
+             rw.rwkv6_scan_bwd),
+            ("zamba2-1.2b", dict(head_dim=64, ssm=SsmCfg(
+                d_state=64, head_dim=64, expand=2, conv_width=4)),
+             m2.mamba2_scan, m2.mamba2_scan_bwd)):
+        cfg = configs.get_config(name).reduced(**over)
+        init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            tc = TrainerConfig(ckpt_dir=str(tmp_path / name / dev),
+                               ckpt_every=0, batch=2, seq_len=40,
+                               comm="single",
+                               opt=AdamWConfig(lr=3e-3, warmup_steps=0))
+            n_f, n_b = fwd.launches, bwd.launches
+            tr = Trainer(cfg, tc, device=dev, init_params=init)
+            losses[dev] = [m["loss"] for m in tr.train(3)]
+            if dev == "cuda":
+                assert fwd.launches == n_f + 3 * 2 * cfg.n_layers
+                assert bwd.launches == n_b + 3 * cfg.n_layers
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -31,7 +31,8 @@ def test_port_modules_load_no_jax_and_no_repro():
     mods = port_modules()
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.kernels.paged_attention" in mods
-    for m in ("kernels.mamba2_scan", "kernels.rwkv6_scan", "models.rwkv",
+    for m in ("kernels.mamba2_scan", "kernels.rwkv6_scan", "kernels.ops",
+              "kernels.ref", "kernels._build", "models.rwkv",
               "models.ssm", "models.hybrid", "models.encdec", "core.rdma",
               "core.fabric.sim", "core.fabric.fluid",
               "core.fabric.telemetry", "core.fabric.qosctl",
@@ -61,6 +62,17 @@ def test_no_source_line_imports_jax_or_repro():
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if IMPORT_RE.match(line)]
     assert not bad, bad
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Each ``kernels/csrc/*.cu`` (the backward kernels K2-bwd, K3-bwd and
+    K4-bwd among them) is in ``_build.KERNELS``, built by ``build_all``,
+    and has a C signature to bind."""
+    from repro_torch.kernels import _build
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert {"mamba2_scan_bwd", "rwkv6_scan_bwd",
+            "flash_attention_bwd"} <= sources
+    assert sources == set(_build.KERNELS) == set(_build.SIGNATURES)
 
 
 def test_import_pattern_catches_what_it_must():

@@ -279,8 +279,13 @@ def test_trainer_config_keeps_jax_fields_and_defaults():
         {k: v for k, v in want.items() if k != "opt"}
 
 
-def test_remat_changes_no_loss_or_gradient():
-    cfg = CFG
+@pytest.mark.parametrize("arch", ["qwen2", "rwkv6", "zamba2"])
+def test_remat_changes_no_loss_or_gradient(arch):
+    """Per-layer recompute (zamba2: its mamba layers, not its shared block)
+    gives the loss and every gradient of the plain backward, bitwise."""
+    from repro_torch import configs
+    cfg = CFG if arch == "qwen2" else configs.get_reduced(
+        {"rwkv6": "rwkv6-1.6b", "zamba2": "zamba2-1.2b"}[arch])
     model = api.get_model(cfg).init(torch.Generator().manual_seed(3))
     for p in model.parameters():
         p.requires_grad_(True)
