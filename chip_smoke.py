@@ -88,14 +88,18 @@ PyTorch version:
      S = 224, cross Sq = 224 / 1 against 1500 frames; training at batch 2:
      the encoder, the causal decoder S = 448, cross 448 x 1500) and time
      them;
- 11. the recurrent families trained: (a) K4-bwd (``csrc/rwkv6_scan_bwd.cu``)
-     and K3-bwd (``csrc/mamba2_scan_bwd.cu``) vs the plain backward
-     (autograd through the chunked forms) at rwkv6's training shape (B=4,
-     S=1024, H=32) and zamba2's (B=4, S=1024, H=64, ds=64, x/B/C as the
-     mixer's strided views) and their edges (S = 1, S = 37, a state in and
-     its gradient out, fp32 and bf16, w under the floor), each gradient
-     within bar * max|want| (fp32 3e-4, bf16 6e-2), reruns bitwise, timed
-     (eager and graph-replayed) beside the bound and the plain backward;
+ 11. the recurrent families trained: (a) K4-bwd and K3-bwd, each in its
+     two routes (bf16: ``csrc/rwkv6_scan_bwd_chunk.cu`` and
+     ``csrc/mamba2_scan_bwd_chunk.cu``, chunk-parallel; fp32:
+     ``csrc/rwkv6_scan_bwd.cu`` and ``csrc/mamba2_scan_bwd.cu``,
+     sequential), vs the plain backward (autograd through the chunked
+     forms) at rwkv6's training shape (B=4, S=1024, H=32) and zamba2's
+     (B=4, S=1024, H=64, ds=64, x/B/C as the mixer's strided views) and
+     their edges (S = 1, S = 37, a state in and its gradient out, w under
+     the floor), every edge in bf16 and fp32 with each call's route
+     checked, each gradient within bar * max|want| (fp32 3e-4, bf16 6e-2),
+     reruns bitwise, timed (eager and graph-replayed) beside the bound and
+     the plain backward, the fp32 route beside;
      (b, c) rwkv6-1.6b, then zamba2-1.2b, at full width, bf16, trained 3
      steps through ``Trainer(comm="single")`` (batch 4 x 1024, remat,
      AdamW): finite losses, per step exactly K4 48 and K4-bwd 24 (rwkv6),
@@ -117,15 +121,17 @@ package ``repro``.
     python3 chip_smoke.py --engine-ab PARENT   # PARENT: another checkout
     python3 chip_smoke.py --scan-ab PARENT
     python3 chip_smoke.py --bwd-ab PARENT
+    python3 chip_smoke.py --scan-bwd-ab PARENT
     python3 chip_smoke.py --train-only        # phases 1, 9 and 11 alone
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
-and K4 prefill and K4's decode step at the timed shapes), or K2-bwd's
+and K4 prefill and K4's decode step at the timed shapes), K2-bwd's
 (``ms`` and ``ms_graph`` at the training and prefill shapes under both
-compute dtypes), for the port of PARENT and of this checkout, each in a
-process of its own, in the order PARENT, this, this, PARENT: two versions
-compared on one card in one call.
+compute dtypes), or K3-bwd's and K4-bwd's (``ms`` and ``ms_graph`` at
+their bf16 training shapes), for the port of PARENT and of this checkout,
+each in a process of its own, in the order PARENT, this, this, PARENT: two
+versions compared on one card in one call.
 """
 from __future__ import annotations
 
@@ -203,8 +209,17 @@ OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
                "K4": ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
                       "rwkv6_scan_decode_kernel"),
                "K2-bwd": ("attn_bwd_",),   # flash_attention_bwd.cu
-               "K3-bwd": ("mamba2_scan_bwd",),   # and its head sum
-               "K4-bwd": ("rwkv6_scan_bwd", "rwkv6_du_reduce")}
+               # fp32 route: the kernel and its head sum; bf16 route: the
+               # state walk, the chunk kernel and the sum
+               "K3-bwd": ("mamba2_scan_bwd_kernel",
+                          "mamba2_scan_bwd_reduce_kernel",
+                          "mamba2_scan_bwd_state_kernel",
+                          "mamba2_scan_bwd_chunk_kernel",
+                          "mamba2_scan_bwd_sum_kernel"),
+               "K4-bwd": ("rwkv6_scan_bwd_kernel", "rwkv6_du_reduce_kernel",
+                          "rwkv6_scan_bwd_state_kernel",
+                          "rwkv6_scan_bwd_chunk_kernel",
+                          "rwkv6_scan_bwd_du_kernel")}
 
 
 def check(cond: bool, what: str) -> None:
@@ -2426,8 +2441,9 @@ def scan_bwd_bound(x, n_vec_in, n_vec_out, extra_bytes, dtype):
 def run_scan_bwd_checks(report: dict) -> None:
     """Phase 11a: K4-bwd and K3-bwd vs the plain backward at the training
     shapes and their edges (S = 1, S = 37, a state in and its gradient
-    out, fp32 and bf16, the mixer's strided views, w under the floor);
-    reruns bitwise; timed at the training shapes."""
+    out, the mixer's strided views, w under the floor), every edge in bf16
+    (the chunk-parallel route) and fp32 (the sequential route), each call's
+    route checked; reruns bitwise; timed at the training shapes."""
     import torch
 
     from repro_torch.kernels import mamba2_scan as m2
@@ -2455,38 +2471,44 @@ def run_scan_bwd_checks(report: dict) -> None:
               f"{name}")
         return e_max
 
-    # -- K4-bwd: rwkv6 training B=4 S=1024 H=32 ------------------------------
+    def route(mod, dtype):
+        """the kernel each dtype's route reports: fp32 the sequential
+        kernel, bf16 the chunk-parallel one"""
+        return mod.BWD_KERNELS[int(dtype == bf)]
+
+    # -- K4-bwd: rwkv6 training B=4 S=1024 H=32; every edge in both dtypes
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
-    cases = [
-        ("rwkv6 training B=4 S=1024 H=32 bf16",
-         rwkv_bwd_case(4, 1024, 32, bf, state=False, seed=60)),
-        ("S=1 bf16, s0 and ds_out", rwkv_bwd_case(4, 1, 32, bf, state=True,
-                                                 seed=61)),
-        ("S=37 bf16, s0 and ds_out", rwkv_bwd_case(2, 37, 8, bf, state=True,
-                                                  seed=62)),
-        ("S=1024 bf16, s0 and ds_out",
-         rwkv_bwd_case(2, 1024, 8, bf, state=True, seed=63)),
-        ("fp32 B=2 S=300 H=8, s0 and ds_out",
-         rwkv_bwd_case(2, 300, 8, f32, state=True, seed=64)),
-        ("fp32 S=37", rwkv_bwd_case(2, 37, 8, f32, state=False, seed=65)),
-        ("w under the floor (0, 1e-39) bf16 S=200, s0 and ds_out",
-         rwkv_bwd_case(2, 200, 8, bf, state=True, seed=66, floor=True)),
-        ("w under the floor (0, 1e-39) fp32 S=200",
-         rwkv_bwd_case(2, 200, 8, f32, state=False, seed=67, floor=True))]
+    edges = [("rwkv6 training B=4 S=1024 H=32", (4, 1024, 32), False, False),
+             ("S=1, s0 and ds_out", (4, 1, 32), True, False),
+             ("S=37, s0 and ds_out", (2, 37, 8), True, False),
+             ("S=1024, s0 and ds_out", (2, 1024, 8), True, False),
+             ("B=2 S=300 H=8, s0 and ds_out", (2, 300, 8), True, False),
+             ("S=37", (2, 37, 8), False, False),
+             ("w under the floor (0, 1e-39) S=200, s0 and ds_out",
+              (2, 200, 8), True, True),
+             ("w under the floor (0, 1e-39) S=200", (2, 200, 8), False, True)]
     errs = []
-    for name, (r, k, v, w, u, s0, dy, ds_out) in cases:
-        got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
-        check(rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[0],
-              f"K4-bwd {name}: launched {rw.rwkv6_scan_bwd.last_kernel}")
-        want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
-        torch.cuda.synchronize()
-        errs.append(held("K4-bwd", name, got, want, names, r.dtype))
-        if "floor" in name:
-            under = w.float() < 1e-30
-            check(bool(under.any()) and not got[3][under].any(),
-                  f"K4-bwd: a gradient of w under the floor: {name}")
-        del got, want
-    r, k, v, w, u, s0, dy, ds_out = cases[0][1]
+    for i, (label, (B, S, H), state, floor) in enumerate(edges):
+        for dtype in (bf, f32):
+            name = f"{label} {'bf16' if dtype == bf else 'fp32'}"
+            r, k, v, w, u, s0, dy, ds_out = rwkv_bwd_case(
+                B, S, H, dtype, state=state, seed=60 + i, floor=floor)
+            got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+            check(rw.rwkv6_scan_bwd.last_kernel == route(rw, dtype),
+                  f"K4-bwd {name}: launched {rw.rwkv6_scan_bwd.last_kernel}")
+            want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0,
+                                      ds_out=ds_out)
+            torch.cuda.synchronize()
+            errs.append(held("K4-bwd", name, got, want, names, dtype))
+            if floor:
+                under = w.float() < 1e-30
+                check(bool(under.any()) and not got[3][under].any(),
+                      f"K4-bwd: a gradient of w under the floor: {name}")
+            del got, want
+    # the timed shape, bf16 (the chunk-parallel route), and in fp32 (the
+    # sequential route) beside it
+    r, k, v, w, u, s0, dy, ds_out = rwkv_bwd_case(4, 1024, 32, bf,
+                                                  state=False, seed=60)
     call = lambda: rw.rwkv6_scan_bwd(r, k, v, w, u, dy,  # noqa: E731
                                      need_ds0=False)
     a, b = call(), call()
@@ -2497,44 +2519,55 @@ def run_scan_bwd_checks(report: dict) -> None:
     b_ms, b_by, nbytes, flops = scan_bwd_bound(r, 5, 4, 2 * H * dh * 4, bf)
     report["rwkv6_scan_bwd"] = dict(
         name="rwkv6_scan_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd_chunk.cu",
+        source_fp32_route="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:59",
         device_kernels=list(rw.BWD_KERNELS), max_abs_err=max(errs),
-        ms=time_ms(call, iters=5, warmup=1),
-        ms_graph=time_graph_ms(call, iters=3, reps=3),
+        ms=time_ms(call, iters=10, warmup=2),
+        ms_graph=time_graph_ms(call, iters=10, reps=3),
         plain_ms=time_ms(lambda: ref.rwkv6_scan_bwd(r, k, v, w, u, dy),
                          iters=2, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes,
         flops=flops)
+    r32, k32, v32, w32, u32, _, dy32, _ = rwkv_bwd_case(4, 1024, 32, f32,
+                                                        state=False, seed=60)
+    call = lambda: rw.rwkv6_scan_bwd(r32, k32, v32, w32, u32,  # noqa: E731
+                                     dy32, need_ds0=False)
+    report["rwkv6_scan_bwd"].update(
+        ms_fp32_route=time_ms(call, iters=5, warmup=1),
+        ms_graph_fp32_route=time_graph_ms(call, iters=3, reps=3),
+        bound_ms_fp32_route=scan_bwd_bound(r32, 5, 4, 2 * H * dh * 4,
+                                           f32)[0])
+    del r32, k32, v32, w32, dy32
 
     # -- K3-bwd: zamba2 training B=4 S=1024 H=64, the mixer's views --------
     names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
-    cases = [
-        ("zamba2 training B=4 S=1024 H=64 bf16, the mixer's strided views",
-         mamba_bwd_case(4, 1024, 64, bf, state=False, seed=70, views=True)),
-        ("S=1 bf16, h0 and dh_out", mamba_bwd_case(4, 1, 64, bf, state=True,
-                                                  seed=71)),
-        ("S=37 bf16, h0 and dh_out", mamba_bwd_case(2, 37, 8, bf, state=True,
-                                                   seed=72)),
-        ("S=1024 bf16, h0 and dh_out, strided views",
-         mamba_bwd_case(2, 1024, 8, bf, state=True, seed=73, views=True)),
-        ("fp32 B=2 S=300 H=8, h0 and dh_out",
-         mamba_bwd_case(2, 300, 8, f32, state=True, seed=74)),
-        ("fp32 S=37, strided views",
-         mamba_bwd_case(2, 37, 8, f32, state=False, seed=75, views=True))]
+    edges = [("zamba2 training B=4 S=1024 H=64, the mixer's strided views",
+              (4, 1024, 64), False, True),
+             ("S=1, h0 and dh_out", (4, 1, 64), True, False),
+             ("S=37, h0 and dh_out", (2, 37, 8), True, False),
+             ("S=1024, h0 and dh_out, strided views", (2, 1024, 8), True,
+              True),
+             ("B=2 S=300 H=8, h0 and dh_out", (2, 300, 8), True, False),
+             ("S=37, strided views", (2, 37, 8), False, True)]
     errs = []
-    for name, (x, dt, A, Bm, Cm, D, h0, dy, dh_out) in cases:
-        got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
-                                 dh_out=dh_out)
-        check(m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[0],
-              f"K3-bwd {name}: launched {m2.mamba2_scan_bwd.last_kernel}")
-        want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
-                                   dh_out=dh_out)
-        torch.cuda.synchronize()
-        want = tuple(t.contiguous() for t in want)
-        errs.append(held("K3-bwd", name, got, want, names, x.dtype))
-        del got, want
-    x, dt, A, Bm, Cm, D, h0, dy, dh_out = cases[0][1]
+    for i, (label, (B, S, H), state, views) in enumerate(edges):
+        for dtype in (bf, f32):
+            name = f"{label} {'bf16' if dtype == bf else 'fp32'}"
+            x, dt, A, Bm, Cm, D, h0, dy, dh_out = mamba_bwd_case(
+                B, S, H, dtype, state=state, seed=70 + i, views=views)
+            got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
+                                     dh_out=dh_out)
+            check(m2.mamba2_scan_bwd.last_kernel == route(m2, dtype),
+                  f"K3-bwd {name}: launched {m2.mamba2_scan_bwd.last_kernel}")
+            want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
+                                       dh_out=dh_out)
+            torch.cuda.synchronize()
+            want = tuple(t.contiguous() for t in want)
+            errs.append(held("K3-bwd", name, got, want, names, dtype))
+            del got, want
+    x, dt, A, Bm, Cm, D, h0, dy, dh_out = mamba_bwd_case(
+        4, 1024, 64, bf, state=False, seed=70, views=True)
     call = lambda: m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy,  # noqa: E731
                                       need_dh0=False)
     a, b = call(), call()
@@ -2547,25 +2580,38 @@ def run_scan_bwd_checks(report: dict) -> None:
     b_ms, b_by, nbytes, flops = scan_bwd_bound(x, 2, 1, extra, bf)
     report["mamba2_scan_bwd"] = dict(
         name="mamba2_scan_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/mamba2_scan_bwd.cu",
+        source="src/repro_torch/kernels/csrc/mamba2_scan_bwd_chunk.cu",
+        source_fp32_route="src/repro_torch/kernels/csrc/mamba2_scan_bwd.cu",
         replaces="src/repro/kernels/mamba2_scan.py:69",
         device_kernels=list(m2.BWD_KERNELS), max_abs_err=max(errs),
-        ms=time_ms(call, iters=5, warmup=1),
-        ms_graph=time_graph_ms(call, iters=3, reps=3),
+        ms=time_ms(call, iters=10, warmup=2),
+        ms_graph=time_graph_ms(call, iters=10, reps=3),
         plain_ms=time_ms(lambda: ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D,
                                                      dy),
                          iters=2, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=nbytes,
         flops=flops)
+    c32 = mamba_bwd_case(4, 1024, 64, f32, state=False, seed=70, views=True)
+    call = lambda: m2.mamba2_scan_bwd(*c32[:6], c32[7],  # noqa: E731
+                                      need_dh0=False)
+    extra32 = 4 * B * S * 64 * 4 + 2 * B * S * H * 4 + 4 * H * 4
+    report["mamba2_scan_bwd"].update(
+        ms_fp32_route=time_ms(call, iters=5, warmup=1),
+        ms_graph_fp32_route=time_graph_ms(call, iters=3, reps=3),
+        bound_ms_fp32_route=scan_bwd_bound(c32[0], 2, 1, extra32, f32)[0])
+    del c32
     for key in ("rwkv6_scan_bwd", "mamba2_scan_bwd"):
         r_ = report[key]
         r_["kernel_ms"] = r_["ms"]
-        print(f"[{key}] timed at the training shape: ms={r_['ms']:.4f} "
-              f"ms_graph={r_['ms_graph']:.4f} plain_ms={r_['plain_ms']:.3f} "
-              f"bound_ms={r_['bound_ms']:.5f} ({r_['bound_by']}; "
-              f"{r_['bytes']} bytes, {r_['flops']:.4g} operations), "
-              f"{r_['bound_ms'] / r_['ms_graph']:.4f} of the bound; library: "
-              f"none (no single PyTorch call computes the scan's gradient)")
+        print(f"[{key}] timed at the training shape: bf16 route ms="
+              f"{r_['ms']:.4f} ms_graph={r_['ms_graph']:.4f} plain_ms="
+              f"{r_['plain_ms']:.3f} bound_ms={r_['bound_ms']:.5f} "
+              f"({r_['bound_by']}; {r_['bytes']} bytes, {r_['flops']:.4g} "
+              f"operations), {r_['bound_ms'] / r_['ms_graph']:.4f} of the "
+              f"bound; fp32 route ms={r_['ms_fp32_route']:.4f} ms_graph="
+              f"{r_['ms_graph_fp32_route']:.4f} (its bound "
+              f"{r_['bound_ms_fp32_route']:.5f}); library: none (no single "
+              "PyTorch call computes the scan's gradient)")
 
 
 def train_recurrent(name: str) -> dict:
@@ -2772,6 +2818,43 @@ def bwd_only(src: str) -> None:
     print(f"[bwd-ab] {json.dumps(res)}")
 
 
+def scan_bwd_only(src: str) -> None:
+    """K3-bwd's and K4-bwd's ``ms`` and ``ms_graph`` at their training
+    shapes (bf16; zamba2's x/B/C as the mixer's views), with the port under
+    ``src``, and the device kernel each reports: one ``[scan-bwd-ab]``
+    line."""
+    sys.path.insert(0, src)
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as rw
+    import torch
+    _build.build_all(tuple(n for n in _build.KERNELS if "scan_bwd" in n))
+    bf = torch.bfloat16
+    res: dict = {"package": str(Path(repro_torch.__file__).parent)}
+    r, k, v, w, u, _, dy, _ = rwkv_bwd_case(4, 1024, 32, bf, state=False,
+                                            seed=60)
+    call = lambda: rw.rwkv6_scan_bwd(r, k, v, w, u, dy,  # noqa: E731
+                                     need_ds0=False)
+    call()
+    res["rwkv6_scan_bwd"] = {
+        "kernel": rw.rwkv6_scan_bwd.last_kernel,
+        "ms": time_ms(call, iters=10, warmup=2),
+        "ms_graph": time_graph_ms(call, iters=10, reps=3)}
+    del r, k, v, w, dy
+    x, dt, A, Bm, Cm, D, _, dy, _ = mamba_bwd_case(4, 1024, 64, bf,
+                                                   state=False, seed=70,
+                                                   views=True)
+    call = lambda: m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy,  # noqa: E731
+                                      need_dh0=False)
+    call()
+    res["mamba2_scan_bwd"] = {
+        "kernel": m2.mamba2_scan_bwd.last_kernel,
+        "ms": time_ms(call, iters=10, warmup=2),
+        "ms_graph": time_graph_ms(call, iters=10, reps=3)}
+    print(f"[scan-bwd-ab] {json.dumps(res)}")
+
+
 def ab_runs(parent: str, only: str, tag: str) -> list:
     """``chip_smoke.py --<only> SRC`` for PARENT's port and this one, each in
     a process of its own, in the order PARENT, this, this, PARENT; returns
@@ -2808,6 +2891,15 @@ def bwd_ab(parent: str) -> None:
         print(f"[bwd-ab {label}] " + "; ".join(
             f"{k}: ms {v['ms']:.5f} ms_graph {v['ms_graph']:.5f}"
             for k, v in r.items() if k != "package"))
+
+
+def scan_bwd_ab(parent: str) -> None:
+    """K3-bwd's and K4-bwd's times for PARENT's port and this one, on one
+    card."""
+    for label, r in ab_runs(parent, "scan-bwd-only", "scan-bwd-ab"):
+        print(f"[scan-bwd-ab {label}] " + "; ".join(
+            f"{k} ({v['kernel']}): ms {v['ms']:.5f} ms_graph "
+            f"{v['ms_graph']:.5f}" for k, v in r.items() if k != "package"))
 
 
 def engine_ab(parent: str) -> None:
@@ -2904,6 +2996,10 @@ def main() -> int:
                     help="K2-bwd's times alone, for PARENT's port and this "
                          "one")
     ap.add_argument("--bwd-only", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--scan-bwd-ab", metavar="PARENT",
+                    help="K3-bwd's and K4-bwd's times alone, for PARENT's "
+                         "port and this one")
+    ap.add_argument("--scan-bwd-only", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--train-only", action="store_true",
                     help="the build and phases 9 and 11 (training) alone")
     args = ap.parse_args()
@@ -2928,6 +3024,12 @@ def main() -> int:
         return 0
     if args.bwd_ab:
         bwd_ab(args.bwd_ab)
+        return 0
+    if args.scan_bwd_only:
+        scan_bwd_only(args.scan_bwd_only)
+        return 0
+    if args.scan_bwd_ab:
+        scan_bwd_ab(args.scan_bwd_ab)
         return 0
     from repro_torch import configs
     from repro_torch.kernels import _build

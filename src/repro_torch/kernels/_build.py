@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "mamba2_scan", "mamba2_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd")
+           "mamba2_scan", "mamba2_scan_bwd", "mamba2_scan_bwd_chunk",
+           "rwkv6_scan", "rwkv6_scan_bwd", "rwkv6_scan_bwd_chunk")
 # no --use_fast_math / -ftz: flushing denormals to zero would break the
 # scans' guards (the exponent selected before exp, w floored before log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -42,9 +43,14 @@ SIGNATURES = {
                     [_vp] * 9 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
     "mamba2_scan_bwd": ("mamba2_scan_bwd_launch",
                         [_vp] * 17 + [_i] * 5 + [_ll] * 6 + [_i, _vp, _vp]),
+    "mamba2_scan_bwd_chunk": ("mamba2_scan_bwd_chunk_launch",
+                              [_vp] * 17 + [_i] * 5 + [_ll] * 6
+                              + [_vp, _vp]),
     "rwkv6_scan": ("rwkv6_scan_launch", [_vp] * 8 + [_i] * 5 + [_vp, _vp]),
     "rwkv6_scan_bwd": ("rwkv6_scan_bwd_launch",
                        [_vp] * 16 + [_i] * 5 + [_vp, _vp]),
+    "rwkv6_scan_bwd_chunk": ("rwkv6_scan_bwd_chunk_launch",
+                             [_vp] * 15 + [_i] * 4 + [_vp, _vp]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

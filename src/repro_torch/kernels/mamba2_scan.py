@@ -20,12 +20,16 @@ The C entry point reports the device kernel it launched, read back as
 ``mamba2_scan.last_kernel``: ``mamba2_scan_mma_kernel`` (bf16, the chunk
 products on the tensor cores) or ``mamba2_scan_kernel`` (fp32).
 
-Its backward is K3-bwd (``csrc/mamba2_scan_bwd.cu``, wrapper
-``mamba2_scan_bwd``; plain version ``ref.mamba2_scan_bwd``), which reads
-x, B and C by their strides too (no alignment needed: it loads them an
-element at a time) and gives their gradients as contiguous tensors.
-``Mamba2ScanFn`` joins K3 and K3-bwd as one differentiable function, which
-``ops.mamba2_scan`` takes under grad.
+Its backward is K3-bwd (wrapper ``mamba2_scan_bwd``; plain version
+``ref.mamba2_scan_bwd``), two routes picked by dtype and reported as
+``mamba2_scan_bwd.last_kernel``: bf16 takes
+``csrc/mamba2_scan_bwd_chunk.cu`` (``mamba2_scan_bwd_chunk_kernel``:
+chunk-parallel, the chunk products on the tensor cores; x, B and C by
+their strides, 16-byte aligned as for the bf16 forward), fp32
+``csrc/mamba2_scan_bwd.cu`` (``mamba2_scan_bwd_kernel``: sequential on the
+CUDA cores, no alignment needed).  Both give the gradients of x, B and C
+as contiguous tensors.  ``Mamba2ScanFn`` joins K3 and K3-bwd as one
+differentiable function, which ``ops.mamba2_scan`` takes under grad.
 """
 from __future__ import annotations
 
@@ -42,9 +46,13 @@ STATE_DIMS = (64,)
 KERNELS = ("mamba2_scan_kernel", "mamba2_scan_mma_kernel")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
-# K3-bwd: one device kernel (and its sum over heads); steps a checkpoint
-BWD_KERNELS = ("mamba2_scan_bwd_kernel",)
+# K3-bwd, by the id its C entry points write: the fp32 route (one kernel
+# and its sum over heads; CHUNK_BWD steps a checkpoint) and the bf16 route
+# (chunks of CHUNK steps: the chunk kernel, the state walk before it and
+# the sum after it)
+BWD_KERNELS = ("mamba2_scan_bwd_kernel", "mamba2_scan_bwd_chunk_kernel")
 CHUNK_BWD = 8
+CHUNK = 64
 _bwd_route = ctypes.c_int(-1)
 _BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
 
@@ -86,6 +94,16 @@ def _check(x, dt, A, Bmat, Cmat, D, h0, name: str):
                              Bmat.stride(1), Cmat.stride(0), Cmat.stride(1))
 
 
+def _check_aligned(x, Bmat, Cmat, strides, name: str) -> None:
+    """bf16 x, Bmat and Cmat are copied 16 bytes a row at a time."""
+    if any(t.data_ptr() % 16 for t in (x, Bmat, Cmat)) \
+            or any(s % 8 for s in strides):
+        raise ValueError(f"{name} kernel: bf16 x/Bmat/Cmat must start "
+                         "16-byte aligned with batch and step strides of a "
+                         "multiple of 8 elements (rows are copied 16 bytes "
+                         f"at a time); got strides {strides}")
+
+
 def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bmat: torch.Tensor, Cmat: torch.Tensor, D: torch.Tensor, *,
                 h0: torch.Tensor | None = None, return_state: bool = False):
@@ -94,13 +112,8 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (B,H,ds,dh) fp32]."""
     B, S, H, dh, ds, strides = _check(x, dt, A, Bmat, Cmat, D, h0,
                                       "mamba2_scan")
-    if x.dtype == torch.bfloat16 and (
-            any(t.data_ptr() % 16 for t in (x, Bmat, Cmat))
-            or any(s % 8 for s in strides)):
-        raise ValueError("mamba2_scan kernel: bf16 x/Bmat/Cmat must start "
-                         "16-byte aligned with batch and step strides of a "
-                         "multiple of 8 elements (rows are copied 16 bytes "
-                         f"at a time); got strides {strides}")
+    if x.dtype == torch.bfloat16:
+        _check_aligned(x, Bmat, Cmat, strides, "mamba2_scan")
     dt, A, D, h0 = (_build.fp32(t) for t in (dt, A, D, h0))
     y = torch.empty((B, S, H, dh), dtype=x.dtype, device=x.device)
     h_out = (torch.empty((B, H, ds, dh), dtype=torch.float32,
@@ -135,8 +148,8 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``dh_out``, the final state's (B,H,ds,dh) or None (zero) -> (dx, ddt,
     dA, dB, dC, dD, dh0): dx, dB, dC contiguous in x.dtype; ddt, dA, dD
     and dh0 fp32 (dh0 None unless ``need_dh0``).  x, Bmat and Cmat are
-    read by their strides.  Any S >= 1; one count a call (two device
-    kernels)."""
+    read by their strides (in bf16 16-byte aligned).  Any S >= 1; one count
+    a call (two device kernels in fp32, three in bf16)."""
     B, S, H, dh, ds, strides = _check(x, dt, A, Bmat, Cmat, D, h0,
                                       "mamba2_scan_bwd")
     dev = x.device
@@ -146,6 +159,10 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("mamba2_scan_bwd kernel: dy must have x's shape, "
                          "dtype and device, dh_out the state's shape")
     dy = dy.contiguous()
+    if x.dtype == torch.bfloat16:
+        _check_aligned(x, Bmat, Cmat, strides, "mamba2_scan_bwd")
+        if dy.data_ptr() % 16:         # its rows too go 16 bytes at a time
+            dy = dy.clone()
     dt, A, D, h0, dh_out = (_build.fp32(t)
                             for t in (dt, A, D, h0, dh_out))
     dx = torch.empty((B, S, H, dh), dtype=x.dtype, device=dev)
@@ -159,21 +176,33 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if B * H == 0 or S == 0:
         return (dx.zero_(), ddt.zero_(), dA, dB.zero_(), dC.zero_(), dD,
                 dh0)
-    # scratch: each head's parts of dB and dC, the batch's dA and dD
-    # partials, the state at every CHUNK_BWD-th step
-    n_chunks = -(-S // CHUNK_BWD)
-    scratch = torch.empty(2 * B * S * H * ds + 2 * B * H
-                          + B * H * n_chunks * ds * dh,
-                          dtype=torch.float32, device=dev)
-    fn = _build.load("mamba2_scan_bwd")
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
-             Cmat.data_ptr(), D.data_ptr(),
-             None if h0 is None else h0.data_ptr(), dy.data_ptr(),
-             None if dh_out is None else dh_out.data_ptr(), dx.data_ptr(),
-             ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-             dD.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-             scratch.data_ptr(), B, S, H, dh, ds, *strides, DTYPES[x.dtype],
-             _BWD_ROUTE_ADDR, _build.raw_stream(dev))
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+            Cmat.data_ptr(), D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+            None if dh_out is None else dh_out.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+            dD.data_ptr(), None if dh0 is None else dh0.data_ptr())
+    if x.dtype == torch.bfloat16:
+        # scratch: each head's parts of dB and dC; each chunk's h_in and
+        # G_out; each (b, h, chunk)'s dA and dD partials
+        n_chunks = -(-S // CHUNK)
+        scratch = torch.empty(2 * B * S * H * ds
+                              + 2 * B * H * n_chunks * ds * dh
+                              + 2 * B * H * n_chunks,
+                              dtype=torch.float32, device=dev)
+        fn = _build.load("mamba2_scan_bwd_chunk")
+        err = fn(*ptrs, scratch.data_ptr(), B, S, H, dh, ds, *strides,
+                 _BWD_ROUTE_ADDR, _build.raw_stream(dev))
+    else:
+        # scratch: each head's parts of dB and dC, the batch's dA and dD
+        # partials, the state at every CHUNK_BWD-th step
+        n_chunks = -(-S // CHUNK_BWD)
+        scratch = torch.empty(2 * B * S * H * ds + 2 * B * H
+                              + B * H * n_chunks * ds * dh,
+                              dtype=torch.float32, device=dev)
+        fn = _build.load("mamba2_scan_bwd")
+        err = fn(*ptrs, scratch.data_ptr(), B, S, H, dh, ds, *strides,
+                 DTYPES[x.dtype], _BWD_ROUTE_ADDR, _build.raw_stream(dev))
     if err:
         raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -8,10 +8,14 @@ contract (the Pallas kernel takes no state and gives none back) for any
 ``kernels/ops.py`` picks between them by the tensors' device.  This wrapper
 takes CUDA tensors only and never falls back.
 
-Its backward is K4-bwd (``csrc/rwkv6_scan_bwd.cu``, wrapper
-``rwkv6_scan_bwd``; plain version ``ref.rwkv6_scan_bwd``), and
-``Rwkv6ScanFn`` joins the two as one differentiable function, which
-``ops.rwkv6_scan`` takes under grad.
+Its backward is K4-bwd (wrapper ``rwkv6_scan_bwd``; plain version
+``ref.rwkv6_scan_bwd``), two routes picked by dtype and reported as
+``rwkv6_scan_bwd.last_kernel``: bf16 takes ``csrc/rwkv6_scan_bwd_chunk.cu``
+(``rwkv6_scan_bwd_chunk_kernel``: chunk-parallel, the chunk states by
+tensor-core products, each chunk stepped on its own), fp32
+``csrc/rwkv6_scan_bwd.cu`` (``rwkv6_scan_bwd_kernel``: sequential on the
+CUDA cores).  ``Rwkv6ScanFn`` joins K4 and K4-bwd as one differentiable
+function, which ``ops.rwkv6_scan`` takes under grad.
 
 The C entry point picks one of three device kernels and reports it, read
 back as ``rwkv6_scan.last_kernel``: ``rwkv6_scan_mma_kernel`` (bf16,
@@ -36,9 +40,13 @@ KERNELS = ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
            "rwkv6_scan_decode_kernel")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
-# K4-bwd: one device kernel (and its du reduction); steps a checkpoint
-BWD_KERNELS = ("rwkv6_scan_bwd_kernel",)
+# K4-bwd, by the id its C entry points write: the fp32 route (one kernel
+# and its du reduction; CHUNK_BWD steps a checkpoint) and the bf16 route
+# (chunks of CHUNK steps: the chunk kernel, the state walk before it and
+# the du sum after it)
+BWD_KERNELS = ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd_chunk_kernel")
 CHUNK_BWD = 8
+CHUNK = 64
 _bwd_route = ctypes.c_int(-1)
 _BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
 
@@ -120,7 +128,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output gradient ``dy`` (r's shape and dtype) and ``ds_out``, the
     final state's (B,H,dh,dh) or None (zero) -> (dr, dk, dv, dw) in r.dtype,
     du (H,dh) fp32 and ds0 (B,H,dh,dh) fp32 (None unless ``need_ds0``).
-    Any S >= 1; one count a call (two device kernels)."""
+    Any S >= 1; one count a call (two device kernels in fp32, three in
+    bf16)."""
     B, S, H, dh = _check(r, k, v, w, u, s0, "rwkv6_scan_bwd")
     dev = r.device
     if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != dev \
@@ -129,6 +138,12 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("rwkv6_scan_bwd kernel: dy must have r's shape, "
                          "dtype and device, ds_out the state's shape")
     dy = dy.contiguous()
+    if r.dtype == torch.bfloat16:      # rows are read 16 bytes at a time
+        if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+            raise ValueError("rwkv6_scan_bwd kernel: bf16 r/k/v/w must be "
+                             "16-byte aligned")
+        if dy.data_ptr() % 16:
+            dy = dy.clone()
     u, s0, ds_out = (_build.fp32(t) for t in (u, s0, ds_out))
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du = torch.zeros((H, dh), dtype=torch.float32, device=dev)
@@ -136,18 +151,28 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if need_ds0 else None)
     if B * H == 0 or S == 0:
         return (dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(), du, ds0)
-    # scratch: the batch's du partials, then S at every 8th step
-    n_chunks = -(-S // CHUNK_BWD)
-    scratch = torch.empty(B * H * dh * (1 + n_chunks * dh),
-                          dtype=torch.float32, device=dev)
-    fn = _build.load("rwkv6_scan_bwd")
-    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-             u.data_ptr(), None if s0 is None else s0.data_ptr(),
-             dy.data_ptr(), None if ds_out is None else ds_out.data_ptr(),
-             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-             du.data_ptr(), None if ds0 is None else ds0.data_ptr(),
-             scratch.data_ptr(), scratch[B * H * dh:].data_ptr(), B, S, H,
-             dh, DTYPES[r.dtype], _BWD_ROUTE_ADDR, _build.raw_stream(dev))
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            dy.data_ptr(), None if ds_out is None else ds_out.data_ptr(),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du.data_ptr(), None if ds0 is None else ds0.data_ptr())
+    if r.dtype == torch.bfloat16:
+        # scratch: each chunk's S_in and G_out, then its du partial
+        n_chunks = -(-S // CHUNK)
+        scratch = torch.empty(B * H * n_chunks * dh * (2 * dh + 1),
+                              dtype=torch.float32, device=dev)
+        fn = _build.load("rwkv6_scan_bwd_chunk")
+        err = fn(*ptrs, scratch.data_ptr(), B, S, H, dh, _BWD_ROUTE_ADDR,
+                 _build.raw_stream(dev))
+    else:
+        # scratch: the batch's du partials, then S at every 8th step
+        n_chunks = -(-S // CHUNK_BWD)
+        scratch = torch.empty(B * H * dh * (1 + n_chunks * dh),
+                              dtype=torch.float32, device=dev)
+        fn = _build.load("rwkv6_scan_bwd")
+        err = fn(*ptrs, scratch.data_ptr(), scratch[B * H * dh:].data_ptr(),
+                 B, S, H, dh, DTYPES[r.dtype], _BWD_ROUTE_ADDR,
+                 _build.raw_stream(dev))
     if err:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")

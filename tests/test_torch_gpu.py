@@ -869,7 +869,9 @@ def test_rwkv6_scan_backward_kernel_matches_plain(cuda, S, dtype, state):
     n = rw.rwkv6_scan_bwd.launches
     got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
     assert rw.rwkv6_scan_bwd.launches == n + 1
-    assert rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[0]
+    # fp32 takes the sequential route, bf16 the chunk-parallel one
+    assert rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[
+        int(dtype == torch.bfloat16)]
     want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
     grads_within(got, want, tol(dtype), RWKV_GRADS)
 
@@ -902,7 +904,8 @@ def test_mamba2_scan_backward_kernel_matches_plain(cuda, S, dtype, state):
     n = m2.mamba2_scan_bwd.launches
     got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0, dh_out=dh_out)
     assert m2.mamba2_scan_bwd.launches == n + 1
-    assert m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[0]
+    assert m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[
+        int(dtype == torch.bfloat16)]
     want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
                                dh_out=dh_out)
     grads_within(got, want, tol(dtype), MAMBA_GRADS)
@@ -929,6 +932,100 @@ def test_mamba2_scan_backward_kernel_takes_strided_views(cuda, dtype):
     assert got[0].is_contiguous() and got[3].is_contiguous()
     want = ref.mamba2_scan_bwd(xv, dt, A, bv, cv, D, dy, h0=h0)
     grads_within(got, want, tol(dtype), MAMBA_GRADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("S", [63, 64, 65, 128, 130])
+def test_scan_backward_bf16_routes_at_chunk_edges(cuda, S, state):
+    """The chunk-parallel routes (chunks of 64 steps) at and around chunk
+    edges, with and without a state in and its gradient out."""
+    r, k, v, w, u, s0, dy, ds_out = rwkv_bwd_inputs(
+        cuda, torch.bfloat16, B=2, S=S, H=3, seed=20 + S)
+    s0, ds_out = (s0, ds_out) if state else (None, None)
+    got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    assert rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[1] == (
+        "rwkv6_scan_bwd_chunk_kernel")
+    want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0, ds_out=ds_out)
+    grads_within(got, want, 6e-2, RWKV_GRADS)
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, torch.bfloat16, B=2, S=S,
+                                           H=3, seed=30 + S)
+    g = torch.Generator().manual_seed(S)
+    dy = torch.randn(x.shape, generator=g).to(cuda, torch.bfloat16)
+    dh_out = torch.randn(h0.shape, generator=g).to(cuda)
+    h0, dh_out = (h0, dh_out) if state else (None, None)
+    got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0, dh_out=dh_out)
+    assert m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[1] == (
+        "mamba2_scan_bwd_chunk_kernel")
+    want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, D, dy, h0=h0,
+                               dh_out=dh_out)
+    grads_within(got, want, 6e-2, MAMBA_GRADS)
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_backward_bf16_strong_decay_equals_the_fp32_route(cuda):
+    """Strong decay (w down to e^-150, w = 0, denormal w), where the plain
+    version's dw is lost: the bf16 route's every gradient is held to the
+    fp32 route (both direct forms) on the same values, and dw is 0 under
+    the floor."""
+    g = torch.Generator().manual_seed(41)
+    shape = (2, 200, 3, 64)
+    r, k, v, dy = (torch.randn(shape, generator=g) for _ in range(4))
+    w = torch.exp(-torch.exp(2.0 * torch.randn(shape, generator=g) + 1.0))
+    w.view(-1)[::7] = 0.0
+    w.view(-1)[3::11] = 1e-39
+    u = 0.1 * torch.randn(3, 64, generator=g)
+    s0, ds_out = (torch.randn(2, 3, 64, 64, generator=g) for _ in range(2))
+    bf = [t.to(cuda, torch.bfloat16) for t in (r, k, v, w, dy)]
+    u, s0, ds_out = u.to(cuda), s0.to(cuda), ds_out.to(cuda)
+    got = rw.rwkv6_scan_bwd(*bf[:4], u, bf[4], s0=s0, ds_out=ds_out)
+    assert rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[1]
+    f = [t.float() for t in bf]
+    want = rw.rwkv6_scan_bwd(*f[:4], u, f[4], s0=s0, ds_out=ds_out)
+    assert rw.rwkv6_scan_bwd.last_kernel == rw.BWD_KERNELS[0]
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    grads_within([t.float() for t in got], want, 6e-2, RWKV_GRADS)
+    under = bf[3].float() < 1e-30
+    assert under.any() and not got[3][under].any()
+
+
+@pytest.mark.gpu
+def test_mamba2_scan_backward_bf16_equals_the_fp32_route(cuda):
+    """zamba2's widths (H = 64), 300 steps, the mixer's views: the bf16
+    route's gradients held to the fp32 route's on the same values."""
+    B, S, H = 2, 300, 64
+    x, dt, A, Bm, Cm, D, h0 = mamba_inputs(cuda, torch.bfloat16, B=B, S=S,
+                                           H=H, seed=42)
+    xbc = torch.cat([x.reshape(B, S, H * 64), Bm, Cm], -1)
+    xv, bv, cv = torch.split(xbc, [H * 64, 64, 64], -1)
+    xv = xv.reshape(B, S, H, 64)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(43)) \
+        .to(cuda, torch.bfloat16)
+    got = m2.mamba2_scan_bwd(xv, dt, A, bv, cv, D, dy, h0=h0)
+    assert m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[1]
+    want = m2.mamba2_scan_bwd(x.float(), dt, A, Bm.float(), Cm.float(), D,
+                              dy.float(), h0=h0)
+    assert m2.mamba2_scan_bwd.last_kernel == m2.BWD_KERNELS[0]
+    grads_within([t.float() for t in got], want, 6e-2, MAMBA_GRADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra,offset", [(4, 0), (0, 4)])
+def test_mamba2_scan_backward_bf16_refuses_a_misaligned_view(cuda, extra,
+                                                            offset):
+    """The bf16 route copies rows 16 bytes at a time, as the bf16 forward
+    does: a step stride or a start off 16 bytes raises."""
+    B, S, H = 1, 70, 2
+    x, dt, A, Bm, Cm, D, _ = mamba_inputs(cuda, torch.bfloat16, B=B, S=S,
+                                          H=H, seed=44)
+    width = offset + H * 64 + 128 + extra
+    buf = torch.zeros(B, S, width, device=cuda, dtype=torch.bfloat16)
+    xv = buf[..., offset:offset + H * 64].view(B, S, H, 64)
+    bv = buf[..., offset + H * 64:offset + H * 64 + 64]
+    cv = buf[..., offset + H * 64 + 64:offset + H * 64 + 128]
+    dy = torch.zeros(B, S, H, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        m2.mamba2_scan_bwd(xv, dt, A, bv, cv, D, dy)
 
 
 @pytest.mark.gpu
