@@ -22,14 +22,18 @@ PyTorch version:
      Mamba2 SSD scan, K4 the RWKV6 wkv scan (bf16 prefill on their
      tensor-core kernels, K4's S = 1 on its decode kernel, fp32 prefill on
      the FMA kernels: each call's route is checked; eager ``ms`` and
-     CUDA-graph ``ms_graph``);
+     CUDA-graph ``ms_graph``); (2c) every kernel's small-width route (the
+     widths outside its fast routes: D other than 64 / 128, dh and ds other
+     than 64) at the reduced configs' shapes, fp32 and bf16, against its
+     plain version, its route checked per call, timed in fp32;
   3. the engine: 16 requests, whole-prompt prefill and then chunked
      prefill; the launch counters must show every decode layer went
      through K1 (paged attention) and every whole-prefill layer through K2
      (flash attention);
   4. one prefill and one decode step through the kernels vs through the
-     plain versions on the same state; and a reduced fp32 model served on
-     the card vs the same weights served on the CPU, token for token;
+     plain versions on the same state; and the CPU tests' reduced fp32
+     qwen2 (head_dim 16) served on the card vs the same weights served on
+     the CPU, token for token, through K1's and K2's small-width routes;
   5. rwkv6-1.6b, then zamba2-1.2b (one model on the card at a time): 4
      prompts of 1024 tokens prefilled as one batch, then 32 greedy decode
      steps; the counters must show K4 on every rwkv6 layer of prefill and
@@ -38,8 +42,9 @@ PyTorch version:
      decode logits through the kernels vs through the plain versions; the
      scans' routes on the main path (tensor-core kernels in prefill, K4's
      decode kernel in decode); a profiled prefill and decode step;
-  6. reduced fp32 rwkv6, zamba2 and mamba2 models, shaped for the kernels,
-     served on the card and on the CPU from the same weights: same tokens;
+  6. the CPU tests' reduced fp32 rwkv6, zamba2 and mamba2 (head_dim 16,
+     ssm 8 x 8) served on the card and on the CPU from the same weights:
+     same tokens, launches exact, every one on a small-width route;
   7. (run before phase 5, while qwen2's weights are on the card) the
      serving cluster: 8 qwen2-0.5b nodes (``ServingCluster``, one shared
      weight copy) on a 2x2x2 torus, 32 requests; after three decode steps
@@ -68,8 +73,13 @@ PyTorch version:
      else, step ms, tokens/s, a profiled step, peak memory; (c)
      checkpoint-restart: a second trainer resumes at step 3 and its steps
      4-6 equal the first's bitwise (depth cut to 4 layers, so each
-     checkpoint is ~1.6 GB); (d) a reduced fp32 qwen2 trained 5 steps on
-     the card and on the CPU: losses within rtol 1e-4;
+     checkpoint is ~1.6 GB); (d) the reduced fp32 qwen2 trained 5 steps on
+     the card (small-width routes) and on the CPU: losses within rtol
+     1e-4; (e) ``[train gspmd]``: qwen2-0.5b at full width trained 3 steps
+     through ``Trainer(comm="gspmd")`` on a 1 x 1 ("data", "model") mesh
+     over NCCL (world size 1) and through ``comm="single"`` from the same
+     seed: the same losses bitwise, K2 48 and K2-bwd 24 launches a step,
+     each path's step ms and the device's busy share;
  10. whisper-large-v3 (the encoder-decoder family), last, alone on the
      card: (a) served through ``api.get_model`` at full width, 8 segments
      of 1500 frames and a 224-token prompt prefilled, then 64 greedy steps;
@@ -77,8 +87,9 @@ PyTorch version:
      and 32 a decode step (cross-attention), nothing else; prefill and
      first decode logits through the kernels vs the plain version (bf16
      against two plain versions' spread, fp32 tightly); encoder, prefill
-     and decode times, a profiled prefill and decode step; (b) a reduced
-     fp32 whisper (head_dim 64, 200 frames) gives the CPU's tokens; (c)
+     and decode times, a profiled prefill and decode step; (b) the reduced
+     fp32 whisper of the CPU tests (head_dim 16) gives the CPU's tokens;
+     (c)
      trained 3 steps through ``Trainer(comm="single")`` (batch 2 x (1500
      frames + 448 tokens), remat, AdamW): finite losses, K2 192 and K2-bwd
      96 launches a step; (d) the reduced fp32 whisper trained 3 steps on
@@ -104,9 +115,9 @@ PyTorch version:
      steps through ``Trainer(comm="single")`` (batch 4 x 1024, remat,
      AdamW): finite losses, per step exactly K4 48 and K4-bwd 24 (rwkv6),
      K3 76, K3-bwd 38, K2 6 and K2-bwd 6 (zamba2), step ms, tokens/s, a
-     profiled step, peak memory; (d) reduced fp32 rwkv6, mamba2 and zamba2
-     (kernel-shaped) trained 3 steps on the card and on the CPU: losses
-     within rtol 1e-4, the launches exact.  Phase 9a holds K2-bwd at
+     profiled step, peak memory; (d) the reduced fp32 rwkv6, mamba2 and
+     zamba2 of the CPU tests trained 3 steps on the card (small-width
+     routes) and on the CPU: losses within rtol 1e-4, the launches exact.  Phase 9a holds K2-bwd at
      zamba2's shared-block shape too.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
@@ -122,7 +133,7 @@ package ``repro``.
     python3 chip_smoke.py --scan-ab PARENT
     python3 chip_smoke.py --bwd-ab PARENT
     python3 chip_smoke.py --scan-bwd-ab PARENT
-    python3 chip_smoke.py --train-only        # phases 1, 9 and 11 alone
+    python3 chip_smoke.py --train-only        # phases 1, 2c, 9 and 11
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -205,9 +216,10 @@ WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 2, 448, 3
 # device kernels of each of our wrappers, by a part of their names
 OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
                "K2": ("flash_attention",),
-               "K3": ("mamba2_scan_kernel", "mamba2_scan_mma_kernel"),
+               "K3": ("mamba2_scan_kernel", "mamba2_scan_mma_kernel",
+                      "mamba2_scan_small_kernel"),
                "K4": ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
-                      "rwkv6_scan_decode_kernel"),
+                      "rwkv6_scan_decode_kernel", "rwkv6_scan_small_kernel"),
                "K2-bwd": ("attn_bwd_",),   # flash_attention_bwd.cu
                # fp32 route: the kernel and its head sum; bf16 route: the
                # state walk, the chunk kernel and the sum
@@ -874,6 +886,287 @@ def run_scan_checks(report: dict) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 2c: the small-width routes (every reduced config's widths)
+# ----------------------------------------------------------------------------
+
+# the reduced configs' shapes the small-width routes run at: qwen2's engine
+# (batch 4, 4 heads over 2 KV heads of 16, pages of 16 tokens, 96-token
+# slots) and training (batch 4 x 128), rwkv6's (4 heads of 16) and
+# zamba2's (16 ssm heads of 8, state 8) training batch of 2 x 70
+SMALL_ATTN = dict(B=4, H=4, Hkv=2, D=16)
+SMALL_TRAIN_SEQ = 128
+SMALL_SCAN = dict(B=2, S=70)
+
+
+def small_err(got, want, dtype) -> tuple[float, float]:
+    """(max |got - want|, that over its bar): the kernels' bars
+    (``K2_BWD_BARS``) times max(1, max |want|), for outputs and each
+    gradient alike."""
+    e = max_err(got, want)
+    return e, e / (K2_BWD_BARS[str(dtype)]
+                   * max(1.0, float(want.float().abs().max())))
+
+
+def run_small_width_checks(report: dict) -> None:
+    """Each small-width route against its plain version at the reduced
+    configs' shapes, fp32 (their dtype) and bf16, its route checked per
+    call; timed in fp32, eager (``ms``) and graph-replayed (``ms_graph``),
+    beside the bound of its bytes and operations and the plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    rng = np.random.default_rng(21)
+    f32, bf = torch.float32, torch.bfloat16
+    B, H, Hkv, D = (SMALL_ATTN[k] for k in ("B", "H", "Hkv", "D"))
+
+    def held(tag, what, got, want, dtype, fn, route):
+        e, r = small_err(got, want, dtype)
+        kernel = getattr(fn, "last_kernel", None) or "paged_small_kernel"
+        print(f"[small {tag}] {what} {dtype}: max_abs_err={e:.3e} "
+              f"err/bar={r:.3f} route small: {kernel} ({route})")
+        check(r <= 1, f"{tag} small-width route disagrees with its plain "
+              f"version: {what} {dtype}")
+        return e
+
+    def routed(fn, n0):
+        check(fn.routes.get("small", 0) == n0 + 1,
+              f"{fn.__name__}: the call did not take the small-width route "
+              f"({fn.routes})")
+
+    def timed(tag, call, plain, nbytes, flops, dtype, library=None, **kw):
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        r = dict(route="cuda", ms=time_ms(call), ms_graph=time_graph_ms(call),
+                 plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(library) if library else None, **kw)
+        r["kernel_ms"] = r["ms"]
+        print(f"[small {tag}] timed fp32: ms={r['ms']:.5f} ms_graph="
+              f"{r['ms_graph']:.5f} plain_ms={r['plain_ms']:.5f} bound_ms="
+              f"{b_ms:.6f} ({b_by}, {nbytes} bytes, {flops:.0f} flops) "
+              f"library_ms={r['library_ms']}")
+        return r
+
+    # -- K1: the reduced engine's decode step ---------------------------------
+    errs = []
+    for dtype in (f32, bf):
+        lens = rng.integers(5, 96, size=B).astype(np.int32)
+        lens[0] = 0                            # a free slot: no key
+        case = paged_case(rng, B=B, H=H, Hkv=Hkv, D=D, page=16,
+                          seq_lens=lens, dtype=dtype, max_pages=6)
+        n0 = pa.paged_attention.routes.get("small", 0)
+        got = pa.paged_attention(*case)
+        routed(pa.paged_attention, n0)
+        errs.append(held("K1", f"B={B} H={H} Hkv={Hkv} D={D} 6-page table",
+                         got, ref.paged_attention(*case), dtype,
+                         pa.paged_attention, "paged_small_kernel"))
+        check(not got[0].any(), "K1 small: a row with no key is not 0")
+    q, kp, vp, pt, sl = case = paged_case(
+        rng, B=B, H=H, Hkv=Hkv, D=D, page=16,
+        seq_lens=rng.integers(5, 96, size=B), dtype=f32, max_pages=6)
+    _, nbytes, flops, _ = k1_bound(q, kp, pt, sl)
+    report["paged_attention_small"] = dict(
+        name="paged_attention_small",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:73",
+        max_abs_err=max(errs), **timed(
+            "K1", lambda: pa.paged_attention(*case),
+            lambda: ref.paged_attention(*case), nbytes, flops, f32))
+
+    # -- K2 and K2-bwd: the reduced qwen2's training shape --------------------
+    S = SMALL_TRAIN_SEQ
+    errs, errs_b = [], []
+    for dtype in (f32, bf):
+        g = torch.Generator().manual_seed(22)
+        q, k, v, dout = (torch.randn(B, h, S, D, generator=g).to("cuda", dtype)
+                         for h in (H, Hkv, Hkv, H))
+        lse = torch.empty(B, H, S, device="cuda")
+        n0 = fa.flash_attention.routes.get("small", 0)
+        out = fa._forward(q, k, v, True, D ** -0.5, f32, lse)
+        routed(fa.flash_attention, n0)
+        errs.append(held("K2", f"B={B} H={H} Hkv={Hkv} S={S} D={D} causal",
+                         out, ref.mha_attention(q, k, v, causal=True),
+                         dtype, fa.flash_attention, "FMA kernel, 64 wide"))
+        n0 = fa.flash_attention_bwd.routes.get("small", 0)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+        routed(fa.flash_attention_bwd, n0)
+        qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        ref.mha_attention(qr, kr, vr, causal=True).backward(dout)
+        for nm, a, b in zip(("dq", "dk", "dv"), got,
+                            (qr.grad, kr.grad, vr.grad)):
+            errs_b.append(held("K2-bwd", f"{nm} at the same shape", a, b,
+                               dtype, fa.flash_attention_bwd,
+                               "FMA pair, 64 wide"))
+    g = torch.Generator().manual_seed(23)
+    q, k, v, dout = (torch.randn(B, h, S, D, generator=g).to("cuda")
+                     for h in (H, Hkv, Hkv, H))
+    pairs = attn_pairs(S, S, True)
+    kg, vg = (t.repeat_interleave(H // Hkv, 1) for t in (k, v))
+    report["flash_attention_small"] = dict(
+        name="flash_attention_small",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:85",
+        max_abs_err=max(errs), **timed(
+            "K2", lambda: fa.flash_attention(q, k, v),
+            lambda: ref.mha_attention(q, k, v, causal=True),
+            4 * (2 * q.numel() + 2 * k.numel()), 4.0 * B * H * pairs * D,
+            f32, library=lambda: F.scaled_dot_product_attention(
+                q, kg, vg, is_causal=True)))
+    lse = torch.empty(B, H, S, device="cuda")
+    out = fa._forward(q, k, v, True, D ** -0.5, f32, lse)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, kg, vg))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    _, _, nbytes, flops = k2_bwd_bound(q, k, True)
+    report["flash_attention_bwd_small"] = dict(
+        name="flash_attention_bwd_small",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:85",
+        max_abs_err=max(errs_b), **timed(
+            "K2-bwd", lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse),
+            lambda: plain_attention_grads(q, k, v, dout, True, f32),
+            nbytes, flops, f32, library=lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), dout, retain_graph=True)))
+
+    # -- K3 and K3-bwd: the reduced zamba2's mixer ----------------------------
+    Bs, Ss = SMALL_SCAN["B"], SMALL_SCAN["S"]
+    from repro_torch import configs
+    zc = configs.get_reduced("zamba2-1.2b")
+    dh, ds = zc.ssm.head_dim, zc.ssm.d_state
+    Hs = zc.ssm.expand * zc.d_model // dh
+    errs, errs_b = [], []
+    cases = {}
+    for dtype in (f32, bf):
+        g = torch.Generator().manual_seed(24)
+        proj = torch.randn(Bs, Ss, Hs * dh + 2 * ds, generator=g).to(
+            "cuda", dtype)
+        x = proj[..., :Hs * dh].view(Bs, Ss, Hs, dh)
+        Bm, Cm = proj[..., Hs * dh:Hs * dh + ds], proj[..., Hs * dh + ds:]
+        dt = (torch.rand(Bs, Ss, Hs, generator=g) * 0.1 + 0.01).cuda()
+        A = (-torch.rand(Hs, generator=g) * 2 - 0.1).cuda()
+        Dv = torch.randn(Hs, generator=g).cuda()
+        dy = torch.randn(Bs, Ss, Hs, dh, generator=g).to("cuda", dtype)
+        cases[dtype] = (x, dt, A, Bm, Cm, Dv, dy)
+        n0 = m2.mamba2_scan.routes.get("small", 0)
+        y, h = m2.mamba2_scan(x, dt, A, Bm, Cm, Dv, return_state=True)
+        routed(m2.mamba2_scan, n0)
+        check(m2.mamba2_scan.last_kernel == "mamba2_scan_small_kernel",
+              f"K3 small: took {m2.mamba2_scan.last_kernel}")
+        y_w, h_w = ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, Dv,
+                                           return_state=True)
+        errs.append(held("K3", f"B={Bs} S={Ss} H={Hs} dh={dh} ds={ds} "
+                         "(the mixer's strided views)", y, y_w, dtype,
+                         m2.mamba2_scan, "sequential, state in smem"))
+        held("K3", "final state", h, h_w, dtype, m2.mamba2_scan,
+             "sequential")
+        n0 = m2.mamba2_scan_bwd.routes.get("small", 0)
+        got = m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, Dv, dy)
+        routed(m2.mamba2_scan_bwd, n0)
+        want = ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, Dv, dy)
+        for nm, a, b in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                            want):
+            errs_b.append(held("K3-bwd", nm, a, b, dtype,
+                               m2.mamba2_scan_bwd, "sequential, padded 64"))
+    x, dt, A, Bm, Cm, Dv, dy = cases[f32]
+    io = 4 * (2 * x.numel() + Bm.numel() + Cm.numel() + dt.numel())
+    flops = 4.0 * Bs * Ss * Hs * ds * dh
+    # the backward: x, dy in and dx out (scan_bwd_bound's vectors); B, C
+    # in and dB, dC out; dt in and ddt out; A, D in and dA, dD out
+    extra = 4 * (4 * Bm.numel() + 2 * dt.numel() + 4 * Hs)
+    report["mamba2_scan_small"] = dict(
+        name="mamba2_scan_small",
+        source="src/repro_torch/kernels/csrc/mamba2_scan.cu",
+        replaces="src/repro/kernels/mamba2_scan.py:69",
+        max_abs_err=max(errs), **timed(
+            "K3", lambda: m2.mamba2_scan(x, dt, A, Bm, Cm, Dv),
+            lambda: ref.mamba2_scan_chunked(x, dt, A, Bm, Cm, Dv), io, flops,
+            f32))
+    report["mamba2_scan_bwd_small"] = dict(
+        name="mamba2_scan_bwd_small",
+        source="src/repro_torch/kernels/csrc/mamba2_scan_bwd.cu",
+        replaces="src/repro/kernels/mamba2_scan.py:69",
+        max_abs_err=max(errs_b), **timed(
+            "K3-bwd", lambda: m2.mamba2_scan_bwd(x, dt, A, Bm, Cm, Dv, dy),
+            lambda: ref.mamba2_scan_bwd(x, dt, A, Bm, Cm, Dv, dy),
+            *scan_bwd_bound(x, 2, 1, extra, f32)[2:], f32))
+
+    # -- K4 and K4-bwd: the reduced rwkv6 (prefill, the S = 1 decode) --------
+    rc = configs.get_reduced("rwkv6-1.6b")
+    Hr, dr = rc.d_model // rc.resolved_head_dim, rc.resolved_head_dim
+    errs, errs_b = [], []
+    for dtype in (f32, bf):
+        for S_ in (Ss, 1):
+            g = torch.Generator().manual_seed(25 + S_)
+            r, k, v, dy = (torch.randn(Bs, S_, Hr, dr, generator=g).to(
+                "cuda", dtype) for _ in range(4))
+            w = torch.exp(-torch.exp(-3.0 + 0.5 * torch.randn(
+                Bs, S_, Hr, dr, generator=g))).to("cuda", dtype)
+            u = (torch.randn(Hr, dr, generator=g) * 0.1).cuda()
+            s0 = torch.randn(Bs, Hr, dr, dr, generator=g).cuda()
+            n0 = rw.rwkv6_scan.routes.get("small", 0)
+            y, s = rw.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+            routed(rw.rwkv6_scan, n0)
+            check(rw.rwkv6_scan.last_kernel == "rwkv6_scan_small_kernel",
+                  f"K4 small: took {rw.rwkv6_scan.last_kernel}")
+            y_w, s_w = ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
+                                              return_state=True)
+            errs.append(held("K4", f"B={Bs} S={S_} H={Hr} dh={dr}", y, y_w,
+                             dtype, rw.rwkv6_scan, "sequential"))
+            held("K4", f"final state S={S_}", s, s_w, dtype, rw.rwkv6_scan,
+                 "sequential")
+            n0 = rw.rwkv6_scan_bwd.routes.get("small", 0)
+            got = rw.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0)
+            routed(rw.rwkv6_scan_bwd, n0)
+            want = ref.rwkv6_scan_bwd(r, k, v, w, u, dy, s0=s0)
+            for nm, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                                want):
+                errs_b.append(held("K4-bwd", f"{nm} S={S_}", a, b, dtype,
+                                   rw.rwkv6_scan_bwd,
+                                   "sequential, padded 64"))
+    g = torch.Generator().manual_seed(26)
+    r, k, v, dy = (torch.randn(Bs, Ss, Hr, dr, generator=g).cuda()
+                   for _ in range(4))
+    w = torch.exp(-torch.exp(-3.0 + 0.5 * torch.randn(
+        Bs, Ss, Hr, dr, generator=g))).cuda()
+    u = (torch.randn(Hr, dr, generator=g) * 0.1).cuda()
+    r1, k1, v1, w1 = (t[:, :1].contiguous() for t in (r, k, v, w))
+    s0 = torch.randn(Bs, Hr, dr, dr, generator=g).cuda()
+    io = 4 * 5 * r.numel()
+    flops = 4.0 * Bs * Ss * Hr * dr * dr
+    b1 = bound(4 * (5 * r1.numel() + 2 * s0.numel()),
+               4.0 * Bs * Hr * dr * dr, f32)
+    decode = lambda: rw.rwkv6_scan(r1, k1, v1, w1, u, s0=s0,  # noqa: E731
+                                   return_state=True)
+    report["rwkv6_scan_small"] = dict(
+        name="rwkv6_scan_small",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:59",
+        max_abs_err=max(errs),
+        ms_decode=time_ms(decode), ms_graph_decode=time_graph_ms(decode),
+        bound_ms_decode=b1[0], **timed(
+            "K4", lambda: rw.rwkv6_scan(r, k, v, w, u),
+            lambda: ref.rwkv6_scan_chunked(r, k, v, w, u), io, flops, f32))
+    report["rwkv6_scan_bwd_small"] = dict(
+        name="rwkv6_scan_bwd_small",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:59",
+        max_abs_err=max(errs_b), **timed(
+            "K4-bwd", lambda: rw.rwkv6_scan_bwd(r, k, v, w, u, dy),
+            lambda: ref.rwkv6_scan_bwd(r, k, v, w, u, dy),
+            # r, k, v, w, dy in and dr, dk, dv, dw out; u in and du out
+            *scan_bwd_bound(r, 5, 4, 2 * u.numel() * 4, f32)[2:], f32))
+    r4 = report["rwkv6_scan_small"]
+    print(f"[small K4] timed decode S=1 fp32: ms={r4['ms_decode']:.5f} "
+          f"ms_graph={r4['ms_graph_decode']:.5f} bound_ms={b1[0]:.6f} "
+          f"({b1[1]})")
+
+
+# ----------------------------------------------------------------------------
 # phases 3-4: the engine
 # ----------------------------------------------------------------------------
 
@@ -905,10 +1198,43 @@ def kernel_wrappers() -> dict:
 def reset_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        fn.routes.clear()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Each wrapper's launches through its fast routes under its name, and
+    through its small-width route under ``<name>_small``."""
+    out = {}
+    for name, fn in kernel_wrappers().items():
+        small = fn.routes.get("small", 0)
+        out[name] = fn.launches - small
+        out[f"{name}_small"] = small
+    return out
+
+
+def small_widths(cfg) -> set:
+    """The wrappers whose small-width route ``cfg``'s widths take (heads
+    other than 64 or 128 wide; scans other than 64 wide)."""
+    out = set()
+    if cfg.n_heads and cfg.resolved_head_dim not in (64, 128):
+        out |= {"paged_attention", "flash_attention", "flash_attention_bwd"}
+    if cfg.family == "rwkv6" and cfg.resolved_head_dim != 64:
+        out |= {"rwkv6_scan", "rwkv6_scan_bwd"}
+    if cfg.ssm is not None and (cfg.ssm.head_dim, cfg.ssm.d_state) \
+            != (64, 64):
+        out |= {"mamba2_scan", "mamba2_scan_bwd"}
+    return out
+
+
+def by_route(want: dict, cfg) -> dict:
+    """Launches by wrapper as ``read_counts`` gives them for ``cfg``: a
+    wrapper its widths send to the small-width route counts there."""
+    small = small_widths(cfg)
+    out = {}
+    for name, n in want.items():
+        out[name] = 0 if name in small else n
+        out[f"{name}_small"] = n if name in small else 0
+    return out
 
 
 def through_plain(fn, *, oracle: bool = False, attention=None):
@@ -1118,15 +1444,17 @@ def profile_decode(lm, tokens, active, steps: int = 5) -> dict:
     return out
 
 
-def compare_with_cpu() -> None:
-    """A reduced fp32 model (D=64 heads, so the kernels take it) served on
-    the card and, from the same weights, on the CPU: same greedy tokens."""
+def compare_with_cpu() -> dict:
+    """The reduced fp32 qwen2 of the CPU tests (head_dim 16: the kernels'
+    small-width routes) served on the card and, from the same weights, on
+    the CPU: same greedy tokens.  Returns the launches of the card's
+    whole-prefill run: K1 and K2 on their small-width routes alone."""
     import torch
 
     from repro_torch import configs
     from repro_torch.models import api
     from repro_torch.serving.engine import Engine, PagedLM
-    cfg = configs.get_config("qwen2-0.5b").reduced(head_dim=64)
+    cfg = configs.get_reduced("qwen2-0.5b")
     gen = torch.Generator(device="cpu").manual_seed(3)
     params = api.get_model(cfg).init(gen)
     outs = {}
@@ -1139,14 +1467,23 @@ def compare_with_cpu() -> None:
             eng = Engine(lm, chunked_prefill=chunked)
             for r in make_requests(cfg, 6, 5, 60, 12, seed=4):
                 eng.submit(r)
+            reset_counts()
             eng.run_to_completion()
+            if dev == "cuda" and not chunked:
+                counts = read_counts()
             outs[dev, chunked] = {r.rid: r.out_tokens for r in eng.finished}
     for chunked in (False, True):
         check(outs["cuda", chunked] == outs["cpu", chunked],
               f"reduced fp32 model: card and CPU tokens differ "
               f"(chunked={chunked})")
-    print("[compare] reduced fp32 qwen2 (D=64): card tokens == CPU tokens, "
-          "whole and chunked prefill")
+    launched = {k: v for k, v in counts.items() if v}
+    check(set(launched) == {"paged_attention_small", "flash_attention_small"},
+          f"reduced qwen2 (head_dim {cfg.resolved_head_dim}): launches "
+          f"{launched}, expected K1's and K2's small-width routes alone")
+    print(f"[compare] reduced fp32 qwen2 (head_dim {cfg.resolved_head_dim}):"
+          f" card tokens == CPU tokens, whole and chunked prefill; launches "
+          f"on the card (whole prefill) {launched}")
+    return counts
 
 
 # ----------------------------------------------------------------------------
@@ -1442,12 +1779,14 @@ def expected_launches(cfg, decode_steps: int = DECODE_STEPS) -> dict:
     if cfg.family == "zamba2":     # K3 every backbone layer, K2 every
         want["mamba2_scan"] = cfg.n_layers  # shared block, prefill only
         want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    if cfg.family == "mamba2":     # K3 every layer, prefill only
+        want["mamba2_scan"] = cfg.n_layers
     if cfg.family == "encdec":     # K2: every encoder layer and every
         # decoder layer's self- and cross-attention in prefill; a decode
         # step's cross-attention (its self-attention is inline PyTorch)
         want["flash_attention"] = (cfg.n_enc_layers + 2 * cfg.n_layers
                                    + decode_steps * cfg.n_layers)
-    return want
+    return by_route(want, cfg)
 
 
 def serve_recurrent(name: str) -> dict:
@@ -1606,10 +1945,11 @@ def compare_recurrent_paths(cfg, model, params, batch, kw) -> None:
               f"versions disagree ({e:.3e}, argmax {agree}/{k.shape[0]})")
 
 
-def compare_recurrent_with_cpu() -> None:
-    """Reduced fp32 rwkv6, zamba2 and mamba2 models shaped for the kernels
-    (head_dim 64; ssm head_dim 64, d_state 64), served on the card and,
-    from the same weights, on the CPU: same greedy tokens."""
+def compare_recurrent_with_cpu() -> dict:
+    """The reduced fp32 rwkv6, zamba2 and mamba2 of the CPU tests (head_dim
+    16; ssm head_dim 8, d_state 8: the small-width routes), served on the
+    card and, from the same weights, on the CPU: same greedy tokens, the
+    launches exact.  Returns the card runs' launches, summed."""
     import dataclasses
 
     import numpy as np
@@ -1617,17 +1957,15 @@ def compare_recurrent_with_cpu() -> None:
 
     from repro_torch import configs
     from repro_torch.models import api
-    from repro_torch.models.common import SsmCfg
-    ssm = SsmCfg(d_state=64, head_dim=64)
-    cases = [("rwkv6-1.6b", None, dict(head_dim=64)),
-             ("zamba2-1.2b", None, dict(head_dim=64, ssm=ssm)),
-             ("zamba2-1.2b", "mamba2", dict(ssm=ssm))]
+    cases = [("rwkv6-1.6b", None), ("zamba2-1.2b", None),
+             ("zamba2-1.2b", "mamba2")]
     S, steps = 70, 8                       # 70: one chunk of 64 and a tail
-    for name, family, over in cases:
+    total: dict = {}
+    for name, family in cases:
         cfg = configs.get_config(name)
         if family:
             cfg = dataclasses.replace(cfg, family=family)
-        cfg = cfg.reduced(**over)
+        cfg = cfg.reduced()
         model = api.get_model(cfg)
         params = model.init(torch.Generator(device="cpu").manual_seed(3))
         toks = torch.from_numpy(np.random.default_rng(6).integers(
@@ -1646,13 +1984,20 @@ def compare_recurrent_with_cpu() -> None:
                 logits, state = model.decode_step(p, tok, state, S + i)
             outs[dev] = torch.cat(seq, 1)
             if dev == "cuda":
-                launched = {k: v for k, v in read_counts().items() if v}
+                counts = read_counts()
         check(torch.equal(outs["cuda"], outs["cpu"]),
               f"reduced fp32 {cfg.family}: card and CPU tokens differ")
-        check(bool(launched), f"reduced {cfg.family}: no kernel launched")
-        print(f"[compare] reduced fp32 {cfg.family} (kernel shapes): card "
-              f"tokens == CPU tokens over {steps} decode steps; kernels "
-              f"launched on the card: {launched}")
+        want = expected_launches(cfg, decode_steps=steps)
+        check(counts == want, f"reduced {cfg.family}: launches {counts}, "
+              f"expected {want}")
+        launched = {k: v for k, v in counts.items() if v}
+        check(launched and all(k.endswith("_small") for k in launched),
+              f"reduced {cfg.family}: a fast route ran ({launched})")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        print(f"[compare] reduced fp32 {cfg.family}: card tokens == CPU "
+              f"tokens over {steps} decode steps; kernels launched on the "
+              f"card: {launched}")
+    return total
 
 
 # ----------------------------------------------------------------------------
@@ -1669,6 +2014,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 # checkpoint-restart: depth cut to 4 layers, so a checkpoint (bf16 weights,
 # fp32 moments) is ~1.6 GB instead of ~5 GB at 24
 RESTART_LAYERS = 4
+# GSPMD training on a 1 x 1 mesh (phase 9e): 3 steps of the same batch,
+# beside single's
+GSPMD_STEPS = 3
 # whisper-large-v3 training's attention shapes ((B, H, Hkv, Sq, Skv, D),
 # causal), one for each third of its K2-bwd launches: the encoder over 1500
 # frames, the 448-token decoder's causal self-attention, and its
@@ -1894,11 +2242,88 @@ def run_k2_bwd_checks(report: dict) -> dict:
 
 
 def train_phases(report: dict) -> dict:
-    """Phase 9 (a)-(d); returns the launches of the training run (b)."""
+    """Phase 9 (a)-(e); returns the launches of its main paths: the
+    training run (b), the reduced qwen2 on the card (d), the GSPMD run
+    (e)."""
     run_k2_bwd_checks(report)
-    counts = train_phase()
+    paths = {"qwen2_train": train_phase()}
     restart_phase()
-    train_with_cpu()
+    paths["reduced_qwen2_train"] = train_with_cpu()
+    paths["qwen2_train_gspmd"] = phase("9e train gspmd", train_gspmd_phase)
+    return paths
+
+
+def free_port() -> int:
+    """A free TCP port on this machine, for a one-rank process group."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_gspmd_phase() -> dict:
+    """Phase 9e: qwen2-0.5b at full width trained through
+    ``Trainer(comm="gspmd")`` on a 1 x 1 ("data", "model") mesh over NCCL
+    (world size 1), and through ``comm="single"`` from the same weights, in
+    this one call: the same losses (bitwise where they are), K2 48 and
+    K2-bwd 24 launches a step and nothing else, each path's step ms and
+    the device's busy share.  Returns the GSPMD run's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = configs.get_config("qwen2-0.5b")
+    L = cfg.n_layers
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        runs, counts = {}, None
+        for comm in ("single", "gspmd"):   # both from the seed-0 weights
+            torch.cuda.empty_cache()
+            tr = Trainer(cfg, train_config(cfg, f"gspmd_{comm}", comm=comm),
+                         mesh=mesh if comm == "gspmd" else None)
+            reset_counts()
+            ms = tr.train(GSPMD_STEPS)
+            torch.cuda.synchronize()
+            if comm == "gspmd":
+                counts = read_counts()
+            prof = device_profile(tr.train_step, 2)
+            runs[comm] = {
+                "losses": [m["loss"] for m in ms],
+                "median_step_ms": float(np.median(
+                    [m["step_time_s"] for m in ms])) * 1e3,
+                "device_busy_share": prof["device_busy_share"],
+                "device_ms": prof["device_ms"],
+                "step_wall_ms": prof["step_wall_ms"]}
+            del tr
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    a, b = runs["single"]["losses"], runs["gspmd"]["losses"]
+    rel = float(np.max(np.abs(np.subtract(b, a)) / np.abs(a)))
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = 2 * L * GSPMD_STEPS
+    want["flash_attention_bwd"] = L * GSPMD_STEPS
+    out = {"mesh": [1, 1], "backend": "nccl", "steps": GSPMD_STEPS,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "single": runs["single"],
+           "gspmd": runs["gspmd"], "bitwise": a == b,
+           "largest_relative_loss_gap": rel,
+           "launches": {k: v for k, v in counts.items() if v},
+           "card": gpu_name_power()}
+    print(f"[train gspmd] {json.dumps(out)}")
+    check(all(np.isfinite(b)), f"train gspmd: a loss is not finite: {b}")
+    check(counts == want, f"train gspmd: launches {counts}, expected {want} "
+          "(K2 twice a layer a step under remat, K2-bwd once)")
+    # one rank: every collective is the identity and every spec shards
+    # nothing, so the step is single's, operation for operation
+    check(a == b, f"train gspmd: losses {b} differ from single's {a}")
     return counts
 
 
@@ -1994,28 +2419,42 @@ def restart_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def train_with_cpu() -> None:
-    """Phase 9d: a reduced fp32 qwen2 (D=64 heads, so K2 takes it) trained
-    5 steps on the card and, from the same weights, on the CPU: losses
-    within rtol 1e-4 (TF32 off)."""
+def train_with_cpu() -> dict:
+    """Phase 9d: the reduced fp32 qwen2 of the CPU tests (head_dim 16: K2's
+    and K2-bwd's small-width routes) trained 5 steps on the card and, from
+    the same weights, on the CPU: losses within rtol 1e-4 (TF32 off), the
+    launches exact.  Returns the card run's launches."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.models import api
     from repro_torch.runtime.trainer import Trainer
-    cfg = configs.get_config("qwen2-0.5b").reduced(head_dim=64)
+    cfg = configs.get_reduced("qwen2-0.5b")
     init = api.get_model(cfg).init(torch.Generator().manual_seed(3))
-    losses = {}
+    losses, steps = {}, 5
     for dev in ("cpu", "cuda"):
-        tc = train_config(cfg, f"reduced_{dev}", batch=4, seq_len=128)
+        tc = train_config(cfg, f"reduced_{dev}", batch=4,
+                          seq_len=SMALL_TRAIN_SEQ)
         tr = Trainer(cfg, tc, device=dev, init_params=init)
-        losses[dev] = [m["loss"] for m in tr.train(5)]
+        reset_counts()
+        losses[dev] = [m["loss"] for m in tr.train(steps)]
+        if dev == "cuda":
+            counts = read_counts()
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["flash_attention"] = 2 * cfg.n_layers * steps
+    want["flash_attention_bwd"] = cfg.n_layers * steps
+    want = by_route(want, cfg)
+    check(counts == want, f"reduced qwen2 training: launches {counts}, "
+          f"expected {want}")
     rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                        / np.abs(losses["cpu"])))
-    print(f"[compare] reduced fp32 qwen2 training: card {losses['cuda']} vs "
-          f"CPU {losses['cpu']}, largest relative gap {rel:.3e} (tol 1e-4)")
+    print(f"[compare] reduced fp32 qwen2 training (head_dim "
+          f"{cfg.resolved_head_dim}): card {losses['cuda']} vs CPU "
+          f"{losses['cpu']}, largest relative gap {rel:.3e} (tol 1e-4); "
+          f"launches { {k: v for k, v in counts.items() if v} }")
     check(rel <= 1e-4, "reduced fp32 training: card and CPU losses differ")
+    return counts
 
 
 # ----------------------------------------------------------------------------
@@ -2222,16 +2661,16 @@ def serve_whisper() -> dict:
     return counts
 
 
-def compare_whisper_with_cpu() -> None:
-    """A reduced fp32 whisper shaped for the kernels (head_dim 64, 200
-    frames: ragged key tails) served on the card and, from the same
-    weights, on the CPU: the same tokens, logits within rtol 1e-4."""
+def compare_whisper_with_cpu() -> dict:
+    """The reduced fp32 whisper of the CPU tests (head_dim 16: K2's
+    small-width route; 8 frames) served on the card and, from the same
+    weights, on the CPU: the same tokens, logits within rtol 1e-4, the
+    launches exact.  Returns the card run's launches."""
     import torch
 
     from repro_torch import configs
     from repro_torch.models import api
-    cfg = configs.get_config("whisper-large-v3").reduced(head_dim=64,
-                                                         n_frames=200)
+    cfg = configs.get_reduced("whisper-large-v3")
     model = api.get_model(cfg)
     params = model.init(torch.Generator(device="cpu").manual_seed(3))
     batch = whisper_batch(cfg, 2, 24, seed=7, device="cpu")
@@ -2262,11 +2701,12 @@ def compare_whisper_with_cpu() -> None:
     check(torch.allclose(logits_by["cuda"], logits_by["cpu"], rtol=1e-4,
                          atol=1e-4),
           f"reduced fp32 whisper: card and CPU logits differ ({rel:.3e})")
-    print(f"[compare] reduced fp32 whisper (head_dim 64, 200 frames): card "
-          f"tokens == CPU tokens over {steps} decode steps, logits within "
-          f"rtol 1e-4 (largest |diff| / (|cpu| + 1e-4) {rel:.3e}); "
-          f"kernels launched on the card: "
-          f"{ {k: v for k, v in launched.items() if v} }")
+    print(f"[compare] reduced fp32 whisper (head_dim "
+          f"{cfg.resolved_head_dim}, {cfg.n_frames} frames): card tokens == "
+          f"CPU tokens over {steps} decode steps, logits within rtol 1e-4 "
+          f"(largest |diff| / (|cpu| + 1e-4) {rel:.3e}); kernels launched "
+          f"on the card: { {k: v for k, v in launched.items() if v} }")
+    return launched
 
 
 def train_whisper() -> dict:
@@ -2328,18 +2768,18 @@ def train_whisper() -> dict:
     return counts
 
 
-def train_whisper_with_cpu() -> None:
+def train_whisper_with_cpu() -> dict:
     """Phase 10d: the reduced fp32 whisper of phase 10b trained 3 steps on
     the card and, from the same weights, on the CPU: losses within rtol
-    1e-4 (TF32 off), K2 twice and K2-bwd once an attention a step."""
+    1e-4 (TF32 off), K2 twice and K2-bwd once an attention a step, on
+    their small-width routes.  Returns the card run's launches."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.models import api
     from repro_torch.runtime.trainer import Trainer
-    cfg = configs.get_config("whisper-large-v3").reduced(head_dim=64,
-                                                         n_frames=200)
+    cfg = configs.get_reduced("whisper-large-v3")
     init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
     steps, n_attn = 3, cfg.n_enc_layers + 2 * cfg.n_layers
     losses = {}
@@ -2350,26 +2790,31 @@ def train_whisper_with_cpu() -> None:
         losses[dev] = [m["loss"] for m in tr.train(steps)]
         if dev == "cuda":
             launched = read_counts()
-    want = dict.fromkeys(launched, 0)
+    want = dict.fromkeys(kernel_wrappers(), 0)
     want["flash_attention"] = 2 * n_attn * steps
     want["flash_attention_bwd"] = n_attn * steps
+    want = by_route(want, cfg)
     check(launched == want, f"reduced whisper training: launches "
           f"{launched}, expected {want}")
     rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                        / np.abs(losses["cpu"])))
-    print(f"[compare] reduced fp32 whisper training (head_dim 64, 200 "
-          f"frames): card {losses['cuda']} vs CPU {losses['cpu']}, largest "
-          f"relative gap {rel:.3e} (tol 1e-4)")
+    print(f"[compare] reduced fp32 whisper training (head_dim "
+          f"{cfg.resolved_head_dim}, {cfg.n_frames} frames): card "
+          f"{losses['cuda']} vs CPU {losses['cpu']}, largest relative gap "
+          f"{rel:.3e} (tol 1e-4)")
     check(all(np.isfinite(losses["cuda"])) and rel <= 1e-4,
           "reduced fp32 whisper training: card and CPU losses differ")
+    return launched
 
 
 def whisper_phases() -> dict:
     """Phase 10; returns the launches of its two main paths."""
     paths = {"whisper_serve": phase("10a whisper serving", serve_whisper)}
-    phase("10b reduced whisper card vs CPU", compare_whisper_with_cpu)
+    paths["reduced_whisper_serve"] = phase(
+        "10b reduced whisper card vs CPU", compare_whisper_with_cpu)
     paths["whisper_train"] = phase("10c whisper training", train_whisper)
-    phase("10d reduced whisper training card vs CPU", train_whisper_with_cpu)
+    paths["reduced_whisper_train"] = phase(
+        "10d reduced whisper training card vs CPU", train_whisper_with_cpu)
     return paths
 
 
@@ -2426,10 +2871,10 @@ def mamba_bwd_case(B, S, H, dtype, *, state: bool, seed: int,
 
 
 def scan_bwd_bound(x, n_vec_in, n_vec_out, extra_bytes, dtype):
-    """The least time for a scan's gradient: ``n_vec_in`` (B,S,H,64) inputs
+    """The least time for a scan's gradient: ``n_vec_in`` (B,S,H,dh) inputs
     read and ``n_vec_out`` written once, plus ``extra_bytes``; 14 dh^2
     operations a step and head (the state's forward recurrence and the
-    gradient's: three products and three updates of a 64 x 64 state, less
+    gradient's: three products and three updates of a dh x dh state, less
     what they share), at the inputs' type's peak."""
     nbytes = (n_vec_in + n_vec_out) * x.numel() * x.element_size() \
         + extra_bytes
@@ -2675,11 +3120,12 @@ def train_recurrent(name: str) -> dict:
     return counts
 
 
-def train_recurrent_with_cpu() -> None:
-    """Phase 11d: reduced fp32 rwkv6, mamba2 and zamba2 shaped for the
-    kernels (head_dim 64; ssm head_dim 64, d_state 64) trained 3 steps on
-    the card and, from the same weights, on the CPU: losses within rtol
-    1e-4 (TF32 off), the scans and their backward kernels on every layer."""
+def train_recurrent_with_cpu() -> dict:
+    """Phase 11d: the reduced fp32 rwkv6, mamba2 and zamba2 of the CPU tests
+    (head_dim 16; ssm head_dim 8, d_state 8: the small-width routes)
+    trained 3 steps on the card and, from the same weights, on the CPU:
+    losses within rtol 1e-4 (TF32 off), the scans and their backward
+    kernels on every layer.  Returns the card runs' launches, summed."""
     import dataclasses
 
     import numpy as np
@@ -2687,18 +3133,16 @@ def train_recurrent_with_cpu() -> None:
 
     from repro_torch import configs
     from repro_torch.models import api, hybrid
-    from repro_torch.models.common import SsmCfg
     from repro_torch.runtime.trainer import Trainer
-    ssm = SsmCfg(d_state=64, head_dim=64)
-    cases = [("rwkv6-1.6b", None, dict(head_dim=64)),
-             ("zamba2-1.2b", "mamba2", dict(ssm=ssm)),
-             ("zamba2-1.2b", None, dict(head_dim=64, ssm=ssm))]
+    cases = [("rwkv6-1.6b", None), ("zamba2-1.2b", "mamba2"),
+             ("zamba2-1.2b", None)]
     steps = 3
-    for name, family, over in cases:
+    total: dict = {}
+    for name, family in cases:
         cfg = configs.get_config(name)
         if family:
             cfg = dataclasses.replace(cfg, family=family)
-        cfg = cfg.reduced(**over)
+        cfg = cfg.reduced()
         init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
         losses = {}
         for dev in ("cpu", "cuda"):
@@ -2710,7 +3154,7 @@ def train_recurrent_with_cpu() -> None:
             if dev == "cuda":
                 launched = read_counts()
         L = cfg.n_layers
-        want = dict.fromkeys(launched, 0)
+        want = dict.fromkeys(kernel_wrappers(), 0)
         if cfg.family == "rwkv6":
             want.update(rwkv6_scan=2 * L * steps, rwkv6_scan_bwd=L * steps)
         else:
@@ -2719,8 +3163,10 @@ def train_recurrent_with_cpu() -> None:
             apps = hybrid.n_shared_applications(cfg)
             want.update(flash_attention=apps * steps,
                         flash_attention_bwd=apps * steps)
+        want = by_route(want, cfg)
         check(launched == want, f"reduced {cfg.family} training: launches "
               f"{launched}, expected {want}")
+        total = {k: total.get(k, 0) + v for k, v in launched.items()}
         rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                            / np.abs(losses["cpu"])))
         print(f"[compare] reduced fp32 {cfg.family} training (kernel "
@@ -2730,6 +3176,7 @@ def train_recurrent_with_cpu() -> None:
         check(all(np.isfinite(losses["cuda"])) and rel <= 1e-4,
               f"reduced fp32 {cfg.family} training: card and CPU losses "
               "differ")
+    return total
 
 
 def recurrent_train_phases(report: dict) -> dict:
@@ -2739,8 +3186,9 @@ def recurrent_train_phases(report: dict) -> dict:
     for name, path in (("rwkv6-1.6b", "rwkv6_train"),
                        ("zamba2-1.2b", "zamba2_train")):
         paths[path] = phase(f"11 {name} training", train_recurrent, name)
-    phase("11d reduced recurrent training card vs CPU",
-          train_recurrent_with_cpu)
+    paths["reduced_recurrent_train"] = phase(
+        "11d reduced recurrent training card vs CPU",
+        train_recurrent_with_cpu)
     return paths
 
 
@@ -2960,6 +3408,15 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
                        "rwkv6_train": {"": None}},
         "mamba2_scan_bwd": {"zamba2_train": {"": None}},
         "rwkv6_scan_bwd": {"rwkv6_train": {"": None}}}
+    split["flash_attention"]["qwen2_train_gspmd"] = {"_qwen2_train": None}
+    split["flash_attention_bwd"]["qwen2_train_gspmd"] = {"": None}
+    # the small-width routes: every reduced path's calls at the timed
+    # reduced shape (K4's S = 1 calls in serving at the decode one)
+    for name in ("paged_attention", "flash_attention", "flash_attention_bwd",
+                 "mamba2_scan", "mamba2_scan_bwd", "rwkv6_scan",
+                 "rwkv6_scan_bwd"):
+        split[f"{name}_small"] = {p: {"": None} for p in paths
+                                  if p.startswith("reduced_")}
     out = {}
     for name, r in report.items():
         row = {"excess_ms": 0.0, "excess_ms_graph": 0.0, "by_path": {},
@@ -3049,11 +3506,14 @@ def main() -> int:
     if args.train_only:
         train_phases(report)
         recurrent_train_phases(report)
+        phase("2c small-width routes vs plain", run_small_width_checks,
+              report)
         print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
         print(card)
         return 0
     phase("2 kernels vs plain", run_kernel_checks, report)
     phase("2 scans vs plain", run_scan_checks, report)
+    phase("2c small-width routes vs plain", run_small_width_checks, report)
     launches: dict = {}                # per engine run: whole, chunked
     cfg = configs.get_config("qwen2-0.5b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3076,7 +3536,7 @@ def main() -> int:
           and launches["whole"]["flash_attention"] > 0,
           f"a kernel of the engine path never launched: {launches}")
     phase("4 engine kernels vs plain", compare_paths, cfg, params)
-    phase("4 reduced qwen2 card vs CPU", compare_with_cpu)
+    reduced_serve = phase("4 reduced qwen2 card vs CPU", compare_with_cpu)
     cluster_counts = phase("7 cluster", cluster_phase, cfg, params)
     del params                         # one model on the card at a time
     torch.cuda.empty_cache()
@@ -3084,14 +3544,16 @@ def main() -> int:
     # each main path is read on its own: qwen2's engine (whole prefill, the
     # launcher's default), then rwkv6 and zamba2 served through get_model
     paths = {"qwen2_engine": launches["whole"],
-             "qwen2_cluster": cluster_counts}
+             "qwen2_cluster": cluster_counts,
+             "reduced_qwen2_serve": reduced_serve}
     for name in ("rwkv6-1.6b", "zamba2-1.2b"):
         torch.cuda.reset_peak_memory_stats()
         paths[name] = phase(f"5 {name}", serve_recurrent, name)
         torch.cuda.empty_cache()
-    phase("6 reduced recurrent card vs CPU", compare_recurrent_with_cpu)
+    paths["reduced_recurrent_serve"] = phase(
+        "6 reduced recurrent card vs CPU", compare_recurrent_with_cpu)
     phase("8 solver", solver_phase)
-    paths["qwen2_train"] = phase("9 training", train_phases, report)
+    paths.update(phase("9 training", train_phases, report))
     # whisper once every other model has left the card, then the
     # recurrent families trained
     paths.update(whisper_phases())

@@ -36,7 +36,7 @@ SIGNATURES = {
                         [_vp] * 7 + [_i] * 7
                         + [_f, _i, ctypes.POINTER(_i), _vp]),
     "flash_attention": ("flash_attention_launch",
-                        [_vp] * 5 + [_i] * 7 + [_f, _i, _i, _vp]),
+                        [_vp] * 5 + [_i] * 7 + [_f, _i, _i, _vp, _vp]),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             [_vp] * 10 + [_i] * 7 + [_f, _i, _i, _vp, _vp]),
     "mamba2_scan": ("mamba2_scan_launch",
@@ -60,6 +60,14 @@ _loaded: dict[str, ctypes._CFuncPtr] = {}
 # only serving runs
 NO_BACKWARD = "ROADMAP section 2 (K1, paged attention, has no backward " \
     "kernel: only serving runs it)"
+
+
+def count(fn, route: str) -> None:
+    """One launch of ``fn``'s kernel by ``route``: ``fn.launches`` counts
+    every launch, ``fn.routes[route]`` those of the route (the fast route
+    of a width and dtype, or the small-width route)."""
+    fn.launches += 1
+    fn.routes[route] = fn.routes.get(route, 0) + 1
 
 
 def refuse_grad(name: str, hint: str, *tensors) -> None:

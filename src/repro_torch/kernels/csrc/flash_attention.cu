@@ -71,7 +71,10 @@
 // kernel: 64 (D = 64) and 107 (D = 128) registers.
 //
 // Layouts (all contiguous): q, out (B, H, Sq, D); k, v (B, Hkv, Skv, D).
-// D is 64 or 128.
+// D is 64 or 128 on those routes.  Any other D up to 128, in either dtype,
+// takes the small-width route: the FMA kernel instantiated for T and laid
+// out 64 or 128 wide, the columns past D zero in shared memory (the
+// reduced configs' 16-wide heads).
 
 #include <atomic>
 #include <cuda_bf16.h>
@@ -431,17 +434,31 @@ __device__ __forceinline__ float round_bf16(float x) {
 // of the output; the 16 threads that share a row are one half-warp, so row
 // maxima and sums are warp shuffles.  compute_bf16 = 1 rounds q*scale, k, v
 // and the probabilities to bf16 before the products.
-template <int D>
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// DP: the width the tiles are laid out for (64 or 128); D <= DP the head
+// width of the tensors.  Columns D..DP-1 of q, k and v are zeros in shared
+// memory, so they add nothing to a score and their outputs are not written:
+// the fp32 route runs D = DP, the small-width route any D below it.
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int H, int Hkv, int Sq,
-                       int Skv, int causal, float scale, int compute_bf16) {
-  constexpr int QS = D + 1;    // padded rows: no bank conflicts on row reads
-  constexpr int KS = D + 1;
+                       int Skv, int D, int causal, float scale,
+                       int compute_bf16) {
+  constexpr int QS = DP + 1;   // padded rows: no bank conflicts on row reads
+  constexpr int KS = DP + 1;
   constexpr int PS = kBK + 1;
-  constexpr int NJ = D / 16;   // output columns per thread
+  constexpr int NJ = DP / 16;  // output columns per thread
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -453,18 +470,18 @@ flash_attention_kernel(const float* __restrict__ q,
   extern __shared__ float smem[];
   float* q_s = smem;             // kBQ x QS
   float* k_s = q_s + kBQ * QS;   // kBK x KS
-  float* v_s = k_s + kBK * KS;   // kBK x D
-  float* p_s = v_s + kBK * D;    // kBQ x PS
+  float* v_s = k_s + kBK * KS;   // kBK x DP
+  float* p_s = v_s + kBK * DP;   // kBQ x PS
 
-  const float* qb = q + ((size_t)b * H + h) * (size_t)Sq * D;
-  const float* kb = k + ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
-  const float* vb = v + ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
+  const T* qb = q + ((size_t)b * H + h) * (size_t)Sq * D;
+  const T* kb = k + ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
+  const T* vb = v + ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < kBQ * DP; i += kThreads) {
+    const int r = i / DP, d = i % DP;
     float x = 0.f;
-    if (q0 + r < Sq) {
-      x = qb[(size_t)(q0 + r) * D + d] * scale;
+    if (q0 + r < Sq && d < D) {
+      x = to_f(qb[(size_t)(q0 + r) * D + d]) * scale;
       if (compute_bf16) x = round_bf16(x);
     }
     q_s[r * QS + d] = x;
@@ -489,19 +506,19 @@ flash_attention_kernel(const float* __restrict__ q,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // previous tile consumed; q_s written
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
+    for (int i = tid; i < kBK * DP; i += kThreads) {
+      const int c = i / DP, d = i % DP;
       float kv = 0.f, vv = 0.f;
-      if (k0 + c < Skv) {
-        kv = kb[(size_t)(k0 + c) * D + d];
-        vv = vb[(size_t)(k0 + c) * D + d];
+      if (k0 + c < Skv && d < D) {
+        kv = to_f(kb[(size_t)(k0 + c) * D + d]);
+        vv = to_f(vb[(size_t)(k0 + c) * D + d]);
         if (compute_bf16) {
           kv = round_bf16(kv);
           vv = round_bf16(vv);
         }
       }
       k_s[c * KS + d] = kv;
-      v_s[c * D + d] = vv;
+      v_s[c * DP + d] = vv;
     }
     __syncthreads();
 
@@ -511,7 +528,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * QS + d];
@@ -571,7 +588,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) vv[jj] = v_s[c * D + tx + 16 * jj];
+      for (int jj = 0; jj < NJ; ++jj) vv[jj] = v_s[c * DP + tx + 16 * jj];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -580,7 +597,7 @@ flash_attention_kernel(const float* __restrict__ q,
     }
   }
 
-  float* ob = out + ((size_t)b * H + h) * (size_t)Sq * D;
+  T* ob = out + ((size_t)b * H + h) * (size_t)Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
@@ -590,52 +607,70 @@ flash_attention_kernel(const float* __restrict__ q,
       lse[((size_t)b * H + h) * Sq + qi] =
           l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-      ob[(size_t)qi * D + tx + 16 * jj] = acc[i][jj] * inv;
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int d = tx + 16 * jj;
+      if (d < D) ob[(size_t)qi * D + d] = from_f<T>(acc[i][jj] * inv);
+    }
   }
 }
 
-template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* out,
-                void* lse, int B, int H, int Hkv, int Sq, int Skv, int causal,
-                float scale, int compute_bf16, cudaStream_t stream) {
+template <typename T, int DP>
+int launch_fma(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int H, int Hkv, int Sq, int Skv, int D,
+               int causal, float scale, int compute_bf16,
+               cudaStream_t stream) {
   constexpr int smem =
-      sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
+      sizeof(float) * (kBQ * (DP + 1) + kBK * (DP + 1) + kBK * DP +
                        kBQ * (kBK + 1));
   static std::atomic<unsigned long long> smem_set{0};
-  auto kernel = flash_attention_kernel<D>;
+  auto kernel = flash_attention_kernel<T, DP>;
   cudaError_t err = allow_dynamic_smem(smem_set, (const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out,
-      (float*)lse, H, Hkv, Sq, Skv, causal, scale, compute_bf16);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, H, Hkv,
+      Sq, Skv, D, causal, scale, compute_bf16);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; lse: null, or fp32 (B, H, Sq).
-// Returns cudaGetLastError() after the launch (0 on success); -1 for a D
-// or dtype this file does not build.
+// Routes, by width and dtype: bf16 with D = 64 or 128 takes the mma kernel,
+// fp32 with D = 64 or 128 the FMA kernel at its width (the fp32 route), any
+// other D up to 128 in either dtype the FMA kernel at the next width of 64
+// or 128 with the columns past D zero (the small-width route).  *kernel
+// receives 0 (fp32 route), 1 (mma) or 2 (small width).  Returns
+// cudaGetLastError() after the launch (0 on success); -1 for a D above 128
+// or a dtype this file does not build.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       int B, int H, int Hkv, int Sq, int Skv,
                                       int D, int causal, float scale,
                                       int compute_bf16, int dtype,
-                                      void* stream) {
+                                      int* kernel, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_fp32<64>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
-                           causal, scale, compute_bf16, s);
-  if (dtype == 0 && D == 128)
-    return launch_fp32<128>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
-                            causal, scale, compute_bf16, s);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
-                          causal, scale, compute_bf16, s);
-  if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
-                           causal, scale, compute_bf16, s);
-  return -1;
+  if (D < 1 || D > 128 || (dtype != 0 && dtype != 1)) return -1;
+  const bool fast = D == 64 || D == 128;
+  if (fast && dtype == 1) {
+    *kernel = 1;
+    return D == 64 ? launch_mma<64>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
+                                    causal, scale, compute_bf16, s)
+                   : launch_mma<128>(q, k, v, out, lse, B, H, Hkv, Sq, Skv,
+                                     causal, scale, compute_bf16, s);
+  }
+  *kernel = fast ? 0 : 2;
+  if (dtype == 0)
+    return D <= 64 ? launch_fma<float, 64>(q, k, v, out, lse, B, H, Hkv, Sq,
+                                           Skv, D, causal, scale,
+                                           compute_bf16, s)
+                   : launch_fma<float, 128>(q, k, v, out, lse, B, H, Hkv,
+                                            Sq, Skv, D, causal, scale,
+                                            compute_bf16, s);
+  return D <= 64 ? launch_fma<bf16, 64>(q, k, v, out, lse, B, H, Hkv, Sq,
+                                        Skv, D, causal, scale, compute_bf16,
+                                        s)
+                 : launch_fma<bf16, 128>(q, k, v, out, lse, B, H, Hkv, Sq,
+                                         Skv, D, causal, scale, compute_bf16,
+                                         s);
 }

@@ -25,8 +25,10 @@
 //      in-block;
 //   3. dQ: a block owns query rows of one head, walks the visible key tiles
 //      and accumulates dQ = scale * dS K.
-// Two routes, by input dtype and D; the C entry point reports the one it
-// launched (`flash_attention_bwd.last_kernel`):
+// Three routes, by input dtype and D; the C entry point reports the one it
+// launched (`flash_attention_bwd.last_kernel`); the third, the small-width
+// route, is the FMA pair below laid out 64 or 128 wide for any other D up
+// to 128 (the columns past D zero):
 //   * bf16, D = 64 (the main path: qwen2 training) takes
 //     `attn_bwd_dkdv_wgmma_kernel` / `attn_bwd_dq_wgmma_kernel`: `wgmma`
 //     fed by TMA, warp-specialised (see the section below); P and dS enter
@@ -44,7 +46,7 @@
 // nothing: their dq is 0, as the forward's output is.
 //
 // Layouts (all contiguous): q, out, dout, dq (B, H, Sq, D); k, v, dk, dv
-// (B, Hkv, Skv, D); lse (B, H, Sq) fp32.  D is 64 or 128; the input dtype is
+// (B, Hkv, Skv, D); lse (B, H, Sq) fp32.  D is 1 to 128; the input dtype is
 // fp32 or bf16 (dq, dk, dv in the same dtype).  `scratch` is fp32 workspace
 // from the caller: D_i (B, H, Sq) on the FMA route; on the wgmma route
 // LSE * log2(e) and D_i, each (B, H, Sq rounded up to 64), and under
@@ -110,15 +112,17 @@ attn_bwd_dot_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) di[row] = s;
 }
 
-// Shared tile loads.  A row past `n` is zeros.
-template <typename T, int D>
+// Shared tile loads of rows of width D <= DP, laid out DP wide.  A row
+// past `n` is zeros, and so are its columns D..DP-1: they add nothing to a
+// product, which lets one instance serve every width up to DP.
+template <typename T, int DP>
 __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int n, float mul, bool rnd) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i % D;
+                                          int n, int D, float mul, bool rnd) {
+  constexpr int LD = DP + 1;
+  for (int i = threadIdx.x; i < kTile * DP; i += kThreads) {
+    const int r = i / DP, d = i % DP;
     float x = 0.f;
-    if (r0 + r < n) {
+    if (r0 + r < n && d < D) {
       x = to_f(src[(size_t)(r0 + r) * D + d]) * mul;
       if (rnd) x = round_bf16(x);
     }
@@ -128,14 +132,14 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
 
 // S = Qs K^T and dP = dO V^T for a 64 x 64 tile, then P and dS in place:
 // s[i][j], dp[i][j] for query row q0 + ty + 16 i and key k0 + tx + 16 j
-template <int D>
+template <int DP>
 __device__ __forceinline__ void scores(const float* q_s, const float* do_s,
                                        const float* k_s, const float* v_s,
                                        const float* lse_s, const float* di_s,
                                        int q0, int k0, int Sq, int Skv,
                                        int offs, int causal, bool rnd,
                                        float (&p)[4][4], float (&ds)[4][4]) {
-  constexpr int LD = D + 1;
+  constexpr int LD = DP + 1;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4], dp[4][4];
 #pragma unroll
@@ -143,7 +147,7 @@ __device__ __forceinline__ void scores(const float* q_s, const float* do_s,
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DP; ++d) {
     float qv[4], gv[4], kv[4], vv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -182,17 +186,17 @@ __device__ __forceinline__ void scores(const float* q_s, const float* do_s,
 
 // dK, dV for one 64-key tile of one KV head, summed over the head's query
 // group and every query tile that sees the keys
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
-                     int causal, float scale, int compute_bf16) {
-  constexpr int LD = D + 1;
+                     int D, int causal, float scale, int compute_bf16) {
+  constexpr int LD = DP + 1;
   constexpr int PS = kTile + 1;
-  constexpr int NJ = D / 16;
+  constexpr int NJ = DP / 16;
   const int k0 = blockIdx.x * kTile;
   const int hkv = blockIdx.y;
   const int b = blockIdx.z;
@@ -212,8 +216,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* di_s = lse_s + kTile;        // kTile
 
   const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
-  load_rows<T, D>(k_s, k + kv_off, k0, Skv, 1.f, rnd);
-  load_rows<T, D>(v_s, v + kv_off, k0, Skv, 1.f, rnd);
+  load_rows<T, DP>(k_s, k + kv_off, k0, Skv, D, 1.f, rnd);
+  load_rows<T, DP>(v_s, v + kv_off, k0, Skv, D, 1.f, rnd);
 
   float acc_k[4][NJ], acc_v[4][NJ];
 #pragma unroll
@@ -231,8 +235,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kTile;
       __syncthreads();  // the previous tile's q/dO/P/dS are consumed
-      load_rows<T, D>(q_s, q + q_off, q0, Sq, scale, rnd);
-      load_rows<T, D>(do_s, dout + q_off, q0, Sq, 1.f, false);
+      load_rows<T, DP>(q_s, q + q_off, q0, Sq, D, scale, rnd);
+      load_rows<T, DP>(do_s, dout + q_off, q0, Sq, D, 1.f, false);
       for (int r = threadIdx.x; r < kTile; r += kThreads) {
         const bool ok = q0 + r < Sq;
         lse_s[r] = ok ? lse[r_off + q0 + r] : INFINITY;
@@ -240,8 +244,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       float p[4][4], ds[4][4];
-      scores<D>(q_s, do_s, k_s, v_s, lse_s, di_s, q0, k0, Sq, Skv, offs,
-                causal, rnd, p, ds);
+      scores<DP>(q_s, do_s, k_s, v_s, lse_s, di_s, q0, k0, Sq, Skv, offs,
+                 causal, rnd, p, ds);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -282,6 +286,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (key >= Skv) continue;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
+      if (tx + 16 * jj >= D) continue;
       const size_t o = kv_off + (size_t)key * D + tx + 16 * jj;
       const float gk = acc_k[i][jj], gvv = acc_v[i][jj];
       dk[o] = from_f<T>(rnd ? round_bf16(gk) : gk);
@@ -291,17 +296,17 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dQ for one 64-query tile of one head
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ di, T* __restrict__ dq, int H,
-                   int Hkv, int Sq, int Skv, int causal, float scale,
+                   int Hkv, int Sq, int Skv, int D, int causal, float scale,
                    int compute_bf16) {
-  constexpr int LD = D + 1;
+  constexpr int LD = DP + 1;
   constexpr int PS = kTile + 1;
-  constexpr int NJ = D / 16;
+  constexpr int NJ = DP / 16;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -322,8 +327,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_off = ((size_t)b * H + h) * (size_t)Sq * D;
   const size_t r_off = ((size_t)b * H + h) * (size_t)Sq;
   const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
-  load_rows<T, D>(q_s, q + q_off, q0, Sq, scale, rnd);
-  load_rows<T, D>(do_s, dout + q_off, q0, Sq, 1.f, false);
+  load_rows<T, DP>(q_s, q + q_off, q0, Sq, D, scale, rnd);
+  load_rows<T, DP>(do_s, dout + q_off, q0, Sq, D, 1.f, false);
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     const bool ok = q0 + r < Sq;
     lse_s[r] = ok ? lse[r_off + q0 + r] : INFINITY;
@@ -345,12 +350,12 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // q/dO/LSE written; the previous K/V/dS consumed
-    load_rows<T, D>(k_s, k + kv_off, k0, Skv, 1.f, rnd);
-    load_rows<T, D>(v_s, v + kv_off, k0, Skv, 1.f, rnd);
+    load_rows<T, DP>(k_s, k + kv_off, k0, Skv, D, 1.f, rnd);
+    load_rows<T, DP>(v_s, v + kv_off, k0, Skv, D, 1.f, rnd);
     __syncthreads();
     float p[4][4], ds[4][4];
-    scores<D>(q_s, do_s, k_s, v_s, lse_s, di_s, q0, k0, Sq, Skv, offs, causal,
-              rnd, p, ds);
+    scores<DP>(q_s, do_s, k_s, v_s, lse_s, di_s, q0, k0, Sq, Skv, offs,
+               causal, rnd, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -379,6 +384,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= Sq) continue;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
+      if (tx + 16 * jj >= D) continue;
       const float g = rnd ? round_bf16(acc[i][jj]) : acc[i][jj];
       dq[q_off + (size_t)qi * D + tx + 16 * jj] = from_f<T>(g * scale);
     }
@@ -1156,19 +1162,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           void* di, int B, int H, int Hkv, int Sq, int Skv, int causal,
-           float scale, int compute_bf16, cudaStream_t stream) {
-  constexpr int LD = D + 1, PS = kTile + 1;
+           void* di, int B, int H, int Hkv, int Sq, int Skv, int D,
+           int causal, float scale, int compute_bf16, cudaStream_t stream) {
+  constexpr int LD = DP + 1, PS = kTile + 1;
   constexpr int smem_dkdv =
       sizeof(float) * (4 * kTile * LD + 2 * kTile * PS + 2 * kTile);
   constexpr int smem_dq =
       sizeof(float) * (4 * kTile * LD + kTile * PS + 2 * kTile);
   static std::atomic<unsigned long long> set_dkdv{0}, set_dq{0};
-  auto k_dkdv = attn_bwd_dkdv_kernel<T, D>;
-  auto k_dq = attn_bwd_dq_kernel<T, D>;
+  auto k_dkdv = attn_bwd_dkdv_kernel<T, DP>;
+  auto k_dq = attn_bwd_dq_kernel<T, DP>;
   cudaError_t err = allow_dynamic_smem(set_dkdv, (const void*)k_dkdv,
                                        smem_dkdv);
   if (err != cudaSuccess) return (int)err;
@@ -1186,14 +1192,14 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   k_dkdv<<<g_kv, kThreads, smem_dkdv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)lse, (const float*)di, (T*)dk, (T*)dv, H, Hkv, Sq, Skv,
-      causal, scale, compute_bf16);
+      D, causal, scale, compute_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 g_q((Sq + kTile - 1) / kTile, H, B);
   k_dq<<<g_q, kThreads, smem_dq, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)di, (T*)dq, H, Hkv, Sq, Skv, causal,
-      scale, compute_bf16);
+      (const float*)lse, (const float*)di, (T*)dq, H, Hkv, Sq, Skv, D,
+      causal, scale, compute_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -1202,29 +1208,36 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 // dtype: 0 = float32, 1 = bfloat16.  `scratch`: fp32 workspace of at least
 // 2 * B * H * Sq_pad floats (Sq_pad: Sq rounded up to 64), plus
 // B * H * Sq * D / 2 under compute_bf16.  `kernel` receives the route
-// launched: 0 the FMA pair, 1 the wgmma pair.  Returns cudaGetLastError()
-// after the launches (0 on success); -1 for a D or dtype this file does not
-// build.
+// launched: 0 the FMA pair (fp32 at D = 64 or 128, bf16 at D = 128), 1 the
+// wgmma pair (bf16, D = 64), 2 the FMA pair at a small width (any other D
+// up to 128, either dtype, laid out 64 or 128 wide with the columns past D
+// zero).  Returns cudaGetLastError() after the launches (0 on success); -1
+// for a D above 128 or a dtype this file does not build.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* scratch, int B, int H, int Hkv, int Sq, int Skv, int D, int causal,
     float scale, int compute_bf16, int dtype, int* kernel, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (D < 1 || D > 128 || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 1 && D == 64) {
     *kernel = 1;
     return launch_wgmma(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, H,
                         Hkv, Sq, Skv, causal, scale, compute_bf16, s);
   }
-  *kernel = 0;
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
-                             H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
-                              H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
-  if (dtype == 1 && D == 128)
-    return launch<bf16, 128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
-                             H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
-  return -1;
+  *kernel = (D == 64 || D == 128) ? 0 : 2;
+  if (dtype == 0)
+    return D <= 64
+               ? launch<float, 64>(q, k, v, out, dout, lse, dq, dk, dv,
+                                   scratch, B, H, Hkv, Sq, Skv, D, causal,
+                                   scale, compute_bf16, s)
+               : launch<float, 128>(q, k, v, out, dout, lse, dq, dk, dv,
+                                    scratch, B, H, Hkv, Sq, Skv, D, causal,
+                                    scale, compute_bf16, s);
+  return D <= 64 ? launch<bf16, 64>(q, k, v, out, dout, lse, dq, dk, dv,
+                                    scratch, B, H, Hkv, Sq, Skv, D, causal,
+                                    scale, compute_bf16, s)
+                 : launch<bf16, 128>(q, k, v, out, dout, lse, dq, dk, dv,
+                                     scratch, B, H, Hkv, Sq, Skv, D, causal,
+                                     scale, compute_bf16, s);
 }

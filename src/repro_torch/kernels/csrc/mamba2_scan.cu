@@ -62,6 +62,10 @@
 //   weights and the fp32 state in shared memory, every (64 x 64) product a
 //   16 x 16 thread grid with 4 x 4 register tiles of fp32 FMAs.
 //
+// Any other dh, ds up to 64 (the reduced configs' 8), either dtype, takes
+// `mamba2_scan_small_kernel`, the small-width route at the end of this
+// file: one block a (b, h) stepping t, the state in shared memory.
+//
 // Layouts: x, y (B, S, H, dh) with x given by its batch and step strides
 // (elements; head stride dh, channel stride 1), y contiguous; Bmat, Cmat
 // (B, S, ds) by their batch and step strides (channel stride 1); x, y,
@@ -745,14 +749,109 @@ int launch_mma(const void* x, const void* dt, const void* A, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Small-width route: any dh, ds up to 64 other than dh = ds = 64 (the
+// reduced configs' dh = ds = 8), in either dtype.  Simple and exact first:
+// one block a (b, h) steps t in order with the (ds x dh) state in shared
+// memory, as the recurrence reads:
+//   h_t = exp(A dt_t) h_{t-1} + (dt_t B_t) (x) x_t ;  y_t = C_t . h_t + D x_t
+// The decay's exponent A dt_t is a single step's, so no positive exponent
+// can reach exp (the chunked form's guard selects the exponent for the
+// same reason).  fp32 throughout; x, B, C by their strides.
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallThreads = 256;
+constexpr int kSmallMax = 64;  // the widest dh and ds this route takes
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSmallThreads)
+mamba2_scan_small_kernel(const T* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ A,
+                         const T* __restrict__ Bm, const T* __restrict__ Cm,
+                         const float* __restrict__ Dv,
+                         const float* __restrict__ h0, T* __restrict__ y,
+                         float* __restrict__ h_out, int S, int H, int dh,
+                         int ds, long long x_sb, long long x_ss,
+                         long long b_sb, long long b_ss, long long c_sb,
+                         long long c_ss) {
+  __shared__ float h_s[kSmallMax * kSmallMax];  // [s][d]
+  __shared__ float x_s[kSmallMax], b_s[kSmallMax], c_s[kSmallMax];
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const float a_h = A[h], d_h = Dv[h];
+  const int n = ds * dh;
+  const size_t hbase = ((size_t)b * H + h) * n;
+  for (int e = tid; e < n; e += kSmallThreads)
+    h_s[e] = h0 ? h0[hbase + e] : 0.f;
+  const T* xb = x + (size_t)b * x_sb + (size_t)h * dh;
+  const T* bb = Bm + (size_t)b * b_sb;
+  const T* cb = Cm + (size_t)b * c_sb;
+  const size_t y_ss = (size_t)H * dh;                 // y is contiguous
+  T* yb = y + (size_t)b * S * y_ss + (size_t)h * dh;
+  for (int t = 0; t < S; ++t) {
+    __syncthreads();  // the previous step's reads are done
+    if (tid < dh)
+      x_s[tid] = to_float(xb[(size_t)t * x_ss + tid]);
+    else if (tid >= 64 && tid - 64 < ds)
+      b_s[tid - 64] = to_float(bb[(size_t)t * b_ss + tid - 64]);
+    else if (tid >= 128 && tid - 128 < ds)
+      c_s[tid - 128] = to_float(cb[(size_t)t * c_ss + tid - 128]);
+    const float dtv = dt[((size_t)b * S + t) * H + h];
+    const float ea = expf(a_h * dtv);
+    __syncthreads();
+    for (int e = tid; e < n; e += kSmallThreads) {
+      const int s = e / dh, d = e % dh;
+      h_s[e] = fmaf(h_s[e], ea, b_s[s] * dtv * x_s[d]);
+    }
+    __syncthreads();
+    if (tid < dh) {
+      float acc = 0.f;
+      for (int s = 0; s < ds; ++s) acc = fmaf(c_s[s], h_s[s * dh + tid], acc);
+      yb[(size_t)t * y_ss + tid] = from_float<T>(fmaf(d_h, x_s[tid], acc));
+    }
+  }
+  if (h_out) {
+    __syncthreads();
+    for (int e = tid; e < n; e += kSmallThreads) h_out[hbase + e] = h_s[e];
+  }
+}
+
+template <typename T>
+int launch_small(const void* x, const void* dt, const void* A,
+                 const void* Bm, const void* Cm, const void* D,
+                 const void* h0, void* y, void* h_out, int B, int S, int H,
+                 int dh, int ds, long long x_sb, long long x_ss,
+                 long long b_sb, long long b_ss, long long c_sb,
+                 long long c_ss, cudaStream_t stream) {
+  mamba2_scan_small_kernel<T><<<dim3(H, B), kSmallThreads, 0, stream>>>(
+      (const T*)x, (const float*)dt, (const float*)A, (const T*)Bm,
+      (const T*)Cm, (const float*)D, (const float*)h0, (T*)y,
+      (float*)h_out, S, H, dh, ds, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, Bmat, Cmat, y).  Strides are in
 // elements; for bf16, x, Bmat and Cmat and their strides must be 16-byte
 // aligned (the wrapper checks).  h0 / h_out may be null.  *kernel receives
 // the kernel launched: 0 mamba2_scan_kernel (fp32), 1
-// mamba2_scan_mma_kernel (bf16).  Returns cudaGetLastError() after the
-// launch (0 on success); -1 for a dh, ds or dtype this file does not build.
+// mamba2_scan_mma_kernel (bf16), both at dh = ds = 64; 2
+// mamba2_scan_small_kernel (either dtype, any other dh, ds up to 64).
+// Returns cudaGetLastError() after the launch (0 on success); -1 for a dh
+// or ds above 64 or a dtype this file does not build.
 extern "C" int mamba2_scan_launch(const void* x, const void* dt,
                                   const void* A, const void* Bm,
                                   const void* Cm, const void* D,
@@ -763,7 +862,19 @@ extern "C" int mamba2_scan_launch(const void* x, const void* dt,
                                   long long c_sb, long long c_ss, int dtype,
                                   int* kernel, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh != kDH || ds != kDS) return -1;
+  if (dh < 1 || dh > kSmallMax || ds < 1 || ds > kSmallMax ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  if (dh != kDH || ds != kDS) {
+    *kernel = 2;
+    return dtype == 0
+               ? launch_small<float>(x, dt, A, Bm, Cm, D, h0, y, h_out, B, S,
+                                     H, dh, ds, x_sb, x_ss, b_sb, b_ss, c_sb,
+                                     c_ss, st)
+               : launch_small<bf16>(x, dt, A, Bm, Cm, D, h0, y, h_out, B, S,
+                                    H, dh, ds, x_sb, x_ss, b_sb, b_ss, c_sb,
+                                    c_ss, st);
+  }
   if (dtype == 0) {
     *kernel = 0;
     return launch_fma(x, dt, A, Bm, Cm, D, h0, y, h_out, B, S, H, x_sb, x_ss,

@@ -65,9 +65,11 @@
 // dy, dx (B, S, H, dh) contiguous; x, Bmat, Cmat, dy, dx, dB, dC share T
 // (float or __nv_bfloat16); dt, ddt (B, S, H), A, D, dA, dD (H,), h0,
 // dh_out, dh0 (B, H, ds, dh) fp32 and contiguous; h0, dh_out and dh0 may be
-// null.  Scratch: dBh, dCh (B, S, H, ds), dA_part, dD_part (B, H) and the
-// checkpoints (B, H, ceil(S / 8), dh, ds), all fp32.  Arithmetic is fp32;
-// build without --use_fast_math / -ftz.
+// null.  Scratch: dBh, dCh (B, S, H, 64), dA_part, dD_part (B, H) and the
+// checkpoints (B, H, ceil(S / 8), 64, 64), all fp32.  dh and ds are 64, or
+// up to 64 on the small-width route: the same kernel with x, dy past dh and
+// B, C past ds read as zeros.  Arithmetic is fp32; build without
+// --use_fast_math / -ftz.
 
 #include <atomic>
 #include <cuda_bf16.h>
@@ -133,9 +135,10 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                        float* __restrict__ dCh, float* __restrict__ dh0,
                        float* __restrict__ ckpt,
                        float* __restrict__ dA_part,
-                       float* __restrict__ dD_part, int S, int H,
-                       long long x_sb, long long x_ss, long long b_sb,
-                       long long b_ss, long long c_sb, long long c_ss) {
+                       float* __restrict__ dD_part, int S, int H, int dh,
+                       int ds, long long x_sb, long long x_ss,
+                       long long b_sb, long long b_ss, long long c_sb,
+                       long long c_ss) {
   extern __shared__ __align__(16) float smem[];
   float* sbuf = smem;                      // [kC][d][s]: h_{t-1}
   float* x_s = sbuf + kC * kState;         // [kC][64] each
@@ -156,12 +159,15 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float a_h = A[h];
   const float d_h = Dv[h];
   const size_t bh = (size_t)b * H + h;
-  const size_t st_base = bh * kState;
-  const T* xb = x + (size_t)b * x_sb + (size_t)h * kDH;
+  const size_t st_base = bh * ds * dh;              // h0, dh_out, dh0
+  const T* xb = x + (size_t)b * x_sb + (size_t)h * dh;
   const T* bb = Bm + (size_t)b * b_sb;
   const T* cb = Cm + (size_t)b * c_sb;
-  const size_t y_ss = (size_t)H * kDH;              // dy, dx: contiguous
-  const size_t ybase = (size_t)b * S * y_ss + (size_t)h * kDH;
+  const size_t y_ss = (size_t)H * dh;               // dy, dx: contiguous
+  const size_t ybase = (size_t)b * S * y_ss + (size_t)h * dh;
+  // a small width runs padded to 64: x, dy past dh and B, C past ds read
+  // as zeros, so the padded rows and columns of h and G stay zero and add
+  // nothing to any sum; nothing past dh or ds is written
   const size_t hd_ss = (size_t)H * kDS;             // dBh, dCh
   const size_t hd_base = (size_t)b * S * hd_ss + (size_t)h * kDS;
   const int nC = (S + kC - 1) / kC;
@@ -172,11 +178,11 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int e = tid; e < n * 64; e += kThreads) {
       const int t = e >> 6, d = e & 63;
       const size_t ts = (size_t)(t0 + t);
-      x_s[e] = to_float(xb[ts * x_ss + d]);
-      b_s[e] = to_float(bb[ts * b_ss + d]);
+      x_s[e] = d < dh ? to_float(xb[ts * x_ss + d]) : 0.f;
+      b_s[e] = d < ds ? to_float(bb[ts * b_ss + d]) : 0.f;
       if (all) {
-        c_s[e] = to_float(cb[ts * c_ss + d]);
-        dy_s[e] = to_float(dy[ybase + ts * y_ss + d]);
+        c_s[e] = d < ds ? to_float(cb[ts * c_ss + d]) : 0.f;
+        dy_s[e] = d < dh ? to_float(dy[ybase + ts * y_ss + d]) : 0.f;
       }
     }
     if (tid < n) {
@@ -190,7 +196,8 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float hs[kDH];
 #pragma unroll
   for (int d = 0; d < kDH; ++d)
-    hs[d] = (is_row && h0) ? h0[st_base + (size_t)i * kDH + d] : 0.f;
+    hs[d] = (is_row && h0 && i < ds && d < dh)
+                ? h0[st_base + (size_t)i * dh + d] : 0.f;
   for (int c = 0; c < nC; ++c) {
     if (is_row) {
 #pragma unroll
@@ -216,8 +223,10 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
   for (int j = 0; j < kDH; ++j)
     g[j] = !dh_out ? 0.f
-           : is_row ? dh_out[st_base + (size_t)i * kDH + j]
-                    : dh_out[st_base + (size_t)j * kDH + i];
+           : is_row ? (i < ds && j < dh
+                           ? dh_out[st_base + (size_t)i * dh + j] : 0.f)
+                    : (j < ds && i < dh
+                           ? dh_out[st_base + (size_t)j * dh + i] : 0.f);
   float dD_acc = 0.f, dA_acc = 0.f;
   for (int c = nC - 1; c >= 0; --c) {
     const int t0 = c * kC;
@@ -264,8 +273,9 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int s = 0; s < kDS; ++s) g[s] = fmaf(c_s[t * 64 + s], dyd, g[s]);
         const float gb = dot64(g, b_s + t * 64, 1);
-        dx[ybase + (size_t)(t0 + t) * y_ss + i] =
-            from_float<T>(fmaf(dt_s[t], gb, d_h * dyd));
+        if (i < dh)
+          dx[ybase + (size_t)(t0 + t) * y_ss + i] =
+              from_float<T>(fmaf(dt_s[t], gb, d_h * dyd));
         dD_acc = fmaf(dyd, x_s[t * 64 + i], dD_acc);
 #pragma unroll
         for (int s = 0; s < kDS; ++s) g[s] *= ea;
@@ -279,9 +289,10 @@ mamba2_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       dA_acc = fmaf(dt_s[tid], da, dA_acc);
     }
   }
-  if (is_row && dh0) {
+  if (is_row && dh0 && i < ds) {
 #pragma unroll
-    for (int d = 0; d < kDH; ++d) dh0[st_base + (size_t)i * kDH + d] = g[d];
+    for (int d = 0; d < kDH; ++d)
+      if (d < dh) dh0[st_base + (size_t)i * dh + d] = g[d];
   }
   if (!is_row) {
     const float p = warp_sum(dD_acc);
@@ -307,14 +318,14 @@ mamba2_scan_bwd_reduce_kernel(const float* __restrict__ dBh,
                               const float* __restrict__ dD_part,
                               T* __restrict__ dB, T* __restrict__ dC,
                               float* __restrict__ dA, float* __restrict__ dD,
-                              int B, int S, int H) {
+                              int B, int S, int H, int ds) {
   const int t = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int s = tid & 63;
   const size_t bt = (size_t)b * S + t;
   const float* src = (tid < kDS ? dBh : dCh) + bt * H * kDS + s;
   float acc = 0.f;
   for (int hh = 0; hh < H; ++hh) acc += src[(size_t)hh * kDS];
-  (tid < kDS ? dB : dC)[bt * kDS + s] = from_float<T>(acc);
+  if (s < ds) (tid < kDS ? dB : dC)[bt * ds + s] = from_float<T>(acc);
   if (t == 0 && b == 0) {
     for (int hh = tid; hh < H; hh += kThreads) {
       float a = 0.f, d = 0.f;
@@ -348,7 +359,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, const void* D, const void* h0, const void* dy,
            const void* dh_out, void* dx, void* ddt, void* dB, void* dC,
            void* dA, void* dD, void* dh0, float* scratch, int B, int S,
-           int H, long long x_sb, long long x_ss, long long b_sb,
+           int H, int dh, int ds, long long x_sb, long long x_ss, long long b_sb,
            long long b_ss, long long c_sb, long long c_ss,
            cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
@@ -366,12 +377,12 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
       (const T*)x, (const float*)dt, (const float*)A, (const T*)Bm,
       (const T*)Cm, (const float*)D, (const float*)h0, (const T*)dy,
       (const float*)dh_out, (T*)dx, (float*)ddt, dBh, dCh, (float*)dh0, ckpt,
-      dA_part, dD_part, S, H, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss);
+      dA_part, dD_part, S, H, dh, ds, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mamba2_scan_bwd_reduce_kernel<T><<<dim3(S, B), kThreads, 0, stream>>>(
       dBh, dCh, dA_part, dD_part, (T*)dB, (T*)dC, (float*)dA, (float*)dD, B,
-      S, H);
+      S, H, ds);
   return (int)cudaGetLastError();
 }
 
@@ -379,10 +390,12 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, Bmat, Cmat, dy and dx, dB, dC).
 // Strides are in elements.  h0, dh_out and dh0 may be null.  scratch holds
-// 2 * B * S * H * 64 + 2 * B * H + B * H * ceil(S / 8) * 64 * 64 floats.
-// *kernel receives 0 (mamba2_scan_bwd_kernel, the one route).  Returns
-// cudaGetLastError() after the launches (0 on success); -1 for a dh, ds or
-// dtype this file does not build.
+// 2 * B * S * H * 64 + 2 * B * H + B * H * ceil(S / 8) * 64 * 64 floats
+// (laid out 64 wide whatever dh and ds).  *kernel receives 0
+// (mamba2_scan_bwd_kernel at dh = ds = 64) or 2 (the same kernel at a
+// small width: any dh, ds up to 64, padded to 64 with zeros).  Returns
+// cudaGetLastError() after the launches (0 on success); -1 for a dh or ds
+// above 64 or a dtype this file does not build.
 extern "C" int mamba2_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* D, const void* h0, const void* dy,
@@ -391,15 +404,15 @@ extern "C" int mamba2_scan_bwd_launch(
     long long x_sb, long long x_ss, long long b_sb, long long b_ss,
     long long c_sb, long long c_ss, int dtype, int* kernel, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh != kDH || ds != kDS || S < 1) return -1;
-  *kernel = 0;
+  if (dh < 1 || dh > kDH || ds < 1 || ds > kDS || S < 1) return -1;
+  *kernel = (dh == kDH && ds == kDS) ? 0 : 2;
   if (dtype == 0)
     return launch<float>(x, dt, A, Bm, Cm, D, h0, dy, dh_out, dx, ddt, dB,
-                         dC, dA, dD, dh0, (float*)scratch, B, S, H, x_sb,
-                         x_ss, b_sb, b_ss, c_sb, c_ss, st);
+                         dC, dA, dD, dh0, (float*)scratch, B, S, H, dh, ds,
+                         x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, st);
   if (dtype == 1)
     return launch<bf16>(x, dt, A, Bm, Cm, D, h0, dy, dh_out, dx, ddt, dB,
-                        dC, dA, dD, dh0, (float*)scratch, B, S, H, x_sb,
-                        x_ss, b_sb, b_ss, c_sb, c_ss, st);
+                        dC, dA, dD, dh0, (float*)scratch, B, S, H, dh, ds,
+                        x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, st);
   return -1;
 }

@@ -47,7 +47,8 @@
 // Layouts (all contiguous): q (B, H, D); k_pages, v_pages (P, page, Hkv,
 // D); page_table (B, max_pages) int32; seq_lens (B,) int32; partials (B, H,
 // n_split, D + 2) fp32 (acc[D], m, l); out (B, H, D) in q's dtype.  T is
-// float or __nv_bfloat16, D is 64 or 128.
+// float or __nv_bfloat16, D is 64 or 128; every other D up to 128 takes
+// the small-width route at the end of this file (`paged_small_kernel`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -294,13 +295,109 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Small-width route: any D up to 128 outside 64 and 128 (the reduced
+// configs' head width of 16).  Simple and exact first: one block of
+// kSmallThreads a (head, sequence), scalar loads through the page table.
+// Per tile of kSmallThreads keys, each thread scores one key (fp32 dot
+// product of q * scale and the key's row), the block takes the tile's max
+// and sum (shuffles, then the warps through shared memory), and thread d
+// (d < D) rescales its output column and adds p_j v_j[d] over the tile's
+// keys, as the plain version's softmax; a row with no key writes 0.
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallThreads = 128;
+constexpr int kSmallMaxD = 128;
+
+template <typename T>
+__device__ __forceinline__ float to_float(T x);
+template <> __device__ __forceinline__ float to_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// the block's max (op 0) or sum (op 1) of x, returned to every thread
+template <int OP>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, o);
+    x = OP == 0 ? fmaxf(x, y) : x + y;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // the previous reduction's reads are done
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < kSmallThreads / 32; ++w)
+    r = OP == 0 ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSmallThreads)
+paged_small_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                   const T* __restrict__ v_pages,
+                   const int32_t* __restrict__ page_table,
+                   const int32_t* __restrict__ seq_lens, T* __restrict__ out,
+                   int Hkv, int D, int page, int max_pages, float scale) {
+  __shared__ float q_s[kSmallMaxD];
+  __shared__ float p_s[kSmallThreads];
+  __shared__ size_t row_s[kSmallThreads];
+  __shared__ float red[kSmallThreads / 32];
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int hkv = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  for (int d = tid; d < D; d += kSmallThreads)
+    q_s[d] = to_float(q[((size_t)b * H + h) * D + d]) * scale;
+  const int n_keys = min(seq_lens[b], max_pages * page);
+  const int32_t* table = page_table + (size_t)b * max_pages;
+  float m = -INFINITY, l = 0.f, acc = 0.f;  // acc: column tid
+  __syncthreads();
+  for (int j0 = 0; j0 < n_keys; j0 += kSmallThreads) {
+    const int j = j0 + tid;
+    float s = -INFINITY;
+    if (j < n_keys) {
+      const size_t row =
+          (((size_t)table[j / page] * page + j % page) * Hkv + hkv) * D;
+      row_s[tid] = row;
+      const T* kr = k_pages + row;
+      s = 0.f;
+      for (int d = 0; d < D; ++d) s = fmaf(q_s[d], to_float(kr[d]), s);
+    }
+    const float m_new = fmaxf(m, block_reduce<0>(s, red));
+    const float alpha = expf(m - m_new);  // 0 when m = -inf
+    const float p = j < n_keys ? expf(s - m_new) : 0.f;
+    p_s[tid] = p;
+    l = l * alpha + block_reduce<1>(p, red);  // its syncs publish p_s, row_s
+    m = m_new;
+    if (tid < D) {
+      const int n = min(kSmallThreads, n_keys - j0);
+      float a = acc * alpha;
+      for (int c = 0; c < n; ++c)
+        a = fmaf(p_s[c], to_float(v_pages[row_s[c] + tid]), a);
+      acc = a;
+    }
+    __syncthreads();  // p_s and row_s are consumed
+  }
+  if (tid < D)
+    out[((size_t)b * H + h) * D + tid] = from_float<T>(l > 0.f ? acc / l
+                                                               : 0.f);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  part: fp32 scratch of B * H * n_split
-// * (D + 2) floats, n_split = ceil(max_pages * page / part_keys).  *blocks
-// gets the partial kernel's grid size as launched.  Returns
-// cudaGetLastError() after the launches (0 on success); -1 for a D, dtype
-// or partition this file does not take.
+// * (D + 2) floats, n_split = ceil(max_pages * page / part_keys) (D = 64 or
+// 128; the small-width route, any other D up to 128, reads none).  *blocks
+// gets the grid size of the partial (or small-width) kernel as launched.
+// Returns cudaGetLastError() after the launches (0 on success); -1 for a D,
+// dtype or partition this file does not take.
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* page_table,
@@ -323,5 +420,20 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   if (dtype == 1 && D == 64) PAGED_LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) PAGED_LAUNCH(__nv_bfloat16, 128);
 #undef PAGED_LAUNCH
-  return -1;
+  // the small-width route: any other D up to 128; part is not used
+  if (D < 1 || D > kSmallMaxD || (dtype != 0 && dtype != 1)) return -1;
+  const dim3 grid(H, B);
+  *blocks = grid.x * grid.y;
+  if (dtype == 0)
+    paged_small_kernel<float><<<grid, kSmallThreads, 0, s>>>(
+        (const float*)q, (const float*)k_pages, (const float*)v_pages,
+        (const int32_t*)page_table, (const int32_t*)seq_lens, (float*)out,
+        Hkv, D, page, max_pages, scale);
+  else
+    paged_small_kernel<__nv_bfloat16><<<grid, kSmallThreads, 0, s>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+        (const __nv_bfloat16*)v_pages, (const int32_t*)page_table,
+        (const int32_t*)seq_lens, (__nv_bfloat16*)out, Hkv, D, page,
+        max_pages, scale);
+  return (int)cudaGetLastError();
 }

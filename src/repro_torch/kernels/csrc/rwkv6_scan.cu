@@ -70,6 +70,10 @@
 //   threads, the state in registers (thread (j, p) keeps S[4*ii + p][j]),
 //   r, k, v, w staged 32 steps at a time, sequential over steps.
 //
+// Any other dh up to 64 (the reduced configs' 16), any S, either dtype,
+// takes `rwkv6_scan_small_kernel`, the small-width route at the end of
+// this file: one block a (b, h) stepping t, the state in shared memory.
+//
 // Layouts (all contiguous): r, k, v, w, y (B, S, H, dh) in T (float or
 // __nv_bfloat16); u (H, dh) fp32; s0, s_out (B, H, dh, dh) fp32, row index
 // = k channel, column index = v channel; s0 and s_out may be null.
@@ -894,20 +898,101 @@ int launch_mma(const void* r, const void* k, const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Small-width route: any dh up to 64 other than 64 (the reduced configs'
+// 16), prefill and the S = 1 decode, either dtype.  Simple and exact
+// first: one block a (b, h) steps t in order with the (dh x dh) state in
+// shared memory, as the recurrence reads:
+//   y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t) ;
+//   S_t = diag(w_t) S_{t-1} + k_t (x) v_t
+// with w floored at 1e-30 as ref.rwkv6_scan_chunked floors it before its
+// log (the floor changes nothing the sequential form computes above it).
+// fp32 throughout.
+// ---------------------------------------------------------------------------
+
+constexpr int kSmallThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kSmallThreads)
+rwkv6_scan_small_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ w,
+                        const float* __restrict__ u,
+                        const float* __restrict__ s0, T* __restrict__ y,
+                        float* __restrict__ s_out, int S, int H, int dh) {
+  __shared__ float s_s[kDH * kDH];  // [k channel i][v channel j]
+  __shared__ float r_s[kDH], k_s[kDH], v_s[kDH], w_s[kDH], u_s[kDH];
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int n = dh * dh;
+  const size_t sbase = ((size_t)b * H + h) * n;
+  const size_t row = (size_t)H * dh;                  // stride of one step
+  const size_t base = (size_t)b * S * row + (size_t)h * dh;
+  for (int e = tid; e < n; e += kSmallThreads)
+    s_s[e] = s0 ? s0[sbase + e] : 0.f;
+  if (tid < dh) u_s[tid] = u[(size_t)h * dh + tid];
+  for (int t = 0; t < S; ++t) {
+    const size_t off = base + (size_t)t * row;
+    __syncthreads();  // the previous step's reads are done
+    const int c = tid & 63, which = tid >> 6;
+    if (c < dh) {
+      if (which == 0) r_s[c] = to_float(r[off + c]);
+      else if (which == 1) k_s[c] = to_float(k[off + c]);
+      else if (which == 2) v_s[c] = to_float(v[off + c]);
+      else w_s[c] = fmaxf(to_float(w[off + c]), kFloorW);
+    }
+    __syncthreads();
+    if (tid < dh) {
+      const float vj = v_s[tid];
+      float acc = 0.f;
+      for (int i = 0; i < dh; ++i)
+        acc = fmaf(r_s[i], fmaf(u_s[i] * k_s[i], vj, s_s[i * dh + tid]),
+                   acc);
+      y[off + tid] = from_float<T>(acc);
+    }
+    __syncthreads();  // y read S_{t-1}
+    for (int e = tid; e < n; e += kSmallThreads) {
+      const int i = e / dh, j = e % dh;
+      s_s[e] = fmaf(s_s[e], w_s[i], k_s[i] * v_s[j]);
+    }
+  }
+  if (s_out) {
+    __syncthreads();
+    for (int e = tid; e < n; e += kSmallThreads) s_out[sbase + e] = s_s[e];
+  }
+}
+
+template <typename T>
+int launch_small(const void* r, const void* k, const void* v, const void* w,
+                 const void* u, const void* s0, void* y, void* s_out, int B,
+                 int S, int H, int dh, cudaStream_t stream) {
+  rwkv6_scan_small_kernel<T><<<dim3(H, B), kSmallThreads, 0, stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, (const T*)w, (const float*)u,
+      (const float*)s0, (T*)y, (float*)s_out, S, H, dh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, y).  s0 / s_out may be
 // null.  *kernel receives the kernel launched: 0 rwkv6_scan_kernel (fp32,
 // S > 1), 1 rwkv6_scan_mma_kernel (bf16, S > 1), 2 rwkv6_scan_decode_kernel
-// (S = 1).  Returns cudaGetLastError() after the launch (0 on success); -1
-// for a dh or dtype this file does not build.
+// (S = 1), all at dh = 64; 3 rwkv6_scan_small_kernel (any other dh up to
+// 64, any S, either dtype).  Returns cudaGetLastError() after the launch
+// (0 on success); -1 for a dh above 64 or a dtype this file does not build.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, const void* s0,
                                  void* y, void* s_out, int B, int S, int H,
                                  int dh, int dtype, int* kernel,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh != kDH || (dtype != 0 && dtype != 1)) return -1;
+  if (dh < 1 || dh > kDH || (dtype != 0 && dtype != 1)) return -1;
+  if (dh != kDH) {
+    *kernel = 3;
+    return dtype == 0
+               ? launch_small<float>(r, k, v, w, u, s0, y, s_out, B, S, H,
+                                     dh, st)
+               : launch_small<bf16>(r, k, v, w, u, s0, y, s_out, B, S, H, dh,
+                                    st);
+  }
   if (S == 1) {
     *kernel = 2;
     return dtype == 0

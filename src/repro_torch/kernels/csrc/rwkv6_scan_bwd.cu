@@ -56,11 +56,14 @@
 // Resources (ptxas -v, CUDA 12.8): 219 registers, no spills; 141 632
 // bytes of dynamic shared memory, one block an SM.
 //
-// Layouts (contiguous): r, k, v, w, dy, dr, dk, dv, dw (B, S, H, 64) in T
-// (float or __nv_bfloat16); u (H, 64) fp32; s0, ds_out, ds0 (B, H, 64, 64)
-// fp32, row = k channel, column = v channel, each may be null; du (H, 64)
+// Layouts (contiguous): r, k, v, w, dy, dr, dk, dv, dw (B, S, H, dh) in T
+// (float or __nv_bfloat16); u (H, dh) fp32; s0, ds_out, ds0 (B, H, dh, dh)
+// fp32, row = k channel, column = v channel, each may be null; du (H, dh)
 // fp32; scratch: du_part (B, H, 64) and ckpt (B, H, ceil(S / 8), 64, 64)
-// fp32.  Arithmetic is fp32; build without --use_fast_math / -ftz.
+// fp32.  dh is 64, or up to 64 on the small-width route: the same kernel
+// with r, k, v, dy past dh read as zeros and w as ones, so the padded rows
+// and columns of S and G stay zero.  Arithmetic is fp32; build without
+// --use_fast_math / -ftz.
 
 #include <atomic>
 #include <cuda_bf16.h>
@@ -123,7 +126,7 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       T* __restrict__ dk, T* __restrict__ dv,
                       T* __restrict__ dw, float* __restrict__ du_part,
                       float* __restrict__ ds0, float* __restrict__ ckpt,
-                      int S, int H) {
+                      int S, int H, int dh) {
   extern __shared__ __align__(16) float smem[];
   float* sbuf = smem;                      // [kC][j][i]: S_{t-1}
   float* r_s = sbuf + kC * kState;         // [kC][kDH] each
@@ -141,17 +144,22 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
   const bool is_row = tid < kDH;
   const int i = tid & (kDH - 1);  // a row thread's row, a column's column
   const size_t bh = (size_t)b * H + h;
-  const size_t row = (size_t)H * kDH;      // stride of one step
-  const size_t base = (size_t)b * S * row + (size_t)h * kDH;
+  const size_t row = (size_t)H * dh;       // stride of one step
+  const size_t base = (size_t)b * S * row + (size_t)h * dh;
+  const size_t sbase = bh * dh * dh;       // s0, ds_out, ds0
   const int nC = (S + kC - 1) / kC;
   float* ck = ckpt + bh * (size_t)nC * kState;
-  if (tid < kDH) u_s[tid] = u[(size_t)h * kDH + tid];
+  // a small width runs padded to 64: r, k, v, dy and u past dh read as
+  // zeros (w as ones), so the padded rows and columns of S and G stay zero
+  // and add nothing to any sum; nothing past dh is written
+  if (tid < kDH) u_s[tid] = tid < dh ? u[(size_t)h * dh + tid] : 0.f;
 
   // ---- 1. forward: checkpoints of S at every chunk's start --------------
   float st[kDH];
 #pragma unroll
   for (int j = 0; j < kDH; ++j)
-    st[j] = (is_row && s0) ? s0[bh * kState + (size_t)i * kDH + j] : 0.f;
+    st[j] = (is_row && s0 && i < dh && j < dh)
+                ? s0[sbase + (size_t)i * dh + j] : 0.f;
   for (int c = 0; c < nC; ++c) {
     if (is_row) {
 #pragma unroll
@@ -162,10 +170,12 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
     const int t0 = c * kC;                 // a whole chunk: c < nC - 1
     __syncthreads();                       // the previous chunk is consumed
     for (int e = tid; e < kC * kDH; e += kThreads) {
-      const size_t off = base + (size_t)(t0 + e / kDH) * row + e % kDH;
-      k_s[e] = to_float(k[off]);
-      v_s[e] = to_float(v[off]);
-      w_s[e] = to_float(w[off]);
+      const int d = e % kDH;
+      const size_t off = base + (size_t)(t0 + e / kDH) * row + d;
+      const bool in = d < dh;
+      k_s[e] = in ? to_float(k[off]) : 0.f;
+      v_s[e] = in ? to_float(v[off]) : 0.f;
+      w_s[e] = in ? to_float(w[off]) : 1.f;
     }
     __syncthreads();
     if (is_row) {
@@ -182,9 +192,9 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
   float g[kDH];     // row i of G (row threads) or column i (column threads)
 #pragma unroll
   for (int j = 0; j < kDH; ++j)
-    g[j] = !ds_out ? 0.f
-           : is_row ? ds_out[bh * kState + (size_t)i * kDH + j]
-                    : ds_out[bh * kState + (size_t)j * kDH + i];
+    g[j] = (!ds_out || i >= dh || j >= dh) ? 0.f
+           : is_row ? ds_out[sbase + (size_t)i * dh + j]
+                    : ds_out[sbase + (size_t)j * dh + i];
   float du_acc = 0.f;
   const int warp = tid >> 5, lane = tid & 31;
   for (int c = nC - 1; c >= 0; --c) {
@@ -192,12 +202,14 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
     const int n = min(kC, S - t0);
     __syncthreads();                       // the previous chunk is consumed
     for (int e = tid; e < n * kDH; e += kThreads) {
-      const size_t off = base + (size_t)(t0 + e / kDH) * row + e % kDH;
-      r_s[e] = to_float(r[off]);
-      k_s[e] = to_float(k[off]);
-      v_s[e] = to_float(v[off]);
-      w_s[e] = to_float(w[off]);
-      dy_s[e] = to_float(dy[off]);
+      const int d = e % kDH;
+      const size_t off = base + (size_t)(t0 + e / kDH) * row + d;
+      const bool in = d < dh;
+      r_s[e] = in ? to_float(r[off]) : 0.f;
+      k_s[e] = in ? to_float(k[off]) : 0.f;
+      v_s[e] = in ? to_float(v[off]) : 0.f;
+      w_s[e] = in ? to_float(w[off]) : 1.f;
+      dy_s[e] = in ? to_float(dy[off]) : 0.f;
     }
     __syncthreads();
     for (int t = warp; t < n; t += kThreads / 32) {
@@ -230,7 +242,7 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
         const float vd = vd_s[t];
         const float acc = dot64(st, dy_s + t * kDH, 1);
         const size_t off = base + (size_t)(t0 + t) * row + i;
-        dr[off] = from_float<T>(fmaf(ui * ki, vd, acc));
+        if (i < dh) dr[off] = from_float<T>(fmaf(ui * ki, vd, acc));
         du_acc = fmaf(ri * ki, vd, du_acc);
         if (t + 1 < n) {
           const float wi = w_s[t * kDH + i];
@@ -245,8 +257,10 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
         const float gv = dot64(g, v_s + t * kDH, 1);
         const float gs = dot64(g, sbuf + t * kState + i, kDH);
         const size_t off = base + (size_t)(t0 + t) * row + i;
-        dk[off] = from_float<T>(fmaf(ui * ri, vd_s[t], gv));
-        dw[off] = from_float<T>(wi < kFloorW ? 0.f : gs);
+        if (i < dh) {
+          dk[off] = from_float<T>(fmaf(ui * ri, vd_s[t], gv));
+          dw[off] = from_float<T>(wi < kFloorW ? 0.f : gs);
+        }
 #pragma unroll
         for (int j = 0; j < kDH; ++j)
           g[j] = fmaf(g[j], wi, ri * dy_s[t * kDH + j]);
@@ -255,8 +269,9 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
       for (int t = n - 1; t >= 0; --t) {
         const float dyj = dy_s[t * kDH + i];
         const float gk = dot64(g, k_s + t * kDH, 1);
-        dv[base + (size_t)(t0 + t) * row + i] =
-            from_float<T>(fmaf(ruk_s[t], dyj, gk));
+        if (i < dh)
+          dv[base + (size_t)(t0 + t) * row + i] =
+              from_float<T>(fmaf(ruk_s[t], dyj, gk));
 #pragma unroll
         for (int ii = 0; ii < kDH; ++ii)
           g[ii] = fmaf(g[ii], w_s[t * kDH + ii], r_s[t * kDH + ii] * dyj);
@@ -265,22 +280,24 @@ rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
   if (is_row) {
     du_part[bh * kDH + i] = du_acc;
-    if (ds0) {
+    if (ds0 && i < dh) {
 #pragma unroll
       for (int j = 0; j < kDH; ++j)
-        ds0[bh * kState + (size_t)i * kDH + j] = g[j];
+        if (j < dh) ds0[sbase + (size_t)i * dh + j] = g[j];
     }
   }
 }
 
-// du[h][i] = sum over b of du_part[b][h][i], b in order
+// du[h][i] = sum over b of du_part[b][h][i] (laid out 64 wide), b in order
 __global__ void rwkv6_du_reduce_kernel(const float* __restrict__ du_part,
-                                       float* __restrict__ du, int B,
-                                       int H) {
+                                       float* __restrict__ du, int B, int H,
+                                       int dh) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= H * kDH) return;
+  if (e >= H * dh) return;
+  const int hh = e / dh, i = e % dh;
   float s = 0.f;
-  for (int b = 0; b < B; ++b) s += du_part[(size_t)b * H * kDH + e];
+  for (int b = 0; b < B; ++b)
+    s += du_part[((size_t)b * H + hh) * kDH + i];
   du[e] = s;
 }
 
@@ -303,7 +320,7 @@ template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, const void* s0, const void* dy, const void* ds_out,
            void* dr, void* dk, void* dv, void* dw, void* du, void* ds0,
-           void* du_part, void* ckpt, int B, int S, int H,
+           void* du_part, void* ckpt, int B, int S, int H, int dh,
            cudaStream_t stream) {
   static std::atomic<unsigned long long> smem_set{0};
   cudaError_t err = allow_dynamic_smem(
@@ -313,12 +330,12 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   rwkv6_scan_bwd_kernel<T><<<grid, kThreads, kSmem, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, (const T*)w, (const float*)u,
       (const float*)s0, (const T*)dy, (const float*)ds_out, (T*)dr, (T*)dk,
-      (T*)dv, (T*)dw, (float*)du_part, (float*)ds0, (float*)ckpt, S, H);
+      (T*)dv, (T*)dw, (float*)du_part, (float*)ds0, (float*)ckpt, S, H, dh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n = H * kDH;
+  const int n = H * dh;
   rwkv6_du_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      (const float*)du_part, (float*)du, B, H);
+      (const float*)du_part, (float*)du, B, H, dh);
   return (int)cudaGetLastError();
 }
 
@@ -327,9 +344,11 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, dy and dr, dk, dv, dw).
 // s0, ds_out and ds0 may be null (zeros in; not written).  du_part
 // (B * H * 64 floats) and ckpt (B * H * ceil(S / 8) * 64 * 64 floats) are
-// scratch.  *kernel receives 0 (rwkv6_scan_bwd_kernel, the one route).
-// Returns cudaGetLastError() after the launches (0 on success); -1 for a
-// dh or dtype this file does not build.
+// scratch, laid out 64 wide whatever dh.  *kernel receives 0
+// (rwkv6_scan_bwd_kernel at dh = 64) or 2 (the same kernel at a small
+// width: any dh up to 64, padded to 64).  Returns cudaGetLastError() after
+// the launches (0 on success); -1 for a dh above 64 or a dtype this file
+// does not build.
 extern "C" int rwkv6_scan_bwd_launch(
     const void* r, const void* k, const void* v, const void* w,
     const void* u, const void* s0, const void* dy, const void* ds_out,
@@ -337,13 +356,13 @@ extern "C" int rwkv6_scan_bwd_launch(
     void* du_part, void* ckpt, int B, int S, int H, int dh, int dtype,
     int* kernel, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh != kDH || S < 1) return -1;
-  *kernel = 0;
+  if (dh < 1 || dh > kDH || S < 1) return -1;
+  *kernel = dh == kDH ? 0 : 2;
   if (dtype == 0)
     return launch<float>(r, k, v, w, u, s0, dy, ds_out, dr, dk, dv, dw, du,
-                         ds0, du_part, ckpt, B, S, H, st);
+                         ds0, du_part, ckpt, B, S, H, dh, st);
   if (dtype == 1)
     return launch<bf16>(r, k, v, w, u, s0, dy, ds_out, dr, dk, dv, dw, du,
-                        ds0, du_part, ckpt, B, S, H, st);
+                        ds0, du_part, ckpt, B, S, H, dh, st);
   return -1;
 }

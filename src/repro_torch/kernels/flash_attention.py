@@ -9,6 +9,12 @@ the Pallas kernel it needs no block-divisible sequence lengths: ragged
 tails are masked.  Its plain version is ``kernels/ref.py::mha_attention``;
 ``kernels/ops.py`` picks between them by the tensors' device.
 
+Routes, by width and dtype (``last_kernel``; ``routes`` counts each): bf16
+with D = 64 or 128 takes the tensor-core kernel, fp32 with D = 64 or 128
+the FMA kernel, and any other D up to ``MAX_HEAD_DIM`` (the reduced
+configs' 16) the small-width route, the FMA kernel laid out 64 or 128 wide
+with the columns past D zero, in either dtype.  A wider head raises.
+
 The Pallas kernel has no backward (JAX trains through the jnp attention).
 Here the gradient is a kernel too: ``FlashAttentionFn`` runs the forward
 with its per-row log-sum-exp and the backward through
@@ -27,11 +33,22 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
-# K2-bwd's device kernels (dK/dV, dQ), by the id its C entry point writes to
-# its ``kernel`` out-parameter: the FMA pair, the wgmma pair (bf16, D = 64)
+HEAD_DIMS = (64, 128)      # the fast routes' widths
+MAX_HEAD_DIM = 128         # the small-width route takes any other D up to it
+# K2's device kernel and route, by the id its C entry point writes to its
+# ``kernel`` out-parameter
+KERNELS = ("flash_attention_kernel", "flash_attention_mma_kernel",
+           "flash_attention_kernel")
+ROUTES = ("fp32", "mma", "small")
+_route = ctypes.c_int(-1)
+_ROUTE_ADDR = ctypes.addressof(_route)
+# K2-bwd's device kernels (dK/dV, dQ) and route, by the id its C entry
+# point writes: the FMA pair, the wgmma pair (bf16, D = 64), the FMA pair at
+# a small width
 BWD_KERNELS = (("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"),
-               ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"))
+               ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"),
+               ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"))
+BWD_ROUTES = ("fma", "wgmma", "small")
 _bwd_route = ctypes.c_int(-1)
 _BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
 
@@ -54,12 +71,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(B,Hkv,Skv,D)")
     B, H, Sq, D = q.shape
     Bk, Hkv, Skv, Dk = k.shape
-    if D not in HEAD_DIMS or Dk != D or Bk != B or v.shape != k.shape \
-            or H % Hkv:
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{what} kernel: head width D={D} is above the "
+                         f"widest this kernel takes, {MAX_HEAD_DIM}")
+    if Dk != D or Bk != B or v.shape != k.shape or H % Hkv:
         raise ValueError(
             f"{what} kernel: unsupported shapes q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}, v {tuple(v.shape)} (D must be one of "
-            f"{HEAD_DIMS})")
+            f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what} kernel: tensors must be contiguous")
 
@@ -74,12 +92,13 @@ def _forward(q, k, v, causal, scale, compute_dtype, lse):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              0 if lse is None else lse.data_ptr(),
              B, H, Hkv, Sq, Skv, D, int(causal), float(scale),
-             COMPUTE_DTYPES[compute_dtype], DTYPES[q.dtype],
+             COMPUTE_DTYPES[compute_dtype], DTYPES[q.dtype], _ROUTE_ADDR,
              _build.raw_stream(q.device))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention.launches += 1
+    _build.count(flash_attention, ROUTES[_route.value])
+    flash_attention.last_kernel = KERNELS[_route.value]
     return out
 
 
@@ -99,6 +118,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.routes = {}
+flash_attention.last_kernel = None
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -147,12 +168,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention_bwd.launches += 1
+    _build.count(flash_attention_bwd, BWD_ROUTES[_bwd_route.value])
     flash_attention_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {}
 flash_attention_bwd.last_kernel = None
 
 

@@ -17,8 +17,12 @@ copied 16 bytes at a time).  ``dt``, ``A``, ``D`` and ``h0`` are read as
 contiguous fp32 (cast or copied here if they are not; they are small).
 
 The C entry point reports the device kernel it launched, read back as
-``mamba2_scan.last_kernel``: ``mamba2_scan_mma_kernel`` (bf16, the chunk
-products on the tensor cores) or ``mamba2_scan_kernel`` (fp32).
+``mamba2_scan.last_kernel``: at dh = ds = 64 ``mamba2_scan_mma_kernel``
+(bf16, the chunk products on the tensor cores) or ``mamba2_scan_kernel``
+(fp32); at any other dh, ds up to ``MAX_DIM`` (the reduced configs' 8) the
+small-width route ``mamba2_scan_small_kernel`` (either dtype: one block a
+(b, h) stepping t with the state in shared memory).  ``routes`` counts the
+launches of each route; a wider head or state raises.
 
 Its backward is K3-bwd (wrapper ``mamba2_scan_bwd``; plain version
 ``ref.mamba2_scan_bwd``), two routes picked by dtype and reported as
@@ -28,7 +32,9 @@ chunk-parallel, the chunk products on the tensor cores; x, B and C by
 their strides, 16-byte aligned as for the bf16 forward), fp32
 ``csrc/mamba2_scan_bwd.cu`` (``mamba2_scan_bwd_kernel``: sequential on the
 CUDA cores, no alignment needed).  Both give the gradients of x, B and C
-as contiguous tensors.  ``Mamba2ScanFn`` joins K3 and K3-bwd as one
+as contiguous tensors.  Any other dh, ds up to ``MAX_DIM`` takes the
+small-width route in either dtype: the sequential kernel with its widths
+padded to 64 by zeros (``csrc/mamba2_scan_bwd.cu``).  ``Mamba2ScanFn`` joins K3 and K3-bwd as one
 differentiable function, which ``ops.mamba2_scan`` takes under grad.
 """
 from __future__ import annotations
@@ -40,17 +46,22 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64,)
+HEAD_DIMS = (64,)          # the fast routes' widths (dh = ds = 64)
 STATE_DIMS = (64,)
+MAX_DIM = 64               # the small-width route takes dh, ds up to it
 # by the id the C entry point writes to its ``kernel`` out-parameter
-KERNELS = ("mamba2_scan_kernel", "mamba2_scan_mma_kernel")
+KERNELS = ("mamba2_scan_kernel", "mamba2_scan_mma_kernel",
+           "mamba2_scan_small_kernel")
+ROUTES = ("fp32", "mma", "small")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
 # K3-bwd, by the id its C entry points write: the fp32 route (one kernel
 # and its sum over heads; CHUNK_BWD steps a checkpoint) and the bf16 route
 # (chunks of CHUNK steps: the chunk kernel, the state walk before it and
 # the sum after it)
-BWD_KERNELS = ("mamba2_scan_bwd_kernel", "mamba2_scan_bwd_chunk_kernel")
+BWD_KERNELS = ("mamba2_scan_bwd_kernel", "mamba2_scan_bwd_chunk_kernel",
+               "mamba2_scan_bwd_kernel")
+BWD_ROUTES = ("fp32", "chunk", "small")
 CHUNK_BWD = 8
 CHUNK = 64
 _bwd_route = ctypes.c_int(-1)
@@ -74,8 +85,11 @@ def _check(x, dt, A, Bmat, Cmat, D, h0, name: str):
                          "Bmat/Cmat (B,S,ds)")
     B, S, H, dh = x.shape
     ds = Bmat.shape[-1]
-    if dh not in HEAD_DIMS or ds not in STATE_DIMS \
-            or tuple(Bmat.shape) != (B, S, ds) \
+    if not (1 <= dh <= MAX_DIM and 1 <= ds <= MAX_DIM):
+        raise ValueError(f"{name} kernel: head width dh={dh} or state "
+                         f"width ds={ds} is above the widest this kernel "
+                         f"takes, {MAX_DIM}")
+    if tuple(Bmat.shape) != (B, S, ds) \
             or tuple(Cmat.shape) != (B, S, ds) \
             or tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,) \
             or tuple(D.shape) != (H,) \
@@ -83,8 +97,7 @@ def _check(x, dt, A, Bmat, Cmat, D, h0, name: str):
         raise ValueError(
             f"{name} kernel: unsupported shapes x {tuple(x.shape)}, dt "
             f"{tuple(dt.shape)}, Bmat {tuple(Bmat.shape)}, Cmat "
-            f"{tuple(Cmat.shape)}, A {tuple(A.shape)}, D {tuple(D.shape)} "
-            f"(dh must be one of {HEAD_DIMS}, ds one of {STATE_DIMS})")
+            f"{tuple(Cmat.shape)}, A {tuple(A.shape)}, D {tuple(D.shape)}")
     if x.stride(3) != 1 or x.stride(2) != dh or Bmat.stride(2) != 1 \
             or Cmat.stride(2) != 1:
         raise ValueError(f"{name} kernel: x must be dense over (H, dh) "
@@ -92,6 +105,11 @@ def _check(x, dt, A, Bmat, Cmat, D, h0, name: str):
                          "free)")
     return B, S, H, dh, ds, (x.stride(0), x.stride(1), Bmat.stride(0),
                              Bmat.stride(1), Cmat.stride(0), Cmat.stride(1))
+
+
+def _fast(dh: int, ds: int) -> bool:
+    """Whether (dh, ds) takes a fast route (else the small-width one)."""
+    return dh in HEAD_DIMS and ds in STATE_DIMS
 
 
 def _check_aligned(x, Bmat, Cmat, strides, name: str) -> None:
@@ -112,7 +130,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (B,H,ds,dh) fp32]."""
     B, S, H, dh, ds, strides = _check(x, dt, A, Bmat, Cmat, D, h0,
                                       "mamba2_scan")
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and _fast(dh, ds):
         _check_aligned(x, Bmat, Cmat, strides, "mamba2_scan")
     dt, A, D, h0 = (_build.fp32(t) for t in (dt, A, D, h0))
     y = torch.empty((B, S, H, dh), dtype=x.dtype, device=x.device)
@@ -129,12 +147,13 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if err:
             raise RuntimeError(f"mamba2_scan kernel launch failed: CUDA "
                                f"error {err}")
-        mamba2_scan.launches += 1
+        _build.count(mamba2_scan, ROUTES[_route.value])
         mamba2_scan.last_kernel = KERNELS[_route.value]
     return (y, h_out) if return_state else y
 
 
 mamba2_scan.launches = 0
+mamba2_scan.routes = {}
 mamba2_scan.last_kernel = None
 
 
@@ -159,7 +178,8 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("mamba2_scan_bwd kernel: dy must have x's shape, "
                          "dtype and device, dh_out the state's shape")
     dy = dy.contiguous()
-    if x.dtype == torch.bfloat16:
+    chunked = x.dtype == torch.bfloat16 and _fast(dh, ds)
+    if chunked:
         _check_aligned(x, Bmat, Cmat, strides, "mamba2_scan_bwd")
         if dy.data_ptr() % 16:         # its rows too go 16 bytes at a time
             dy = dy.clone()
@@ -182,7 +202,7 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             None if dh_out is None else dh_out.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
             dD.data_ptr(), None if dh0 is None else dh0.data_ptr())
-    if x.dtype == torch.bfloat16:
+    if chunked:
         # scratch: each head's parts of dB and dC; each chunk's h_in and
         # G_out; each (b, h, chunk)'s dA and dD partials
         n_chunks = -(-S // CHUNK)
@@ -194,11 +214,13 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         err = fn(*ptrs, scratch.data_ptr(), B, S, H, dh, ds, *strides,
                  _BWD_ROUTE_ADDR, _build.raw_stream(dev))
     else:
-        # scratch: each head's parts of dB and dC, the batch's dA and dD
-        # partials, the state at every CHUNK_BWD-th step
+        # scratch, laid out 64 wide whatever dh and ds: each head's parts
+        # of dB and dC, the batch's dA and dD partials, the state at every
+        # CHUNK_BWD-th step
         n_chunks = -(-S // CHUNK_BWD)
-        scratch = torch.empty(2 * B * S * H * ds + 2 * B * H
-                              + B * H * n_chunks * ds * dh,
+        w = MAX_DIM
+        scratch = torch.empty(2 * B * S * H * w + 2 * B * H
+                              + B * H * n_chunks * w * w,
                               dtype=torch.float32, device=dev)
         fn = _build.load("mamba2_scan_bwd")
         err = fn(*ptrs, scratch.data_ptr(), B, S, H, dh, ds, *strides,
@@ -206,12 +228,13 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if err:
         raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    mamba2_scan_bwd.launches += 1
+    _build.count(mamba2_scan_bwd, BWD_ROUTES[_bwd_route.value])
     mamba2_scan_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dx, ddt, dA, dB, dC, dD, dh0
 
 
 mamba2_scan_bwd.launches = 0
+mamba2_scan_bwd.routes = {}
 mamba2_scan_bwd.last_kernel = None
 
 

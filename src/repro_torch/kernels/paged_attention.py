@@ -13,6 +13,12 @@ the same call combines.  The number of partitions comes from the page
 table's shape alone: the wrapper never reads ``seq_lens`` on the host, so
 it does not synchronise with the card.  ``paged_attention.last_blocks``
 holds the partial kernel's grid size as the last launch set it.
+
+That split-K route takes D = 64 and 128.  Any other D up to
+``MAX_HEAD_DIM`` (the reduced configs' 16) takes the small-width route,
+``paged_small_kernel``: one block a (head, sequence), scalar loads through
+the page table, one key a thread, fp32 online softmax.  ``routes`` counts
+the launches of each route ("split_k", "small"); a wider head raises.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)      # the split-K route's widths
+MAX_HEAD_DIM = 128         # the small-width route takes any other D up to it
 PART_KEYS = 128   # keys a partition (one block per partition and KV head)
 
 
@@ -55,17 +62,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          "(P,page,Hkv,D), page_table (B,max_pages)")
     B, H, D = q.shape
     P, page, Hkv, Dk = k_pages.shape
-    if D not in HEAD_DIMS or Dk != D or v_pages.shape != k_pages.shape \
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention kernel: head width D={D} is "
+                         f"above the widest this kernel takes, "
+                         f"{MAX_HEAD_DIM}")
+    if Dk != D or v_pages.shape != k_pages.shape \
             or H % Hkv or page_table.shape[0] != B \
             or tuple(seq_lens.shape) != (B,):
         raise ValueError(
             f"paged_attention kernel: unsupported shapes q {tuple(q.shape)}, "
             f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)}, "
             f"page_table {tuple(page_table.shape)}, seq_lens "
-            f"{tuple(seq_lens.shape)} (D must be one of {HEAD_DIMS})")
+            f"{tuple(seq_lens.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel: tensors must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+    small = D not in HEAD_DIMS
+    if not small and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("paged_attention kernel: q and the pools must be "
                          "16-byte aligned (rows are read 16 bytes at a "
                          "time)")
@@ -75,8 +87,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     n_split = -(-max_pages * page // PART_KEYS)
     if out.numel() == 0 or n_split == 0:
         return out.zero_()
-    part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
-                       device=q.device)
+    # the small-width route keeps no partials
+    part = torch.empty(1 if small else B * H * n_split * (D + 2),
+                       dtype=torch.float32, device=q.device)
     fn = _build.load("paged_attention")
     blocks = ctypes.c_int(0)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -87,10 +100,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    _build.count(paged_attention, "small" if small else "split_k")
     paged_attention.last_blocks = blocks.value
     return out
 
 
 paged_attention.launches = 0
+paged_attention.routes = {}
 paged_attention.last_blocks = 0

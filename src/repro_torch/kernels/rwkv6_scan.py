@@ -20,7 +20,13 @@ function, which ``ops.rwkv6_scan`` takes under grad.
 The C entry point picks one of three device kernels and reports it, read
 back as ``rwkv6_scan.last_kernel``: ``rwkv6_scan_mma_kernel`` (bf16,
 S > 1: chunk-parallel on the tensor cores), ``rwkv6_scan_decode_kernel``
-(S = 1, either dtype) and ``rwkv6_scan_kernel`` (fp32, S > 1).  The decode
+(S = 1, either dtype) and ``rwkv6_scan_kernel`` (fp32, S > 1), all at
+dh = 64; at any other dh up to ``MAX_DIM`` (the reduced configs' 16)
+``rwkv6_scan_small_kernel``, the small-width route for any S and either
+dtype (one block a (b, h) stepping t with the state in shared memory).
+K4-bwd's small-width route is its sequential kernel with dh padded to 64
+by zeros.  ``routes`` counts the launches of each route; a wider head
+raises.  The decode
 step calls this wrapper once a layer, so it keeps its host work short: one
 pass of checks, no copies of tensors that are already fp32 and
 contiguous, and the stream read as a raw handle.
@@ -34,17 +40,21 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64,)
+HEAD_DIMS = (64,)          # the fast routes' width
+MAX_DIM = 64               # the small-width route takes any other dh up to it
 # by the id the C entry point writes to its ``kernel`` out-parameter
 KERNELS = ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
-           "rwkv6_scan_decode_kernel")
+           "rwkv6_scan_decode_kernel", "rwkv6_scan_small_kernel")
+ROUTES = ("fp32", "mma", "decode", "small")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
 # K4-bwd, by the id its C entry points write: the fp32 route (one kernel
 # and its du reduction; CHUNK_BWD steps a checkpoint) and the bf16 route
 # (chunks of CHUNK steps: the chunk kernel, the state walk before it and
 # the du sum after it)
-BWD_KERNELS = ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd_chunk_kernel")
+BWD_KERNELS = ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd_chunk_kernel",
+               "rwkv6_scan_bwd_kernel")
+BWD_ROUTES = ("fp32", "chunk", "small")
 CHUNK_BWD = 8
 CHUNK = 64
 _bwd_route = ctypes.c_int(-1)
@@ -73,12 +83,15 @@ def _check(r, k, v, w, u, s0, name: str) -> tuple[int, int, int, int]:
                          f"one shape, got "
                          f"{[tuple(t.shape) for t in (r, k, v, w)]}")
     B, S, H, dh = shape
-    if dh not in HEAD_DIMS or u.shape != (H, dh) or (
+    if not 1 <= dh <= MAX_DIM:
+        raise ValueError(f"{name} kernel: head width dh={dh} is above the "
+                         f"widest this kernel takes, {MAX_DIM}")
+    if u.shape != (H, dh) or (
             s0 is not None and s0.shape != (B, H, dh, dh)):
         raise ValueError(
             f"{name} kernel: unsupported shapes r {tuple(r.shape)}, u "
             f"{tuple(u.shape)}, s0 {None if s0 is None else tuple(s0.shape)}"
-            f" (dh must be one of {HEAD_DIMS})")
+            )
     if not (r.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and w.is_contiguous()):
         raise ValueError(f"{name} kernel: r/k/v/w must be contiguous")
@@ -95,7 +108,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = r.device
     u, s0 = _build.fp32(u), _build.fp32(s0)
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr())
-    if any(p % 16 for p in ptrs):
+    if dh in HEAD_DIMS and any(p % 16 for p in ptrs):
         raise ValueError("rwkv6_scan kernel: r/k/v/w must be 16-byte "
                          "aligned (rows are copied 16 bytes at a time)")
     y = torch.empty_like(r)
@@ -110,12 +123,13 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if err:
             raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA "
                                f"error {err}")
-        rwkv6_scan.launches += 1
+        _build.count(rwkv6_scan, ROUTES[_route.value])
         rwkv6_scan.last_kernel = KERNELS[_route.value]
     return (y, s_out) if return_state else y
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.routes = {}
 rwkv6_scan.last_kernel = None
 
 
@@ -138,7 +152,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("rwkv6_scan_bwd kernel: dy must have r's shape, "
                          "dtype and device, ds_out the state's shape")
     dy = dy.contiguous()
-    if r.dtype == torch.bfloat16:      # rows are read 16 bytes at a time
+    chunked = r.dtype == torch.bfloat16 and dh in HEAD_DIMS
+    if chunked:                        # rows are read 16 bytes at a time
         if any(t.data_ptr() % 16 for t in (r, k, v, w)):
             raise ValueError("rwkv6_scan_bwd kernel: bf16 r/k/v/w must be "
                              "16-byte aligned")
@@ -156,7 +171,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dy.data_ptr(), None if ds_out is None else ds_out.data_ptr(),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
             du.data_ptr(), None if ds0 is None else ds0.data_ptr())
-    if r.dtype == torch.bfloat16:
+    if chunked:
         # scratch: each chunk's S_in and G_out, then its du partial
         n_chunks = -(-S // CHUNK)
         scratch = torch.empty(B * H * n_chunks * dh * (2 * dh + 1),
@@ -165,23 +180,26 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(*ptrs, scratch.data_ptr(), B, S, H, dh, _BWD_ROUTE_ADDR,
                  _build.raw_stream(dev))
     else:
-        # scratch: the batch's du partials, then S at every 8th step
+        # scratch, laid out 64 wide whatever dh: the batch's du partials,
+        # then S at every 8th step
         n_chunks = -(-S // CHUNK_BWD)
-        scratch = torch.empty(B * H * dh * (1 + n_chunks * dh),
+        w = MAX_DIM
+        scratch = torch.empty(B * H * w * (1 + n_chunks * w),
                               dtype=torch.float32, device=dev)
         fn = _build.load("rwkv6_scan_bwd")
-        err = fn(*ptrs, scratch.data_ptr(), scratch[B * H * dh:].data_ptr(),
+        err = fn(*ptrs, scratch.data_ptr(), scratch[B * H * w:].data_ptr(),
                  B, S, H, dh, DTYPES[r.dtype], _BWD_ROUTE_ADDR,
                  _build.raw_stream(dev))
     if err:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    rwkv6_scan_bwd.launches += 1
+    _build.count(rwkv6_scan_bwd, BWD_ROUTES[_bwd_route.value])
     rwkv6_scan_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dr, dk, dv, dw, du, ds0
 
 
 rwkv6_scan_bwd.launches = 0
+rwkv6_scan_bwd.routes = {}
 rwkv6_scan_bwd.last_kernel = None
 
 

@@ -14,11 +14,19 @@ Groups are made with ``use_local_synchronization``: only their members
 take part, so ranks outside a mesh (dropped by an elastic re-mesh) need
 not call in, and a group of the same ranks is made once and reused.
 Every process may call ``make_mesh`` with the same arguments; one outside
-the mesh gets ``coords`` None.  The production meshes of the JAX module (a
-16x16 TPU pod) have no counterpart here.
+the mesh gets ``coords`` None.  A collective over several axes at once (a
+spec entry such as ``("data", "model")``) runs on ``group(axes)``: the
+ranks that share every coordinate but those axes, made for every set of
+axes when the mesh is.
+
+``production_torus`` is the topology twin of the JAX module's production
+mesh (16x16, or 2x16x16 over "pod"); ``host_test_mesh`` its small test
+mesh, here over the first ranks.  ``make_production_mesh`` needs 256 or
+512 ranks and waits for the dry run (ROADMAP item 10).
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch.distributed as dist
@@ -65,14 +73,23 @@ class Mesh:
         if self.coords is None:
             return
         self.all_group = _group(self.ranks)
-        for ax_i, ax in enumerate(axis_names):
-            line = []
-            for pos in range(shape[ax_i]):
-                c = list(self.coords)
-                c[ax_i] = pos
-                line.append(self.ranks[self.torus.rank(tuple(c))])
-            self._lines[ax] = tuple(line)
-            self._groups[ax] = _group(tuple(line))
+        # every set of axes, in axis order: its line through this rank,
+        # row-major over those axes (the first the major one)
+        for k in range(1, len(axis_names) + 1):
+            for sub in itertools.combinations(range(len(axis_names)), k):
+                line = []
+                for pos in itertools.product(*(range(shape[i])
+                                               for i in sub)):
+                    c = list(self.coords)
+                    for i, v in zip(sub, pos):
+                        c[i] = v
+                    line.append(self.ranks[self.torus.rank(tuple(c))])
+                key = tuple(axis_names[i] for i in sub)
+                self._lines[key] = tuple(line)
+                self._groups[key] = _group(tuple(line))
+                if k == 1:
+                    self._lines[key[0]] = tuple(line)
+                    self._groups[key[0]] = self._groups[key]
 
     def __contains__(self, rank: int) -> bool:
         return rank in self.ranks
@@ -81,13 +98,16 @@ class Mesh:
         """This rank's position along ``axis`` (JAX: ``lax.axis_index``)."""
         return self.coords[self.axis_names.index(axis)]
 
-    def line(self, axis: str) -> tuple[int, ...]:
-        """Global ranks of this rank's line along ``axis``, by position."""
-        return self._lines[axis]
+    def line(self, axis) -> tuple[int, ...]:
+        """Global ranks of this rank's line along ``axis`` (a name, or a
+        tuple of names in axis order), by position."""
+        return self._lines[axis if isinstance(axis, str) else tuple(axis)]
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
-        return self._groups[axis]
+    def group(self, axis):
+        """The process group of this rank's line along ``axis`` (a name,
+        or a tuple of names in axis order); its ranks run in the line's
+        order, since the mesh's ranks ascend."""
+        return self._groups[axis if isinstance(axis, str) else tuple(axis)]
 
 
 def make_mesh(shape, axis_names, *, ranks=None) -> Mesh:
@@ -103,3 +123,15 @@ def make_mesh(shape, axis_names, *, ranks=None) -> Mesh:
                              f"world has {dist.get_world_size()}")
         ranks = range(need)
     return Mesh(shape, axis_names, list(ranks))
+
+
+def production_torus(*, multi_pod: bool = False) -> Torus:
+    """Topology twin of the JAX package's production mesh: 16x16 ("data",
+    "model"), or 2x16x16 with "pod" (rank i of the torus is device i of
+    the mesh, both row-major)."""
+    return Torus((2, 16, 16) if multi_pod else (16, 16))
+
+
+def host_test_mesh(shape=(8,), axes=("x",)) -> Mesh:
+    """Small mesh over the first ranks (tests / demos only)."""
+    return make_mesh(shape, axes)

@@ -1,25 +1,26 @@
 """Training launcher.
 
 The counterpart of the JAX package's ``launch/train.py``, with its flags
-plus ``--device``.  On the card (the default) one process trains on one
-device:
+plus ``--device``.  ``--comm gspmd`` is the default, as in JAX: the
+parameters, AdamW moments and batch sharded by ``parallel/sharding.py``'s
+specs over a ("data", "model") mesh (``--mesh dp,tp``; default: every
+rank on "data").  One process is one rank, launched under ``torchrun``
+(NCCL on cards, one device a rank; gloo with ``--device cpu``):
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch smollm-135m --reduced --mesh 4,2 --device cpu
+
+With one rank it trains ``single``, as JAX's launcher does on one device.
+On the card:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
-      --steps 10 --batch 8 --seq 1024 --comm single
+      --steps 10 --batch 8 --seq 1024
 
 ``--comm apex`` is the paper-faithful explicit torus-collective data
 parallelism (bidirectional ring reduce-scatter / all-gather as
-``torch.distributed`` point-to-point rounds): one process a rank, launched
-under ``torchrun`` (NCCL on cards, one device a rank; gloo with
-``--device cpu``):
-
-  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
-      --arch smollm-135m --reduced --comm apex --device cpu
-
-``--comm gspmd`` (the JAX launcher's default, XLA's sharding propagation)
-is not ported (ROADMAP item 8); here the default is ``single``.  The JAX
-launcher's ``--devices`` (forced host devices) has no counterpart: ranks
-are processes.
+``torch.distributed`` point-to-point rounds) over a one-axis mesh of every
+rank.  The JAX launcher's ``--devices`` (forced host devices) has no
+counterpart: ranks are processes.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import os
 import sys
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true",
@@ -37,9 +38,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", default="",
-                    help="mesh as 'dp,tp' (gspmd only; not ported)")
+                    help="mesh as 'dp,tp' (gspmd; default: all ranks on dp)")
     ap.add_argument("--comm", choices=["gspmd", "apex", "single"],
-                    default="single")
+                    default="gspmd")
     ap.add_argument("--ckpt-dir", default="/tmp/apex_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--grad-accum", type=int, default=1,
@@ -49,7 +50,24 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (one device a rank) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def resolve_comm(comm: str, world: int) -> str:
+    """One rank trains single, whatever ``--comm`` says (JAX: one device)."""
+    return comm if world > 1 else "single"
+
+
+def parse_mesh(spec: str, world: int) -> tuple[int, int]:
+    """``--mesh 'dp,tp'`` as (dp, tp); default every rank on "data"."""
+    if not spec:
+        return world, 1
+    dp, tp = (int(x) for x in spec.split(","))
+    return dp, tp
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     import torch
     import torch.distributed as dist
@@ -65,21 +83,17 @@ def main(argv=None) -> int:
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
     mesh = None
-    if args.comm != "single" and world > 1:
+    args.comm = resolve_comm(args.comm, world)
+    if args.comm != "single":
         cuda = torch.device(args.device).type == "cuda"
         if cuda:
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         # torchrun's environment (MASTER_ADDR, RANK, WORLD_SIZE)
         dist.init_process_group("nccl" if cuda else "gloo")
-        if args.comm == "apex":
+        if args.comm == "apex" and not args.mesh:
             mesh = make_mesh((world,), ("data",))
-        elif args.mesh:
-            dp, tp = (int(x) for x in args.mesh.split(","))
-            mesh = make_mesh((dp, tp), ("data", "model"))
-        else:
-            mesh = make_mesh((world, 1), ("data", "model"))
-    else:
-        args.comm = "single"
+        else:       # --mesh dp,tp, or every rank on "data" (JAX's order)
+            mesh = make_mesh(parse_mesh(args.mesh, world), ("data", "model"))
 
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10),
                       total_steps=max(args.steps, 1))

@@ -14,6 +14,9 @@ family reads (per-layer ``torch.utils.checkpoint``; zamba2 recomputes its
 mamba layers and not its shared block, as JAX does);
 ``init_decode_state(batch, max_len, device="cuda")`` builds zero state on
 the card unless the caller asks for the CPU (encdec raises ``TypeError``).
+``param_shapes(cfg)`` gives the JAX pytree's keys and leaf shapes (layer-
+stacked where JAX stacks) as meta tensors, which hold no memory: the
+sharding rules (``parallel/sharding.py``) read them.
 """
 from __future__ import annotations
 
@@ -107,3 +110,14 @@ def get_model(cfg: ArchCfg) -> Model:
             init_decode_state=_state_from_prefill,
         )
     raise ValueError(f"unknown family {fam}")
+
+
+def param_shapes(cfg: ArchCfg) -> dict:
+    """The JAX ``init`` pytree's nested keys with one meta tensor (shape and
+    dtype, no memory) per leaf, stacked along the layer axis where JAX
+    stacks: the model is built on the ``meta`` device."""
+    from repro_torch import weights
+    model = weights.model_class(cfg)(cfg, device="meta")
+    return weights.nest({path: weights.leaf_tensor(cfg, path, ps).detach()
+                         for path, ps in weights.jax_leaves(cfg,
+                                                            model).items()})

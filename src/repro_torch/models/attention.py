@@ -37,18 +37,24 @@ def init_attn(cfg: ArchCfg, gen, device) -> Params:
 
 
 def _project_qkv(cfg: ArchCfg, p: Params, xq: torch.Tensor,
-                 xkv: torch.Tensor):
+                 xkv: torch.Tensor, *, w=None, heads=None):
+    """q (B, Sq, H, hd), k and v (B, Skv, Hkv, hd).  ``w`` reads a weight
+    by name (default ``p[name]``) and ``heads`` is the (H, Hkv) its
+    weights give (default the config's): the tensor-parallel stack passes
+    its rank's slices and head counts."""
+    w = w or p.__getitem__
+    H, Hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
     hd = cfg.resolved_head_dim
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
-    q = xq @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
+    q = xq @ w("wq")
+    k = xkv @ w("wk")
+    v = xkv @ w("wv")
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, Sq, cfg.n_heads, hd)
-    k = k.reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = v.reshape(B, Skv, cfg.n_kv_heads, hd)
+        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
+    q = q.reshape(B, Sq, H, hd)
+    k = k.reshape(B, Skv, Hkv, hd)
+    v = v.reshape(B, Skv, Hkv, hd)
     return q, k, v
 
 
@@ -57,24 +63,31 @@ def compute_dtype(cfg: ArchCfg) -> torch.dtype:
 
 
 def attn_full(cfg: ArchCfg, p: Params, x: torch.Tensor, *, freqs=None,
-              causal: bool = True, positions=None):
+              causal: bool = True, positions=None, w=None, heads=None,
+              kv=None):
     """Full-sequence self-attention (training / prefill).
 
-    Returns (out, (k, v)) so prefill can persist the cache."""
+    ``w`` and ``heads`` as in ``_project_qkv``; ``kv`` maps this call's
+    (k, v) to the keys and values its queries attend to (default: those;
+    the sequence-sliced stack gathers the other ranks' in front of its
+    own, so causal keys stay right-aligned).  Returns (out, (k, v)) so
+    prefill can persist the cache; out is the product with ``w("wo")``."""
+    w = w or p.__getitem__
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, x)
+    q, k, v = _project_qkv(cfg, p, x, x, w=w, heads=heads)
     if freqs is not None:
         pos = positions if positions is not None else \
             torch.arange(S, device=x.device)[None]
         q = apply_rope(q, pos, freqs)
         k = apply_rope(k, pos, freqs)
+    ka, va = kv(k, v) if kv is not None else (k, v)
     # the kernel takes contiguous (B, H, S, D)
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), causal=causal,
+                              ka.transpose(1, 2).contiguous(),
+                              va.transpose(1, 2).contiguous(), causal=causal,
                               compute_dtype=compute_dtype(cfg))
     out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ p["wo"], (k, v)
+    return out @ w("wo"), (k, v)
 
 
 def attn_cross(cfg: ArchCfg, p: Params, x: torch.Tensor, kv_cache):

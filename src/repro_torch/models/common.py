@@ -80,10 +80,10 @@ class ArchCfg:
     dtype: Any = torch.bfloat16     # activations / layer params
     # True for archs whose attention is quadratic in context
     full_attention: bool = True
-    # The next four select JAX-side implementations (recurrent scan,
-    # GSPMD activation policy, MoE dispatch, parallelism).  They are kept so
-    # the configs stay the same data in both packages; this slice of the
-    # port reads none of them.
+    # The next four select implementations: the recurrent scan (JAX only:
+    # the port's device picks it), the tensor-parallel activation layout
+    # and the parallelism (read by the sharding rules and the dense stack
+    # under a mesh), the MoE dispatch (ep_a2a waits for ROADMAP item 7).
     scan_impl: str = "auto"
     tp_activations: str = "free"
     moe_impl: str = "global"
@@ -138,6 +138,12 @@ class Params(nn.Module):
     JAX code.  Parameters are made without gradient, so the serving entry
     points build no graph; the trainer turns ``requires_grad`` on for the
     parameters it owns.
+
+    Under the GSPMD trainer a rank holds its shard of each parameter, with
+    the per-layer spec in ``param.spec``; indexing then gives the whole
+    tensor, gathered over the runtime mesh where the layer reads it
+    (``parallel.spmd.gather_param``), and ``local(name)`` the shard
+    itself, for the tensor-parallel layers.
     """
 
     def __init__(self, **tensors: torch.Tensor) -> None:
@@ -146,10 +152,25 @@ class Params(nn.Module):
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
+        return full(self._parameters[name])
+
+    def local(self, name: str) -> torch.Tensor:
+        """The parameter as this rank holds it (its shard under GSPMD)."""
         return self._parameters[name]
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters
+
+
+def full(p: torch.Tensor) -> torch.Tensor:
+    """A parameter as a layer reads it: gathered over the runtime mesh
+    when the GSPMD trainer holds it sharded (its spec in ``p.spec``), else
+    itself."""
+    spec = getattr(p, "spec", None)
+    if spec is not None and any(e is not None for e in spec):
+        from repro_torch.parallel import spmd
+        return spmd.gather_param(p)
+    return p
 
 
 def dense_init(gen: torch.Generator | None, shape, dtype, device,
@@ -228,14 +249,21 @@ def init_mlp(cfg: ArchCfg, gen, device) -> Params:
                   b_down=torch.zeros((d,), dtype=dt, device=device))
 
 
-def apply_mlp(cfg: ArchCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ArchCfg, p: Params, x: torch.Tensor, *, w=None,
+              reduce=None) -> torch.Tensor:
+    """The MLP on x.  ``w`` reads a weight by name (default ``p[name]``;
+    the tensor-parallel stack reads its rank's slices), and ``reduce``
+    takes the down projection's product before its bias is added (that
+    stack's sum over "model")."""
+    w = w or p.__getitem__
+    reduce = reduce or (lambda y: y)
     if cfg.mlp == "swiglu":
-        g = F.silu((x @ p["w_gate"]).float())
-        u = (x @ p["w_up"]).float()
-        return (g * u).to(x.dtype) @ p["w_down"]
+        g = F.silu((x @ w("w_gate")).float())
+        u = (x @ w("w_up")).float()
+        return reduce((g * u).to(x.dtype) @ w("w_down"))
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu((x @ p["w_up"] + p["b_up"]).float(), approximate="tanh")
-    return h.to(x.dtype) @ p["w_down"] + p["b_down"]
+    h = F.gelu((x @ w("w_up") + w("b_up")).float(), approximate="tanh")
+    return reduce(h.to(x.dtype) @ w("w_down")) + p["b_down"]
 
 
 # ----------------------------------------------------------------------------
@@ -270,11 +298,13 @@ def run_layer(fn, remat: bool, *args):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_id: int = -1) -> torch.Tensor:
-    """Mean token cross-entropy in fp32; labels == ignore_id are masked."""
+                  ignore_id: int = -1, count=None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; labels == ignore_id are masked.
+    ``count`` replaces the number of unmasked labels as the divisor."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None].long())
     nll = logz - gold[..., 0]
     mask = (labels != ignore_id).float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    count = mask.sum() if count is None else count
+    return (nll * mask).sum() / count.clamp_min(1.0)

@@ -96,7 +96,7 @@ def _enc_layer(cfg: ArchCfg, lp: EncLayer, h: torch.Tensor) -> torch.Tensor:
 def encode(cfg: ArchCfg, params: EncDecLM, frames: torch.Tensor, *,
            remat: bool = True) -> torch.Tensor:
     """frames: (B, n_frames, d) stub embeddings -> encoder output."""
-    h = frames.to(cfg.dtype) + params.enc_pos[None]
+    h = frames.to(cfg.dtype) + common.full(params.enc_pos)[None]
     for lp in params.enc_layers:
         h = common.run_layer(_enc_layer, remat, cfg, lp, h)
     return common.apply_norm(cfg, params.enc_norm, h)

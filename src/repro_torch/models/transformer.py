@@ -11,11 +11,35 @@ Entry points:
     place, where JAX returns an updated copy).
 The paged decode path lives in ``serving/engine.py``.  ``remat=True``
 recomputes each layer in the backward (``torch.utils.checkpoint``, as JAX's
-``jax.checkpoint`` over the scan body).  The hand-SPMD ``manual_sp`` stack
-and the sharding constraints wait for the GSPMD slice (ROADMAP item 8);
-the configs' ``tp_activations`` and ``moe_impl`` knobs are not read here.
+``jax.checkpoint`` over the scan body).
+
+Under the GSPMD trainer (a mesh registered with
+``sharding.set_runtime_mesh``; each rank holds its shard of every
+parameter) the stack runs tensor-parallel when the mesh has a "model"
+axis and heads, KV heads and d_ff divide it: every rank computes its
+heads and its d_ff slice from its own shards (``spmd.tp_slice``).  How
+the residual stream crosses "model" follows ``tp_activations``, as in
+JAX: "free" and "megatron" keep it replicated, each sub-block ending in
+one all-reduce; "sp" and "manual_sp" shard the sequence, each sub-block
+one all-gather before its column-parallel product and one reduce-scatter
+after its row-parallel one (``_stack_manual_sp``'s schedule), "sp" with
+fp32 on the wire (the partitioner's post-upcast), "manual_sp" the
+activation dtype.  "manual_sp" takes JAX's conditions
+(``_manual_sp_applicable``, ``_manual_sp_ok`` and its early returns);
+where they fail it runs what JAX runs.  Under ``parallelism="dp_only"``
+with the sequence over "model" (``batch_specs``, when the batch cannot
+cover the grid) each rank computes its slice of the sequence, K/V
+gathered a layer.  Every other layer, and a stack TP does not fit, reads
+its sharded leaves gathered where it uses them
+(``models.common.Params``).  MoE layers under a batch split over ranks
+dispatch the global batch's tokens, as JAX's global ``apply_moe`` does
+(``moe_impl="ep_a2a"`` under a "model" axis waits for ROADMAP item 7;
+the trainer refuses it).
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 from torch import nn
@@ -23,6 +47,7 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe
 from repro_torch.models.common import ArchCfg
+from repro_torch.parallel import sharding, spmd
 
 
 class Block(nn.Module):
@@ -68,14 +93,28 @@ def _mix(cfg: ArchCfg, lp: Block, h: torch.Tensor, *,
     return common.apply_mlp(cfg, lp.mlp, x2)
 
 
+def _apply_moe(cfg: ArchCfg, p, x: torch.Tensor):
+    """``moe.apply_moe`` over the global batch: under a runtime mesh whose
+    batch rows are split over ranks, the rows are gathered, dispatched
+    together (capacity and the aux loss from every token, as JAX's global
+    dispatch) and this rank's rows kept."""
+    mesh, (axes, _) = sharding.runtime_mesh(), sharding.runtime_batch_spec()
+    if mesh is None or axes is None:
+        return moe.apply_moe(cfg, p, x)
+    y, aux = moe.apply_moe(cfg, p, spmd.all_gather(x, 0, mesh, axes,
+                                                   tag="moe"))
+    return spmd.shard(y, (axes,), mesh), aux
+
+
 def _layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
-               causal: bool):
+               causal: bool, positions=None, kv=None):
     a, _ = attn.attn_full(cfg, lp.attn, common.apply_norm(cfg, lp.ln1, h),
-                          freqs=freqs, causal=causal)
+                          freqs=freqs, causal=causal, positions=positions,
+                          kv=kv)
     h = h + a
     x2 = common.apply_norm(cfg, lp.ln2, h)
     if cfg.moe is not None:
-        m, aux = moe.apply_moe(cfg, lp.moe, x2)
+        m, aux = _apply_moe(cfg, lp.moe, x2)
     else:
         m = common.apply_mlp(cfg, lp.mlp, x2)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -87,13 +126,166 @@ def forward(cfg: ArchCfg, params: TransformerLM, h: torch.Tensor, *,
     """Run the layer stack over embeddings h: (B, S, d) -> (h, aux_loss).
 
     ``remat`` (under grad) keeps only each layer's input and recomputes the
-    layer in the backward, as JAX's ``nothing_saveable`` checkpoint does."""
+    layer in the backward, as JAX's ``nothing_saveable`` checkpoint does.
+    Under a runtime mesh the stack runs as ``_stack_mode`` says."""
     freqs = common.rope_freqs(cfg, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    mode = _stack_mode(cfg, h, causal)
+    positions = kv = None
+    if mode == "kv":    # h is this rank's slice of the sequence
+        mesh = sharding.runtime_mesh()
+        s = h.shape[1]
+        positions = (mesh.axis_index("model") * s
+                     + torch.arange(s, device=h.device))[None]
+        kv = functools.partial(_gather_kv, mesh=mesh, causal=causal)
+    elif mode is not None:
+        mesh = sharding.runtime_mesh()
+        # this rank's slice of the sequence, unless the batch came so
+        seq = mode in ("sp", "manual_sp") \
+            and sharding.runtime_batch_spec()[1] is None
+        if seq:
+            h = sharding.constrain_activations(h, seq_axis="model")
+        for lp in params.layers:
+            h = common.run_layer(_tp_layer_fwd, remat, cfg, lp, h, freqs,
+                                 causal, mode)
+        if seq:
+            h = spmd.all_gather(h, 1, mesh, "model", tag="seq")
+        return common.apply_norm(cfg, params.final_norm, h), aux
     for lp in params.layers:
-        h, a = common.run_layer(_layer_fwd, remat, cfg, lp, h, freqs, causal)
+        h, a = common.run_layer(_layer_fwd, remat, cfg, lp, h, freqs, causal,
+                                positions, kv)
         aux = aux + a
     return common.apply_norm(cfg, params.final_norm, h), aux
+
+
+# ----------------------------------------------------------------------------
+# the dense stack under a mesh: Megatron tensor parallelism, and sequence
+# parallelism with explicit collectives (JAX: the partitioner's layout under
+# _constrain, and _stack_manual_sp's hand-SPMD stack):
+#
+#   h --ln--> [AG(seq)] -> qkv (local heads) -> attn -> @wo (partial)
+#     --AR | RS(seq)--> +residual --ln--> [AG] -> mlp (f-sharded)
+#     -> @w_down (partial) --AR | RS--> +residual
+#
+# and, for dp_only, whose parameters are replicated and whose batch may
+# leave the "model" axis the sequence (batch_specs), each rank runs the
+# plain layers on its slice of the sequence, with one all-gather of K/V a
+# layer: its queries attend the keys of every slice before its own.
+#
+# autograd through the collectives (parallel/spmd.py) gives the transposed
+# ones in the backward.
+# ----------------------------------------------------------------------------
+
+def _manual_sp_applicable(cfg: ArchCfg) -> bool:
+    return cfg.moe is None and cfg.mlp == "swiglu" and cfg.n_heads > 0
+
+
+def _manual_sp_ok(cfg: ArchCfg, mesh) -> bool:
+    tp = mesh.shape.get("model", 1)
+    return (tp > 1 and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+            and cfg.d_ff % tp == 0)
+
+
+def takes_sequence_slices(cfg: ArchCfg) -> bool:
+    """Whether ``train_loss`` runs on a rank's slice of the sequence when
+    the GSPMD trainer's batch spec shards it (the dense family: K/V
+    gathered over "model"); other families are handed the whole
+    sequence."""
+    return cfg.family == "dense"
+
+
+def _stack_mode(cfg: ArchCfg, h: torch.Tensor, causal: bool) -> str | None:
+    """How the stack runs under the registered mesh: None (the plain
+    stack, its sharded leaves gathered where read), "allreduce" (the
+    residual replicated over "model"), "sp" or "manual_sp" (the sequence
+    sharded over "model"), "kv" (the plain layers on this rank's slice of
+    the sequence).  h is that slice when the registered batch spec shards
+    the sequence."""
+    mesh = sharding.runtime_mesh()
+    if mesh is None:
+        return None
+    batch, seq = (sharding.spec_axes(e)
+                  for e in sharding.runtime_batch_spec())
+    if cfg.moe is not None or cfg.n_heads == 0 or "model" in batch:
+        return None    # the ranks of a "model" line hold other rows
+    S = h.shape[1] * math.prod(mesh.shape[a] for a in seq)
+    if cfg.tp_activations == "manual_sp" and causal \
+            and _manual_sp_applicable(cfg) and _manual_sp_ok(cfg, mesh):
+        # JAX's early returns: a DP axis, S divisible by "model", and the
+        # global batch divisible by dp_size (the batch split over every
+        # DP axis)
+        dpx = sharding.dp_axes(mesh)
+        if dpx and not S % mesh.shape["model"] and batch == dpx:
+            return "manual_sp"
+    if seq:
+        return "kv"
+    tp = sharding.tp_size(mesh, cfg)
+    if tp <= 1 or cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_ff % tp:
+        return None
+    if cfg.tp_activations == "sp" and sharding.dp_axes(mesh) \
+            and not S % tp:
+        return "sp"
+    return "allreduce"
+
+
+def _gather_kv(k: torch.Tensor, v: torch.Tensor, *, mesh, causal: bool):
+    """Every slice's K/V (one all-gather over "model"); under ``causal``
+    only the slices up to this rank's, whose queries see no later key."""
+    kv = spmd.all_gather(torch.stack([k, v]), 2, mesh, "model", tag="kv")
+    if causal:
+        kv = kv[:, :, :(mesh.axis_index("model") + 1) * k.shape[1]]
+    return kv[0], kv[1]
+
+
+def _seq_gather(x: torch.Tensor, mesh, mode: str) -> torch.Tensor:
+    """The full sequence of a sequence-sharded activation."""
+    if mode == "sp":   # fp32 on the wire, as the partitioner's upcast
+        return spmd.all_gather(x.float(), 1, mesh, "model",
+                               tag="seq").to(x.dtype)
+    return spmd.all_gather(x, 1, mesh, "model", tag="seq")
+
+
+def _reduce(part: torch.Tensor, mesh, mode: str, dtype) -> torch.Tensor:
+    """The sum over "model" of a row-parallel product's partials: all of
+    it ("allreduce"), or this rank's slice of the sequence."""
+    if mode == "allreduce":
+        return spmd.all_reduce(part.to(dtype), mesh, "model", tag="act")
+    if mode == "sp":
+        return spmd.reduce_scatter(part.float(), 1, mesh, "model",
+                                   tag="seq").to(dtype)
+    return spmd.reduce_scatter(part.to(dtype), 1, mesh, "model", tag="seq")
+
+
+# row-parallel weights: their input dim over "model" (the rest column-
+# parallel: their output dim)
+_ROW_PARALLEL = {"wo", "w_down"}
+
+
+def _tp_layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
+                  causal: bool, mode: str) -> torch.Tensor:
+    """One layer of the shared attention and MLP on this rank's heads and
+    d_ff slice, between the collectives of ``mode``."""
+    mesh = sharding.runtime_mesh()
+    tp, dtype = mesh.shape["model"], h.dtype
+
+    def local(p):
+        return lambda name: spmd.tp_slice(
+            p.local(name), 0 if name in _ROW_PARALLEL else -1, mesh)
+
+    def gather(x):
+        return x if mode == "allreduce" else _seq_gather(x, mesh, mode)
+
+    def reduce(part):
+        return _reduce(part, mesh, mode, dtype)
+
+    a, _ = attn.attn_full(cfg, lp.attn,
+                          gather(common.apply_norm(cfg, lp.ln1, h)),
+                          freqs=freqs, causal=causal, w=local(lp.attn),
+                          heads=(cfg.n_heads // tp, cfg.n_kv_heads // tp))
+    h = h + reduce(a)
+    return h + common.apply_mlp(cfg, lp.mlp,
+                                gather(common.apply_norm(cfg, lp.ln2, h)),
+                                w=local(lp.mlp), reduce=reduce)
 
 
 def embed_inputs(cfg: ArchCfg, params: TransformerLM, batch: dict):
@@ -115,7 +307,15 @@ def train_loss(cfg: ArchCfg, params: TransformerLM, batch: dict, *,
     h, labels = embed_inputs(cfg, params, batch)
     h, aux = forward(cfg, params, h, causal=True, remat=remat)
     logits = common.lm_head(cfg, params.embed, h)
-    return common.cross_entropy(logits, labels) + aux
+    mesh, (_, seq) = sharding.runtime_mesh(), sharding.runtime_batch_spec()
+    count = None
+    if mesh is not None and seq is not None:
+        # a slice of the sequence: its sum over its rows' mean share of
+        # their labels, as the trainer averages the loss over the ranks
+        n = math.prod(mesh.shape[a] for a in sharding.spec_axes(seq))
+        count = spmd.all_reduce((labels != -1).sum().float(), mesh, seq,
+                                tag="loss") / n
+    return common.cross_entropy(logits, labels, count=count) + aux
 
 
 def prefill(cfg: ArchCfg, params: TransformerLM, batch: dict, *,

@@ -66,10 +66,13 @@ def _bias_corrections(cfg: AdamWConfig, step: torch.Tensor):
     return 1 - cfg.b1 ** sf, 1 - cfg.b2 ** sf
 
 
-def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict,
+                 *, grad_norm: torch.Tensor | None = None):
+    """Returns (new_params, new_state, metrics).  ``grad_norm`` replaces
+    the global norm of ``grads`` for the clipping (the GSPMD trainer
+    updates slices of the leaves, whose norm is the mesh's sum)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = cosine_schedule(cfg, step)
     bc1, bc2 = _bias_corrections(cfg, step)

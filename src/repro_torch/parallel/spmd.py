@@ -1,0 +1,259 @@
+"""The collectives of the GSPMD trainer's per-rank programs, with autograd.
+
+JAX's GSPMD step is one program that XLA partitions; the port runs one
+program a rank, each holding its part of every tensor as the specs of
+``parallel/sharding.py`` lay it out, and moves data with explicit
+``torch.distributed`` collectives on the mesh's process groups
+(``launch/mesh.py``).  Each collective here is differentiable with its
+exact adjoint, so autograd of the per-rank programs gives every rank the
+gradient of the sum of the ranks' objectives:
+
+  * ``all_gather``     (concatenate along a dim)  <->  ``reduce_scatter``
+  * ``reduce_scatter`` (sum, split along a dim)   <->  ``all_gather``
+  * ``all_reduce``     (sum)                      <->  ``all_reduce``
+  * ``all_to_all``     (split one dim, concatenate another) <-> its inverse
+
+A collective over several axes (an entry of a spec such as
+``("data", "model")``) runs on the group of those axes, the first axis the
+major one, as JAX lays a dimension over several axes.  On a line of one
+rank a collective is the identity and runs nothing.
+
+``counts`` tallies the collectives run, by (op, tag), so a test can count
+the ones a layer issues.  ``shard`` / ``unshard`` cut a global tensor to
+this rank's part of a spec and gather it back; ``gather_param`` is what a
+model's parameter access (``models.common.Params``) runs for a leaf the
+trainer holds sharded; ``tp_slice`` gives this rank's 1/|model| slice of a
+weight along one dim for the tensor-parallel layers, from whatever layout
+the specs gave it.
+"""
+from __future__ import annotations
+
+import warnings
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel import sharding
+
+counts: dict = {}
+
+
+def reset_counts() -> None:
+    counts.clear()
+
+
+def axis_index(mesh, entry) -> tuple[int, int]:
+    """(this rank's index, the number of parts) along a spec entry: the
+    axes' coordinates read row-major, the first axis the major one."""
+    idx, n = 0, 1
+    for a in sharding.spec_axes(entry):
+        idx = idx * mesh.shape[a] + mesh.axis_index(a)
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def _count(op: str, tag: str) -> None:
+    counts[op, tag] = counts.get((op, tag), 0) + 1
+
+
+def _gather(x, dim, group, n):
+    xt = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
+                      dtype=xt.dtype, device=xt.device)
+    with warnings.catch_warnings():   # deprecated for all_gather_single
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter(x, dim, group, n):
+    xt = x.movedim(dim, 0).contiguous()
+    if xt.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                      dtype=xt.dtype, device=xt.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
+                                   group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce(x, group):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _exchange(x, split_dim, concat_dim, group, n):
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    send = torch.stack(x.chunk(n, split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv[j]: rank j's chunk for this rank; concatenate them along
+    # concat_dim (of the chunk, which lost no dim)
+    out = recv.movedim(0, concat_dim)
+    shape = list(send.shape[1:])
+    shape[concat_dim] *= n
+    return out.reshape(shape)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _scatter(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group, n):
+        ctx.args = (split_dim, concat_dim, group, n)
+        return _exchange(x, split_dim, concat_dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group, n = ctx.args
+        return _exchange(g, concat_dim, split_dim, group, n), None, None, \
+            None, None
+
+
+def _group(mesh, entry):
+    axes = sharding.spec_axes(entry)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return (mesh.group(axes) if n > 1 else None), n
+
+
+def all_gather(x, dim: int, mesh, entry, tag: str = ""):
+    """Concatenate the ranks' ``x`` along ``dim`` over the axes of
+    ``entry``, in their row-major order."""
+    group, n = _group(mesh, entry)
+    if n == 1:
+        return x
+    _count("all_gather", tag)
+    return _AllGather.apply(x, dim % x.dim(), group, n)
+
+
+def reduce_scatter(x, dim: int, mesh, entry, tag: str = ""):
+    """Sum ``x`` over the axes of ``entry`` and keep this rank's part of
+    ``dim``."""
+    group, n = _group(mesh, entry)
+    if n == 1:
+        return x
+    _count("reduce_scatter", tag)
+    return _ReduceScatter.apply(x, dim % x.dim(), group, n)
+
+
+def all_reduce(x, mesh, entry, tag: str = ""):
+    """Sum ``x`` over the axes of ``entry``."""
+    group, n = _group(mesh, entry)
+    if n == 1:
+        return x
+    _count("all_reduce", tag)
+    return _AllReduce.apply(x, group)
+
+
+def all_to_all(x, split_dim: int, concat_dim: int, mesh, entry,
+               tag: str = ""):
+    """Split ``x`` along ``split_dim`` into one part a rank of ``entry``'s
+    axes, send part j to rank j, and concatenate what arrives along
+    ``concat_dim``."""
+    group, n = _group(mesh, entry)
+    if n == 1:
+        return x
+    _count("all_to_all", tag)
+    return _AllToAll.apply(x, split_dim % x.dim(), concat_dim % x.dim(),
+                           group, n)
+
+
+# ----------------------------------------------------------------------------
+# tensors by spec
+# ----------------------------------------------------------------------------
+
+def _padded(spec, ndim: int) -> tuple:
+    spec = tuple(spec)
+    return spec + (None,) * (ndim - len(spec))
+
+
+def shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's part of the global tensor ``t`` under ``spec`` (a view)."""
+    for dim, entry in enumerate(_padded(spec, t.dim())):
+        idx, n = axis_index(mesh, entry)
+        if n > 1:
+            if t.shape[dim] % n:
+                raise ValueError(f"shard: dim {dim} of {tuple(t.shape)} does "
+                                 f"not split {n} ways ({entry})")
+            size = t.shape[dim] // n
+            t = t.narrow(dim, idx * size, size)
+    return t
+
+
+def unshard(t: torch.Tensor, spec, mesh, tag: str = "") -> torch.Tensor:
+    """The global tensor from every rank's part under ``spec``
+    (differentiable: the adjoint reduce-scatters)."""
+    for dim, entry in enumerate(_padded(spec, t.dim())):
+        if entry is not None:
+            t = all_gather(t, dim, mesh, entry, tag)
+    return t
+
+
+def gather_param(p: torch.Tensor) -> torch.Tensor:
+    """A parameter the trainer holds sharded (its per-layer spec in
+    ``p.spec``), gathered over the registered mesh where a layer uses it."""
+    mesh = sharding.runtime_mesh()
+    if mesh is None:
+        raise RuntimeError("a sharded parameter was read with no runtime "
+                           "mesh registered (sharding.set_runtime_mesh)")
+    return unshard(p, p.spec, mesh, tag="param")
+
+
+def tp_slice(p: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's 1/|model| slice of weight ``p`` along ``dim``: its own
+    shard when the spec shards ``dim`` over "model"; a slice of it when
+    the weight is replicated; re-laid by one all-to-all when the spec
+    shards another dim over "model" (``wo`` is sharded on its output dim
+    when n_heads * head_dim == d_model, and the row-parallel product needs
+    its input dim)."""
+    spec = _padded(getattr(p, "spec", None) or (), p.dim())
+    dim = dim % p.dim()
+    where = [i for i, e in enumerate(spec) if e is not None]
+    if any(spec[i] != "model" for i in where) or len(where) > 1:
+        raise ValueError(f"tp_slice: spec {spec} is not a 'model' shard")
+    if where == [dim]:
+        return p
+    tp, idx = mesh.shape["model"], mesh.axis_index("model")
+    if not where:
+        size = p.shape[dim] // tp
+        return p.narrow(dim, idx * size, size)
+    return all_to_all(p, dim, where[0], mesh, "model", tag="param")

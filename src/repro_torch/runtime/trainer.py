@@ -1,19 +1,34 @@
 """Fault-tolerant trainer: LO|FA|MO watchdogs + checkpoint/restart +
 elastic re-mesh + straggler detection.
 
-The counterpart of the JAX package's ``runtime/trainer.py``.  Two
+The counterpart of the JAX package's ``runtime/trainer.py``.  Three
 communication modes:
 
   * ``comm="single"`` (or no mesh) — one rank, plain AdamW;
+  * ``comm="gspmd"`` (the default) over a mesh — JAX's production path,
+    where XLA partitions one program by ``parallel/sharding.py``'s specs.
+    Here every rank of the mesh is a process running its part: it holds
+    its shard of every parameter (``param_specs``), of every AdamW moment
+    (``zero1_specs``: ZeRO-1) and of the batch (``batch_specs``); the
+    dense decoder stack runs tensor-parallel (heads and d_ff over "model",
+    one all-reduce a sub-block) or sequence-parallel (``tp_activations``
+    "sp" / "manual_sp": one all-gather and one reduce-scatter a
+    sub-block), a dp_only stack whose sequence is over "model" runs on
+    its slice of it (K/V gathered a layer), every other sharded leaf is gathered where a layer reads
+    it (``models.common.Params``), and autograd runs through the
+    collectives (``parallel/spmd.py``).  Gradients are summed over each
+    leaf's replica axes, AdamW runs on this rank's moment shard against
+    the matching slice of its parameter shard, and the updated slices are
+    all-gathered back into the parameter layout.  Checkpoints keep JAX's
+    global layout and keys: the lowest rank writes them, every rank
+    restores by slicing.  ``moe_impl="ep_a2a"`` under a "model" axis
+    larger than 1 (JAX's ``apply_moe_ep``) raises: ROADMAP item 7;
   * ``comm="apex"``  — the paper-faithful path: every rank of the mesh's DP
     axis is one process, gradients are synchronised by the explicit
     bidirectional ring reduce-scatter / all-gather of ``core/collectives``
     (first-neighbour torus puts as ``torch.distributed`` point-to-point
     rounds, both directions of a round in one batch: the dual DMA engines)
     with shard-local ZeRO-1 moments.  Model must fit per rank (DP-pure).
-
-``comm="gspmd"`` with a mesh (XLA's sharding propagation over
-``parallel/sharding.py``) is not ported: ROADMAP item 8.
 
 Fault tolerance loop (per §4 of the paper):
 
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -55,14 +71,14 @@ from repro_torch.core.lofamo import LofamoSim
 from repro_torch.core.rdma import RdmaEndpoint
 from repro_torch.core.topology import Torus
 from repro_torch.data import SyntheticTokens, make_batch_arrays
-from repro_torch.models import api
+from repro_torch.models import api, transformer
 from repro_torch.models.common import ArchCfg
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import apex_zero1_init, apex_zero1_update
+from repro_torch.parallel import sharding, spmd
 
-# where the GSPMD mode stands in ROADMAP.md
-_GSPMD = ("ROADMAP item 8 (parallel/sharding.py: TP and ZeRO-1 specs over "
-          "process groups)")
+# where the expert-parallel MoE dispatch stands in ROADMAP.md
+_EP = "ROADMAP item 7 (apply_moe_ep: the all-to-all expert dispatch)"
 
 
 @dataclasses.dataclass
@@ -138,9 +154,13 @@ class Trainer:
                                    "pass device='cpu' to train on the CPU")
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
-        if mesh is not None and tcfg.comm == "gspmd":
+        if mesh is not None and tcfg.comm == "gspmd" \
+                and cfg.moe_impl == "ep_a2a" \
+                and mesh.shape.get("model", 1) > 1:
             raise NotImplementedError(
-                f"comm='gspmd' over a mesh is not ported yet: {_GSPMD}")
+                f"{cfg.name}: moe_impl='ep_a2a' under a 'model' axis of "
+                f"{mesh.shape['model']} runs JAX's expert-parallel dispatch, "
+                f"not ported yet: {_EP}")
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh
@@ -180,6 +200,9 @@ class Trainer:
     def _apex(self) -> bool:
         return self.mesh is not None and self.tcfg.comm == "apex"
 
+    def _gspmd(self) -> bool:
+        return self.mesh is not None and self.tcfg.comm == "gspmd"
+
     def _build(self) -> None:
         cfg, tcfg = self.cfg, self.tcfg
         if self._init_params is not None:
@@ -190,6 +213,9 @@ class Trainer:
         for p in params.parameters():     # the trainer's own parameters
             p.requires_grad_(True)
         self.params = params
+        if self._gspmd():
+            self._build_gspmd()
+            return
         self.leaves = weights.jax_leaves(cfg, params)
         if self._apex():
             self._build_apex()
@@ -213,28 +239,30 @@ class Trainer:
         for k, v in new_params.items():
             weights.assign_leaf(self.cfg, k, self.leaves[k], v)
 
-    def _backward(self, batch: dict) -> torch.Tensor:
-        """One forward + backward on ``batch``: gradients in ``.grad``."""
+    def _backward(self, batch: dict, scale: float = 1.0) -> torch.Tensor:
+        """One forward + backward on ``batch``: the gradients of ``scale``
+        times the loss in ``.grad``; returns the loss."""
         for p in self.params.parameters():
             p.grad = None
         loss = self.model.train_loss(self.params, batch,
                                      remat=self.tcfg.remat)
-        loss.backward()
+        (loss if scale == 1.0 else loss * scale).backward()
         return loss.detach().float()
 
-    def _loss_and_grads(self, batch: dict):
+    def _loss_and_grads(self, batch: dict, scale: float = 1.0):
         """(loss, {leaf: grad}); microbatched when grad_accum > 1 (fp32
         accumulation, one optimizer step per global batch)."""
         accum = self.tcfg.grad_accum
         if accum <= 1:
-            loss = self._backward(batch)
+            loss = self._backward(batch, scale)
             return loss, self._leaf_grads()
         micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
                  for k, v in batch.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=self.device)
         g_acc = None
         for i in range(accum):
-            loss = self._backward({k: v[i] for k, v in micro.items()})
+            loss = self._backward({k: v[i] for k, v in micro.items()},
+                                  scale)
             g = {k: t.float() for k, t in self._leaf_grads().items()}
             # JAX: zeros + g, then + g for each later microbatch
             g_acc = g if g_acc is None else {k: g_acc[k] + g[k] for k in g}
@@ -389,8 +417,116 @@ class Trainer:
         self.opt_state = apex_zero1_init(self._leaf_values(),
                                          self.mesh.shape[self.tcfg.dp_axis])
 
+    # ------------------------------------------------------- gspmd (specs)
+    def _build_gspmd(self) -> None:
+        """Shard the parameters, the moments and the batch by the specs
+        (JAX: ``_build_gspmd``): each rank keeps its part of each."""
+        cfg, mesh = self.cfg, self.mesh
+        shapes = api.param_shapes(cfg)
+        self.shapes = sharding.flatten(shapes)       # path -> meta (global)
+        self.pspecs = sharding.flatten(sharding.param_specs(cfg, shapes,
+                                                            mesh))
+        self.zspecs = sharding.flatten(sharding.zero1_specs(cfg, shapes,
+                                                            mesh))
+        self.leaves = weights.jax_leaves(cfg, self.params)
+        with torch.no_grad():
+            for path, ps in self.leaves.items():
+                spec = self.pspecs[path]
+                if weights.is_stacked(cfg, path):
+                    spec = sharding.P(*spec[1:])    # each layer's tensor
+                for p in ps:
+                    p.data = spmd.shard(p.data, spec, mesh).clone(
+                        memory_format=torch.contiguous_format)
+                    p.spec = spec
+        m = {k: torch.zeros(spmd.shard(t, self.zspecs[k], mesh).shape,
+                            dtype=torch.float32, device=self.device)
+             for k, t in self.shapes.items()}
+        self.opt_state = {"m": m, "v": {k: z.clone() for k, z in m.items()},
+                          "step": torch.zeros((), dtype=torch.int32,
+                                              device=self.device)}
+        peek = self.data.next_batch()
+        self.data.step -= 1  # the batch was a peek at its shapes
+        self.bspecs = sharding.batch_specs(cfg, peek, mesh)
+        self._step_fn = self._gspmd_step
+
+    def _replica_axes(self, spec) -> tuple[str, ...]:
+        """The mesh axes a tensor under ``spec`` is replicated over."""
+        used = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        return tuple(a for a in self.mesh.axis_names if a not in used)
+
+    def _moment_cut(self, path: str) -> tuple:
+        """Where the moment shard cuts the parameter shard further: the
+        entries ``zero1_specs`` adds to ``param_specs``."""
+        p, z = self.pspecs[path], self.zspecs[path]
+        z = tuple(z) + (None,) * (len(self.shapes[path].shape) - len(z))
+        p = tuple(p) + (None,) * (len(z) - len(p))
+        return tuple(zi if zi != pi else None for zi, pi in zip(z, p))
+
+    def _gspmd_loss_and_grads(self, batch: dict):
+        """(mean loss over the global batch, {leaf: gradient of this
+        rank's parameter shard}).  Each rank computes its part of the
+        batch (the whole sequence of its rows, gathered where dp_only
+        sharded it, unless the model runs on sequence slices) and
+        backpropagates its loss over the mesh size, so the ranks'
+        gradients sum to the global mean's; each leaf's are summed over
+        the axes it is replicated on."""
+        mesh, n = self.mesh, self.mesh.size
+        spec = self.bspecs["tokens"]
+        if not transformer.takes_sequence_slices(self.cfg):
+            batch = {k: spmd.unshard(v, (None,) + tuple(self.bspecs[k][1:]),
+                                     mesh) for k, v in batch.items()}
+            spec = spec[:1]
+        sharding.set_runtime_mesh(mesh, spec)
+        try:
+            local, grads = self._loss_and_grads(batch, 1.0 / n)
+        finally:
+            sharding.set_runtime_mesh(None)
+        with torch.no_grad():
+            grads = {k: spmd.all_reduce(g, mesh,
+                                        self._replica_axes(self.pspecs[k]),
+                                        tag="grad")
+                     for k, g in grads.items()}
+            loss = spmd.all_reduce(local, mesh, mesh.axis_names,
+                                   tag="loss") / n
+        return loss, grads
+
+    def _zero1_update(self, grads: dict):
+        """AdamW on this rank's moment shard against the matching slices
+        of its gradient and parameter shards, then the new slices gathered
+        back into the parameter layout.  Returns (new parameter shards,
+        metrics)."""
+        mesh = self.mesh
+        vals = self._leaf_values()
+        cut, g_sl, p_sl = {}, {}, {}
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            for k, g in grads.items():
+                cut[k] = self._moment_cut(k)
+                g_sl[k] = spmd.shard(g, cut[k], mesh)
+                p_sl[k] = spmd.shard(vals[k], cut[k], mesh)
+                # a slice held by r ranks counts once in the global norm
+                r = math.prod(mesh.shape[a]
+                              for a in self._replica_axes(self.zspecs[k]))
+                sq = sq + torch.sum(torch.square(g_sl[k].float())) / r
+            gnorm = torch.sqrt(spmd.all_reduce(sq, mesh, mesh.axis_names,
+                                               tag="norm"))
+            new_p, self.opt_state, metrics = adamw_update(
+                self.tcfg.opt, g_sl, self.opt_state, p_sl, grad_norm=gnorm)
+            new_p = {k: spmd.unshard(v, cut[k], mesh, tag="param")
+                     for k, v in new_p.items()}
+        return new_p, metrics
+
+    def _gspmd_step(self, batch: dict) -> dict:
+        loss, grads = self._gspmd_loss_and_grads(batch)
+        new_p, metrics = self._zero1_update(grads)
+        self._assign(new_p)
+        return {"loss": loss, **metrics}
+
     @property
     def n_params(self) -> int:
+        if self._gspmd():
+            return sum(t.numel() for t in self.shapes.values())
         return sum(n for n, _ in self._leaf_meta())
 
     # ------------------------------------------------------------ checkpoint
@@ -402,9 +538,26 @@ class Trainer:
         if self.mesh is not None:
             dist.barrier(group=self.mesh.all_group)
 
+    def _global_params(self) -> dict:
+        """{leaf: value} in JAX's global layout (every rank takes part:
+        GSPMD shards are gathered)."""
+        vals = self._leaf_values()
+        if not self._gspmd():
+            return vals
+        return {k: spmd.unshard(v, self.pspecs[k], self.mesh)
+                for k, v in vals.items()}
+
     def _global_moments(self) -> dict:
         """The optimizer state in JAX's layout: apex moments gathered to
-        the global (dp * chunk,) buffers (every rank takes part)."""
+        the global (dp * chunk,) buffers, GSPMD moment shards to the
+        leaves' shapes (every rank takes part)."""
+        if self._gspmd():
+            def gather(tree):
+                return {k: spmd.unshard(t, self.zspecs[k], self.mesh)
+                        for k, t in tree.items()}
+            return {"m": gather(self.opt_state["m"]),
+                    "v": gather(self.opt_state["v"]),
+                    "step": self.opt_state["step"]}
         if not self._apex():
             return self.opt_state
         axis = self.tcfg.dp_axis
@@ -420,11 +573,35 @@ class Trainer:
                 "step": self.opt_state["step"]}
 
     def _template(self) -> dict:
+        if self._gspmd():     # the global layout, with no memory behind it
+            def zeros(dtype):
+                return {k: torch.empty(t.shape, dtype=dtype or t.dtype,
+                                       device="meta")
+                        for k, t in self.shapes.items()}
+            return {"params": zeros(None),
+                    "opt": {"m": zeros(torch.float32),
+                            "v": zeros(torch.float32),
+                            "step": self.opt_state["step"]}}
         return {"params": self._leaf_values(), "opt": self.opt_state}
 
     def _place(self, tree: dict) -> None:
         """Load a restored host tree (JAX layout) into the model and the
-        optimizer state; an apex rank keeps its chunk of each moment."""
+        optimizer state; an apex rank keeps its chunk of each moment, a
+        GSPMD rank its shards of every parameter and moment."""
+        if self._gspmd():
+            mesh, opt = self.mesh, tree["opt"]
+            self._assign({k: spmd.shard(v, self.pspecs[k], mesh)
+                          .to(self.device) for k, v in tree["params"].items()})
+
+            def local(t, k):
+                return spmd.shard(t.float(), self.zspecs[k], mesh).to(
+                    self.device).clone(memory_format=torch.contiguous_format)
+            self.opt_state = {
+                "m": {k: local(t, k) for k, t in opt["m"].items()},
+                "v": {k: local(t, k) for k, t in opt["v"].items()},
+                "step": opt["step"].to(device=self.device,
+                                       dtype=torch.int32)}
+            return
         self._assign({k: v.to(self.device)
                       for k, v in tree["params"].items()})
         if self._apex():
@@ -448,9 +625,9 @@ class Trainer:
         self.events.append(f"resumed from checkpoint @ step {self.data.step}")
 
     def checkpoint(self) -> None:
-        opt = self._global_moments()
+        params, opt = self._global_params(), self._global_moments()
         if self._writer():
-            tree = {"params": self._leaf_values(), "opt": opt}
+            tree = {"params": params, "opt": opt}
             self.store.save_async(self.data.step, tree,
                                   extra={"data": self.data.state(),
                                          "arch": self.cfg.name})
@@ -459,6 +636,11 @@ class Trainer:
     # ------------------------------------------------------------------- loop
     def _place_batch(self, np_batch: dict) -> dict:
         batch = make_batch_arrays(np_batch, self.cfg, self.device)
+        if self._gspmd():
+            # this rank's part of the global batch (JAX: batch_specs)
+            return {k: spmd.shard(v, self.bspecs[k], self.mesh).clone(
+                memory_format=torch.contiguous_format)
+                for k, v in batch.items()}
         if self._apex():
             # this rank's rows of the global batch (JAX: P(dp_axis))
             dp = self.mesh.shape[self.tcfg.dp_axis]

@@ -66,7 +66,7 @@ def _flatten(tree, prefix: str = "", sep: str = "."):
             yield name, v
 
 
-def _nest(flat: dict) -> dict:
+def nest(flat: dict) -> dict:
     """{"a/b": x} -> {"a": {"b": x}}."""
     out: dict = {}
     for path, v in flat.items():
@@ -76,6 +76,7 @@ def _nest(flat: dict) -> dict:
             d = d.setdefault(k, {})
         d[last] = v
     return out
+
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -95,10 +96,7 @@ def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_jax_params: no CUDA device is available; "
                            "pass device='cpu' to load the model on the CPU")
-    if cfg.family not in _LM:
-        raise NotImplementedError(f"family {cfg.family!r}: no model module "
-                                  "in the port yet")
-    cls = _LM[cfg.family][0]
+    cls = model_class(cfg)
     depths = stacked_axes(cfg)
     state = {}
     for name, a in _flatten(params):
@@ -117,6 +115,14 @@ def from_jax_params(cfg: ArchCfg, params, *, device="cuda"):
     return model
 
 
+def model_class(cfg: ArchCfg):
+    """The port's model module class of ``cfg``'s family."""
+    if cfg.family not in _LM:
+        raise NotImplementedError(f"family {cfg.family!r}: no model module "
+                                  "in the port yet")
+    return _LM[cfg.family][0]
+
+
 # ----------------------------------------------------------------------------
 # the JAX pytree's leaves over the port's parameters
 # ----------------------------------------------------------------------------
@@ -128,7 +134,7 @@ def stacked_axes(cfg: ArchCfg) -> dict[str, int]:
             for k, depth in _LM[cfg.family][1].items()}
 
 
-def _stacked(cfg: ArchCfg, path: str) -> bool:
+def is_stacked(cfg: ArchCfg, path: str) -> bool:
     """Whether the JAX leaf at ``path`` is stacked along a layer axis."""
     return path.split("/", 1)[0] in _LM[cfg.family][1]
 
@@ -140,7 +146,7 @@ def jax_leaves(cfg: ArchCfg, model) -> dict[str, list[torch.nn.Parameter]]:
     groups: dict[str, list] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if _stacked(cfg, parts[0]):
+        if is_stacked(cfg, parts[0]):
             key, order = "/".join([parts[0]] + parts[2:]), int(parts[1])
         else:
             key, order = "/".join(parts), 0
@@ -152,7 +158,7 @@ def jax_leaves(cfg: ArchCfg, model) -> dict[str, list[torch.nn.Parameter]]:
 def leaf_tensor(cfg: ArchCfg, path: str, params: list) -> torch.Tensor:
     """One JAX leaf's value from its parameters (a stacked copy for a
     layer-stacked leaf); ``params`` may be the parameters' gradients."""
-    if _stacked(cfg, path):
+    if is_stacked(cfg, path):
         return torch.stack(list(params))
     (p,) = params
     return p
@@ -162,7 +168,7 @@ def assign_leaf(cfg: ArchCfg, path: str, params: list,
                 value: torch.Tensor) -> None:
     """Copy one JAX leaf's value back into its parameters, in place."""
     with torch.no_grad():
-        if _stacked(cfg, path):
+        if is_stacked(cfg, path):
             for p, v in zip(params, value.reshape(
                     (len(params),) + params[0].shape)):
                 p.copy_(v)
@@ -173,7 +179,7 @@ def assign_leaf(cfg: ArchCfg, path: str, params: list,
 def to_jax_params(cfg: ArchCfg, model) -> dict:
     """The inverse of ``from_jax_params``: JAX's nested parameter tree of
     numpy arrays (layer-stacked leaves stacked)."""
-    return _nest({path: to_numpy(leaf_tensor(cfg, path, ps))
+    return nest({path: to_numpy(leaf_tensor(cfg, path, ps))
                   for path, ps in jax_leaves(cfg, model).items()})
 
 
@@ -215,6 +221,6 @@ def to_jax_opt_state(state) -> dict:
     """The port's optimizer state -> JAX's nested ``{"m", "v", "step"}`` of
     numpy arrays.  Apex moments must be gathered to the global
     ``(dp * chunk,)`` layout first (``Trainer`` does so for checkpoints)."""
-    return {"m": _nest({k: to_numpy(v) for k, v in state["m"].items()}),
-            "v": _nest({k: to_numpy(v) for k, v in state["v"].items()}),
+    return {"m": nest({k: to_numpy(v) for k, v in state["m"].items()}),
+            "v": nest({k: to_numpy(v) for k, v in state["v"].items()}),
             "step": np.asarray(to_numpy(state["step"]), np.int32)}

@@ -168,8 +168,8 @@ def test_flash_attention_kernel_matches_plain(cuda, Sq, Skv, D, causal,
 
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_build(cuda):
-    q = torch.randn(1, 2, 8, 32, device=cuda)          # D = 32
-    with pytest.raises(ValueError, match="D must be"):
+    q = torch.randn(1, 2, 8, 160, device=cuda)         # D = 160 > 128
+    with pytest.raises(ValueError, match="D=160"):
         fa.flash_attention(q, q, q)
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), q.half(), q.half())
@@ -463,14 +463,15 @@ def test_scan_kernels_do_not_synchronise_and_replay_in_a_graph(cuda):
 
 @pytest.mark.gpu
 def test_scan_kernels_refuse_what_they_do_not_build(cuda):
-    r, k, v, w, u, _ = rwkv_inputs(cuda, torch.float32, B=1, S=4, H=2, dh=32)
-    with pytest.raises(ValueError, match="dh must be"):
+    r, k, v, w, u, _ = rwkv_inputs(cuda, torch.float32, B=1, S=4, H=2, dh=96)
+    with pytest.raises(ValueError, match="dh=96"):
         rw.rwkv6_scan(r, k, v, w, u)
+    r, k, v, w, u, _ = rwkv_inputs(cuda, torch.float32, B=1, S=4, H=2)
     with pytest.raises(TypeError):
         rw.rwkv6_scan(r, k.bfloat16(), v, w, u)
     x, dt, A, Bm, Cm, D, _ = mamba_inputs(cuda, torch.float32, B=1, S=4, H=2,
-                                          ds=32)
-    with pytest.raises(ValueError, match="ds one of"):
+                                          ds=96)
+    with pytest.raises(ValueError, match="ds=96"):
         m2.mamba2_scan(x, dt, A, Bm, Cm, D)
 
 

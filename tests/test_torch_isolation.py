@@ -39,7 +39,8 @@ def test_port_modules_load_no_jax_and_no_repro():
               "core.fabric.autotune", "serving.cluster", "serving.trace",
               "core.lofamo", "core.collectives", "core.fabric.execute",
               "data.pipeline", "checkpoint.store", "optim.adamw",
-              "launch.mesh", "launch.train", "runtime.trainer"):
+              "launch.mesh", "launch.train", "runtime.trainer",
+              "parallel.sharding", "parallel.spmd"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -12,6 +12,9 @@ the JAX package — run as subprocesses by ``test_torch_collectives.py`` and
         RANK 8 STORE_FILE              # for RANK in 0..7
     PYTHONPATH=src python tests/torch_dist_checks.py rank-trainer OUT \\
         RANK 8 STORE_FILE
+    # GSPMD: jax-gspmd OUT PART (8 forced host devices) for PART in 0, 1
+    # (two processes, side by side), rank-gspmd OUT RANK 8 STORE_FILE for
+    # RANK in 0..7
 
 Both sides draw their inputs from the same numpy seeds and write what they
 computed to ``OUT`` (``.npz`` / ``.json``); the tests compare the files.
@@ -89,9 +92,9 @@ def wait_for(path: str, timeout: float = 600.0) -> str:
 
 def launch(mode: str, out_dir: str, *, world: int = 8,
            timeout: float = 600.0) -> None:
-    """Run the JAX reference of ``mode`` ("collectives" or "trainer") and
-    the port's ``world`` gloo ranks side by side; raise with the logs if
-    any process fails."""
+    """Run the JAX reference of ``mode`` ("collectives", "trainer" or
+    "gspmd") and the port's ``world`` gloo ranks side by side; raise with
+    the logs if any process fails."""
     import subprocess
     import tempfile
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,9 +104,12 @@ def launch(mode: str, out_dir: str, *, world: int = 8,
         "--xla_force_host_platform_device_count=8"))
     me = os.path.abspath(__file__)
     store = os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
+    parts = [[str(i)] for i in range(len(GSPMD_JAX_PARTS))] \
+        if mode == "gspmd" else [[]]
     procs = [subprocess.Popen(
-        [sys.executable, me, f"jax-{mode}", out_dir], env=jax_env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+        [sys.executable, me, f"jax-{mode}", out_dir] + part, env=jax_env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for part in parts]
     procs += [subprocess.Popen(
         [sys.executable, me, f"rank-{mode}", out_dir, str(r), str(world),
          store], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -313,6 +319,142 @@ def jax_trainer(out_dir: str) -> None:
     os.rename(f"{out_dir}/tmp_single_ckpt", f"{out_dir}/jax_single_ckpt")
     res["single_losses"] += [m["loss"] for m in single.train(3)]
     _save_json(os.path.join(out_dir, "jax_trainer.json"), res)
+
+
+# ----------------------------------------------------------------------------
+# GSPMD (comm="gspmd") over ("data", "model") meshes
+# ----------------------------------------------------------------------------
+
+GSPMD_MESHES = ((8, 1), (4, 2), (2, 4))
+GSPMD_STEPS = 3
+# manual_sp_check.py's deepseek: tp_dp, 4 heads and 4 KV heads (so every
+# test mesh's "model" axis divides them), manual_sp; fp32 throughout
+DSK = dict(n_heads=4, n_kv_heads=4, d_ff=128, attn_dtype="f32")
+
+
+def gspmd_cfgs(configs_mod, ArchCfg, dtype):
+    """{tag: (cfg, batch, meshes)}: TINY (tp_dp, "free"), the deepseek of
+    manual_sp_check.py and the reduced qwen2 (dp_only; batch 4, so on the
+    (4, 2) and (2, 4) meshes the sequence goes over "model") on every
+    mesh; the reduced olmoe with the global dispatch (JAX's
+    ``apply_moe``, its experts sharded over "model"; ``ep_a2a`` waits for
+    ROADMAP item 7) and the reduced rwkv6 and whisper on (4, 2), and a
+    2-layer reduced zamba2 on (2, 4): their sharded leaves are gathered
+    where a layer reads them."""
+    import dataclasses
+
+    def reduced(name, **kw):
+        return dataclasses.replace(configs_mod.get_reduced(name), **kw,
+                                   dtype=dtype)
+
+    return {
+        "tiny": (ArchCfg(**TINY, dtype=dtype), 8, GSPMD_MESHES),
+        "dsk": (reduced("deepseek-7b", **DSK), 8, GSPMD_MESHES),
+        "qwen": (reduced("qwen2-0.5b"), 4, GSPMD_MESHES),
+        "olmoe": (reduced("olmoe-1b-7b", moe_impl="global"), 8, ((4, 2),)),
+        "rwkv6": (reduced("rwkv6-1.6b"), 8, ((4, 2),)),
+        "whisper": (reduced("whisper-large-v3"), 8, ((4, 2),)),
+        "zamba2": (reduced("zamba2-1.2b", n_layers=2), 8, ((2, 4),)),
+    }
+
+
+# the mesh of JAX's reference run, where it is not the port's: JAX's
+# partitioned rwkv6 on a "model" axis of 2 drops the gradient of the
+# second "model" shard of ``tm.u`` (ROADMAP §3), so the port's run on
+# (4, 2) is held to JAX's on (8, 1), where no leaf is sharded (and whose
+# losses equal JAX's single-rank ones); JAX runs (4, 2) too, for the
+# test that pins the fault
+JAX_REF_MESH = {"rwkv6": (8, 1)}
+
+
+# the configs of each of the JAX reference's processes, which run side by
+# side (the port's ranks wait on the reference's compiles); the first
+# also runs the checkpoint and fault cases
+GSPMD_JAX_PARTS = (("tiny", "dsk", "qwen"),
+                   ("olmoe", "rwkv6", "whisper", "zamba2"))
+
+
+def ref_tag(case: str) -> str:
+    """The JAX run a port case is held to."""
+    tag, _ = case.split("_")
+    return _tag(tag, JAX_REF_MESH[tag]) if tag in JAX_REF_MESH else case
+
+
+def _tag(cfg_tag, shape):
+    return f"{cfg_tag}_{shape[0]}x{shape[1]}"
+
+
+def jax_gspmd(out_dir: str, part: int) -> None:
+    import shutil
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.launch.mesh import host_test_mesh, make_mesh
+    from repro.models.common import ArchCfg
+    from repro.optim import AdamWConfig
+    from repro.runtime.trainer import Trainer, TrainerConfig
+
+    assert jax.device_count() == 8, jax.device_count()
+    opt = AdamWConfig(**OPT)
+    res: dict = {"losses": {}}
+
+    def flat(tree):
+        leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+        return {"/".join(str(getattr(p, "key", p)) for p in path):
+                np.asarray(leaf) for path, leaf in leaves}
+
+    hm = host_test_mesh((2, 4), ("a", "b"))
+    res["host_test_mesh"] = [[int(d.id) for d in row] for row in hm.devices]
+
+    def trainer(cfg, batch, shape, ck, **kw):
+        tc = TrainerConfig(ckpt_dir=ck, **{"ckpt_every": 0, "opt": opt,
+                                           "batch": batch, "seq_len": 32,
+                                           "comm": "gspmd", **kw})
+        return Trainer(cfg, tc, mesh=make_mesh(shape, ("data", "model")))
+
+    for tag, (cfg, batch, meshes) in gspmd_cfgs(jconfigs, ArchCfg,
+                                                jnp.float32).items():
+        if tag not in GSPMD_JAX_PARTS[part]:
+            continue
+        if tag in JAX_REF_MESH:     # the reference first, then the fault
+            meshes = (JAX_REF_MESH[tag],) + meshes
+        for shape in meshes:
+            tr = trainer(cfg, batch, shape, f"{out_dir}/jax_g_{tag}")
+            if shape == meshes[0]:
+                _save_npz(os.path.join(out_dir, f"jax_gspmd_init_{tag}.npz"),
+                          flat(tr.params))
+            res["losses"][_tag(tag, shape)] = [
+                m["loss"] for m in tr.train(GSPMD_STEPS)]
+    if part:
+        _save_json(os.path.join(out_dir, f"jax_gspmd_{part}.json"), res)
+        return
+    cfg, batch, _ = gspmd_cfgs(jconfigs, ArchCfg, jnp.float32)["tiny"]
+    # a checkpoint at step 2 (published for the port), the step-3 loss;
+    # then a node fault on the 2-D mesh: restored without a re-mesh
+    ck = f"{out_dir}/jax_g_ckpt"
+    tr = trainer(cfg, batch, (4, 2), ck, ckpt_every=2)
+    res["ckpt_losses"] = [m["loss"] for m in tr.train(3)]
+    tr.store.wait()
+    shutil.copytree(f"{ck}/step_00000002",
+                    f"{out_dir}/tmp_gspmd_ckpt/step_00000002")
+    os.rename(f"{out_dir}/tmp_gspmd_ckpt", f"{out_dir}/jax_gspmd_ckpt")
+
+    def fault(i, tr=tr):
+        if i == 1:
+            tr.lofamo.kill_node(5)
+
+    res["fault_losses"] = [m["loss"] for m in tr.train(4, fault_hook=fault)]
+    res["fault_events"] = tr.events
+    res["fault_mesh"] = list(tr.mesh.devices.shape)
+    # the port's GSPMD checkpoint (step 2) resumed here: the next loss
+    tr = trainer(cfg, batch, (4, 2), wait_for(
+        os.path.join(out_dir, "port_gspmd_ckpt")))
+    tr.resume()
+    res["from_port_step"] = tr.data.step
+    res["from_port_loss"] = tr.train(1)[0]["loss"]
+    _save_json(os.path.join(out_dir, f"jax_gspmd_{part}.json"), res)
 
 
 # ----------------------------------------------------------------------------
@@ -553,15 +695,145 @@ def rank_trainer(out_dir: str, rank: int, world: int, store: str):
     dist.destroy_process_group()
 
 
+def rank_gspmd(out_dir: str, rank: int, world: int, store: str):
+    import dataclasses
+    import shutil
+
+    torch, dist = _init(rank, world, store)
+    from repro_torch import configs, weights
+    from repro_torch.data import make_batch_arrays
+    from repro_torch.launch.mesh import host_test_mesh, make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import ArchCfg
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import sharding, spmd
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    opt = AdamWConfig(**OPT)
+    res: dict = {"losses": {}, "local_shapes": {}}
+    hm = host_test_mesh((2, 4), ("a", "b"))
+    res["host_test_mesh"] = {"coords": list(hm.coords),
+                             "line_a": list(hm.line("a")),
+                             "line_b": list(hm.line("b"))}
+
+    def load(path, cfg):
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+        return weights.from_jax_params(cfg, weights.nest(flat), device="cpu")
+
+    def trainer(cfg, init, batch, shape, tag, **kw):
+        tc = TrainerConfig(
+            ckpt_dir=os.path.join(out_dir, f"port_g_{tag}"),
+            **{"ckpt_every": 0, "opt": opt, "batch": batch, "seq_len": 32,
+               "comm": "gspmd", **kw})
+        return Trainer(cfg, tc, mesh=make_mesh(shape, ("data", "model")),
+                       device="cpu", init_params=init)
+
+    cfgs = gspmd_cfgs(configs, ArchCfg, torch.float32)
+    inits = {}
+    for tag, (cfg, batch, meshes) in cfgs.items():
+        inits[tag] = load(wait_for(os.path.join(
+            out_dir, f"jax_gspmd_init_{tag}.npz")), cfg)
+        for shape in meshes:
+            tr = trainer(cfg, inits[tag], batch, shape, _tag(tag, shape))
+            vals = tr._leaf_values()
+            res["local_shapes"][_tag(tag, shape)] = {
+                k: [list(vals[k].shape), list(tr.opt_state["m"][k].shape),
+                    list(tr.opt_state["v"][k].shape)] for k in vals}
+            res["losses"][_tag(tag, shape)] = [
+                m["loss"] for m in tr.train(GSPMD_STEPS)]
+            if (tag, shape) in (("dsk", (4, 2)), ("qwen", (2, 4))):
+                # the collectives of one forward: under manual_sp, and on
+                # dp_only's slices of the sequence (the rows as placed)
+                b = tr._place_batch(tr.data.next_batch())
+                sharding.set_runtime_mesh(tr.mesh, tr.bspecs["tokens"])
+                spmd.reset_counts()
+                try:
+                    with torch.no_grad():
+                        tr.model.train_loss(tr.params, b, remat=False)
+                finally:
+                    sharding.set_runtime_mesh(None)
+                res.setdefault("fwd", {})[tag] = {
+                    "counts": {f"{op}/{t}": n for (op, t), n
+                               in spmd.counts.items()},
+                    "layers": cfg.n_layers,
+                    "rows": list(b["tokens"].shape)}
+    cfg, batch, _ = cfgs["tiny"]
+    # JAX's GSPMD checkpoint (step 2) resumed here: the next loss
+    tr = trainer(cfg, inits["tiny"], batch, (4, 2), "from_jax")
+    tr.store.directory = wait_for(os.path.join(out_dir, "jax_gspmd_ckpt"))
+    tr.resume()
+    res["from_jax_step"] = tr.data.step
+    res["from_jax_loss"] = tr.train(1)[0]["loss"]
+    # a checkpoint of the port at step 2 (published for JAX), then a node
+    # fault on the 2-D mesh
+    tr = trainer(cfg, inits["tiny"], batch, (4, 2), "ckpt", ckpt_every=2)
+    res["ckpt_losses"] = [m["loss"] for m in tr.train(3)]
+    tr.store.wait()
+    dist.barrier()
+    if rank == 0:
+        src = os.path.join(out_dir, "port_g_ckpt", "step_00000002")
+        shutil.copytree(src, os.path.join(out_dir, "tmp_port_ckpt",
+                                          "step_00000002"))
+        os.rename(os.path.join(out_dir, "tmp_port_ckpt"),
+                  os.path.join(out_dir, "port_gspmd_ckpt"))
+
+    def fault(i, tr=tr):
+        if i == 1:
+            tr.lofamo.kill_node(5)
+
+    res["fault_losses"] = [m["loss"] for m in tr.train(4, fault_hook=fault)]
+    res["fault_events"] = tr.events
+    res["fault_mesh"] = list(tr.mesh.shape.values())
+    # manual_sp_check.py on the port: the sequence-parallel stack's loss
+    # and every gradient against the plain stack's, from the same weights
+    # and the same batch (4 x 32, labels drawn uniformly), mesh (2, 4)
+    rng = np.random.default_rng(0)
+    np_batch = {"tokens": rng.integers(0, 512, (4, 32)).astype(np.int32),
+                "labels": rng.integers(0, 512, (4, 32)).astype(np.int32)}
+    flavours = {"dsk": dataclasses.replace(cfgs["dsk"][0],
+                                           tp_activations="manual_sp"),
+                "qwen_gqa_bias": dataclasses.replace(
+                    configs.get_reduced("qwen2-0.5b"), n_heads=8,
+                    n_kv_heads=4, d_ff=128, dtype=torch.float32,
+                    tp_activations="manual_sp")}
+    res["manual_sp"] = {}
+    for tag, c in flavours.items():
+        init = api.get_model(c).init(torch.Generator().manual_seed(0))
+        plain = Trainer(c, TrainerConfig(
+            ckpt_dir=os.path.join(out_dir, f"port_msp_{tag}_{rank}"),
+            ckpt_every=0, opt=opt, batch=4, seq_len=32, comm="single"),
+            device="cpu", init_params=init)
+        l0, g0 = plain._loss_and_grads(make_batch_arrays(np_batch, c, "cpu"))
+        tr = trainer(c, init, 4, (2, 4), f"msp_{tag}")
+        spmd.reset_counts()
+        l2, g2 = tr._gspmd_loss_and_grads(tr._place_batch(np_batch))
+        seq = sum(n for (op, t), n in spmd.counts.items() if t == "seq")
+        g2 = {k: spmd.unshard(g, tr.pspecs[k], tr.mesh)
+              for k, g in g2.items()}
+        res["manual_sp"][tag] = {
+            "plain_loss": float(l0), "sp_loss": float(l2),
+            "seq_collectives": seq,
+            "grad_err": {k: [float((g2[k] - g0[k]).abs().max()),
+                             float(g0[k].abs().max())] for k in g0},
+            "grad_ok": all(bool(torch.allclose(g2[k], g0[k], rtol=5e-3,
+                                               atol=5e-5)) for k in g0)}
+    _save_json(os.path.join(out_dir, f"rank{rank}_gspmd.json"), res)
+    dist.destroy_process_group()
+
+
 def main(argv) -> None:
     mode, out_dir = argv[1], argv[2]
     if mode == "jax-collectives":
         jax_collectives(out_dir)
     elif mode == "jax-trainer":
         jax_trainer(out_dir)
-    elif mode in ("rank-collectives", "rank-trainer"):
+    elif mode == "jax-gspmd":
+        jax_gspmd(out_dir, int(argv[3]))
+    elif mode in ("rank-collectives", "rank-trainer", "rank-gspmd"):
         rank, world, store = int(argv[3]), int(argv[4]), argv[5]
-        fn = rank_collectives if mode == "rank-collectives" else rank_trainer
+        fn = {"rank-collectives": rank_collectives,
+              "rank-trainer": rank_trainer, "rank-gspmd": rank_gspmd}[mode]
         fn(out_dir, rank, world, store)
     else:
         raise SystemExit(f"unknown mode {mode}")
