@@ -7,9 +7,9 @@ Drives the port's main paths at full width and depth, bf16, random weights
 from a seed — paged serving (``PagedLM`` + ``Engine``) of qwen2-0.5b,
 recurrent serving (``api.get_model``: prefill, then greedy ``decode_step``s
 against an O(1) state) of rwkv6-1.6b and zamba2-1.2b, training of qwen2,
-whisper-large-v3 served and trained, and rwkv6-1.6b and zamba2-1.2b
-trained — and holds every CUDA kernel of those paths against its plain
-PyTorch version:
+whisper-large-v3 served and trained, rwkv6-1.6b and zamba2-1.2b trained,
+and olmoe-1b-7b (MoE) served and trained — and holds every CUDA kernel of
+those paths against its plain PyTorch version:
 
   1. set-up: the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
@@ -118,7 +118,32 @@ PyTorch version:
      profiled step, peak memory; (d) the reduced fp32 rwkv6, mamba2 and
      zamba2 of the CPU tests trained 3 steps on the card (small-width
      routes) and on the CPU: losses within rtol 1e-4, the launches exact.  Phase 9a holds K2-bwd at
-     zamba2's shared-block shape too.
+     zamba2's shared-block shape too;
+ 12. the MoE family, last, alone on the card: olmoe-1b-7b (16 layers, 16
+     heads of 128, 64 experts top-8), the first model path through K1, K2
+     and K2-bwd at head width 128: (a) served at full width and depth
+     through the paged engine with the qwen2 engine's traffic (16
+     requests, max_batch 8, pages of 16, 32 new tokens), whole and chunked
+     prefill: K1 exactly decode steps x 16 on its split-K route, K2 16 a
+     request on its ``mma`` route (whole prefill); prefill and decode ms,
+     tokens/s, busy share, peak memory; every layer's K1 and K2 call of 4
+     prefills and a decode step held to its plain version on the kernel
+     path's own inputs at phase 2's bars (a top-k router can send a token
+     to other experts at a near-tie, so the end-to-end logit gap is
+     reported beside the tokens whose layer-0 top-8 set differs, not
+     held); (b) trained at full width with the depth cut to 4 layers (batch
+     4 x 1024, remat, AdamW) through ``Trainer(comm="single")`` and then
+     ``Trainer(comm="gspmd")`` on a 1 x 1 mesh over NCCL from the same
+     seed: losses bitwise equal (on one rank both take JAX's fallback to
+     the global dispatch), K2 8 and K2-bwd 4 a step exactly (K2-bwd at
+     bf16 D = 128 on its FMA pair), step ms, tokens/s, busy share, peak
+     memory, tokens/s x 6 x the active parameters; (c) the reduced fp32
+     olmoe of the CPU tests served (tokens, whole and chunked prefill) and
+     trained 3 steps (losses, rtol 1e-4) on the card and the CPU, on the
+     small-width routes alone.  Phases 2 and 9a hold and time K1, K2 and
+     K2-bwd at olmoe's shapes (K1 at the engine's decode, B = 8, H = Hkv
+     = 16; K2 causal at the engine's longest prompt, B = 1 S = 1024, and
+     the training forward 4 x 1024; K2-bwd 4 x 1024), beside SDPA.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -134,6 +159,7 @@ package ``repro``.
     python3 chip_smoke.py --bwd-ab PARENT
     python3 chip_smoke.py --scan-bwd-ab PARENT
     python3 chip_smoke.py --train-only        # phases 1, 2c, 9 and 11
+    python3 chip_smoke.py --moe-only          # 1, 2's K1/K2, 9a and 12
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -213,6 +239,17 @@ FP32_LOGIT_TOL = 1e-2
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 8, 224, 64
 # training: batch 2 x 448 tokens (n_text_ctx) and 2 x 1500 frames, 3 steps
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 2, 448, 3
+# olmoe-1b-7b (phase 12; arXiv:2409.02060: 16 layers, d_model 2048, 16
+# heads of 128, 64 experts top-8 of width 1024, vocab 50304), bf16, random
+# weights from seed 0: served with the qwen2 engine's traffic (16 requests
+# of 128-1024 prompt tokens, max_batch 8, pages of 16, 32 new tokens), and
+# trained at full width with the depth cut 16 -> 4 (memory: weights, fp32
+# moments and the stacked copies of a 6.9B-parameter step), batch 4 x 1024
+OLMOE = "olmoe-1b-7b"
+OLMOE_TRAIN_LAYERS, OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ = 4, 4, 1024
+OLMOE_TRAIN_STEPS = 3
+OLMOE_BWD_SHAPE = (OLMOE_TRAIN_BATCH, 16, 16, OLMOE_TRAIN_SEQ,
+                   OLMOE_TRAIN_SEQ, 128)
 # device kernels of each of our wrappers, by a part of their names
 OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
                "K2": ("flash_attention",),
@@ -396,7 +433,17 @@ def run_kernel_checks(report: dict) -> dict:
                         max_pages=67)
     long1 = paged_case(rng, B=1, H=14, Hkv=2, D=64, page=16,
                        seq_lens=[16384], dtype=bf)
+    # olmoe-1b-7b (phase 12): MHA, 16 heads of 128 (one query row a KV
+    # head), at the batch of 16 and at its engine's batch of 8 (timed)
+    olmoe = paged_case(rng, B=16, H=16, Hkv=16, D=128, page=16,
+                       seq_lens=lens, dtype=bf)
+    olmoe_engine = paged_case(rng, B=8, H=16, Hkv=16, D=128, page=16,
+                              seq_lens=rng.integers(128, 1057, size=8),
+                              dtype=bf, max_pages=67)
     cases = [("qwen2 decode B=16 H=14 Hkv=2 D=64 bf16", main, BF16_TOL),
+             ("olmoe decode B=16 H=Hkv=16 D=128 bf16", olmoe, BF16_TOL),
+             ("olmoe engine shape B=8 H=Hkv=16 D=128 67-page table bf16",
+              olmoe_engine, BF16_TOL),
              ("engine shape B=8 67-page table bf16", engine, BF16_TOL),
              ("B=1 one 16384-key sequence bf16 (128 partitions)", long1,
               BF16_TOL),
@@ -442,7 +489,8 @@ def run_kernel_checks(report: dict) -> dict:
     # replays the calls from a CUDA graph (the device back to back)
     timed = {}
     for tag, (q, kp, vp, pt, sl) in (("", main), ("_engine_shape", engine),
-                                     ("_b1_16k", long1)):
+                                     ("_b1_16k", long1),
+                                     ("_olmoe_engine", olmoe_engine)):
         n_tok, nbytes, flops, (b_ms, b_by) = k1_bound(q, kp, pt, sl)
         call = (lambda q=q, kp=kp, vp=vp, pt=pt, sl=sl:
                 pa.paged_attention(q, kp, vp, pt, sl))
@@ -452,6 +500,9 @@ def run_kernel_checks(report: dict) -> dict:
                       f"blocks{tag}": blocks})
         if tag:
             timed[f"bound_ms{tag}"] = b_ms
+            timed[f"plain_ms{tag}"] = time_ms(
+                lambda q=q, kp=kp, vp=vp, pt=pt, sl=sl: ref.paged_attention(
+                    q, kp, vp, pt, sl), iters=5)
         print(f"[K1] timed{tag or ' (main)'}: B={q.shape[0]} H={q.shape[1]} "
               f"Hkv={kp.shape[2]} D={q.shape[2]} {q.dtype}, table "
               f"{pt.shape[1]} pages, sum(seq_lens)={n_tok}, {nbytes} bytes, "
@@ -507,7 +558,20 @@ def run_kernel_checks(report: dict) -> dict:
     # qwen2-0.5b training's forward (phase 9): batch 8 x 1024, causal
     q_train = fa_case(TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64,
                       torch.bfloat16)
+    # olmoe-1b-7b (phase 12), 16 heads of 128: the engine's longest
+    # prompt (1024, one request a prefill) and the training forward (4 x
+    # 1024)
+    olmoe = {"olmoe_s1024": fa_case(1, 16, 16, 1024, 1024, 128,
+                                    torch.bfloat16),
+             "olmoe_train": fa_case(OLMOE_TRAIN_BATCH, 16, 16,
+                                    OLMOE_TRAIN_SEQ, OLMOE_TRAIN_SEQ, 128,
+                                    torch.bfloat16)}
     cases = [
+        *((f"{tag} B={q.shape[0]} H=Hkv=16 S={q.shape[2]} D=128 bf16",
+           (q, k, v), True, torch.float32, BF16_TOL)
+          for tag, (q, k, v) in olmoe.items()),
+        ("olmoe B=1 S=1024 D=128 compute_dtype=bf16", olmoe["olmoe_s1024"],
+         True, torch.bfloat16, None),
         ("qwen2 prefill S=2048 bf16", main, True, torch.float32, BF16_TOL),
         ("qwen2 prefill S=2048 bf16 compute_dtype=bf16", main, True,
          torch.bfloat16, None),
@@ -626,7 +690,9 @@ def run_kernel_checks(report: dict) -> dict:
     shape_t.update(shape_times("qwen2_train", *q_train, True))
     shape_t.update(shape_times("qwen2_s1024", *s1024, True))
     shape_t.update(shape_times("zamba2_shape", *zamba, True))
-    del q_train
+    for tag, qkv in olmoe.items():
+        shape_t.update(shape_times(tag, *qkv, True))
+    del q_train, olmoe
 
     q, k, v = main
     b_ms, b_by = k2_bound(q, k)
@@ -1212,6 +1278,13 @@ def read_counts() -> dict:
     return out
 
 
+def read_routes() -> dict:
+    """Each wrapper's launches by route (``fn.routes``), for the wrappers
+    that launched."""
+    return {name: dict(fn.routes) for name, fn in kernel_wrappers().items()
+            if fn.routes}
+
+
 def small_widths(cfg) -> set:
     """The wrappers whose small-width route ``cfg``'s widths take (heads
     other than 64 or 128 wide; scans other than 64 wide)."""
@@ -1259,8 +1332,8 @@ def through_plain(fn, *, oracle: bool = False, attention=None):
             setattr(ops, k, f)
 
 
-def run_engine(cfg, params, *, chunked: bool,
-               launches: dict) -> tuple[dict, dict]:
+def run_engine(cfg, params, *, chunked: bool, launches: dict,
+               label: str = "engine") -> tuple[dict, dict]:
     """Serve 16 requests; returns their tokens by request id and the
     run's walls and tokens/s."""
     import numpy as np
@@ -1281,6 +1354,7 @@ def run_engine(cfg, params, *, chunked: bool,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()             # ... and ends here
+    routes = read_routes()
     k1, k2 = counts["paged_attention"], counts["flash_attention"]
     st = eng.stats()
     mode = "chunked" if chunked else "whole"
@@ -1303,8 +1377,9 @@ def run_engine(cfg, params, *, chunked: bool,
     out = {"mode": mode, "requests": n_req, "tokens": int(toks.size),
            "wall_s": wall, "tokens_per_s": toks.size / wall,
            "median_step_ms": st["measured_step_s"] * 1e3,
-           "k1_launches": k1, "k2_launches": k2, "stats": st}
-    print(f"[engine {mode}] {json.dumps(out)}")
+           "k1_launches": k1, "k2_launches": k2, "routes": routes,
+           "stats": st}
+    print(f"[{label} {mode}] {json.dumps(out)}")
     return {r.rid: list(r.out_tokens) for r in eng.finished}, out
 
 
@@ -1444,17 +1519,18 @@ def profile_decode(lm, tokens, active, steps: int = 5) -> dict:
     return out
 
 
-def compare_with_cpu() -> dict:
-    """The reduced fp32 qwen2 of the CPU tests (head_dim 16: the kernels'
-    small-width routes) served on the card and, from the same weights, on
-    the CPU: same greedy tokens.  Returns the launches of the card's
-    whole-prefill run: K1 and K2 on their small-width routes alone."""
+def compare_with_cpu(name: str = "qwen2-0.5b") -> dict:
+    """The reduced fp32 ``name`` of the CPU tests (head_dim 16: the
+    kernels' small-width routes) served on the card and, from the same
+    weights, on the CPU: same greedy tokens.  Returns the launches of the
+    card's whole-prefill run: K1 and K2 on their small-width routes
+    alone."""
     import torch
 
     from repro_torch import configs
     from repro_torch.models import api
     from repro_torch.serving.engine import Engine, PagedLM
-    cfg = configs.get_reduced("qwen2-0.5b")
+    cfg = configs.get_reduced(name)
     gen = torch.Generator(device="cpu").manual_seed(3)
     params = api.get_model(cfg).init(gen)
     outs = {}
@@ -1478,11 +1554,12 @@ def compare_with_cpu() -> dict:
               f"(chunked={chunked})")
     launched = {k: v for k, v in counts.items() if v}
     check(set(launched) == {"paged_attention_small", "flash_attention_small"},
-          f"reduced qwen2 (head_dim {cfg.resolved_head_dim}): launches "
+          f"reduced {name} (head_dim {cfg.resolved_head_dim}): launches "
           f"{launched}, expected K1's and K2's small-width routes alone")
-    print(f"[compare] reduced fp32 qwen2 (head_dim {cfg.resolved_head_dim}):"
-          f" card tokens == CPU tokens, whole and chunked prefill; launches "
-          f"on the card (whole prefill) {launched}")
+    print(f"[compare] reduced fp32 {name} (head_dim "
+          f"{cfg.resolved_head_dim}): card tokens == CPU tokens, whole and "
+          f"chunked prefill; launches on the card (whole prefill) "
+          f"{launched}")
     return counts
 
 
@@ -2090,6 +2167,9 @@ def run_k2_bwd_checks(report: dict) -> dict:
         ("zamba2 training B=4 H=32 S=1024 bf16",
          (REC_TRAIN_BATCH, 32, 32, REC_TRAIN_SEQ, REC_TRAIN_SEQ, 64), bf, f32,
          True),
+        # olmoe-1b-7b training (phase 12b): D = 128, on the FMA pair
+        ("olmoe training B=4 H=16 S=1024 D=128 bf16", OLMOE_BWD_SHAPE, bf,
+         f32, True),
         # whisper-large-v3 training (phase 10), on the wgmma pair
         *((f"whisper {w} bf16{c}", shape, bf, cdt, causal)
           for w, (shape, causal) in WHISPER_BWD_SHAPES.items()
@@ -2206,6 +2286,17 @@ def run_k2_bwd_checks(report: dict) -> dict:
           f"{zamba_t['library_ms']:.4f} eager, "
           f"{zamba_t['library_ms_graph']:.4f} graph-replayed; bound "
           f"{zamba_t['bound_ms']:.5f} ({zamba_t['bound_by']})")
+    olmoe_t = timings(OLMOE_BWD_SHAPE, bf, f32, seed=5)
+    print(f"[K2-bwd] timed at olmoe's training shape (B, H, Hkv, Sq, Skv, D)"
+          f" = {OLMOE_BWD_SHAPE} bf16 causal, "
+          f"{' + '.join(fa.BWD_KERNELS[0])}: ms={olmoe_t['ms']:.4f} "
+          f"ms_graph={olmoe_t['ms_graph']:.4f}; plain "
+          f"{olmoe_t['plain_ms']:.3f}; SDPA fwd+bwd - fwd "
+          f"{olmoe_t['library_ms']:.4f} eager, "
+          f"{olmoe_t['library_ms_graph']:.4f} graph-replayed; bound "
+          f"{olmoe_t['bound_ms']:.5f} ({olmoe_t['bound_by']}, "
+          f"{olmoe_t['flops']:.4g} flops), "
+          f"{olmoe_t['bound_ms'] / olmoe_t['ms_graph']:.3f} of the bound")
     train_t = timings((TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), bf,
                       f32)
     pre_t = timings((1, 14, 2, 2048, 2048, 64), bf, f32, seed=1)
@@ -2221,6 +2312,9 @@ def run_k2_bwd_checks(report: dict) -> dict:
              **{f"{k}_prefill_shape": v for k, v in pre_t.items()
                 if k != "bound_by"}, **whisper_t,
              **{f"{k}_zamba2": zamba_t[k] for k in
+                ("ms", "ms_graph", "plain_ms", "library_ms",
+                 "library_ms_graph", "bound_ms", "bound_by")},
+             **{f"{k}_olmoe": olmoe_t[k] for k in
                 ("ms", "ms_graph", "plain_ms", "library_ms",
                  "library_ms_graph", "bound_ms", "bound_by")})
     r["kernel_ms"] = r["ms"]
@@ -2419,20 +2513,21 @@ def restart_phase() -> None:
     torch.cuda.empty_cache()
 
 
-def train_with_cpu() -> dict:
-    """Phase 9d: the reduced fp32 qwen2 of the CPU tests (head_dim 16: K2's
-    and K2-bwd's small-width routes) trained 5 steps on the card and, from
-    the same weights, on the CPU: losses within rtol 1e-4 (TF32 off), the
-    launches exact.  Returns the card run's launches."""
+def train_with_cpu(name: str = "qwen2-0.5b", steps: int = 5) -> dict:
+    """Phase 9d (and 12c): the reduced fp32 ``name`` of the CPU tests
+    (head_dim 16: K2's and K2-bwd's small-width routes) trained ``steps``
+    steps on the card and, from the same weights, on the CPU: losses
+    within rtol 1e-4 (TF32 off), the launches exact.  Returns the card
+    run's launches."""
     import numpy as np
     import torch
 
     from repro_torch import configs
     from repro_torch.models import api
     from repro_torch.runtime.trainer import Trainer
-    cfg = configs.get_reduced("qwen2-0.5b")
+    cfg = configs.get_reduced(name)
     init = api.get_model(cfg).init(torch.Generator().manual_seed(3))
-    losses, steps = {}, 5
+    losses = {}
     for dev in ("cpu", "cuda"):
         tc = train_config(cfg, f"reduced_{dev}", batch=4,
                           seq_len=SMALL_TRAIN_SEQ)
@@ -2445,11 +2540,11 @@ def train_with_cpu() -> dict:
     want["flash_attention"] = 2 * cfg.n_layers * steps
     want["flash_attention_bwd"] = cfg.n_layers * steps
     want = by_route(want, cfg)
-    check(counts == want, f"reduced qwen2 training: launches {counts}, "
+    check(counts == want, f"reduced {name} training: launches {counts}, "
           f"expected {want}")
     rel = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                        / np.abs(losses["cpu"])))
-    print(f"[compare] reduced fp32 qwen2 training (head_dim "
+    print(f"[compare] reduced fp32 {name} training (head_dim "
           f"{cfg.resolved_head_dim}): card {losses['cuda']} vs CPU "
           f"{losses['cpu']}, largest relative gap {rel:.3e} (tol 1e-4); "
           f"launches { {k: v for k, v in counts.items() if v} }")
@@ -3193,6 +3288,361 @@ def recurrent_train_phases(report: dict) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 12: the MoE family (olmoe-1b-7b), served and trained
+# ----------------------------------------------------------------------------
+
+def routed(fn):
+    """fn() with every MoE dispatch's top-k expert choices recorded:
+    (fn's result, [one (T, K) tensor of sorted expert ids a dispatch, in
+    the order the layers ran])."""
+    from repro_torch.models import moe
+    calls, dispatch = [], moe._local_dispatch
+
+    def record(cfg, xt, router, K, E, C):
+        out = dispatch(cfg, xt, router, K, E, C)
+        calls.append(out[3].reshape(-1, K).sort(-1).values)
+        return out
+
+    moe._local_dispatch = record
+    try:
+        return fn(), calls
+    finally:
+        moe._local_dispatch = dispatch
+
+
+def route_flips(a: list, b: list) -> tuple[int, int]:
+    """Between two runs' recorded dispatches: (the tokens whose layer-0
+    top-k expert set differs, the (token, layer) pairs whose set differs
+    in any layer)."""
+    check(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b)),
+          "route_flips: the runs dispatched differently shaped blocks")
+    differ = [int(((x[:, :, None] == y[:, None, :]).any(-1).sum(-1)
+                   < x.shape[1]).sum()) for x, y in zip(a, b)]
+    return differ[0], sum(differ)
+
+
+def held_layerwise(fn):
+    """fn() with every call of ``ops.paged_attention`` (K1) and
+    ``ops.flash_attention`` (K2) also run through its plain version on the
+    kernel path's own inputs, and held there at phase 2's bars (BF16_TOL
+    for bf16 outputs, FP32_TOL for fp32; compute dtype fp32).  Returns
+    (fn's result, {wrapper: [calls, largest err/tol]})."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    plain = {"paged_attention": ref.paged_attention,
+             "flash_attention": ref.mha_attention}
+    real = {k: getattr(ops, k) for k in plain}
+    worst = {k: [0, 0.0] for k in plain}
+
+    def wrap(name):
+        def call(*a, **kw):
+            cdt = kw.get("compute_dtype", torch.float32)
+            check(cdt == torch.float32, f"held_layerwise: {name} under "
+                  f"compute_dtype {cdt}")
+            got = real[name](*a, **kw)
+            want = plain[name](*a, **kw)
+            tol = BF16_TOL if got.dtype == torch.bfloat16 else FP32_TOL
+            worst[name][0] += 1
+            worst[name][1] = max(worst[name][1], tol_ratio(got, want, tol))
+            return got
+        return call
+
+    for k in plain:
+        setattr(ops, k, wrap(k))
+    try:
+        return fn(), worst
+    finally:
+        for k, f in real.items():
+            setattr(ops, k, f)
+
+
+def compare_moe_paths(cfg, params) -> dict:
+    """Phase 12a's kernel checks on the engine's state: 4 whole prefills
+    and one decode step of 8 prefilled slots, every K1 and K2 call of
+    every layer held to its plain version on its own inputs
+    (``held_layerwise``).  End to end, the bf16 model through the kernels
+    and through the plain versions can route a token to other experts at
+    a near-tie (top-k is discontinuous), after which their logits part for
+    a reason that is not the kernels': the logit gap is reported beside the
+    tokens whose layer-0 top-8 set differs, not held.  Returns the
+    per-request prefill times and the profiled decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import PagedLM
+
+    lm = PagedLM(cfg, params, max_batch=8, max_seq=1024 + 64,
+                 page_tokens=16, device="cuda")
+    reqs = make_requests(cfg, 8, 128, 1024, 8, seed=2)
+    held = {"paged_attention": [0, 0.0], "flash_attention": [0, 0.0]}
+
+    def hold(fn):
+        out, w = held_layerwise(fn)
+        for k, (n, s) in w.items():
+            held[k] = [held[k][0] + n, max(held[k][1], s)]
+        return out
+
+    pre = {"logit_gap": [], "max_logit": [], "layer0_flips": [],
+           "flips_any_layer": [], "argmax_same": [], "tokens": []}
+    for r in reqs[:4]:
+        slot = lm.claim_slot(len(r.prompt), 1)
+        run = lambda: lm._prefill_logits(slot, r.prompt)  # noqa: E731
+        kern, rk = routed(lambda: hold(run))
+        pl, rp = routed(lambda: through_plain(run))
+        lm.free_slot(slot)
+        flips = route_flips(rk, rp)
+        pre["logit_gap"].append(max_err(kern, pl))
+        pre["max_logit"].append(float(pl.float().abs().max()))
+        pre["layer0_flips"].append(flips[0])
+        pre["flips_any_layer"].append(flips[1])
+        pre["argmax_same"].append(int(kern.argmax()) == int(pl.argmax()))
+        pre["tokens"].append(len(r.prompt))
+
+    # the state for the decode step: 8 prefilled slots, timed one by one
+    pre_ms = []
+    for r in reqs:
+        slot = lm.claim_slot(len(r.prompt), r.max_new_tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.out_tokens.append(lm.prefill_slot(slot, r.prompt))
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    n_pre = sum(len(r.prompt) for r in reqs)
+    pre_tps = n_pre / (sum(pre_ms) / 1e3)
+    print(f"[olmoe prefill] per request ms: {[round(x, 3) for x in pre_ms]} "
+          f"(prompts {[len(r.prompt) for r in reqs]}; "
+          f"{pre_tps:.1f} prompt tokens/s)")
+    tokens = np.array([r.out_tokens[-1] for r in reqs], np.int32)
+    active = np.ones((8,), bool)
+    k_save, v_save = lm.k_pool.clone(), lm.v_pool.clone()
+    kern, rk = routed(lambda: hold(lambda: lm.decode_logits(tokens,
+                                                            active)))
+    lm.k_pool.copy_(k_save)
+    lm.v_pool.copy_(v_save)
+    pl, rp = routed(lambda: through_plain(
+        lambda: lm.decode_logits(tokens, active)))
+    flips = route_flips(rk, rp)
+    dec = {"logit_gap": max_err(kern, pl),
+           "max_logit": float(pl.float().abs().max()),
+           "layer0_flips": flips[0],
+           "flips_any_layer": flips[1],
+           "argmax_same": int((kern.argmax(-1) == pl.argmax(-1)).sum()),
+           "rows": len(tokens)}
+    L = cfg.n_layers
+    print(f"[compare olmoe] every layer's K1 / K2 call held to its plain "
+          f"version on its own inputs: K2 {held['flash_attention'][0]} calls"
+          f", largest err/tol {held['flash_attention'][1]:.3f}; K1 "
+          f"{held['paged_attention'][0]} calls, largest err/tol "
+          f"{held['paged_attention'][1]:.3f} (tol {BF16_TOL[0]:.3g}|want| + "
+          f"{BF16_TOL[1]:.3g}). End to end, kernels vs plain (not held: a "
+          f"near-tie in the router moves a token to other experts): "
+          f"prefill logit gap per prompt {pre['logit_gap']} (max|logit| "
+          f"{pre['max_logit']}) with "
+          f"{pre['layer0_flips']} of {pre['tokens']} tokens whose layer-0 "
+          f"top-8 set differs ({pre['flips_any_layer']} (token, layer) "
+          f"pairs in any of the {L} layers), argmax same "
+          f"{pre['argmax_same']}; decode logit gap "
+          f"{dec['logit_gap']:.4f} (max|logit| {dec['max_logit']:.3f}), "
+          f"layer-0 flips {dec['layer0_flips']} of "
+          f"8 rows ({dec['flips_any_layer']} in any layer), argmax same "
+          f"{dec['argmax_same']}/8")
+    check(held["flash_attention"][0] == 4 * L
+          and held["paged_attention"][0] == L,
+          f"olmoe: the layerwise hold saw {held} calls, expected K2 4 x {L} "
+          f"and K1 {L}")
+    check(held["flash_attention"][1] <= 1 and held["paged_attention"][1] <= 1,
+          f"olmoe: a kernel disagrees with its plain version on its own "
+          f"inputs: {held}")
+    return {"held_layerwise": held, "prefill_end_to_end": pre,
+            "decode_end_to_end": dec, "prefill_ms": pre_ms,
+            "prompt_tokens_per_s": pre_tps,
+            "decode_step": profile_decode(lm, tokens, active)}
+
+
+def moe_param_counts(cfg, n_total: int) -> int:
+    """Parameters a token touches: all but the experts it is not routed
+    to (E - K of every MoE layer's E experts)."""
+    m = cfg.moe
+    expert = 3 * cfg.d_model * m.d_expert
+    return n_total - cfg.n_layers * (m.n_experts - m.top_k) * expert
+
+
+def serve_olmoe() -> dict:
+    """Phase 12a: olmoe-1b-7b at full width and depth (16 layers, 16
+    heads of 128, 64 experts top-8) served through the paged engine: 16
+    requests, max_batch 8, pages of 16, whole and chunked prefill; K1
+    exactly decode steps x 16 on its split-K route, K2 16 a request
+    (whole prefill) on its ``mma`` route; prefill and decode ms, tokens/s,
+    busy share, peak memory; then the kernels held layer by layer.  Frees
+    the card.  Returns the whole-prefill run's launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    cfg = configs.get_config(OLMOE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in params.parameters())
+    print(f"[olmoe] {cfg.name}: {n_par} parameters ({n_par * 2 / 1e9:.2f} "
+          f"GB bf16; {moe_param_counts(cfg, n_par)} active a token), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches: dict = {}
+    runs = {}
+    for chunked in (False, True):
+        toks, runs[chunked] = run_engine(cfg, params, chunked=chunked,
+                                         launches=launches,
+                                         label="olmoe engine")
+        runs[chunked]["tokens_by_request"] = toks
+    for mode, run in (("whole", runs[False]), ("chunked", runs[True])):
+        want = {"paged_attention": {"split_k": run["k1_launches"]}}
+        if run["k2_launches"]:
+            want["flash_attention"] = {"mma": run["k2_launches"]}
+        check(run["routes"] == want, f"olmoe {mode}: launches by route "
+              f"{run['routes']}, expected {want} (D = 128)")
+    same = sum(runs[False]["tokens_by_request"][i]
+               == runs[True]["tokens_by_request"][i]
+               for i in runs[False]["tokens_by_request"])
+    peak = torch.cuda.max_memory_allocated()
+    paths = compare_moe_paths(cfg, params)
+    out = {"model": cfg.name, "params": n_par,
+           "active_params": moe_param_counts(cfg, n_par),
+           "tokens_per_s": runs[False]["tokens_per_s"],
+           "median_decode_step_ms": runs[False]["median_step_ms"],
+           "chunked_tokens_per_s": runs[True]["tokens_per_s"],
+           "chunked_median_decode_step_ms": runs[True]["median_step_ms"],
+           "whole_vs_chunked_same_tokens": f"{same}/16",
+           "prefill_ms": paths["prefill_ms"],
+           "prompt_tokens_per_s": paths["prompt_tokens_per_s"],
+           "decode_step_device_ms": paths["decode_step"]["device_ms"],
+           "decode_step_busy_share":
+               paths["decode_step"]["device_busy_share"],
+           "max_memory_allocated_bytes": peak,
+           "launches": {k: v for k, v in launches["whole"].items() if v},
+           "routes": runs[False]["routes"],
+           "held_layerwise": paths["held_layerwise"],
+           "prefill_end_to_end": paths["prefill_end_to_end"],
+           "decode_end_to_end": paths["decode_end_to_end"],
+           "card": gpu_name_power()}
+    print(f"[serve olmoe] {json.dumps(out)}")
+    del params
+    torch.cuda.empty_cache()
+    return launches["whole"]
+
+
+def train_olmoe() -> dict:
+    """Phase 12b: olmoe-1b-7b at full width, depth cut to 4 layers,
+    trained 3 steps (batch 4 x 1024, remat, AdamW lr 3e-4) through
+    ``Trainer(comm="single")`` and then through ``Trainer(comm="gspmd")``
+    on a 1 x 1 ("data", "model") mesh over NCCL, from the same seed: on
+    one rank ``tp = 1``, so both take JAX's fallback to the global
+    dispatch and the losses are equal bitwise; each run K2 8 and K2-bwd 4
+    a step exactly (K2 on its ``mma`` route, K2-bwd at bf16 D = 128 on its
+    FMA pair) and nothing else; step ms, tokens/s, busy share, peak
+    memory, tokens/s x 6 x the active parameters.  Returns the two runs'
+    launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import Trainer
+
+    cfg = dataclasses.replace(configs.get_config(OLMOE),
+                              n_layers=OLMOE_TRAIN_LAYERS)
+    n, L = OLMOE_TRAIN_STEPS, cfg.n_layers
+    runs, counts = {}, {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for comm in ("single", "gspmd"):   # both from the seed-0 weights
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(cfg, train_config(
+                cfg, f"olmoe_{comm}", batch=OLMOE_TRAIN_BATCH,
+                seq_len=OLMOE_TRAIN_SEQ, comm=comm),
+                mesh=mesh if comm == "gspmd" else None)
+            torch.cuda.synchronize()
+            reset_counts()             # the main path's run starts here
+            ms = tr.train(n)
+            torch.cuda.synchronize()
+            counts[comm] = read_counts()   # ... and ends here
+            routes = read_routes()
+            peak = torch.cuda.max_memory_allocated()
+            n_par = tr.n_params
+            prof = device_profile(tr.train_step, 1)
+            step_s = float(np.median([m["step_time_s"] for m in ms]))
+            tps = OLMOE_TRAIN_BATCH * OLMOE_TRAIN_SEQ / step_s
+            active = moe_param_counts(cfg, n_par)
+            runs[comm] = {
+                "losses": [m["loss"] for m in ms],
+                "grad_norms": [m["grad_norm"] for m in ms],
+                "step_ms": [m["step_time_s"] * 1e3 for m in ms],
+                "median_step_ms": step_s * 1e3, "tokens_per_s": tps,
+                "active_flops_per_s": tps * 6 * active,
+                "max_memory_allocated_bytes": peak, "routes": routes,
+                "device_busy_share": prof["device_busy_share"],
+                "device_ms": prof["device_ms"], "step_profile": prof}
+            del tr
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = runs["single"]["losses"], runs["gspmd"]["losses"]
+    out = {"layers": L, "params": n_par, "active_params": active,
+           "batch": [OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ], "steps": n,
+           "mesh": [1, 1], "backend": "nccl", "bitwise": a == b,
+           **runs, "card": gpu_name_power()}
+    print(f"[train olmoe] {json.dumps(out)}")
+    want = dict.fromkeys(counts["single"], 0)
+    want["flash_attention"] = 2 * L * n
+    want["flash_attention_bwd"] = L * n
+    want_routes = {"flash_attention": {"mma": 2 * L * n},
+                   "flash_attention_bwd": {"fma": L * n}}
+    for comm, r in runs.items():
+        check(all(np.isfinite(r["losses"])), f"olmoe train {comm}: a loss "
+              f"is not finite: {r['losses']}")
+        check(counts[comm] == want, f"olmoe train {comm}: launches "
+              f"{counts[comm]}, expected {want} (K2 twice a layer a step "
+              "under remat, K2-bwd once)")
+        check(r["routes"] == want_routes, f"olmoe train {comm}: routes "
+              f"{r['routes']}, expected {want_routes}")
+    # one rank: tp = 1 takes JAX's fallback to the global dispatch, every
+    # collective is the identity and every spec shards nothing
+    check(a == b, f"olmoe train: GSPMD's losses {b} differ from single's "
+          f"{a}")
+    return counts
+
+
+def moe_phases() -> dict:
+    """Phase 12; returns the launches of its main paths: olmoe served
+    (a), trained single and GSPMD (b), the reduced olmoe on the card
+    (c)."""
+    paths = {"olmoe_engine": phase("12a olmoe serving", serve_olmoe)}
+    train = phase("12b olmoe training", train_olmoe)
+    paths["olmoe_train"] = train["single"]
+    paths["olmoe_train_gspmd"] = train["gspmd"]
+    paths["reduced_olmoe_serve"] = phase(
+        "12c reduced olmoe card vs CPU", compare_with_cpu, OLMOE)
+    paths["reduced_olmoe_train"] = phase(
+        "12c reduced olmoe training card vs CPU", train_with_cpu, OLMOE, 3)
+    return paths
+
+
+# ----------------------------------------------------------------------------
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
@@ -3410,6 +3860,13 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
         "rwkv6_scan_bwd": {"rwkv6_train": {"": None}}}
     split["flash_attention"]["qwen2_train_gspmd"] = {"_qwen2_train": None}
     split["flash_attention_bwd"]["qwen2_train_gspmd"] = {"": None}
+    # olmoe: its engine's batch of 8 (K1) and longest prompt (K2), and the
+    # training shapes
+    split["paged_attention"]["olmoe_engine"] = {"_olmoe_engine": None}
+    split["flash_attention"]["olmoe_engine"] = {"_olmoe_s1024": None}
+    for path in ("olmoe_train", "olmoe_train_gspmd"):
+        split["flash_attention"][path] = {"_olmoe_train": None}
+        split["flash_attention_bwd"][path] = {"_olmoe": None}
     # the small-width routes: every reduced path's calls at the timed
     # reduced shape (K4's S = 1 calls in serving at the decode one)
     for name in ("paged_attention", "flash_attention", "flash_attention_bwd",
@@ -3459,6 +3916,9 @@ def main() -> int:
     ap.add_argument("--scan-bwd-only", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--train-only", action="store_true",
                     help="the build and phases 9 and 11 (training) alone")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="the build, phase 2's K1 and K2, phase 9a's K2-bwd "
+                         "and phase 12 (the MoE family) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3503,6 +3963,15 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.moe_only:
+        phase("2 kernels vs plain", run_kernel_checks, report)
+        phase("9a K2-bwd vs plain", run_k2_bwd_checks, report)
+        paths = moe_phases()
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+        print(f"[launches] {json.dumps(paths)}")
+        print(f"[ranking] {json.dumps(kernel_ranking(report, paths))}")
+        print(card)
+        return 0
     if args.train_only:
         train_phases(report)
         recurrent_train_phases(report)
@@ -3558,6 +4027,8 @@ def main() -> int:
     # recurrent families trained
     paths.update(whisper_phases())
     paths.update(recurrent_train_phases(report))
+    # the MoE family last, alone on the card
+    paths.update(moe_phases())
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")

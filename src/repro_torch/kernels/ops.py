@@ -17,6 +17,14 @@ scans take their chunked plain versions, as JAX's ``impl="auto"`` does off
 the TPU; on the card the kernels K3 and K4 take the ``h0``/``s0`` and
 ``return_state`` contract themselves, where the Pallas kernels leave it to
 the chunked jnp reference.
+
+``sharded_flash_attention(mesh)`` and ``sharded_paged_attention(mesh)``
+are the JAX module's ``shard_map``'d wrappers as one program a rank: the
+callable each returns takes this rank's blocks of the inputs under JAX's
+specs (batch over the data axes, query heads and the page pools' KV heads
+over the model axis; ``in_specs`` / ``out_spec`` on the callable) and
+returns its block of the output, the attention above on the local slice.
+Heads are independent, so no attention state crosses ranks.
 """
 from __future__ import annotations
 
@@ -96,3 +104,45 @@ def rwkv6_scan(r, k, v, w, u, *, s0=None, return_state: bool = False):
                               return_state=return_state)
     return ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
                                   return_state=return_state)
+
+
+# ----------------------------------------------------------------------------
+# per-rank wrappers over a mesh: batch over the data axes, heads over the
+# model axis (JAX: ``shard_map`` with these specs); each rank passes its
+# blocks (``parallel.spmd.shard``) and gets its block of the output
+# (``parallel.spmd.unshard`` gathers the global one)
+# ----------------------------------------------------------------------------
+
+def _sharded(fn, mesh, in_specs, out_spec):
+    def call(*blocks):
+        if len(blocks) != len(in_specs):
+            raise TypeError(f"expected {len(in_specs)} blocks, got "
+                            f"{len(blocks)}")
+        return fn(*blocks)
+
+    call.mesh, call.in_specs, call.out_spec = mesh, in_specs, out_spec
+    return call
+
+
+def sharded_flash_attention(mesh, *, data_axes=("data",),
+                            model_axis="model", **kw):
+    """(q, k, v) blocks -> this rank's block of ``flash_attention(q, k, v,
+    **kw)``: (B, H, S, D) laid out as P(data_axes, model_axis, None,
+    None) for q, k, v and the output."""
+    spec = (tuple(data_axes), model_axis, None, None)
+    return _sharded(lambda q, k, v: flash_attention(q, k, v, **kw), mesh,
+                    (spec,) * 3, spec)
+
+
+def sharded_paged_attention(mesh, *, data_axes=("data",),
+                            model_axis="model", **kw):
+    """(q, k_pages, v_pages, page_table, seq_lens) blocks -> this rank's
+    block of ``paged_attention(...)``: q and the output (B, H, D) over
+    (data_axes, model_axis), the page pools over their KV heads, the
+    table and lengths over data_axes."""
+    qspec = (tuple(data_axes), model_axis, None)
+    kvspec = (None, None, model_axis, None)
+    return _sharded(
+        lambda q, kp, vp, pt, sl: paged_attention(q, kp, vp, pt, sl, **kw),
+        mesh, (qspec, kvspec, kvspec, (tuple(data_axes), None),
+               (tuple(data_axes),)), qspec)

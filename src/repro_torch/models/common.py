@@ -83,7 +83,8 @@ class ArchCfg:
     # The next four select implementations: the recurrent scan (JAX only:
     # the port's device picks it), the tensor-parallel activation layout
     # and the parallelism (read by the sharding rules and the dense stack
-    # under a mesh), the MoE dispatch (ep_a2a waits for ROADMAP item 7).
+    # under a mesh), the MoE dispatch ("ep_a2a": the expert-parallel
+    # all-to-alls under a "model" axis; "global").
     scan_impl: str = "auto"
     tp_activations: str = "free"
     moe_impl: str = "global"

@@ -1,22 +1,38 @@
 """Mixture-of-Experts FFN with sort-based dispatch.
 
-The counterpart of the JAX package's ``models/moe.py::apply_moe``: expand
-each token k times, stable-sort by expert id, place into an (E, C, d)
-capacity buffer, run the batched expert FFN, combine back with the router
-probabilities.  Where JAX drops overflowed tokens through the scatter's
-out-of-bounds ``mode="drop"``, this version writes only the rows an
-explicit ``keep`` mask selects (PyTorch indexing raises on an
+The counterpart of the JAX package's ``models/moe.py``.  ``apply_moe``:
+expand each token k times, stable-sort by expert id, place into an (E, C,
+d) capacity buffer, run the batched expert FFN, combine back with the
+router probabilities.  Where JAX drops overflowed tokens through the
+scatter's out-of-bounds ``mode="drop"``, this version writes only the rows
+an explicit ``keep`` mask selects (PyTorch indexing raises on an
 out-of-bounds index instead of dropping the write).
 
-The expert-parallel dispatch (``apply_moe_ep``, shard_map with explicit
-all-to-alls) waits for the collectives slice of the port.
+Every index write and gather here touches each row once, and the combine
+sums each token's k rows in a fixed order (rows back in (token, k) order,
+then a sum over k), where JAX scatter-adds them: on the card an
+``index_add_`` is an atomic add whose order, and so whose fp32 sum, varies
+between runs; this way reruns are bitwise, the backward too.
+
+``apply_moe_ep`` is JAX's expert-parallel dispatch (its ``shard_map`` with
+two explicit all-to-alls) as one program a rank: under a runtime mesh
+(``parallel.sharding.set_runtime_mesh``) each rank routes its block of the
+tokens, (batch over the data axes) x (sequence over "model"), sends each
+expert's capacity buffer to the "model" rank that holds the expert (the
+expert weights stay in their "model" shards), runs its own experts and
+sends the outputs back (``parallel.spmd.all_to_all``, differentiable).
+``apply_moe_global`` is the global dispatch under such a mesh: the rows
+gathered, dispatched together, this rank's rows kept.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ArchCfg, Params, dense_init
+from repro_torch.parallel import sharding, spmd
 
 
 def init_moe(cfg: ArchCfg, gen, device) -> Params:
@@ -36,6 +52,47 @@ def capacity(cfg: ArchCfg, n_tokens: int) -> int:
     return max(c, m.top_k)
 
 
+def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int):
+    """Route a token block xt (T, d): returns (buf (E*C, d), combine,
+    probs (T, E), flat_e (T*K,)); ``combine(outbuf)`` gives the (T, d)
+    fp32 sum of each token's kept expert rows, weighted."""
+    T, d = xt.shape
+    dev = xt.device
+    # --- routing (fp32 for a stable softmax) -------------------------------
+    logits = xt.float() @ router                             # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)              # (T, K)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    # --- sort-based dispatch -----------------------------------------------
+    flat_e = top_e.reshape(-1)                               # (T*K,)
+    flat_p = top_p.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=E)             # (E,)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_e]
+    keep = pos_in_e < C                                      # capacity mask
+    dest = (sorted_e * C + pos_in_e)[keep]                   # buffer rows
+    rows = order[keep]                                       # (token, k) rows
+    xk = xt[:, None].expand(T, K, d).reshape(T * K, d)       # token k times
+    buf = torch.zeros((E * C, d), dtype=xt.dtype, device=dev)
+    buf[dest] = xk[rows]
+
+    def combine(outbuf):
+        wk = torch.zeros((T * K, d), dtype=torch.float32, device=dev)
+        wk[rows] = outbuf[dest].float() * flat_p[rows][:, None]
+        return wk.reshape(T, K, d).sum(1)
+
+    return buf, combine, probs, flat_e
+
+
+def _expert_ffn(buf, wg, wu, wd, dtype):
+    """(E, C, d) tokens through each expert's SwiGLU FFN -> (E, C, d)."""
+    g = F.silu(torch.einsum("ecd,edf->ecf", buf, wg).float())
+    u = torch.einsum("ecd,edf->ecf", buf, wu).float()
+    return torch.einsum("ecf,efd->ecd", (g * u).to(dtype), wd)
+
+
 def apply_moe(cfg: ArchCfg, p: Params, x: torch.Tensor, *,
               dropless: bool = False):
     """x: (B, S, d) -> (y: (B, S, d), aux_loss: scalar fp32).
@@ -48,49 +105,95 @@ def apply_moe(cfg: ArchCfg, p: Params, x: torch.Tensor, *,
     T = B * S
     E, K = m.n_experts, m.top_k
     C = T if dropless else capacity(cfg, T)
-    dev = x.device
-    xt = x.reshape(T, d)
-
-    # --- routing (fp32 for a stable softmax) ---------------------------------
-    logits = xt.float() @ p["router"]                        # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = torch.topk(probs, K, dim=-1)              # (T, K)
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-
+    buf, combine, probs, flat_e = _local_dispatch(
+        cfg, x.reshape(T, d), p["router"], K, E, C)
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(0)                                       # (E,)
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-        0, top_e.reshape(-1),
-        torch.full((T * K,), 1.0 / (T * K), dtype=torch.float32, device=dev))
+    ce = torch.bincount(flat_e, minlength=E).float() / (T * K)
     aux = m.router_aux_weight * E * torch.sum(me * ce)
+    out = _expert_ffn(buf.reshape(E, C, d), p["w_gate"], p["w_up"],
+                      p["w_down"], x.dtype).reshape(E * C, d)
+    return combine(out).reshape(B, S, d).to(x.dtype), aux
 
-    # --- sort-based dispatch ---------------------------------------------------
-    flat_e = top_e.reshape(-1)                               # (T*K,)
-    flat_p = top_p.reshape(-1)
-    tok_id = torch.arange(T * K, device=dev) // K
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)             # (E,)
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_e]
-    keep = pos_in_e < C                                      # capacity mask
-    dest = sorted_e * C + pos_in_e
-    src_tok = tok_id[order]
 
-    buf = torch.zeros((E * C, d), dtype=x.dtype, device=dev)
-    buf[dest[keep]] = xt[src_tok[keep]]
-    buf = buf.reshape(E, C, d)
+def apply_moe_global(cfg: ArchCfg, p: Params, x: torch.Tensor):
+    """``apply_moe`` over the global batch: under a runtime mesh whose
+    batch rows are split over ranks, the rows are gathered, dispatched
+    together (capacity and the aux loss from every token, as JAX's global
+    dispatch) and this rank's rows kept."""
+    mesh, (axes, _) = sharding.runtime_mesh(), sharding.runtime_batch_spec()
+    if mesh is None or axes is None:
+        return apply_moe(cfg, p, x)
+    y, aux = apply_moe(cfg, p, spmd.all_gather(x, 0, mesh, axes, tag="moe"))
+    return spmd.shard(y, (axes,), mesh), aux
 
-    # --- expert FFN (batched over E) --------------------------------------------
-    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]).float())
-    u = torch.einsum("ecd,edf->ecf", buf, p["w_up"]).float()
-    h = (g * u).to(x.dtype)
-    out = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(E * C, d)
 
-    # --- combine -------------------------------------------------------------------
-    gathered = torch.zeros((T * K, d), dtype=x.dtype, device=dev)
-    gathered[keep] = out[dest[keep]]
-    weighted = gathered.float() * flat_p[order][:, None]
-    y = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(
-        0, src_tok, weighted)
-    return y.reshape(B, S, d).to(x.dtype), aux
+def _parts(mesh, entry) -> int:
+    return math.prod(mesh.shape[a] for a in sharding.spec_axes(entry))
+
+
+def _relayout(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
+    """This rank's part of a tensor under spec ``src`` -> its part under
+    ``dst``: a dim whose entries differ is gathered over ``src``'s axes
+    (differentiable) and cut to ``dst``'s."""
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if sharding.spec_axes(a) == sharding.spec_axes(b):
+            continue
+        if a is not None:
+            x = spmd.all_gather(x, dim, mesh, a, tag="moe")
+        if b is not None:
+            x = spmd.shard(x, (None,) * dim + (b,), mesh)
+    return x
+
+
+def apply_moe_ep(cfg: ArchCfg, p: Params, x: torch.Tensor):
+    """Expert-parallel MoE: x (this rank's rows, as the runtime batch spec
+    lays them) -> (y likewise, aux).  Tokens are split over (data axes x
+    "model") for routing; capacity buffers cross "model" by two explicit
+    all-to-alls; experts stay in their "model" shards.  Without a mesh, a
+    "model" axis of 1, or experts, sequence or batch that do not divide,
+    the global dispatch runs (JAX's fallback)."""
+    mesh = sharding.runtime_mesh()
+    m = cfg.moe
+    tp = 1 if mesh is None else sharding.tp_size(mesh)
+    Bl, Sl, d = x.shape
+    src = sharding.runtime_batch_spec()
+    if mesh is not None:   # the global batch's shape
+        B, S = Bl * _parts(mesh, src[0]), Sl * _parts(mesh, src[1])
+    if mesh is None or tp <= 1 or m.n_experts % tp or S % tp \
+            or B % max(sharding.dp_size(mesh), 1):
+        return apply_moe_global(cfg, p, x)
+    dpx = sharding.dp_axes(mesh)
+    E, K = m.n_experts, m.top_k
+    E_loc = E // tp
+    T_loc = (B // max(sharding.dp_size(mesh), 1)) * (S // tp)
+    C = max(int(T_loc * K / E * m.capacity_factor), K)
+    all_axes = tuple(dpx) + ("model",)
+    n_all = _parts(mesh, all_axes)
+    blk = (tuple(dpx) or None, "model")
+    xs = _relayout(x, src, blk, mesh)                 # this rank's block
+    xt = xs.reshape(-1, d)
+    buf, combine, probs, flat_e = _local_dispatch(cfg, xt, p["router"], K,
+                                                  E, C)
+    # Switch-style aux loss from globally-averaged router stats
+    me = spmd.all_reduce(probs.mean(0), mesh, all_axes, tag="moe") / n_all
+    with torch.no_grad():
+        ce = spmd.all_reduce(torch.bincount(flat_e, minlength=E).float()
+                             / flat_e.numel(), mesh, all_axes,
+                             tag="moe") / n_all
+    aux = m.router_aux_weight * E * torch.sum(me * ce)
+    # dispatch all-to-all: (tp, E_loc*C, d) -> dim 0 becomes the sender
+    recv = spmd.all_to_all(buf.reshape(tp, E_loc * C, d), 0, 0, mesh,
+                           "model", tag="moe")
+    toks = recv.reshape(tp, E_loc, C, d).transpose(0, 1) \
+        .reshape(E_loc, tp * C, d)
+    # this rank's experts: its "model" shard of each expert tensor
+    w = {k: spmd.tp_slice(p.local(k), 0, mesh)
+         for k in ("w_gate", "w_up", "w_down")}
+    out = _expert_ffn(toks, w["w_gate"], w["w_up"], w["w_down"], xs.dtype)
+    # return all-to-all: each expert output back to its token's rank
+    back = out.reshape(E_loc, tp, C, d).transpose(0, 1) \
+        .reshape(tp, E_loc * C, d)
+    ret = spmd.all_to_all(back, 0, 0, mesh, "model", tag="moe")
+    y = combine(ret.reshape(E * C, d)).reshape(xs.shape).to(x.dtype)
+    return _relayout(y, blk, src, mesh), aux

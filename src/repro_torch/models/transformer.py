@@ -31,10 +31,12 @@ with the sequence over "model" (``batch_specs``, when the batch cannot
 cover the grid) each rank computes its slice of the sequence, K/V
 gathered a layer.  Every other layer, and a stack TP does not fit, reads
 its sharded leaves gathered where it uses them
-(``models.common.Params``).  MoE layers under a batch split over ranks
-dispatch the global batch's tokens, as JAX's global ``apply_moe`` does
-(``moe_impl="ep_a2a"`` under a "model" axis waits for ROADMAP item 7;
-the trainer refuses it).
+(``models.common.Params``).  MoE layers pick their dispatch as JAX's do:
+``moe_impl="ep_a2a"`` the expert-parallel one (``moe.apply_moe_ep``: two
+all-to-alls over "model", JAX's fallback to the global dispatch where it
+does not apply), else the global one, which under a batch split over
+ranks dispatches the global batch's tokens (``moe.apply_moe_global``);
+serving's dropless dispatch and the dense decode step stay global.
 """
 from __future__ import annotations
 
@@ -84,26 +86,19 @@ def init_lm(cfg: ArchCfg, generator: torch.Generator) -> TransformerLM:
 
 
 def _mix(cfg: ArchCfg, lp: Block, h: torch.Tensor, *,
-         moe_dropless: bool = False) -> torch.Tensor:
-    """The feed-forward half of a layer, on the residual stream h."""
+         moe_dropless: bool = False, ep: bool = False) -> torch.Tensor:
+    """The feed-forward half of a layer, on the residual stream h; an MoE
+    layer dispatches dropless when asked, else expert-parallel where
+    ``ep`` and the config say so (JAX's prefill), else globally (JAX's
+    decode step)."""
     x2 = common.apply_norm(cfg, lp.ln2, h)
-    if cfg.moe is not None:
-        m, _ = moe.apply_moe(cfg, lp.moe, x2, dropless=moe_dropless)
-        return m
-    return common.apply_mlp(cfg, lp.mlp, x2)
-
-
-def _apply_moe(cfg: ArchCfg, p, x: torch.Tensor):
-    """``moe.apply_moe`` over the global batch: under a runtime mesh whose
-    batch rows are split over ranks, the rows are gathered, dispatched
-    together (capacity and the aux loss from every token, as JAX's global
-    dispatch) and this rank's rows kept."""
-    mesh, (axes, _) = sharding.runtime_mesh(), sharding.runtime_batch_spec()
-    if mesh is None or axes is None:
-        return moe.apply_moe(cfg, p, x)
-    y, aux = moe.apply_moe(cfg, p, spmd.all_gather(x, 0, mesh, axes,
-                                                   tag="moe"))
-    return spmd.shard(y, (axes,), mesh), aux
+    if cfg.moe is None:
+        return common.apply_mlp(cfg, lp.mlp, x2)
+    if moe_dropless:
+        return moe.apply_moe(cfg, lp.moe, x2, dropless=True)[0]
+    if ep and cfg.moe_impl == "ep_a2a":
+        return moe.apply_moe_ep(cfg, lp.moe, x2)[0]
+    return moe.apply_moe(cfg, lp.moe, x2)[0]
 
 
 def _layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
@@ -114,7 +109,9 @@ def _layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
     h = h + a
     x2 = common.apply_norm(cfg, lp.ln2, h)
     if cfg.moe is not None:
-        m, aux = _apply_moe(cfg, lp.moe, x2)
+        apply = moe.apply_moe_ep if cfg.moe_impl == "ep_a2a" else \
+            moe.apply_moe_global
+        m, aux = apply(cfg, lp.moe, x2)
     else:
         m = common.apply_mlp(cfg, lp.mlp, x2)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -338,7 +335,7 @@ def prefill(cfg: ArchCfg, params: TransformerLM, batch: dict, *,
         x = common.apply_norm(cfg, lp.ln1, h)
         a, (k, v) = attn.attn_full(cfg, lp.attn, x, freqs=freqs, causal=True)
         h = h + a
-        h = h + _mix(cfg, lp, h, moe_dropless=moe_dropless)
+        h = h + _mix(cfg, lp, h, moe_dropless=moe_dropless, ep=True)
         pad = max_len - S
         ks.append(torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)))
         vs.append(torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)))

@@ -19,7 +19,8 @@ major one, as JAX lays a dimension over several axes.  On a line of one
 rank a collective is the identity and runs nothing.
 
 ``counts`` tallies the collectives run, by (op, tag), so a test can count
-the ones a layer issues.  ``shard`` / ``unshard`` cut a global tensor to
+the ones a layer issues; the backward's adjoints count under their own op
+and ``tag + "/bwd"``.  ``shard`` / ``unshard`` cut a global tensor to
 this rank's part of a spec and gather it back; ``gather_param`` is what a
 model's parameter access (``models.common.Params``) runs for a leaf the
 trainer holds sharded; ``tp_slice`` gives this rank's 1/|model| slice of a
@@ -103,48 +104,54 @@ def _exchange(x, split_dim, concat_dim, group, n):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, n):
-        ctx.dim, ctx.group, ctx.n = dim, group, n
+    def forward(ctx, x, dim, group, n, tag):
+        ctx.dim, ctx.group, ctx.n, ctx.tag = dim, group, n, tag
         return _gather(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter(g, ctx.dim, ctx.group, ctx.n), None, None, None
+        _count("reduce_scatter", ctx.tag + "/bwd")
+        return _scatter(g, ctx.dim, ctx.group, ctx.n), None, None, None, \
+            None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, n):
-        ctx.dim, ctx.group, ctx.n = dim, group, n
+    def forward(ctx, x, dim, group, n, tag):
+        ctx.dim, ctx.group, ctx.n, ctx.tag = dim, group, n, tag
         return _scatter(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.dim, ctx.group, ctx.n), None, None, None
+        _count("all_gather", ctx.tag + "/bwd")
+        return _gather(g, ctx.dim, ctx.group, ctx.n), None, None, None, None
 
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
         return _reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce(g, ctx.group), None
+        _count("all_reduce", ctx.tag + "/bwd")
+        return _reduce(g, ctx.group), None, None
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split_dim, concat_dim, group, n):
+    def forward(ctx, x, split_dim, concat_dim, group, n, tag):
         ctx.args = (split_dim, concat_dim, group, n)
+        ctx.tag = tag
         return _exchange(x, split_dim, concat_dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
         split_dim, concat_dim, group, n = ctx.args
+        _count("all_to_all", ctx.tag + "/bwd")
         return _exchange(g, concat_dim, split_dim, group, n), None, None, \
-            None, None
+            None, None, None
 
 
 def _group(mesh, entry):
@@ -162,7 +169,7 @@ def all_gather(x, dim: int, mesh, entry, tag: str = ""):
     if n == 1:
         return x
     _count("all_gather", tag)
-    return _AllGather.apply(x, dim % x.dim(), group, n)
+    return _AllGather.apply(x, dim % x.dim(), group, n, tag)
 
 
 def reduce_scatter(x, dim: int, mesh, entry, tag: str = ""):
@@ -172,7 +179,7 @@ def reduce_scatter(x, dim: int, mesh, entry, tag: str = ""):
     if n == 1:
         return x
     _count("reduce_scatter", tag)
-    return _ReduceScatter.apply(x, dim % x.dim(), group, n)
+    return _ReduceScatter.apply(x, dim % x.dim(), group, n, tag)
 
 
 def all_reduce(x, mesh, entry, tag: str = ""):
@@ -181,7 +188,7 @@ def all_reduce(x, mesh, entry, tag: str = ""):
     if n == 1:
         return x
     _count("all_reduce", tag)
-    return _AllReduce.apply(x, group)
+    return _AllReduce.apply(x, group, tag)
 
 
 def all_to_all(x, split_dim: int, concat_dim: int, mesh, entry,
@@ -194,7 +201,7 @@ def all_to_all(x, split_dim: int, concat_dim: int, mesh, entry,
         return x
     _count("all_to_all", tag)
     return _AllToAll.apply(x, split_dim % x.dim(), concat_dim % x.dim(),
-                           group, n)
+                           group, n, tag)
 
 
 # ----------------------------------------------------------------------------

@@ -21,8 +21,8 @@ communication modes:
     the matching slice of its parameter shard, and the updated slices are
     all-gathered back into the parameter layout.  Checkpoints keep JAX's
     global layout and keys: the lowest rank writes them, every rank
-    restores by slicing.  ``moe_impl="ep_a2a"`` under a "model" axis
-    larger than 1 (JAX's ``apply_moe_ep``) raises: ROADMAP item 7;
+    restores by slicing.  An MoE with ``moe_impl="ep_a2a"`` dispatches
+    its tokens expert-parallel over "model" (``moe.apply_moe_ep``);
   * ``comm="apex"``  — the paper-faithful path: every rank of the mesh's DP
     axis is one process, gradients are synchronised by the explicit
     bidirectional ring reduce-scatter / all-gather of ``core/collectives``
@@ -76,9 +76,6 @@ from repro_torch.models.common import ArchCfg
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import apex_zero1_init, apex_zero1_update
 from repro_torch.parallel import sharding, spmd
-
-# where the expert-parallel MoE dispatch stands in ROADMAP.md
-_EP = "ROADMAP item 7 (apply_moe_ep: the all-to-all expert dispatch)"
 
 
 @dataclasses.dataclass
@@ -154,13 +151,6 @@ class Trainer:
                                    "pass device='cpu' to train on the CPU")
             if device.index is None:
                 device = torch.device("cuda", torch.cuda.current_device())
-        if mesh is not None and tcfg.comm == "gspmd" \
-                and cfg.moe_impl == "ep_a2a" \
-                and mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: moe_impl='ep_a2a' under a 'model' axis of "
-                f"{mesh.shape['model']} runs JAX's expert-parallel dispatch, "
-                f"not ported yet: {_EP}")
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh

@@ -1117,3 +1117,85 @@ def test_reduced_recurrent_training_on_the_card_gives_the_cpus_losses(
                 assert fwd.launches == n_f + 3 * 2 * cfg.n_layers
                 assert bwd.launches == n_b + 3 * cfg.n_layers
         np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ----------------------------------------------------------------------------
+# the MoE family (olmoe-1b-7b): K1, K2 and K2-bwd at head width 128
+# ----------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_paged_attention_kernel_olmoe_decode_shape(cuda):
+    """The engine's decode batch of 8, 16 heads and 16 KV heads of 128,
+    a 67-page table, bf16: the split-K route, held to the plain
+    version."""
+    rng = np.random.default_rng(8)
+    seq_lens = [int(s) for s in rng.integers(128, 1057, size=8)]
+    args = paged_inputs(cuda, torch.bfloat16, B=8, H=16, Hkv=16, D=128,
+                        page=16, seq_lens=seq_lens, max_pages=67)
+    n = pa.paged_attention.routes.get("split_k", 0)
+    got = ops.paged_attention(*args)
+    assert pa.paged_attention.routes["split_k"] == n + 1
+    want = ref.paged_attention(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=2.5e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(1, 1024), (4, 1024)])
+def test_flash_attention_kernel_olmoe_shapes(cuda, B, S):
+    """Causal MHA, 16 heads of 128, bf16: the engine's longest prompt and
+    the training forward (4 x 1024), on the tensor-core route."""
+    g = torch.Generator().manual_seed(B + S)
+    q, k, v = (torch.randn(B, 16, S, 128, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(3))
+    n = fa.flash_attention.routes.get("mma", 0)
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.routes["mma"] == n + 1
+    want = ref.mha_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=2.5e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_olmoe_training_shape(cuda):
+    """K2-bwd at olmoe's training shape (B = 4, 16 heads of 128, S =
+    1024, causal, bf16): the FMA pair, held to autograd through the plain
+    attention, and bitwise on a rerun."""
+    g = torch.Generator().manual_seed(128)
+    q, k, v, dout = (torch.randn(4, 16, 1024, 128, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(4))
+    lse = torch.empty(4, 16, 1024, device=cuda)
+    out = fa._forward(q, k, v, True, 128 ** -0.5, torch.float32, lse)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[0]
+    grad_bar_held(got, plain_grads(q, k, v, dout, True, torch.float32),
+                  torch.bfloat16, torch.float32)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_reduced_olmoe_on_the_card_gives_the_cpus_losses(cuda, tmp_path):
+    """The reduced fp32 olmoe (head_dim 16: the small-width routes; the
+    MoE dispatch global on one rank) trained 3 steps on the card and on
+    the CPU from the same weights: losses within rtol 1e-4, TF32 off."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_reduced("olmoe-1b-7b")
+    init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tc = TrainerConfig(ckpt_dir=str(tmp_path / dev), ckpt_every=0,
+                           batch=4, seq_len=64, comm="single",
+                           opt=AdamWConfig(lr=3e-3, warmup_steps=0))
+        n_b = fa.flash_attention_bwd.routes.get("small", 0)
+        tr = Trainer(cfg, tc, device=dev, init_params=init)
+        losses[dev] = [m["loss"] for m in tr.train(3)]
+        if dev == "cuda":
+            assert fa.flash_attention_bwd.routes["small"] == \
+                n_b + 3 * cfg.n_layers
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -9,7 +9,10 @@ config starting from JAX's initial weights.  Configs
 manual_sp_check.py's deepseek (tp_dp, manual_sp) and the reduced qwen2
 (dp_only, batch 4) on meshes (8, 1), (4, 2) and (2, 4) over ("data",
 "model"); the reduced olmoe (MoE, global dispatch), rwkv6, whisper and
-zamba2 on one mesh each.  Losses are held to JAX's to rtol 1e-5
+zamba2 on one mesh each; the reduced olmoe as configured (the
+expert-parallel dispatch, ``moe_impl="ep_a2a"``) on (4, 2) and (2, 4),
+its router and expert gradients at the first batch held to ``jax.grad``
+on the same mesh.  Losses are held to JAX's to rtol 1e-5
 (fp32); checkpoints pass both ways; a node fault on the 2-D mesh
 restores without a re-mesh, as in JAX; the sequence-parallel stack meets manual_sp_check.py's bars against
 the plain stack (loss rtol 2e-5, gradients rtol 5e-3 / atol 5e-5).
@@ -53,7 +56,7 @@ def run(tmp_path_factory):
     for r in range(8):
         with open(os.path.join(out, f"rank{r}_gspmd.json")) as f:
             ranks.append(json.load(f))
-    return {"jax": ref, "ranks": ranks, "port": ranks[0]}
+    return {"jax": ref, "ranks": ranks, "port": ranks[0], "out": out}
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -75,6 +78,34 @@ def test_jax_gspmd_rwkv6_on_a_model_axis_parts_from_its_unsharded_run(run):
     np.testing.assert_allclose(cut[0], whole[0], rtol=RTOL)
     assert abs(cut[-1] - whole[-1]) > RTOL * abs(whole[-1])
     np.testing.assert_allclose(port["rwkv6_4x2"], whole, rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", [
+    tdc._tag(t, m) for t in tdc.GSPMD_GRAD_CFGS
+    for m in tdc.gspmd_cfgs(configs, ArchCfg, torch.float32)[t][2]])
+def test_ep_router_and_expert_gradients_match_jax_grad(run, case):
+    """The expert-parallel olmoe's gradients at the first batch, gathered
+    to JAX's layout: the router's (the sum of every rank's share, its aux
+    term through the mean over the mesh) and each expert tensor's (each
+    rank's own experts), against ``jax.grad`` of JAX's GSPMD loss on the
+    same mesh; the forward dispatched over "model" (two all-to-alls a
+    layer, each run again in remat's recompute)."""
+    out = run["out"]
+    with np.load(os.path.join(out, f"jax_gspmd_grads_{case}.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    with np.load(os.path.join(out, f"port_gspmd_grads_{case}.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    assert sorted(got) == sorted(want) == sorted(
+        k.replace("/", ".") for k in tdc.GSPMD_GRAD_KEYS)
+    for k in want:
+        scale = float(np.abs(want[k]).max())
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                   atol=1e-5 * scale, err_msg=k)
+    layers = 2
+    for r in run["ranks"]:
+        n = r["ep_counts"][case]
+        assert n["all_to_all/moe"] == 2 * 2 * layers
+        assert n["all_to_all/moe/bwd"] == 2 * layers
 
 
 def _expected_shard(shape, spec, mesh_shape):

@@ -40,7 +40,8 @@ def test_port_modules_load_no_jax_and_no_repro():
               "core.lofamo", "core.collectives", "core.fabric.execute",
               "data.pipeline", "checkpoint.store", "optim.adamw",
               "launch.mesh", "launch.train", "runtime.trainer",
-              "parallel.sharding", "parallel.spmd"):
+              "parallel.sharding", "parallel.spmd", "models.moe",
+              "models.transformer"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -56,7 +57,8 @@ def test_port_modules_load_no_jax_and_no_repro():
 
 
 def test_no_source_line_imports_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "ep_moe_demo_torch.py"]
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
            for f in files

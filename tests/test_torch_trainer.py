@@ -255,18 +255,26 @@ def test_trainer_defaults_to_the_card(tmp_path):
 
 
 def test_gspmd_over_a_mesh_names_its_roadmap_item(tmp_path):
-    """GSPMD is ported; what it still refuses is the expert-parallel MoE
-    dispatch (moe_impl="ep_a2a", JAX's apply_moe_ep) under a "model" axis
-    larger than 1, which waits for ROADMAP item 7.  The check reads only
-    the mesh's axis sizes, before any collective."""
-    from repro_torch import configs
-    from repro_torch.parallel import sharding
+    """ROADMAP item 7 is done: olmoe and moonshot select the
+    expert-parallel MoE dispatch (moe_impl="ep_a2a", JAX's apply_moe_ep),
+    and ``Trainer(comm="gspmd")`` accepts it under a "model" axis: on a
+    (4, 2) mesh of 8 gloo ranks it builds and steps both, with finite
+    losses, every rank the same, two all-to-alls a layer in the forward
+    (again in remat's recompute) and their two adjoints in the backward
+    (their losses against JAX's: test_torch_gspmd.py)."""
+    tdc.launch("ep_step", str(tmp_path), timeout=300, jax=False)
+    ranks = []
+    for r in range(8):
+        with open(tmp_path / f"rank{r}_ep_step.json") as f:
+            ranks.append(json.load(f))
     for name in ("olmoe-1b-7b", "moonshot-v1-16b-a3b"):
-        cfg = configs.get_reduced(name)
-        assert cfg.moe_impl == "ep_a2a"
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            Trainer(cfg, tcfg(tmp_path, comm="gspmd"), device="cpu",
-                    mesh=sharding.abstract_mesh((4, 2), ("data", "model")))
+        res = ranks[0][name]
+        assert res["moe_impl"] == "ep_a2a" and res["model_axis"] == 2
+        assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+        assert all(r[name]["losses"] == res["losses"] for r in ranks)
+        layer_steps = 2 * 2                        # 2 layers, 2 steps
+        assert res["counts"]["all_to_all/moe"] == 4 * layer_steps
+        assert res["counts"]["all_to_all/moe/bwd"] == 2 * layer_steps
 
 
 def test_gspmd_on_a_1x1_mesh_is_the_single_step_bitwise(tmp_path):

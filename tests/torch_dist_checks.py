@@ -12,9 +12,12 @@ the JAX package — run as subprocesses by ``test_torch_collectives.py`` and
         RANK 8 STORE_FILE              # for RANK in 0..7
     PYTHONPATH=src python tests/torch_dist_checks.py rank-trainer OUT \\
         RANK 8 STORE_FILE
-    # GSPMD: jax-gspmd OUT PART (8 forced host devices) for PART in 0, 1
-    # (two processes, side by side), rank-gspmd OUT RANK 8 STORE_FILE for
-    # RANK in 0..7
+    # GSPMD: jax-gspmd OUT PART (8 forced host devices) for PART in 0, 1,
+    # 2 (three processes, side by side), rank-gspmd OUT RANK 8 STORE_FILE
+    # for RANK in 0..7
+    # the expert-parallel MoE layer (jax-ep OUT, rank-ep OUT RANK 8
+    # STORE_FILE) and the sharded attention wrappers (jax-sharded,
+    # rank-sharded), likewise
 
 Both sides draw their inputs from the same numpy seeds and write what they
 computed to ``OUT`` (``.npz`` / ``.json``); the tests compare the files.
@@ -91,9 +94,9 @@ def wait_for(path: str, timeout: float = 600.0) -> str:
 
 
 def launch(mode: str, out_dir: str, *, world: int = 8,
-           timeout: float = 600.0) -> None:
-    """Run the JAX reference of ``mode`` ("collectives", "trainer" or
-    "gspmd") and the port's ``world`` gloo ranks side by side; raise with
+           timeout: float = 600.0, jax: bool = True) -> None:
+    """Run the JAX reference of ``mode`` ("collectives", "trainer",
+    "gspmd", "ep" or "sharded"; none with ``jax=False``) and the port's ``world`` gloo ranks side by side; raise with
     the logs if any process fails."""
     import subprocess
     import tempfile
@@ -105,7 +108,7 @@ def launch(mode: str, out_dir: str, *, world: int = 8,
     me = os.path.abspath(__file__)
     store = os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
     parts = [[str(i)] for i in range(len(GSPMD_JAX_PARTS))] \
-        if mode == "gspmd" else [[]]
+        if mode == "gspmd" else [[]] if jax else []
     procs = [subprocess.Popen(
         [sys.executable, me, f"jax-{mode}", out_dir] + part, env=jax_env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -337,10 +340,12 @@ def gspmd_cfgs(configs_mod, ArchCfg, dtype):
     manual_sp_check.py and the reduced qwen2 (dp_only; batch 4, so on the
     (4, 2) and (2, 4) meshes the sequence goes over "model") on every
     mesh; the reduced olmoe with the global dispatch (JAX's
-    ``apply_moe``, its experts sharded over "model"; ``ep_a2a`` waits for
-    ROADMAP item 7) and the reduced rwkv6 and whisper on (4, 2), and a
-    2-layer reduced zamba2 on (2, 4): their sharded leaves are gathered
-    where a layer reads them."""
+    ``apply_moe``, its experts sharded over "model") and the reduced
+    rwkv6 and whisper on (4, 2), and a 2-layer reduced zamba2 on (2, 4):
+    their sharded leaves are gathered where a layer reads them; the
+    reduced olmoe as configured, ``moe_impl="ep_a2a"`` (JAX's
+    ``apply_moe_ep``: the expert-parallel all-to-alls over "model"), on
+    (4, 2) and (2, 4)."""
     import dataclasses
 
     def reduced(name, **kw):
@@ -355,6 +360,7 @@ def gspmd_cfgs(configs_mod, ArchCfg, dtype):
         "rwkv6": (reduced("rwkv6-1.6b"), 8, ((4, 2),)),
         "whisper": (reduced("whisper-large-v3"), 8, ((4, 2),)),
         "zamba2": (reduced("zamba2-1.2b", n_layers=2), 8, ((2, 4),)),
+        "olmoe-ep": (reduced("olmoe-1b-7b"), 8, ((4, 2), (2, 4))),
     }
 
 
@@ -371,7 +377,13 @@ JAX_REF_MESH = {"rwkv6": (8, 1)}
 # side (the port's ranks wait on the reference's compiles); the first
 # also runs the checkpoint and fault cases
 GSPMD_JAX_PARTS = (("tiny", "dsk", "qwen"),
-                   ("olmoe", "rwkv6", "whisper", "zamba2"))
+                   ("olmoe", "rwkv6", "whisper", "zamba2"),
+                   ("olmoe-ep",))
+# the configs whose router and expert gradients at the first batch are
+# held to ``jax.grad`` on each mesh, and those leaves
+GSPMD_GRAD_CFGS = ("olmoe-ep",)
+GSPMD_GRAD_KEYS = ("layers/moe/router", "layers/moe/w_gate",
+                   "layers/moe/w_up", "layers/moe/w_down")
 
 
 def ref_tag(case: str) -> str:
@@ -394,6 +406,7 @@ def jax_gspmd(out_dir: str, part: int) -> None:
     from repro.launch.mesh import host_test_mesh, make_mesh
     from repro.models.common import ArchCfg
     from repro.optim import AdamWConfig
+    from repro.parallel import sharding
     from repro.runtime.trainer import Trainer, TrainerConfig
 
     assert jax.device_count() == 8, jax.device_count()
@@ -425,6 +438,21 @@ def jax_gspmd(out_dir: str, part: int) -> None:
             if shape == meshes[0]:
                 _save_npz(os.path.join(out_dir, f"jax_gspmd_init_{tag}.npz"),
                           flat(tr.params))
+            if tag in GSPMD_GRAD_CFGS:
+                # jax.grad of the loss at the first batch, on this mesh
+                first = tr._place_batch(tr.data.next_batch())
+                tr.data.step -= 1
+                sharding.set_runtime_mesh(tr.mesh)
+                try:
+                    with tr.mesh:
+                        _, g = jax.jit(tr._loss_and_grads())(tr.params,
+                                                             first)
+                finally:
+                    sharding.set_runtime_mesh(None)
+                g = flat(g)
+                _save_npz(os.path.join(
+                    out_dir, f"jax_gspmd_grads_{_tag(tag, shape)}.npz"),
+                    {k.replace("/", "."): g[k] for k in GSPMD_GRAD_KEYS})
             res["losses"][_tag(tag, shape)] = [
                 m["loss"] for m in tr.train(GSPMD_STEPS)]
     if part:
@@ -740,6 +768,21 @@ def rank_gspmd(out_dir: str, rank: int, world: int, store: str):
             res["local_shapes"][_tag(tag, shape)] = {
                 k: [list(vals[k].shape), list(tr.opt_state["m"][k].shape),
                     list(tr.opt_state["v"][k].shape)] for k in vals}
+            if tag in GSPMD_GRAD_CFGS:
+                # the gradients of the first batch, gathered to JAX's
+                # global layout
+                np_batch = tr.data.next_batch()
+                tr.data.step -= 1
+                spmd.reset_counts()
+                _, g = tr._gspmd_loss_and_grads(tr._place_batch(np_batch))
+                res.setdefault("ep_counts", {})[_tag(tag, shape)] = {
+                    f"{op}/{t}": n for (op, t), n in spmd.counts.items()}
+                g = {k: spmd.unshard(g[k], tr.pspecs[k], tr.mesh)
+                     for k in GSPMD_GRAD_KEYS}
+                if rank == 0:
+                    _save_npz(os.path.join(
+                        out_dir, f"port_gspmd_grads_{_tag(tag, shape)}.npz"),
+                        {k.replace("/", "."): v.numpy() for k, v in g.items()})
             res["losses"][_tag(tag, shape)] = [
                 m["loss"] for m in tr.train(GSPMD_STEPS)]
             if (tag, shape) in (("dsk", (4, 2)), ("qwen", (2, 4))):
@@ -822,6 +865,312 @@ def rank_gspmd(out_dir: str, rank: int, world: int, store: str):
     dist.destroy_process_group()
 
 
+# ----------------------------------------------------------------------------
+# the expert-parallel MoE layer (apply_moe_ep), after tests/ep_moe_check.py
+# ----------------------------------------------------------------------------
+
+# (2, 4) and (4, 2) dispatch expert-parallel.  The port's rows on each mesh:
+# "rows" as the GSPMD trainer lays them (batch over "data", each "model"
+# line the same rows), "whole" every rank the whole batch.
+EP_MESHES = {(2, 4): "rows", (4, 2): "whole"}
+# capacity factors: ample (nothing drops) and tight (tokens drop; EP's
+# local capacity is not the global dispatch's, so EP is held to JAX's EP)
+EP_REGIMES = {"ample": 8.0, "drop": 0.5}
+EP_GRADS = ("router", "w_gate", "w_up", "w_down")
+# JAX's fallback conditions (moe.py:163-164), each met once: (mesh or None,
+# the port's rows, experts, the input's (B, S)); every one runs the global
+# dispatch
+EP_FALLBACKS = {"no_mesh": (None, "whole", 8, (4, 16)),
+                "tp_1": ((8, 1), "whole", 8, (4, 16)),
+                "experts": ((2, 4), "rows", 6, (4, 16)),
+                "sequence": ((2, 4), "rows", 8, (4, 18)),
+                "batch": ((2, 4), "whole", 8, (3, 16))}
+
+
+def ep_cfg(configs_mod, MoeCfg, dtype, cf: float, n_experts: int = 8):
+    """tests/ep_moe_check.py's MoE: the reduced olmoe with 8 experts top-2
+    of width 32, d_model 64, fp32."""
+    import dataclasses
+    return dataclasses.replace(
+        configs_mod.get_config("olmoe-1b-7b").reduced(),
+        moe=MoeCfg(n_experts=n_experts, top_k=2, d_expert=32,
+                   capacity_factor=cf),
+        d_model=64, dtype=dtype, moe_impl="ep_a2a")
+
+
+def ep_inputs() -> dict:
+    """x as tests/ep_moe_check.py draws it, the output's cotangent ct, and
+    the fallback cases' inputs (``x_<case>``)."""
+    rng = np.random.default_rng(0)
+    out = {"x": (rng.normal(size=(4, 16, 64)) * 0.3).astype(np.float32)}
+    out["ct"] = rng.normal(size=(4, 16, 64)).astype(np.float32)
+    for case, (_, _, _, (b, s)) in EP_FALLBACKS.items():
+        out[f"x_{case}"] = (rng.normal(size=(b, s, 64)) * 0.3) \
+            .astype(np.float32)
+    return out
+
+
+def jax_ep(out_dir: str) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.launch.mesh import make_mesh
+    from repro.models import moe
+    from repro.models.common import MoeCfg
+    from repro.parallel import sharding
+
+    assert jax.device_count() == 8, jax.device_count()
+    inp = ep_inputs()
+    x, ct = jnp.asarray(inp["x"]), jnp.asarray(inp["ct"])
+    res = {}
+    params = {}
+    for n in (8, 6):
+        params[n] = moe.init_moe(ep_cfg(jconfigs, MoeCfg, jnp.float32, 8.0,
+                                        n), jax.random.key(0))
+        res.update({f"p{n}/{k}": v for k, v in params[n].items()})
+    p = params[8]
+
+    def on_mesh(shape, fn, *args):
+        if shape is None:
+            return jax.jit(fn)(*args)
+        mesh = make_mesh(shape, ("data", "model"))
+        sharding.set_runtime_mesh(mesh)
+        try:
+            with mesh:
+                return jax.jit(fn)(*args)
+        finally:
+            sharding.set_runtime_mesh(None)
+
+    for regime, cf in EP_REGIMES.items():
+        cfg = ep_cfg(jconfigs, MoeCfg, jnp.float32, cf)
+        res[f"global/{regime}/y"], res[f"global/{regime}/aux"] = \
+            moe.apply_moe(cfg, p, x)
+
+        def f(p, x, cfg=cfg):
+            y, aux = moe.apply_moe_ep(cfg, p, x)
+            return jnp.sum(y * ct) + aux, (y, aux)
+
+        for shape in EP_MESHES:
+            (_, (y, aux)), (dp, dx) = on_mesh(
+                shape, jax.value_and_grad(f, argnums=(0, 1), has_aux=True),
+                p, x)
+            tag = f"{regime}/{shape[0]}x{shape[1]}"
+            res.update({f"{tag}/y": y, f"{tag}/aux": aux, f"{tag}/dx": dx})
+            res.update({f"{tag}/d_{k}": dp[k] for k in EP_GRADS})
+    for case, (shape, _, n, _) in EP_FALLBACKS.items():
+        cfg = ep_cfg(jconfigs, MoeCfg, jnp.float32, 1.25, n)
+        xc = jnp.asarray(inp[f"x_{case}"])
+        res[f"fallback/{case}/global"] = moe.apply_moe(cfg, params[n], xc)[0]
+        res[f"fallback/{case}/y"] = on_mesh(
+            shape, lambda p, x, cfg=cfg: moe.apply_moe_ep(cfg, p, x)[0],
+            params[n], xc)
+    _save_npz(os.path.join(out_dir, "jax_ep.npz"),
+              {k: np.asarray(v) for k, v in res.items()})
+
+
+def rank_ep(out_dir: str, rank: int, world: int, store: str):
+    torch, dist = _init(rank, world, store)
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import MoeCfg
+    from repro_torch.parallel import sharding, spmd
+
+    inp = {k: torch.from_numpy(v) for k, v in ep_inputs().items()}
+    with np.load(wait_for(os.path.join(out_dir, "jax_ep.npz"))) as z:
+        ref = {k: z[k] for k in z.files}
+    res, counts = {}, {}
+
+    def params(cfg):
+        p = moe.init_moe(cfg, None, "cpu")
+        with torch.no_grad():
+            for k in EP_GRADS:
+                p.local(k).copy_(torch.from_numpy(
+                    ref[f"p{cfg.moe.n_experts}/{k}"]))
+        return p
+
+    def counted(tag, fn):
+        spmd.reset_counts()
+        out = fn()
+        counts[tag] = {f"{op}/{t}": n for (op, t), n in spmd.counts.items()}
+        return out
+
+    for shape, layout in EP_MESHES.items():
+        mesh = make_mesh(shape, ("data", "model"))
+        spec = ("data",) if layout == "rows" else None
+        replicas = mesh.size // spmd.axis_index(mesh, spec)[1]
+        for regime, cf in EP_REGIMES.items():
+            cfg = ep_cfg(configs, MoeCfg, torch.float32, cf)
+            p = params(cfg)
+            for k in EP_GRADS:
+                p.local(k).requires_grad_(True)
+            x = spmd.shard(inp["x"], (spec,), mesh).clone() \
+                .requires_grad_(True)
+            ct = spmd.shard(inp["ct"], (spec,), mesh)
+            sharding.set_runtime_mesh(mesh, (spec,))
+
+            def step():
+                y, aux = moe.apply_moe_ep(cfg, p, x)
+                # each rank's objective: its rows' share of sum(y * ct)
+                # and of aux, so the ranks' objectives sum to JAX's
+                ((y * ct).sum() / replicas + aux / mesh.size).backward()
+                return y, aux
+
+            tag = f"{regime}/{shape[0]}x{shape[1]}"
+            try:
+                y, aux = counted(tag, step)
+            finally:
+                sharding.set_runtime_mesh(None)
+            every = mesh.axis_names
+            with torch.no_grad():
+                res[f"{tag}/y"] = spmd.unshard(y, (spec,), mesh)
+                res[f"{tag}/aux"] = aux
+                res[f"{tag}/dx"] = spmd.unshard(spmd.all_reduce(
+                    x.grad, mesh, "model" if spec else every), (spec,),
+                    mesh)
+                for k in EP_GRADS:
+                    res[f"{tag}/d_{k}"] = spmd.all_reduce(
+                        p.local(k).grad, mesh, every)
+    for case, (shape, layout, n, _) in EP_FALLBACKS.items():
+        cfg = ep_cfg(configs, MoeCfg, torch.float32, 1.25, n)
+        p, x = params(cfg), inp[f"x_{case}"]
+        if shape is None:
+            res[f"fallback/{case}/y"] = counted(
+                f"fallback/{case}", lambda: moe.apply_moe_ep(cfg, p, x)[0])
+            continue
+        mesh = make_mesh(shape, ("data", "model"))
+        spec = ("data",) if layout == "rows" else None
+        sharding.set_runtime_mesh(mesh, (spec,))
+        try:
+            with torch.no_grad():
+                y = counted(f"fallback/{case}", lambda: moe.apply_moe_ep(
+                    cfg, p, spmd.shard(x, (spec,), mesh))[0])
+                res[f"fallback/{case}/y"] = spmd.unshard(y, (spec,), mesh)
+        finally:
+            sharding.set_runtime_mesh(None)
+    np.savez(os.path.join(out_dir, f"rank{rank}_ep.npz"),
+             **{k: v.detach().numpy() for k, v in res.items()})
+    _save_json(os.path.join(out_dir, f"rank{rank}_ep.json"), counts)
+    dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------------
+# the sharded attention wrappers (ops.sharded_flash_attention,
+# ops.sharded_paged_attention)
+# ----------------------------------------------------------------------------
+
+# meshes over ("data", "model") and, for the data axes given as two, over
+# ("pod", "data", "model")
+SHARDED_MESHES = {"2x4": ((2, 4), ("data", "model")),
+                  "4x2": ((4, 2), ("data", "model")),
+                  "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+def sharded_inputs() -> dict:
+    """(B, H, S, D) q over (B, Hkv, S, D) k/v; paged: q (B, H, D), pools
+    (n_pages, page, Hkv, D), a scattered table and ragged lengths."""
+    rng = np.random.default_rng(5)
+
+    def f(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    return dict(fa_q=f(4, 8, 24, 16), fa_k=f(4, 4, 24, 16),
+                fa_v=f(4, 4, 24, 16), pa_q=f(4, 8, 16),
+                pa_k=f(20, 8, 4, 16), pa_v=f(20, 8, 4, 16),
+                pa_table=rng.permutation(20)[:16].reshape(4, 4)
+                .astype(np.int32),
+                pa_lens=np.array([1, 9, 32, 17], np.int32))
+
+
+def _sharded_axes(names):
+    return tuple(a for a in names if a != "model")
+
+
+def jax_sharded(out_dir: str) -> None:
+    import jax
+
+    from repro.kernels import ops
+    from repro.launch.mesh import make_mesh
+
+    assert jax.device_count() == 8, jax.device_count()
+    inp = sharded_inputs()
+    res = {}
+    for tag, (shape, names) in SHARDED_MESHES.items():
+        mesh, dx = make_mesh(shape, names), _sharded_axes(names)
+        with mesh:
+            for causal in (True, False):
+                res[f"{tag}/flash/{int(causal)}"] = jax.jit(
+                    ops.sharded_flash_attention(mesh, data_axes=dx,
+                                                causal=causal))(
+                    inp["fa_q"], inp["fa_k"], inp["fa_v"])
+            res[f"{tag}/paged"] = jax.jit(ops.sharded_paged_attention(
+                mesh, data_axes=dx))(inp["pa_q"], inp["pa_k"], inp["pa_v"],
+                                     inp["pa_table"], inp["pa_lens"])
+    _save_npz(os.path.join(out_dir, "jax_sharded.npz"),
+              {k: np.asarray(v) for k, v in res.items()})
+
+
+def rank_sharded(out_dir: str, rank: int, world: int, store: str):
+    torch, dist = _init(rank, world, store)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import spmd
+
+    inp = {k: torch.from_numpy(v) for k, v in sharded_inputs().items()}
+    res, shapes = {}, {}
+
+    def run(fn, *args):
+        blocks = [spmd.shard(a, s, fn.mesh).contiguous()
+                  for a, s in zip(args, fn.in_specs)]
+        out = fn(*blocks)
+        return spmd.unshard(out, fn.out_spec, fn.mesh), \
+            [list(b.shape) for b in blocks] + [list(out.shape)]
+
+    for tag, (shape, names) in SHARDED_MESHES.items():
+        mesh, dx = make_mesh(shape, names), _sharded_axes(names)
+        for causal in (True, False):
+            res[f"{tag}/flash/{int(causal)}"], shapes[f"{tag}/flash"] = run(
+                ops.sharded_flash_attention(mesh, data_axes=dx,
+                                            causal=causal),
+                inp["fa_q"], inp["fa_k"], inp["fa_v"])
+        res[f"{tag}/paged"], shapes[f"{tag}/paged"] = run(
+            ops.sharded_paged_attention(mesh, data_axes=dx), inp["pa_q"],
+            inp["pa_k"], inp["pa_v"], inp["pa_table"], inp["pa_lens"])
+    np.savez(os.path.join(out_dir, f"rank{rank}_sharded.npz"),
+             **{k: v.numpy() for k, v in res.items()})
+    _save_json(os.path.join(out_dir, f"rank{rank}_sharded.json"), shapes)
+    dist.destroy_process_group()
+
+
+def rank_ep_step(out_dir: str, rank: int, world: int, store: str):
+    """olmoe's and moonshot's reduced configs (``moe_impl="ep_a2a"``)
+    built and stepped twice by ``Trainer(comm="gspmd")`` on a (4, 2)
+    mesh, from the seed's weights: the losses and the collectives run."""
+    torch, dist = _init(rank, world, store)
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import spmd
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    res = {}
+    for name in ("olmoe-1b-7b", "moonshot-v1-16b-a3b"):
+        cfg = configs.get_reduced(name)
+        tr = Trainer(cfg, TrainerConfig(
+            ckpt_dir=os.path.join(out_dir, f"port_{name}"), ckpt_every=0,
+            opt=AdamWConfig(**OPT), batch=8, seq_len=32, comm="gspmd"),
+            mesh=make_mesh((4, 2), ("data", "model")), device="cpu")
+        spmd.reset_counts()
+        res[name] = {"moe_impl": cfg.moe_impl,
+                     "model_axis": tr.mesh.shape["model"],
+                     "losses": [m["loss"] for m in tr.train(2)],
+                     "counts": {f"{op}/{t}": n for (op, t), n
+                                in spmd.counts.items()}}
+    _save_json(os.path.join(out_dir, f"rank{rank}_ep_step.json"), res)
+    dist.destroy_process_group()
+
+
 def main(argv) -> None:
     mode, out_dir = argv[1], argv[2]
     if mode == "jax-collectives":
@@ -830,10 +1179,17 @@ def main(argv) -> None:
         jax_trainer(out_dir)
     elif mode == "jax-gspmd":
         jax_gspmd(out_dir, int(argv[3]))
-    elif mode in ("rank-collectives", "rank-trainer", "rank-gspmd"):
+    elif mode == "jax-ep":
+        jax_ep(out_dir)
+    elif mode == "jax-sharded":
+        jax_sharded(out_dir)
+    elif mode in ("rank-collectives", "rank-trainer", "rank-gspmd",
+                  "rank-ep", "rank-sharded", "rank-ep_step"):
         rank, world, store = int(argv[3]), int(argv[4]), argv[5]
         fn = {"rank-collectives": rank_collectives,
-              "rank-trainer": rank_trainer, "rank-gspmd": rank_gspmd}[mode]
+              "rank-trainer": rank_trainer, "rank-gspmd": rank_gspmd,
+              "rank-ep": rank_ep, "rank-sharded": rank_sharded,
+              "rank-ep_step": rank_ep_step}[mode]
         fn(out_dir, rank, world, store)
     else:
         raise SystemExit(f"unknown mode {mode}")
