@@ -119,7 +119,7 @@ those paths against its plain PyTorch version:
      zamba2 of the CPU tests trained 3 steps on the card (small-width
      routes) and on the CPU: losses within rtol 1e-4, the launches exact.  Phase 9a holds K2-bwd at
      zamba2's shared-block shape too;
- 12. the MoE family, last, alone on the card: olmoe-1b-7b (16 layers, 16
+ 12. the MoE family, alone on the card: olmoe-1b-7b (16 layers, 16
      heads of 128, 64 experts top-8), the first model path through K1, K2
      and K2-bwd at head width 128: (a) served at full width and depth
      through the paged engine with the qwen2 engine's traffic (16
@@ -143,7 +143,20 @@ those paths against its plain PyTorch version:
      small-width routes alone.  Phases 2 and 9a hold and time K1, K2 and
      K2-bwd at olmoe's shapes (K1 at the engine's decode, B = 8, H = Hkv
      = 16; K2 causal at the engine's longest prompt, B = 1 S = 1024, and
-     the training forward 4 x 1024; K2-bwd 4 x 1024), beside SDPA.
+     the training forward 4 x 1024; K2-bwd 4 x 1024), beside SDPA;
+ 13. the dry run (``launch/dryrun.py``), last: (a) qwen2-0.5b at phase
+     9's training shape and olmoe-1b-7b at phase 12b's (4 layers), one
+     step each through the GSPMD rank program on a 1 x 1 mesh, traced on
+     meta and run on the card inside the op-level analyzer: FLOPs equal as
+     integers, the kernels' reported launches equal to their counters, the
+     roofline at most the measured device time, the predicted peak within
+     [0.5, 2] of the card's; olmoe's active parameters checked against the
+     per-layer arithmetic at 16 and 4 layers; (b) four production cells on
+     meta (smollm-135m train_4k multipod with the JAX dry run's bars,
+     deepseek-7b train_4k, olmoe-1b-7b decode_32k and rwkv6-1.6b
+     long_500k on the pod); (c) the three single-device examples
+     (``examples/*_torch.py``) on the card, each exiting 0 with its kernels
+     launched; (d) one short autotuner search on the host, printed.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -160,6 +173,7 @@ package ``repro``.
     python3 chip_smoke.py --scan-bwd-ab PARENT
     python3 chip_smoke.py --train-only        # phases 1, 2c, 9 and 11
     python3 chip_smoke.py --moe-only          # 1, 2's K1/K2, 9a and 12
+    python3 chip_smoke.py --dryrun-only       # 1 and 13
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -343,11 +357,10 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 def attn_pairs(Sq: int, Skv: int, causal: bool) -> int:
-    """The (query, key) pairs an attention's mask leaves; causal keys are
-    right-aligned: query i sees keys 0 .. i + Skv - Sq."""
-    if not causal:
-        return Sq * Skv
-    return sum(max(0, min(Skv, i + 1 + Skv - Sq)) for i in range(Sq))
+    """The (query, key) pairs an attention's mask leaves
+    (``kernels/cost.py``)."""
+    from repro_torch.kernels import cost
+    return cost.attn_pairs(Sq, Skv, causal)
 
 
 def max_err(a, b) -> float:
@@ -394,16 +407,13 @@ def garbage_tail(pt, sl, page):
 
 
 def k1_bound(q, kp, pt, sl):
-    """Bytes K1 must move (the resident K/V rows, q, out, the table entries
-    in use, seq_lens) and its flops, for these inputs."""
+    """The resident tokens, the bytes K1 must move and its flops for these
+    inputs (``kernels/cost.py``), and its bound."""
+    from repro_torch.kernels import cost
     B, H, D = q.shape
-    page, Hkv = kp.shape[1], kp.shape[2]
-    keys = [min(int(s), pt.shape[1] * page) for s in sl.tolist()]
-    n_tok = sum(keys)
-    isz = q.element_size()
-    nbytes = (2 * n_tok * Hkv * D * isz + 2 * q.numel() * isz
-              + sum(-(-s // page) for s in keys) * 4 + B * 4)
-    flops = 4.0 * n_tok * H * D
+    flops, nbytes, n_tok = cost.paged_attention(
+        B, H, kp.shape[2], D, kp.shape[1], pt.shape[1], sl.tolist(),
+        q.element_size())
     return n_tok, nbytes, flops, bound(nbytes, flops, q.dtype)
 
 
@@ -412,6 +422,7 @@ def run_kernel_checks(report: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -638,10 +649,8 @@ def run_kernel_checks(report: dict) -> dict:
 
     def k2_bound(q, k):
         B, H, S, D = q.shape
-        isz = q.element_size()
-        visible = S * (S + 1) / 2        # causal keys seen, summed over rows
-        nbytes = (2 * q.numel() + 2 * k.numel()) * isz
-        flops = 4.0 * B * H * D * visible
+        flops, nbytes = cost.flash_attention(B, H, k.shape[1], S, S, D, True,
+                                             q.element_size())
         print(f"[K2] timed: B={B} H={H} Hkv={k.shape[1]} S={S} D={D} "
               f"{q.dtype} causal, {nbytes} bytes, {flops:.0f} flops")
         return bound(nbytes, flops, q.dtype)
@@ -660,8 +669,8 @@ def run_kernel_checks(report: dict) -> dict:
         read, out written), the plain version and SDPA."""
         B, H, Sq, D = q.shape
         Skv = k.shape[2]
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        flops = 4.0 * B * H * D * attn_pairs(Sq, Skv, causal)
+        flops, nbytes = cost.flash_attention(B, H, k.shape[1], Sq, Skv, D,
+                                             causal, q.element_size())
         b, by = bound(nbytes, flops, q.dtype)
         call = lambda: fa.flash_attention(  # noqa: E731
             q, k, v, causal=causal)
@@ -795,6 +804,7 @@ def run_scan_checks(report: dict) -> dict:
     with and without state in, state out, a ragged S and S = 1."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rw
@@ -854,10 +864,7 @@ def run_scan_checks(report: dict) -> dict:
     x, dt, A, Bm, Cm, D, _ = cases[0][1]
     B, S, H, dh = x.shape
     ds = Bm.shape[-1]
-    isz = x.element_size()
-    nbytes = (2 * x.numel() + 2 * Bm.numel()) * isz + dt.numel() * 4 \
-        + 2 * H * 4 + B * H * ds * dh * 4
-    flops = B * S * H * (5.0 * ds * dh + 2 * dh)
+    flops, nbytes = cost.mamba2_scan(B, S, H, dh, ds, x.element_size())
     b_ms, b_by = bound(nbytes, flops, x.dtype)
     print(f"[K3] timed: B={B} S={S} H={H} dh={dh} ds={ds} {x.dtype}, no "
           f"state in, state out: {nbytes} bytes, {flops:.0f} flops "
@@ -909,10 +916,8 @@ def run_scan_checks(report: dict) -> dict:
         errs.append(held("K4", name, got, want))
 
     def k4_bound(r, s_in):
-        B, S, H, dh = r.shape
-        nbytes = 5 * r.numel() * r.element_size() + H * dh * 4 \
-            + (1 + s_in) * B * H * dh * dh * 4
-        flops = B * S * H * 5.0 * dh * dh
+        flops, nbytes = cost.rwkv6_scan(*r.shape, r.element_size(),
+                                        state_in=s_in)
         return nbytes, flops, bound(nbytes, flops, r.dtype)
 
     r, k, v, w, u, _ = cases[0][1]
@@ -2113,14 +2118,15 @@ def k2_bwd_case(B, H, Hkv, Sq, Skv, D, dtype, seed):
 
 
 def k2_bwd_bound(q, k, causal: bool):
-    """Five products over the (query, key) pairs the mask leaves (S, dP,
-    dV, dK, dQ; causal halves them), at the bf16 dense peak; bytes: q, k,
-    v, out, dout and the fp32 LSE read once, dq, dk, dv written once."""
+    """K2-bwd's work (``kernels/cost.py``) at the bf16 dense peak: (bound
+    ms, bound by, bytes, flops)."""
     import torch
+
+    from repro_torch.kernels import cost
     B, H, Sq, D = q.shape
-    flops = 5 * 2.0 * B * H * D * attn_pairs(Sq, k.shape[2], causal)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-        + 4 * B * H * Sq
+    flops, nbytes = cost.flash_attention_bwd(B, H, k.shape[1], Sq,
+                                             k.shape[2], D, causal,
+                                             q.element_size())
     return (*bound(nbytes, flops, torch.bfloat16), nbytes, flops)
 
 
@@ -2966,15 +2972,13 @@ def mamba_bwd_case(B, S, H, dtype, *, state: bool, seed: int,
 
 
 def scan_bwd_bound(x, n_vec_in, n_vec_out, extra_bytes, dtype):
-    """The least time for a scan's gradient: ``n_vec_in`` (B,S,H,dh) inputs
-    read and ``n_vec_out`` written once, plus ``extra_bytes``; 14 dh^2
-    operations a step and head (the state's forward recurrence and the
-    gradient's: three products and three updates of a dh x dh state, less
-    what they share), at the inputs' type's peak."""
-    nbytes = (n_vec_in + n_vec_out) * x.numel() * x.element_size() \
-        + extra_bytes
-    B, S, H, dh = x.shape
-    flops = 14.0 * dh * dh * B * S * H
+    """The least time for a scan's gradient (``kernels/cost.py``'s
+    ``scan_bwd``: ``n_vec_in`` (B,S,H,dh) inputs read and ``n_vec_out``
+    written once, plus ``extra_bytes``), at the inputs' type's peak: (bound
+    ms, bound by, bytes, flops)."""
+    from repro_torch.kernels import cost
+    flops, nbytes = cost.scan_bwd(*x.shape, x.element_size(), n_vec_in,
+                                  n_vec_out, extra_bytes)
     return (*bound(nbytes, flops, dtype), nbytes, flops)
 
 
@@ -3460,14 +3464,6 @@ def compare_moe_paths(cfg, params) -> dict:
             "decode_step": profile_decode(lm, tokens, active)}
 
 
-def moe_param_counts(cfg, n_total: int) -> int:
-    """Parameters a token touches: all but the experts it is not routed
-    to (E - K of every MoE layer's E experts)."""
-    m = cfg.moe
-    expert = 3 * cfg.d_model * m.d_expert
-    return n_total - cfg.n_layers * (m.n_experts - m.top_k) * expert
-
-
 def serve_olmoe() -> dict:
     """Phase 12a: olmoe-1b-7b at full width and depth (16 layers, 16
     heads of 128, 64 experts top-8) served through the paged engine: 16
@@ -3490,7 +3486,7 @@ def serve_olmoe() -> dict:
     torch.cuda.synchronize()
     n_par = sum(p.numel() for p in params.parameters())
     print(f"[olmoe] {cfg.name}: {n_par} parameters ({n_par * 2 / 1e9:.2f} "
-          f"GB bf16; {moe_param_counts(cfg, n_par)} active a token), init "
+          f"GB bf16; {api.active_param_count(cfg)} active a token), init "
           f"{time.perf_counter() - t0:.1f} s")
     launches: dict = {}
     runs = {}
@@ -3511,7 +3507,7 @@ def serve_olmoe() -> dict:
     peak = torch.cuda.max_memory_allocated()
     paths = compare_moe_paths(cfg, params)
     out = {"model": cfg.name, "params": n_par,
-           "active_params": moe_param_counts(cfg, n_par),
+           "active_params": api.active_param_count(cfg),
            "tokens_per_s": runs[False]["tokens_per_s"],
            "median_decode_step_ms": runs[False]["median_step_ms"],
            "chunked_tokens_per_s": runs[True]["tokens_per_s"],
@@ -3555,6 +3551,7 @@ def train_olmoe() -> dict:
 
     from repro_torch import configs
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
     from repro_torch.runtime.trainer import Trainer
 
     cfg = dataclasses.replace(configs.get_config(OLMOE),
@@ -3585,7 +3582,7 @@ def train_olmoe() -> dict:
             prof = device_profile(tr.train_step, 1)
             step_s = float(np.median([m["step_time_s"] for m in ms]))
             tps = OLMOE_TRAIN_BATCH * OLMOE_TRAIN_SEQ / step_s
-            active = moe_param_counts(cfg, n_par)
+            active = api.active_param_count(cfg)
             runs[comm] = {
                 "losses": [m["loss"] for m in ms],
                 "grad_norms": [m["grad_norm"] for m in ms],
@@ -3640,6 +3637,221 @@ def moe_phases() -> dict:
     paths["reduced_olmoe_train"] = phase(
         "12c reduced olmoe training card vs CPU", train_with_cpu, OLMOE, 3)
     return paths
+
+
+# ----------------------------------------------------------------------------
+# phase 13: the dry run (launch/dryrun.py) held against the card
+# ----------------------------------------------------------------------------
+
+# 13b: production cells traced on meta, the first with the JAX dry run's
+# own bars (tests/test_dryrun.py)
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "multipod"),
+                ("deepseek-7b", "train_4k", "pod"),
+                ("olmoe-1b-7b", "decode_32k", "pod"),
+                ("rwkv6-1.6b", "long_500k", "pod"))
+# 13c: the single-device examples and the kernels each must launch
+EXAMPLES = {"quickstart_torch.py": ("flash_attention", "flash_attention_bwd"),
+            "paged_serving_torch.py": ("paged_attention", "flash_attention"),
+            "cluster_serving_torch.py": ("paged_attention",
+                                         "flash_attention")}
+
+
+def dryrun_vs_card(tag: str, cfg, batch: int, seq: int) -> dict:
+    """Phase 13a: one training step of ``cfg`` (batch x seq, remat, AdamW)
+    through the GSPMD trainer's rank program on a 1 x 1 mesh (an abstract
+    one: on one rank every collective is the identity), traced on meta and
+    then run on the card, each inside the analyzer
+    (``launch/op_analysis.py``).  Holds: the FLOPs equal as integers; each
+    kernel's reported launches equal to its launch counter on the card
+    (and to meta's); the roofline's max(compute, memory) at most the
+    step's measured device time; the predicted peak live bytes within
+    [0.5, 2] of the card's (its growth above the step's arguments, plus
+    the arguments).  Prints the ratio, the device ms, the roofline terms
+    and tokens/s x 6 x the active parameters over the bf16 peak."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import hw
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import api
+
+    mesh = Mesh((1, 1), ("data", "model"), [0], abstract_rank=0)
+    shape = api.ShapeCfg(tag, seq, batch, "train")
+    variant = dryrun.Variant(name="card", remat=True)
+    step, args, _ = dryrun.build_train(cfg, mesh, variant)(shape)
+    meta, t_trace = dryrun.analyze_step(step, args)
+    del step, args
+    terms = dryrun.roofline(meta.flops, meta.bytes, meta.link_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step, args, _ = dryrun.build_train(cfg, mesh, variant,
+                                       device="cuda")(shape)
+    step()                             # warm: set-up is not the step's
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    card, t_card = dryrun.analyze_step(step, args)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    counts = read_counts()
+    launched = {n: counts[n] + counts[f"{n}_small"] for n in kernel_wrappers()
+                if counts[n] + counts[f"{n}_small"]}
+    prof = device_profile(step, 1)
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured_peak = card.arg_bytes + grew
+    device_ms = prof["device_ms"]
+    roof_ms = max(terms["compute_s"], terms["memory_s"]) * 1e3
+    tps = batch * seq / (prof["step_wall_ms"] / 1e3)
+    active = api.active_param_count(cfg)
+    out = {"model": cfg.name, "layers": cfg.n_layers, "batch": [batch, seq],
+           "flops_meta": meta.flops, "flops_card": card.flops,
+           "bytes_meta": meta.bytes, "bytes_card": card.bytes,
+           "kernels_meta": meta.kernels, "kernels_card": card.kernels,
+           "launch_counters": launched,
+           "roofline": terms, "roofline_ms": roof_ms,
+           "device_ms": device_ms, "step_wall_ms": prof["step_wall_ms"],
+           "device_busy_share": prof["device_busy_share"],
+           "roofline_share_of_device_ms": roof_ms / device_ms,
+           "peak_predicted_bytes": meta.peak_live_bytes,
+           "peak_card_analyzer_bytes": card.peak_live_bytes,
+           "peak_measured_bytes": measured_peak,
+           "peak_ratio": meta.peak_live_bytes / measured_peak,
+           "arg_bytes": meta.arg_bytes, "active_params": active,
+           "active_flops_share_of_peak":
+               tps * 6 * active / hw.H100_SXM.peak_flops_bf16,
+           "t_trace_meta_s": t_trace, "t_analyzed_step_card_s": t_card,
+           "card": gpu_name_power()}
+    print(f"[dryrun vs card] {json.dumps(out)}")
+    check(meta.flops == card.flops, f"13a {tag}: FLOPs on meta "
+          f"{meta.flops} differ from the card's {card.flops}")
+    for name in set(launched) | set(card.kernels) | set(meta.kernels):
+        n = launched.get(name, 0)
+        check(card.kernels.get(name, {}).get("count", 0) == n
+              and meta.kernels.get(name, {}).get("count", 0) == n,
+              f"13a {tag}: {name} launched {n} times, reported "
+              f"{card.kernels.get(name)} on the card, "
+              f"{meta.kernels.get(name)} on meta")
+    check(roof_ms <= device_ms, f"13a {tag}: the roofline ({roof_ms:.2f} "
+          f"ms) exceeds the measured device time ({device_ms:.2f} ms)")
+    check(0.5 <= out["peak_ratio"] <= 2.0, f"13a {tag}: predicted peak "
+          f"{meta.peak_live_bytes} is {out['peak_ratio']:.3f} of the "
+          f"measured {measured_peak}")
+    return out
+
+
+def dryrun_cells() -> dict:
+    """Phase 13b: production cells traced on meta (the CPU's work: nothing
+    is allocated); the smollm multipod cell held to the JAX dry run's bars
+    (``tests/test_dryrun.py``)."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, mesh, dryrun.get_variant("baseline"))
+        mem = r["memory_analysis"]
+        out[f"{arch} {shape} {mesh}"] = row = {
+            "flops_per_device": r["flops_per_device"],
+            "bytes_per_device": r["bytes_per_device"],
+            "link_bytes_per_device": r["link_bytes_per_device"],
+            "live_bytes_per_device": mem["live_bytes_per_device"],
+            "fits_hbm": mem["fits_hbm"], "partitioned": r["partitioned"],
+            "bottleneck": r["roofline"]["bottleneck"],
+            "roofline": r["roofline"],
+            "useful_flop_ratio_attn": r["useful_flop_ratio_attn"],
+            "t_trace_s": r["t_trace_s"]}
+        print(f"[dryrun cell] {arch} {shape} {mesh}: {json.dumps(row)}")
+        if (arch, mesh) == ("smollm-135m", "multipod"):
+            check(r["chips"] == 512 and r["flops_per_device"] > 0
+                  and r["link_bytes_per_device"] > 0
+                  and r["roofline"]["bottleneck"] in (
+                      "compute_s", "memory_s", "collective_s")
+                  and 0.01 <= r["useful_flop_ratio_attn"] <= 3.0
+                  and r["useful_flop_ratio"] <= r["useful_flop_ratio_attn"]
+                  and "live_bytes_per_device" in mem,
+                  f"13b: the smollm multipod cell misses the dry run's "
+                  f"bars: {row}")
+    return out
+
+
+def run_examples() -> dict:
+    """Phase 13c: the single-device examples on the card, each in a
+    process of its own: each exits 0 and launches the kernels it must."""
+    out = {}
+    for name, must in EXAMPLES.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=ROOT)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"13c {name} exited {r.returncode}: "
+              f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+        line = next(ln for ln in r.stdout.splitlines()
+                    if ln.startswith("kernel launches:"))
+        counts = json.loads(line.split(":", 1)[1])
+        print(f"[example] {name} ({wall:.1f} s):")
+        for ln in r.stdout.strip().splitlines():
+            print(f"    {ln}")
+        check(all(counts[k] > 0 for k in must), f"13c {name}: a kernel it "
+              f"must run never launched: {counts}")
+        out[name] = {"wall_s": wall,
+                     "launches": {k: v for k, v in counts.items() if v}}
+    return out
+
+
+def autotune_phase() -> dict:
+    """Phase 13d: one short fabric-autotuner search on the host
+    (``serving_replay(16)``, the genetic agent, 12 steps, seed 0):
+    printed only."""
+    from repro_torch.core import fabric
+
+    env = fabric.FabricEnv(fabric.ConfigSpace(16), fabric.serving_replay(16))
+    t0 = time.perf_counter()
+    res = fabric.search(env, fabric.GeneticAgent(), steps=12, seed=0)
+    out = {"wall_s": time.perf_counter() - t0,
+           "best_objective_ms": res.best_objective_s * 1e3,
+           "winner": res.best_config.to_jsonable()}
+    print(f"[autotune] {json.dumps(out)}")
+    return out
+
+
+def dryrun_phases() -> dict:
+    """Phase 13: (a) the dry run held against the card for qwen2-0.5b at
+    phase 9's training shape and olmoe-1b-7b at phase 12b's (4 layers),
+    with the active-parameter count checked against the per-layer
+    arithmetic at 16 and 4 layers; (b) production cells on meta; (c) the
+    single-device examples on the card; (d) an autotuner search."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    olmoe = configs.get_config(OLMOE)
+    for L in (olmoe.n_layers, OLMOE_TRAIN_LAYERS):
+        c = dataclasses.replace(olmoe, n_layers=L)
+        m = c.moe
+        by_hand = api.param_count(c) - L * (m.n_experts - m.top_k) \
+            * 3 * c.d_model * m.d_expert
+        check(api.active_param_count(c) == by_hand, f"13a: olmoe at {L} "
+              f"layers: {api.active_param_count(c)} active parameters, "
+              f"{by_hand} by the per-layer arithmetic")
+        print(f"[dryrun vs card] olmoe at {L} layers: {by_hand} active "
+              "parameters both ways")
+    out = {"qwen2": phase("13a qwen2 dry run vs card", dryrun_vs_card,
+                          "qwen2_train", configs.get_config("qwen2-0.5b"),
+                          TRAIN_BATCH, TRAIN_SEQ),
+           "olmoe": phase("13a olmoe dry run vs card", dryrun_vs_card,
+                          "olmoe_train", dataclasses.replace(
+                              olmoe, n_layers=OLMOE_TRAIN_LAYERS),
+                          OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ)}
+    out["cells"] = phase("13b production cells on meta", dryrun_cells)
+    out["examples"] = phase("13c examples on the card", run_examples)
+    out["autotune"] = phase("13d autotuner search", autotune_phase)
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -3919,6 +4131,9 @@ def main() -> int:
     ap.add_argument("--moe-only", action="store_true",
                     help="the build, phase 2's K1 and K2, phase 9a's K2-bwd "
                          "and phase 12 (the MoE family) alone")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="the build and phase 13 (the dry run held against "
+                         "the card, the examples, the autotuner) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3963,6 +4178,11 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.dryrun_only:
+        dryrun_phases()
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+        print(card)
+        return 0
     if args.moe_only:
         phase("2 kernels vs plain", run_kernel_checks, report)
         phase("9a K2-bwd vs plain", run_k2_bwd_checks, report)
@@ -4027,8 +4247,10 @@ def main() -> int:
     # recurrent families trained
     paths.update(whisper_phases())
     paths.update(recurrent_train_phases(report))
-    # the MoE family last, alone on the card
+    # the MoE family alone on the card
     paths.update(moe_phases())
+    # the dry run held against the card, the examples, the autotuner
+    dryrun_phases()
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")

@@ -14,14 +14,15 @@
                     runs on numpy or, with ``solver="torch"``, on the card
         telemetry.* counters, spans and the Perfetto export
         qosctl.*    the closed-loop QoS controller
-        autotune.*  the pinned-config reader (``best_configs.json``)
+        autotune.*  the design-space search (``FabricEnv``, the agents,
+                    ``search`` / ``rescore``) and ``best_configs.json``
         execute.*   the schedule as ``torch.distributed`` point-to-point
                     rounds over a ``Mesh`` (fused dual-DMA rounds)
 
 Ports of the JAX package's modules of the same names; their timelines
-are bit-identical to the reference, and the executor's sums equal the
-JAX executor's.  The autotuner's search is not ported yet (ROADMAP §1,
-item 10).
+are bit-identical to the reference, the executor's sums equal the
+JAX executor's, and the autotuner's searches follow the reference's
+trajectories bit for bit.
 """
 from repro_torch.core.fabric.cost import (BACKENDS, CostEstimate,
                                           OverlapEstimate,
@@ -60,8 +61,17 @@ from repro_torch.core.fabric.sim import (FabricSim, FlowResult, best_route,
 from repro_torch.core.fabric.telemetry import (Telemetry, canon_key,
                                                ordered_link_items,
                                                validate_perfetto)
-from repro_torch.core.fabric.autotune import (FabricConfig,
-                                              load_best_configs,
+# autotune references this package lazily (``from repro_torch.core import
+# fabric``), so it must come after every name it may resolve at call time
+from repro_torch.core.fabric.autotune import (AGENTS, ConfigSpace,
+                                              FabricConfig, FabricEnv,
+                                              GeneticAgent, GpBoAgent,
+                                              RandomWalkAgent, ReplaySpec,
+                                              ScoreReport, SearchResult,
+                                              finalists, load_best_configs,
+                                              rescore, save_best_configs,
+                                              search, serving_replay,
+                                              torus_shapes, training_replay,
                                               tuned_config, tuned_knob)
 
 __all__ = [
@@ -84,5 +94,9 @@ __all__ = [
     "Telemetry", "canon_key", "ordered_link_items", "validate_perfetto",
     "DEFAULT_CREDIT_FRAC", "DEFAULT_WEIGHTS", "SINGLE_CLASS", "QosPolicy",
     "QosController", "QosCtlPolicy", "TrafficClass",
-    "FabricConfig", "load_best_configs", "tuned_config", "tuned_knob",
+    "AGENTS", "ConfigSpace", "FabricConfig", "FabricEnv", "GeneticAgent",
+    "GpBoAgent", "RandomWalkAgent", "ReplaySpec", "ScoreReport",
+    "SearchResult", "finalists", "load_best_configs", "rescore",
+    "save_best_configs", "search", "serving_replay", "torus_shapes",
+    "training_replay", "tuned_config", "tuned_knob",
 ]

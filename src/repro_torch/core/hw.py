@@ -1,7 +1,9 @@
 """Hardware constants for roofline analysis and the APElink what-if study.
 
-The runtime target is a TPU v5e pod (the container itself is CPU-only; all
-performance numbers are *derived* from compiled HLO, not measured wall-clock).
+The port's roofline (``launch/dryrun.py``) prices every cell against
+``H100_SXM``, one NVIDIA H100 SXM5.  ``TPU_V5E`` is the JAX package's
+target; here it serves the modelled fabric only, and the port's dry run
+never prices against it.
 
 The paper's §6 next-generation study (PCIe Gen3, 56 Gb/s links) is expressed
 here as alternative hardware constant sets so the roofline can be re-run
@@ -38,6 +40,22 @@ TPU_V5E = ChipSpec(
     ici_links=4,            # 2D torus per pod; the "pod" axis rides DCN/optical
     hbm_bytes=16 * 1024**3,
     vmem_bytes=128 * 1024**2,
+)
+
+# The port's target: one NVIDIA H100 SXM5 (NVIDIA's H100 data sheet, SXM5
+# column: dense bf16 989 TFLOP/s, HBM3 3.35 TB/s, 80 GB; NVLink 4: 18 links,
+# 900 GB/s both directions together, so 25 GB/s a link and direction).  The
+# card these constants are held against reports itself as "NVIDIA H100
+# 80GB HBM3, 700.00 W" (nvidia-smi's name and power limit); the rates
+# assume that full 700 W.  ``vmem_bytes`` is its 50 MB L2.
+H100_SXM = ChipSpec(
+    name="h100-sxm5",
+    peak_flops_bf16=989e12,
+    hbm_bandwidth=3.35e12,
+    ici_link_bandwidth=25e9,
+    ici_links=18,
+    hbm_bytes=80 * 10**9,
+    vmem_bytes=50 * 1024**2,
 )
 
 # Paper-era accelerator (Fermi/Kepler-class) at a conservative 40% MFU —

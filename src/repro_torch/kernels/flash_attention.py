@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 COMPUTE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -98,6 +98,8 @@ def _forward(q, k, v, causal, scale, compute_dtype, lse):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     _build.count(flash_attention, ROUTES[_route.value])
+    cost.launched("flash_attention", cost.flash_attention, B, H, Hkv, Sq, Skv,
+                  D, causal, q.element_size())
     flash_attention.last_kernel = KERNELS[_route.value]
     return out
 
@@ -169,6 +171,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
     _build.count(flash_attention_bwd, BWD_ROUTES[_bwd_route.value])
+    cost.launched("flash_attention_bwd", cost.flash_attention_bwd, B, H, Hkv,
+                  Sq, Skv, D, causal, q.element_size())
     flash_attention_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dq, dk, dv
 

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)          # the fast routes' widths (dh = ds = 64)
@@ -148,6 +148,9 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             raise RuntimeError(f"mamba2_scan kernel launch failed: CUDA "
                                f"error {err}")
         _build.count(mamba2_scan, ROUTES[_route.value])
+        cost.launched("mamba2_scan", cost.mamba2_scan, B, S, H, dh, ds,
+                      x.element_size(), state_in=h0 is not None,
+                      state_out=return_state)
         mamba2_scan.last_kernel = KERNELS[_route.value]
     return (y, h_out) if return_state else y
 
@@ -229,6 +232,8 @@ def mamba2_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
     _build.count(mamba2_scan_bwd, BWD_ROUTES[_bwd_route.value])
+    cost.launched("mamba2_scan_bwd", cost.mamba2_scan_bwd, B, S, H, dh, ds,
+                  x.element_size())
     mamba2_scan_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dx, ddt, dA, dB, dC, dD, dh0
 

@@ -9,7 +9,16 @@
     attention (K1, which only serving runs, and which has no backward)
     raises in its wrapper rather than return an output cut off from the
     graph;
+  * tensors on the ``meta`` device (the dry run's, ``launch/dryrun.py``)
+    take no implementation at all: the kernel's outputs, of its shapes
+    and dtypes (K2's LSE included), with no values, and the kernel's cost
+    (``kernels/cost.py``) reported to the active analysis; under grad an
+    autograd Function whose backward reports K2-bwd, K3-bwd or K4-bwd, and
+    K1 raises as on the card.  Meta computes nothing, so it stands in for
+    neither the card nor the plain versions;
   * any other device raises.
+
+The card's wrappers report the same cost for each launch.
 
 Signatures and layouts are the JAX package's ``kernels/ops.py``, without
 its ``impl=`` knob: the device picks the implementation.  On the CPU the
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba2_scan as _m2
 from repro_torch.kernels import paged_attention as _pa
@@ -37,11 +47,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as _rw
 
 
-def _on_cuda(x: torch.Tensor, name: str) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
+def _route(x: torch.Tensor, name: str) -> str:
+    """"cuda", "cpu" or "meta": where ``name`` runs for tensors like x."""
+    if x.device.type in ("cuda", "cpu", "meta"):
+        return x.device.type
     raise ValueError(f"{name}: no implementation for device {x.device}")
 
 
@@ -55,7 +64,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D).  On the card with
     grad enabled and an input requiring grad, K2 runs inside an autograd
     Function whose backward is K2-bwd."""
-    if _on_cuda(q, "flash_attention"):
+    route = _route(q, "flash_attention")
+    if route == "meta":
+        if _wants_grad(q, k, v):
+            return _MetaAttentionFn.apply(q, k, v, causal)
+        return _meta_attention(q, k, causal)
+    if route == "cuda":
         if _wants_grad(q, k, v):
             return _fa.FlashAttentionFn.apply(q, k, v, causal, scale,
                                               compute_dtype)
@@ -69,7 +83,19 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                     scale=None):
     """q: (B,H,D); pages: (P,page,Hkv,D); page_table: (B,max_pages) int32;
     seq_lens: (B,) int32 -> (B,H,D)."""
-    if _on_cuda(q, "paged_attention"):
+    route = _route(q, "paged_attention")
+    if route == "meta":
+        _build.refuse_grad("paged_attention",
+                           f"see {_build.NO_BACKWARD}", q, k_pages, v_pages)
+        # no values to read: every row counted at the table's capacity
+        B, H, D = q.shape
+        cost.launched("paged_attention", cost.paged_attention, B, H,
+                      k_pages.shape[2], D, k_pages.shape[1],
+                      page_table.shape[1],
+                      [page_table.shape[1] * k_pages.shape[1]] * B,
+                      q.element_size())
+        return torch.empty_like(q)
+    if route == "cuda":
         return _pa.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                                    scale=scale)
     return ref.paged_attention(q, k_pages, v_pages, page_table, seq_lens,
@@ -82,7 +108,13 @@ def mamba2_scan(x, dt, A, Bmat, Cmat, D, *, h0=None,
     (B,H,ds,dh) -> y like x [, final state (B,H,ds,dh) fp32].  On the card
     with grad enabled and an input requiring grad, K3 runs inside an
     autograd Function whose backward is K3-bwd."""
-    if _on_cuda(x, "mamba2_scan"):
+    route = _route(x, "mamba2_scan")
+    if route == "meta":
+        if _wants_grad(x, dt, A, Bmat, Cmat, D, h0):
+            return _MetaMamba2Fn.apply(x, dt, A, Bmat, Cmat, D, h0,
+                                       return_state)
+        return _meta_mamba2(x, Bmat, h0, return_state)
+    if route == "cuda":
         if _wants_grad(x, dt, A, Bmat, Cmat, D, h0):
             return _m2.Mamba2ScanFn.apply(x, dt, A, Bmat, Cmat, D, h0,
                                           return_state)
@@ -97,13 +129,130 @@ def rwkv6_scan(r, k, v, w, u, *, s0=None, return_state: bool = False):
     [, final state (B,H,dh,dh) fp32].  On the card with grad enabled and an
     input requiring grad, K4 runs inside an autograd Function whose
     backward is K4-bwd."""
-    if _on_cuda(r, "rwkv6_scan"):
+    route = _route(r, "rwkv6_scan")
+    if route == "meta":
+        if _wants_grad(r, k, v, w, u, s0):
+            return _MetaRwkv6Fn.apply(r, k, v, w, u, s0, return_state)
+        return _meta_rwkv6(r, s0, return_state)
+    if route == "cuda":
         if _wants_grad(r, k, v, w, u, s0):
             return _rw.Rwkv6ScanFn.apply(r, k, v, w, u, s0, return_state)
         return _rw.rwkv6_scan(r, k, v, w, u, s0=s0,
                               return_state=return_state)
     return ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
                                   return_state=return_state)
+
+
+def launch_counts() -> dict[str, int]:
+    """Each hand-written kernel's launches in this process, by wrapper."""
+    return {fn.__name__: fn.launches for fn in (
+        _pa.paged_attention, _fa.flash_attention, _fa.flash_attention_bwd,
+        _m2.mamba2_scan, _m2.mamba2_scan_bwd, _rw.rwkv6_scan,
+        _rw.rwkv6_scan_bwd)}
+
+
+# ----------------------------------------------------------------------------
+# the meta route: the kernels' outputs with no values, their cost reported
+# ----------------------------------------------------------------------------
+
+def _meta_attention(q, k, causal):
+    B, H, Sq, D = q.shape
+    cost.launched("flash_attention", cost.flash_attention, B, H, k.shape[1],
+                  Sq, k.shape[2], D, causal, q.element_size())
+    return torch.empty_like(q)
+
+
+class _MetaAttentionFn(torch.autograd.Function):
+    """K2 with its LSE, and K2-bwd, on meta tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _meta_attention(q, k, causal)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, _, _ = ctx.saved_tensors
+        B, H, Sq, D = q.shape
+        cost.launched("flash_attention_bwd", cost.flash_attention_bwd, B, H,
+                      k.shape[1], Sq, k.shape[2], D, ctx.causal,
+                      q.element_size())
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None)
+
+
+def _meta_mamba2(x, Bmat, h0, return_state):
+    B, S, H, dh = x.shape
+    ds = Bmat.shape[-1]
+    cost.launched("mamba2_scan", cost.mamba2_scan, B, S, H, dh, ds,
+                  x.element_size(), state_in=h0 is not None,
+                  state_out=return_state)
+    y = torch.empty((B, S, H, dh), dtype=x.dtype, device=x.device)
+    if not return_state:
+        return y
+    return y, torch.empty((B, H, ds, dh), dtype=torch.float32,
+                          device=x.device)
+
+
+class _MetaMamba2Fn(torch.autograd.Function):
+    """K3 and K3-bwd on meta tensors (gradients in the inputs' dtypes, as
+    ``Mamba2ScanFn`` gives them)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, D, h0, return_state):
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, D, h0)
+        return _meta_mamba2(x, Bmat, h0, return_state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, dt, A, Bmat, Cmat, D, h0 = ctx.saved_tensors
+        B, S, H, dh = x.shape
+        cost.launched("mamba2_scan_bwd", cost.mamba2_scan_bwd, B, S, H, dh,
+                      Bmat.shape[-1], x.element_size())
+        need_dh0 = h0 is not None and ctx.needs_input_grad[6]
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                *(torch.empty_like(t) for t in (dt, A)),
+                *(torch.empty(t.shape, dtype=x.dtype, device=x.device)
+                  for t in (Bmat, Cmat)),
+                torch.empty_like(D),
+                torch.empty_like(h0) if need_dh0 else None, None)
+
+
+def _meta_rwkv6(r, s0, return_state):
+    B, S, H, dh = r.shape
+    cost.launched("rwkv6_scan", cost.rwkv6_scan, B, S, H, dh,
+                  r.element_size(), state_in=s0 is not None,
+                  state_out=return_state)
+    y = torch.empty(r.shape, dtype=r.dtype, device=r.device)
+    if not return_state:
+        return y
+    return y, torch.empty((B, H, dh, dh), dtype=torch.float32,
+                          device=r.device)
+
+
+class _MetaRwkv6Fn(torch.autograd.Function):
+    """K4 and K4-bwd on meta tensors (gradients in the inputs' dtypes, as
+    ``Rwkv6ScanFn`` gives them)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, return_state):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _meta_rwkv6(r, s0, return_state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        B, S, H, dh = r.shape
+        cost.launched("rwkv6_scan_bwd", cost.rwkv6_scan_bwd, B, S, H, dh,
+                      r.element_size())
+        need_ds0 = s0 is not None and ctx.needs_input_grad[5]
+        return (*(torch.empty(t.shape, dtype=r.dtype, device=r.device)
+                  for t in (r, k, v, w)),
+                torch.empty_like(u),
+                torch.empty_like(s0) if need_ds0 else None, None)
 
 
 # ----------------------------------------------------------------------------

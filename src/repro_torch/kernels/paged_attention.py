@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)      # the split-K route's widths
@@ -101,6 +101,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
     _build.count(paged_attention, "small" if small else "split_k")
+    if cost.active():   # the resident keys: read back only under analysis
+        cost.launched("paged_attention", cost.paged_attention, B, H, Hkv, D,
+                      page, max_pages, seq_lens.tolist(), q.element_size())
     paged_attention.last_blocks = blocks.value
     return out
 

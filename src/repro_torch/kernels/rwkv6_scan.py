@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64,)          # the fast routes' width
@@ -124,6 +124,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA "
                                f"error {err}")
         _build.count(rwkv6_scan, ROUTES[_route.value])
+        cost.launched("rwkv6_scan", cost.rwkv6_scan, B, S, H, dh,
+                      r.element_size(), state_in=s0 is not None,
+                      state_out=return_state)
         rwkv6_scan.last_kernel = KERNELS[_route.value]
     return (y, s_out) if return_state else y
 
@@ -194,6 +197,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
     _build.count(rwkv6_scan_bwd, BWD_ROUTES[_bwd_route.value])
+    cost.launched("rwkv6_scan_bwd", cost.rwkv6_scan_bwd, B, S, H, dh,
+                  r.element_size())
     rwkv6_scan_bwd.last_kernel = BWD_KERNELS[_bwd_route.value]
     return dr, dk, dv, dw, du, ds0
 

@@ -19,10 +19,18 @@ spec entry such as ``("data", "model")``) runs on ``group(axes)``: the
 ranks that share every coordinate but those axes, made for every set of
 axes when the mesh is.
 
-``production_torus`` is the topology twin of the JAX module's production
-mesh (16x16, or 2x16x16 over "pod"); ``host_test_mesh`` its small test
-mesh, here over the first ranks.  ``make_production_mesh`` needs 256 or
-512 ranks and waits for the dry run (ROADMAP item 10).
+``make_production_mesh`` is the JAX module's production mesh (16x16
+("data", "model"), or 2x16x16 with "pod"), over the world's first 256 or
+512 ranks; ``production_torus`` its topology twin; ``host_test_mesh`` its
+small test mesh, here over the first ranks.
+
+JAX's dry run builds the production mesh over 512 forced host devices;
+torch has no such devices, so ``make_production_mesh(abstract=True)``
+gives an abstract mesh: the same layout, playing one given rank
+(``rank``), with no process group and no ``torch.distributed`` call.  Its
+lines' groups are ``AbstractGroup``s, and the collectives of
+``parallel/spmd.py`` take only meta tensors on them (the dry run's,
+``launch/dryrun.py``): a real tensor on an abstract mesh is an error.
 """
 from __future__ import annotations
 
@@ -48,11 +56,23 @@ def _group(ranks: tuple[int, ...]):
     return group
 
 
+class AbstractGroup:
+    """The ranks of one line of an abstract mesh, in the line's order: the
+    group a collective would run on, with no process group behind it."""
+
+    def __init__(self, ranks) -> None:
+        self.ranks = tuple(ranks)
+        self.size = len(self.ranks)
+
+
 class Mesh:
     """A row-major layout of ranks over named axes, with a process group
-    for each axis line through this rank."""
+    for each axis line through this rank; with ``abstract_rank`` (an index
+    into ``ranks``) an abstract mesh that plays that rank, its groups
+    ``AbstractGroup``s."""
 
-    def __init__(self, shape, axis_names, ranks) -> None:
+    def __init__(self, shape, axis_names, ranks, *,
+                 abstract_rank: int | None = None) -> None:
         shape, axis_names = tuple(shape), tuple(axis_names)
         if len(shape) != len(axis_names):
             raise ValueError("mesh shape/axis arity mismatch")
@@ -64,7 +84,9 @@ class Mesh:
         self.ranks = tuple(int(r) for r in ranks)
         self.size = len(self.ranks)
         self.torus = Torus(shape)
-        me = dist.get_rank()
+        self.abstract = abstract_rank is not None
+        me = self.ranks[abstract_rank] if self.abstract else dist.get_rank()
+        make_group = AbstractGroup if self.abstract else _group
         self.coords = (self.torus.coords(self.ranks.index(me))
                        if me in self.ranks else None)
         self._lines: dict[str, tuple[int, ...]] = {}
@@ -72,7 +94,7 @@ class Mesh:
         self.all_group = None          # every rank of the mesh
         if self.coords is None:
             return
-        self.all_group = _group(self.ranks)
+        self.all_group = make_group(self.ranks)
         # every set of axes, in axis order: its line through this rank,
         # row-major over those axes (the first the major one)
         for k in range(1, len(axis_names) + 1):
@@ -86,7 +108,7 @@ class Mesh:
                     line.append(self.ranks[self.torus.rank(tuple(c))])
                 key = tuple(axis_names[i] for i in sub)
                 self._lines[key] = tuple(line)
-                self._groups[key] = _group(tuple(line))
+                self._groups[key] = make_group(tuple(line))
                 if k == 1:
                     self._lines[key[0]] = tuple(line)
                     self._groups[key[0]] = self._groups[key]
@@ -123,6 +145,20 @@ def make_mesh(shape, axis_names, *, ranks=None) -> Mesh:
                              f"world has {dist.get_world_size()}")
         ranks = range(need)
     return Mesh(shape, axis_names, list(ranks))
+
+
+def make_production_mesh(*, multi_pod: bool = False, abstract: bool = False,
+                         rank: int = 0) -> Mesh:
+    """The graded production mesh: 16x16 ("data", "model") single pod, or
+    2x16x16 ("pod", "data", "model") multi-pod.  Over the world's first
+    256 or 512 ranks (raises when the world is smaller); with ``abstract``
+    an abstract mesh of that layout playing rank ``rank``, which needs no
+    process group."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if abstract:
+        return Mesh(shape, axes, range(math.prod(shape)), abstract_rank=rank)
+    return make_mesh(shape, axes)
 
 
 def production_torus(*, multi_pod: bool = False) -> Torus:

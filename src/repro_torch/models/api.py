@@ -1,12 +1,13 @@
-"""Uniform model API: family dispatch.
+"""Uniform model API: family dispatch and meta-tensor input specs.
 
 ``get_model(cfg)`` returns a ``Model`` facade with the JAX package's five
 entry points (``models/api.py``) for every family: the decoder-only
 transformers (dense, moe, vlm), the recurrent ``mamba2`` and ``rwkv6``,
 the ``zamba2`` hybrid and the ``encdec`` encoder-decoder (whisper), whose
-decode state comes from ``prefill(..., max_len=)`` alone, as in JAX.  The
-JAX module's ShapeDtypeStruct input specs serve its dry-run, which the
-port replaces last (ROADMAP queue item 10).
+decode state comes from ``prefill(..., max_len=)`` alone, as in JAX.
+``input_specs(cfg, shape)`` builds each input-shape family's arguments as
+meta tensors (shape and dtype, no memory) where JAX has
+ShapeDtypeStructs: what the dry run (``launch/dryrun.py``) traces.
 
 ``init`` takes a ``torch.Generator`` and builds the weights on its device;
 ``train_loss(p, b, remat=True)`` takes JAX's ``remat`` knob, which every
@@ -21,11 +22,40 @@ sharding rules (``parallel/sharding.py``) read them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
+
+import torch
 
 from repro_torch.models import (attention, encdec, hybrid, rwkv, ssm,
                                 transformer)
 from repro_torch.models.common import ArchCfg
+from repro_torch.parallel import sharding
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# the assigned LM shape set (applies to every arch; long_500k is gated on
+# cfg.full_attention)
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+    # reduced variants for smoke tests
+    "smoke_train": ShapeCfg("smoke_train", 16, 2, "train"),
+    "smoke_prefill": ShapeCfg("smoke_prefill", 16, 2, "prefill"),
+    "smoke_decode": ShapeCfg("smoke_decode", 16, 2, "decode"),
+}
+
+# the index dtype the port's entry points take token ids in
+TOKEN_DTYPE = torch.int64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +151,84 @@ def param_shapes(cfg: ArchCfg) -> dict:
     return weights.nest({path: weights.leaf_tensor(cfg, path, ps).detach()
                          for path, ps in weights.jax_leaves(cfg,
                                                             model).items()})
+
+
+# ----------------------------------------------------------------------------
+# input specs (meta tensors: shape and dtype, no memory)
+# ----------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ArchCfg, shape: ShapeCfg) -> dict:
+    B, S = shape.global_batch, shape.seq_len
+    batch = {"tokens": _meta((B, S), TOKEN_DTYPE),
+             "labels": _meta((B, S), TOKEN_DTYPE)}
+    if cfg.family == "encdec":
+        batch["frames"] = _meta((B, cfg.n_frames, cfg.d_model), cfg.dtype)
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = _meta((B, cfg.n_patches, cfg.d_model),
+                                       cfg.dtype)
+    return batch
+
+
+def prefill_input_specs(cfg: ArchCfg, shape: ShapeCfg) -> dict:
+    batch = train_input_specs(cfg, shape)
+    del batch["labels"]
+    return batch
+
+
+def decode_input_specs(cfg: ArchCfg, shape: ShapeCfg) -> dict:
+    """Specs for decode: one new token against a seq_len-deep state, from
+    the family's own ``init_decode_state`` on meta, or for encdec (whose
+    state holds the cross-attention K/V) from ``prefill`` on meta — JAX
+    derives both with ``eval_shape``."""
+    B, S = shape.global_batch, shape.seq_len
+    model = get_model(cfg)
+    if cfg.family == "encdec":
+        from repro_torch import weights
+        params = weights.model_class(cfg)(cfg, device="meta")
+        with torch.no_grad():
+            state = model.prefill(params, prefill_input_specs(cfg, shape),
+                                  max_len=S, remat=False)[1]
+    else:
+        state = model.init_decode_state(B, S, device="meta")
+    return {"token": _meta((B, 1), TOKEN_DTYPE), "state": state,
+            "pos": _meta((), TOKEN_DTYPE)}
+
+
+def input_specs(cfg: ArchCfg, shape_name: str) -> tuple[ShapeCfg, dict]:
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        return shape, train_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return shape, prefill_input_specs(cfg, shape)
+    return shape, decode_input_specs(cfg, shape)
+
+
+def applicable_shapes(cfg: ArchCfg) -> list[str]:
+    """The assigned shape cells for this arch (long_500k gated)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if not cfg.full_attention:
+        out.append("long_500k")
+    return out
+
+
+def param_count(cfg: ArchCfg) -> int:
+    return sum(math.prod(x.shape)
+               for x in sharding.flatten(param_shapes(cfg)).values())
+
+
+def active_param_count(cfg: ArchCfg) -> int:
+    """MoE: params touched per token (top_k of n_experts); else = total."""
+    leaves = sharding.flatten(param_shapes(cfg))
+    total = sum(math.prod(x.shape) for x in leaves.values())
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    expert = sum(math.prod(x.shape) for path, x in leaves.items()
+                 if "moe" in path.split("/")
+                 and path.split("/")[-1] in ("w_gate", "w_up", "w_down"))
+    # expert tensors carry the E axis; active fraction = top_k / n_experts
+    return total - expert + int(expert * m.top_k / m.n_experts)

@@ -4,9 +4,15 @@ The counterpart of the JAX package's ``models/moe.py``.  ``apply_moe``:
 expand each token k times, stable-sort by expert id, place into an (E, C,
 d) capacity buffer, run the batched expert FFN, combine back with the
 router probabilities.  Where JAX drops overflowed tokens through the
-scatter's out-of-bounds ``mode="drop"``, this version writes only the rows
-an explicit ``keep`` mask selects (PyTorch indexing raises on an
-out-of-bounds index instead of dropping the write).
+scatter's out-of-bounds ``mode="drop"``, this version gathers instead of
+scattering: each buffer slot reads the row routed to it, an empty slot
+is masked to zero, and a dropped row's output is masked to zero (PyTorch
+indexing raises on an out-of-bounds index instead of dropping the
+write).  Every shape is static, so the dispatch never reads a count back
+to the host and runs on meta tensors (the dry run) as JAX's lowered step
+does; a masked read takes an index of its own, so no row is read more
+than a few times, however skewed the routing (the backward's
+accumulating writes stay short).
 
 Every index write and gather here touches each row once, and the combine
 sums each token's k rows in a fixed order (rows back in (token, k) order,
@@ -52,11 +58,18 @@ def capacity(cfg: ArchCfg, n_tokens: int) -> int:
     return max(c, m.top_k)
 
 
+def _expert_counts(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """(E,) int64: how many of the routed rows each expert got."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
 def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int):
     """Route a token block xt (T, d): returns (buf (E*C, d), combine,
     probs (T, E), flat_e (T*K,)); ``combine(outbuf)`` gives the (T, d)
     fp32 sum of each token's kept expert rows, weighted."""
     T, d = xt.shape
+    n = T * K
     dev = xt.device
     # --- routing (fp32 for a stable softmax) -------------------------------
     logits = xt.float() @ router                             # (T, E)
@@ -68,19 +81,27 @@ def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int):
     flat_p = top_p.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)             # (E,)
+    counts = _expert_counts(flat_e, E)                       # (E,)
     starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * K, device=dev) - starts[sorted_e]
+    pos_in_e = torch.arange(n, device=dev) - starts[sorted_e]
     keep = pos_in_e < C                                      # capacity mask
-    dest = (sorted_e * C + pos_in_e)[keep]                   # buffer rows
-    rows = order[keep]                                       # (token, k) rows
-    xk = xt[:, None].expand(T, K, d).reshape(T * K, d)       # token k times
-    buf = torch.zeros((E * C, d), dtype=xt.dtype, device=dev)
-    buf[dest] = xk[rows]
+    # each sorted row's buffer slot; a dropped row reads slot i mod E*C,
+    # masked below
+    slot = torch.where(keep, sorted_e * C + pos_in_e,
+                       torch.arange(n, device=dev) % (E * C))
+    # buffer slot (e, c) holds the c-th row routed to e, if there is one
+    c = torch.arange(C, device=dev)
+    filled = (c[None, :] < counts[:, None]).reshape(-1, 1)
+    src = ((starts[:, None] + c[None, :]) % max(n, 1)).reshape(-1)
+    xk = xt[:, None].expand(T, K, d).reshape(n, d)           # token k times
+    buf = torch.where(filled, xk[order[src]], 0)
 
     def combine(outbuf):
-        wk = torch.zeros((T * K, d), dtype=torch.float32, device=dev)
-        wk[rows] = outbuf[dest].float() * flat_p[rows][:, None]
+        # every (token, k) row once, a dropped one zero
+        rows = torch.where(keep[:, None], outbuf[slot].float()
+                           * flat_p[order][:, None], 0.0)
+        wk = torch.zeros((n, d), dtype=torch.float32, device=dev)
+        wk[order] = rows
         return wk.reshape(T, K, d).sum(1)
 
     return buf, combine, probs, flat_e
@@ -109,7 +130,7 @@ def apply_moe(cfg: ArchCfg, p: Params, x: torch.Tensor, *,
         cfg, x.reshape(T, d), p["router"], K, E, C)
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(0)                                       # (E,)
-    ce = torch.bincount(flat_e, minlength=E).float() / (T * K)
+    ce = _expert_counts(flat_e, E).float() / (T * K)
     aux = m.router_aux_weight * E * torch.sum(me * ce)
     out = _expert_ffn(buf.reshape(E, C, d), p["w_gate"], p["w_up"],
                       p["w_down"], x.dtype).reshape(E * C, d)
@@ -178,7 +199,7 @@ def apply_moe_ep(cfg: ArchCfg, p: Params, x: torch.Tensor):
     # Switch-style aux loss from globally-averaged router stats
     me = spmd.all_reduce(probs.mean(0), mesh, all_axes, tag="moe") / n_all
     with torch.no_grad():
-        ce = spmd.all_reduce(torch.bincount(flat_e, minlength=E).float()
+        ce = spmd.all_reduce(_expert_counts(flat_e, E).float()
                              / flat_e.numel(), mesh, all_axes,
                              tag="moe") / n_all
     aux = m.router_aux_weight * E * torch.sum(me * ce)

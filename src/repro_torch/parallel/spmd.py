@@ -20,7 +20,14 @@ rank a collective is the identity and runs nothing.
 
 ``counts`` tallies the collectives run, by (op, tag), so a test can count
 the ones a layer issues; the backward's adjoints count under their own op
-and ``tag + "/bwd"``.  ``shard`` / ``unshard`` cut a global tensor to
+and ``tag + "/bwd"``.
+
+On an abstract mesh (``launch.mesh.make_production_mesh(abstract=True)``:
+the dry run's) a collective moves nothing: it takes meta tensors only
+(a real tensor raises), returns a meta tensor of the result's shape, and
+reports its kind (JAX's HLO names: "all-gather", "reduce-scatter",
+"all-reduce", "all-to-all"), operand, result and group size to every sink
+in ``collective_sinks`` (``launch/op_analysis.py``'s).  ``shard`` / ``unshard`` cut a global tensor to
 this rank's part of a spec and gather it back; ``gather_param`` is what a
 model's parameter access (``models.common.Params``) runs for a leaf the
 trainer holds sharded; ``tp_slice`` gives this rank's 1/|model| slice of a
@@ -34,9 +41,13 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.mesh import AbstractGroup
 from repro_torch.parallel import sharding
 
 counts: dict = {}
+# sink(kind, operand, result, group_size) for each collective on an
+# abstract mesh
+collective_sinks: list = []
 
 
 def reset_counts() -> None:
@@ -57,7 +68,22 @@ def _count(op: str, tag: str) -> None:
     counts[op, tag] = counts.get((op, tag), 0) + 1
 
 
+def _abstract(kind: str, x, shape, group) -> torch.Tensor:
+    """A collective on an abstract mesh: the result's shape, reported."""
+    if x.device.type != "meta":
+        raise ValueError(f"{kind} on an abstract mesh takes meta tensors "
+                         f"only, got one on {x.device}")
+    out = torch.empty(shape, dtype=x.dtype, device="meta")
+    for sink in list(collective_sinks):
+        sink(kind, x, out, group.size)
+    return out
+
+
 def _gather(x, dim, group, n):
+    if isinstance(group, AbstractGroup):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return _abstract("all-gather", x, shape, group)
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
                       dtype=xt.dtype, device=xt.device)
@@ -72,6 +98,10 @@ def _scatter(x, dim, group, n):
     if xt.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
                          f"does not split {n} ways")
+    if isinstance(group, AbstractGroup):
+        shape = list(x.shape)
+        shape[dim] //= n
+        return _abstract("reduce-scatter", xt, shape, group)
     out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
                       dtype=xt.dtype, device=xt.device)
     with warnings.catch_warnings():
@@ -82,6 +112,8 @@ def _scatter(x, dim, group, n):
 
 
 def _reduce(x, group):
+    if isinstance(group, AbstractGroup):
+        return _abstract("all-reduce", x, x.shape, group)
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
@@ -91,6 +123,11 @@ def _exchange(x, split_dim, concat_dim, group, n):
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
                          f"does not split {n} ways")
+    if isinstance(group, AbstractGroup):
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[concat_dim] *= n
+        return _abstract("all-to-all", x, shape, group)
     send = torch.stack(x.chunk(n, split_dim)).contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)

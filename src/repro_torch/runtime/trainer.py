@@ -134,6 +134,24 @@ class TrainerConfig:
                 autotune.tuned_knob("train", "bucket_mb", 4.0))
 
 
+def shard_params(cfg: ArchCfg, params: torch.nn.Module, mesh) -> dict:
+    """Cut every parameter of ``params`` to this rank's shard of its
+    ``param_specs`` spec (a stacked leaf's spec less its layer entry: each
+    layer's tensor), kept in ``p.spec``; returns {leaf path: spec}."""
+    pspecs = sharding.flatten(sharding.param_specs(
+        cfg, api.param_shapes(cfg), mesh))
+    with torch.no_grad():
+        for path, ps in weights.jax_leaves(cfg, params).items():
+            spec = pspecs[path]
+            if weights.is_stacked(cfg, path):
+                spec = sharding.P(*spec[1:])    # each layer's tensor
+            for p in ps:
+                p.data = spmd.shard(p.data, spec, mesh).clone(
+                    memory_format=torch.contiguous_format)
+                p.spec = spec
+    return pspecs
+
+
 class Trainer:
     """``Trainer(cfg, tcfg, mesh=None, telemetry=None, device="cuda")``:
     trains on the card (this rank's device) unless the caller asks for the
@@ -408,36 +426,55 @@ class Trainer:
                                          self.mesh.shape[self.tcfg.dp_axis])
 
     # ------------------------------------------------------- gspmd (specs)
-    def _build_gspmd(self) -> None:
+    @classmethod
+    def rank_program(cls, cfg: ArchCfg, tcfg: TrainerConfig, mesh,
+                     batch_shapes: dict, *, device="meta") -> "Trainer":
+        """One rank's GSPMD step and nothing around it: no data stream,
+        checkpoints or fault model.  The parameters (built on ``device``
+        with no values when it is meta, seeded elsewhere), ZeRO-1 moments
+        and batch spec of ``mesh``'s rank for a global batch of
+        ``batch_shapes``; ``gspmd_step(batch)`` runs a step on this rank's
+        part of the batch (``spmd.shard`` by ``bspecs``).  On meta over
+        an abstract mesh it is what the dry run traces
+        (``launch/dryrun.py``)."""
+        self = cls.__new__(cls)
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        self.device = torch.device(device)
+        self.model = api.get_model(cfg)
+        if self.device.type == "meta":
+            params = weights.model_class(cfg)(cfg, device="meta")
+        else:
+            params = self.model.init(torch.Generator(
+                device=self.device).manual_seed(tcfg.seed))
+        for p in params.parameters():
+            p.requires_grad_(True)
+        self.params = params
+        self._build_gspmd(batch_shapes)
+        return self
+
+    def _build_gspmd(self, batch_shapes: dict | None = None) -> None:
         """Shard the parameters, the moments and the batch by the specs
-        (JAX: ``_build_gspmd``): each rank keeps its part of each."""
+        (JAX: ``_build_gspmd``): each rank keeps its part of each.  The
+        batch spec is that of ``batch_shapes`` (default: a peek at the
+        data stream's next batch)."""
         cfg, mesh = self.cfg, self.mesh
         shapes = api.param_shapes(cfg)
         self.shapes = sharding.flatten(shapes)       # path -> meta (global)
-        self.pspecs = sharding.flatten(sharding.param_specs(cfg, shapes,
-                                                            mesh))
+        self.pspecs = shard_params(cfg, self.params, mesh)
         self.zspecs = sharding.flatten(sharding.zero1_specs(cfg, shapes,
                                                             mesh))
         self.leaves = weights.jax_leaves(cfg, self.params)
-        with torch.no_grad():
-            for path, ps in self.leaves.items():
-                spec = self.pspecs[path]
-                if weights.is_stacked(cfg, path):
-                    spec = sharding.P(*spec[1:])    # each layer's tensor
-                for p in ps:
-                    p.data = spmd.shard(p.data, spec, mesh).clone(
-                        memory_format=torch.contiguous_format)
-                    p.spec = spec
         m = {k: torch.zeros(spmd.shard(t, self.zspecs[k], mesh).shape,
                             dtype=torch.float32, device=self.device)
              for k, t in self.shapes.items()}
         self.opt_state = {"m": m, "v": {k: z.clone() for k, z in m.items()},
                           "step": torch.zeros((), dtype=torch.int32,
                                               device=self.device)}
-        peek = self.data.next_batch()
-        self.data.step -= 1  # the batch was a peek at its shapes
-        self.bspecs = sharding.batch_specs(cfg, peek, mesh)
-        self._step_fn = self._gspmd_step
+        if batch_shapes is None:
+            batch_shapes = self.data.next_batch()
+            self.data.step -= 1  # the batch was a peek at its shapes
+        self.bspecs = sharding.batch_specs(cfg, batch_shapes, mesh)
+        self._step_fn = self.gspmd_step
 
     def _replica_axes(self, spec) -> tuple[str, ...]:
         """The mesh axes a tensor under ``spec`` is replicated over."""
@@ -507,7 +544,8 @@ class Trainer:
                      for k, v in new_p.items()}
         return new_p, metrics
 
-    def _gspmd_step(self, batch: dict) -> dict:
+    def gspmd_step(self, batch: dict) -> dict:
+        """One GSPMD step on this rank's part of the batch."""
         loss, grads = self._gspmd_loss_and_grads(batch)
         new_p, metrics = self._zero1_update(grads)
         self._assign(new_p)

@@ -41,7 +41,8 @@ def test_port_modules_load_no_jax_and_no_repro():
               "data.pipeline", "checkpoint.store", "optim.adamw",
               "launch.mesh", "launch.train", "runtime.trainer",
               "parallel.sharding", "parallel.spmd", "models.moe",
-              "models.transformer"):
+              "models.transformer", "models.api", "kernels.cost",
+              "launch.dryrun", "launch.op_analysis"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -56,9 +57,14 @@ def test_port_modules_load_no_jax_and_no_repro():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+EXAMPLES = ["ep_moe_demo_torch.py", "quickstart_torch.py",
+            "paged_serving_torch.py", "cluster_serving_torch.py",
+            "torus_demo_torch.py", "fault_tolerant_train_torch.py"]
+
+
 def test_no_source_line_imports_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "ep_moe_demo_torch.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "examples" / e for e in EXAMPLES]
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
            for f in files
@@ -76,6 +82,38 @@ def test_every_kernel_source_is_built_and_bound():
     assert {"mamba2_scan_bwd", "rwkv6_scan_bwd",
             "flash_attention_bwd"} <= sources
     assert sources == set(_build.KERNELS) == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_load_no_jax_and_no_repro(name):
+    """Each example, imported in a fresh interpreter (its ``main`` not
+    run), loads no ``jax*`` and no ``repro.*`` module."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', "
+            f"{str(ROOT / 'examples' / name)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("name", ["quickstart_torch.py",
+                                  "paged_serving_torch.py",
+                                  "cluster_serving_torch.py"])
+def test_single_device_examples_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is then valid")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name[:-3], ROOT / "examples" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError):
+        mod.main([])
 
 
 def test_import_pattern_catches_what_it_must():
