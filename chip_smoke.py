@@ -64,8 +64,9 @@ those paths against its plain PyTorch version:
   9. training: (a) K2-bwd (``csrc/flash_attention_bwd.cu``) vs autograd
      through the plain attention at the training and prefill shapes and
      their edges (bf16 under both compute dtypes, fp32, D=128 non-causal,
-     empty causal rows), each call's route checked (the wgmma pair for
-     bf16 with D=64, the FMA pair otherwise), timed beside its bound, the
+     empty causal rows; olmoe's, starcoder2's and deepseek's head layouts
+     at D=128), each call's route checked (bf16 with D=64 or 128 on that
+     width's wgmma pair, fp32 on the FMA pair), timed beside its bound, the
      plain backward and SDPA's (eager, and graph-replayed); (b)
      qwen2-0.5b at full width, bf16, trained 10 steps through
      ``Trainer(comm="single")`` (batch 8 x 1024, remat, AdamW): finite
@@ -136,7 +137,7 @@ those paths against its plain PyTorch version:
      ``Trainer(comm="gspmd")`` on a 1 x 1 mesh over NCCL from the same
      seed: losses bitwise equal (on one rank both take JAX's fallback to
      the global dispatch), K2 8 and K2-bwd 4 a step exactly (K2-bwd at
-     bf16 D = 128 on its FMA pair), step ms, tokens/s, busy share, peak
+     bf16 D = 128 on its wgmma pair), step ms, tokens/s, busy share, peak
      memory, tokens/s x 6 x the active parameters; (c) the reduced fp32
      olmoe of the CPU tests served (tokens, whole and chunked prefill) and
      trained 3 steps (losses, rtol 1e-4) on the card and the CPU, on the
@@ -2173,9 +2174,17 @@ def run_k2_bwd_checks(report: dict) -> dict:
         ("zamba2 training B=4 H=32 S=1024 bf16",
          (REC_TRAIN_BATCH, 32, 32, REC_TRAIN_SEQ, REC_TRAIN_SEQ, 64), bf, f32,
          True),
-        # olmoe-1b-7b training (phase 12b): D = 128, on the FMA pair
+        # olmoe-1b-7b training (phase 12b): D = 128, on its wgmma pair; the
+        # other D = 128 layouts: starcoder2-3b's GQA 12:1 (24 / 2) and
+        # deepseek-7b's MHA (32 / 32), at one sequence of 1024
         ("olmoe training B=4 H=16 S=1024 D=128 bf16", OLMOE_BWD_SHAPE, bf,
          f32, True),
+        ("olmoe training B=4 H=16 S=1024 D=128 bf16 compute_dtype=bf16",
+         OLMOE_BWD_SHAPE, bf, bf, True),
+        *((f"{m} H={h} Hkv={hkv} S=1024 D=128 bf16{c}",
+           (1, h, hkv, 1024, 1024, 128), bf, cdt, True)
+          for m, h, hkv in (("starcoder2", 24, 2), ("deepseek", 32, 32))
+          for c, cdt in (("", f32), (" compute_dtype=bf16", bf))),
         # whisper-large-v3 training (phase 10), on the wgmma pair
         *((f"whisper {w} bf16{c}", shape, bf, cdt, causal)
           for w, (shape, causal) in WHISPER_BWD_SHAPES.items()
@@ -2188,8 +2197,10 @@ def run_k2_bwd_checks(report: dict) -> dict:
         out = fa._forward(q, k, v, causal, shape[-1] ** -0.5, cdt, lse)
         got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                      compute_dtype=cdt)
-        # bf16 with D = 64 (the training shape's) takes the wgmma pair
-        route = fa.BWD_KERNELS[int(dtype == bf and shape[-1] == 64)]
+        # bf16 with D = 64 or 128 takes that width's wgmma pair, fp32 the
+        # FMA pair
+        route = fa.BWD_KERNELS[fa.BWD_WGMMA.get(shape[-1], 0)
+                               if dtype == bf else 0]
         check(fa.flash_attention_bwd.last_kernel == route,
               f"K2-bwd {name}: launched {fa.flash_attention_bwd.last_kernel}"
               f", expected {route}")
@@ -2295,7 +2306,7 @@ def run_k2_bwd_checks(report: dict) -> dict:
     olmoe_t = timings(OLMOE_BWD_SHAPE, bf, f32, seed=5)
     print(f"[K2-bwd] timed at olmoe's training shape (B, H, Hkv, Sq, Skv, D)"
           f" = {OLMOE_BWD_SHAPE} bf16 causal, "
-          f"{' + '.join(fa.BWD_KERNELS[0])}: ms={olmoe_t['ms']:.4f} "
+          f"{' + '.join(fa.BWD_KERNELS[3])}: ms={olmoe_t['ms']:.4f} "
           f"ms_graph={olmoe_t['ms_graph']:.4f}; plain "
           f"{olmoe_t['plain_ms']:.3f}; SDPA fwd+bwd - fwd "
           f"{olmoe_t['library_ms']:.4f} eager, "
@@ -2311,7 +2322,8 @@ def run_k2_bwd_checks(report: dict) -> dict:
     r = dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:85",
-             device_kernels=fa.BWD_KERNELS[1], max_abs_err=max(errs),
+             device_kernels=fa.BWD_KERNELS[1],
+             device_kernels_olmoe=fa.BWD_KERNELS[3], max_abs_err=max(errs),
              **train_t, ms_compute_bf16=cb_t["ms"],
              ms_graph_compute_bf16=cb_t["ms_graph"],
              library_ms_graph_compute_bf16=cb_t["library_ms_graph"],
@@ -3539,7 +3551,7 @@ def train_olmoe() -> dict:
     one rank ``tp = 1``, so both take JAX's fallback to the global
     dispatch and the losses are equal bitwise; each run K2 8 and K2-bwd 4
     a step exactly (K2 on its ``mma`` route, K2-bwd at bf16 D = 128 on its
-    FMA pair) and nothing else; step ms, tokens/s, busy share, peak
+    ``wgmma128`` pair) and nothing else; step ms, tokens/s, busy share, peak
     memory, tokens/s x 6 x the active parameters.  Returns the two runs'
     launches."""
     import dataclasses
@@ -3608,7 +3620,7 @@ def train_olmoe() -> dict:
     want["flash_attention"] = 2 * L * n
     want["flash_attention_bwd"] = L * n
     want_routes = {"flash_attention": {"mma": 2 * L * n},
-                   "flash_attention_bwd": {"fma": L * n}}
+                   "flash_attention_bwd": {"wgmma128": L * n}}
     for comm, r in runs.items():
         check(all(np.isfinite(r["losses"])), f"olmoe train {comm}: a loss "
               f"is not finite: {r['losses']}")
@@ -3901,12 +3913,14 @@ BWD_AB_SHAPES = [
     ("training", (TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), "float32"),
     ("training", (TRAIN_BATCH, 14, 2, TRAIN_SEQ, TRAIN_SEQ, 64), "bfloat16"),
     ("prefill", (1, 14, 2, 2048, 2048, 64), "float32"),
-    ("prefill", (1, 14, 2, 2048, 2048, 64), "bfloat16")]
+    ("prefill", (1, 14, 2, 2048, 2048, 64), "bfloat16"),
+    ("olmoe training", OLMOE_BWD_SHAPE, "float32"),
+    ("olmoe training", OLMOE_BWD_SHAPE, "bfloat16")]
 
 
 def bwd_only(src: str) -> None:
     """K2-bwd's ``ms`` and ``ms_graph`` at BWD_AB_SHAPES with the port under
-    ``src``: one ``[bwd-ab]`` line."""
+    ``src``, and the kernels each call launched: one ``[bwd-ab]`` line."""
     sys.path.insert(0, src)
     import torch
 
@@ -3922,7 +3936,9 @@ def bwd_only(src: str) -> None:
         out = fa._forward(q, k, v, True, shape[-1] ** -0.5, cdt, lse)
         bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
             q, k, v, out, dout, lse, causal=True, compute_dtype=cdt)
+        bwd()
         res[f"{label} compute {cname}"] = {
+            "kernel": fa.flash_attention_bwd.last_kernel,
             "ms": time_ms(bwd, iters=10),
             "ms_graph": time_graph_ms(bwd, iters=5, reps=3)}
     print(f"[bwd-ab] {json.dumps(res)}")
@@ -3999,8 +4015,8 @@ def bwd_ab(parent: str) -> None:
     """K2-bwd's times for PARENT's port and this one, on one card."""
     for label, r in ab_runs(parent, "bwd-only", "bwd-ab"):
         print(f"[bwd-ab {label}] " + "; ".join(
-            f"{k}: ms {v['ms']:.5f} ms_graph {v['ms_graph']:.5f}"
-            for k, v in r.items() if k != "package"))
+            f"{k} ({' + '.join(v['kernel'])}): ms {v['ms']:.5f} ms_graph "
+            f"{v['ms_graph']:.5f}" for k, v in r.items() if k != "package"))
 
 
 def scan_bwd_ab(parent: str) -> None:

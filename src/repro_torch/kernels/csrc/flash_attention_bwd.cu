@@ -29,14 +29,16 @@
 // launched (`flash_attention_bwd.last_kernel`); the third, the small-width
 // route, is the FMA pair below laid out 64 or 128 wide for any other D up
 // to 128 (the columns past D zero):
-//   * bf16, D = 64 (the main path: qwen2 training) takes
-//     `attn_bwd_dkdv_wgmma_kernel` / `attn_bwd_dq_wgmma_kernel`: `wgmma`
-//     fed by TMA, warp-specialised (see the section below); P and dS enter
-//     their products rounded once to bf16;
-//   * fp32 inputs, and bf16 with D = 128, take `attn_bwd_dkdv_kernel` /
-//     `attn_bwd_dq_kernel`: fp32 FMAs on the CUDA cores, 4x4 register tiles
-//     over fp32 tiles in shared memory (the forward's fp32 kernel's layout),
-//     exact fp32 products — the reduced fp32 models' path.
+//   * bf16, D = 64 or 128 (the main paths: qwen2, zamba2 and whisper
+//     training at 64; olmoe, deepseek, starcoder2, moonshot and internvl2
+//     at 128) takes `attn_bwd_dkdv_wgmma_kernel<D>` /
+//     `attn_bwd_dq_wgmma_kernel<D>`: `wgmma` fed by TMA, warp-specialised
+//     (see the section below); P and dS enter their products rounded once
+//     to bf16;
+//   * fp32 inputs take `attn_bwd_dkdv_kernel` / `attn_bwd_dq_kernel`: fp32
+//     FMAs on the CUDA cores, 4x4 register tiles over fp32 tiles in shared
+//     memory (the forward's fp32 kernel's layout), exact fp32 products —
+//     the reduced fp32 models' path.
 // Rounding points follow autograd through ref.mha_attention: under
 // compute_dtype=bf16, q * scale, k and v are rounded to bf16 (as in the
 // forward), the probabilities are rounded to bf16 in dV = P^T dO, dP is
@@ -48,11 +50,12 @@
 // Layouts (all contiguous): q, out, dout, dq (B, H, Sq, D); k, v, dk, dv
 // (B, Hkv, Skv, D); lse (B, H, Sq) fp32.  D is 1 to 128; the input dtype is
 // fp32 or bf16 (dq, dk, dv in the same dtype).  `scratch` is fp32 workspace
-// from the caller: D_i (B, H, Sq) on the FMA route; on the wgmma route
-// LSE * log2(e) and D_i, each (B, H, Sq rounded up to 64), and under
-// compute_dtype=bf16 then bf16(q * scale) in q's layout.
+// from the caller: D_i (B, H, Sq) on the FMA route; on the wgmma route (D
+// = 64 or 128) LSE * log2(e) and D_i, each (B, H, Sq rounded up to 64), and
+// under compute_dtype=bf16 then bf16(q * scale) in q's layout.
 
 #include <atomic>
+#include <climits>
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -392,55 +395,111 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs, D = 64 (qwen2's and zamba2's heads): wgmma, TMA, warp roles
+// bf16 inputs, D = 64 or 128 (the main paths' heads): wgmma, TMA, warp roles
 // ---------------------------------------------------------------------------
 // A block is two consumer warpgroups and one producer warpgroup.  One thread
-// of the producer issues TMA copies of whole 64 x 64 bf16 tiles into a ring
-// of shared memory (128-byte swizzled by the tensor map; the wgmma
-// descriptors name the same swizzle) and their byte counts to `mbarrier`s;
-// `setmaxnreg` moves registers from it to the consumers.  The consumers
-// run every product as `wgmma` m64n64k16 (bf16 in, fp32 accumulators):
-//   * dK/dV (`attn_bwd_dkdv_wgmma_kernel`): one block per (64-key tile, KV
-//     head, b), K and V resident.  The (query head, query tile) pairs that
-//     see the key tile are dealt to the two consumer warpgroups in turn
+// of the producer issues TMA copies of whole 64-row bf16 tiles into a ring
+// of shared memory and their byte counts to `mbarrier`s; `setmaxnreg` moves
+// registers from it to the consumers.  TMA's 128-byte swizzle caps a box
+// at 128-byte rows, 64 bf16 columns, so a 64 x D tile is D / 64 swizzled
+// halves of 64 x 64 (8 KB each, 1024-aligned, one box copy each against
+// the tile's one barrier); the wgmma descriptors name the same swizzle.
+// The consumers run every product as `wgmma` m64n64k16 (bf16 in, fp32
+// accumulators):
+//   * dK/dV (`attn_bwd_dkdv_wgmma_kernel<D>`): one block per (64-key tile,
+//     KV head, b), K and V resident.  The (query head, query tile) pairs
+//     that see the key tile are dealt to the two consumer warpgroups in turn
 //     (pair i to warpgroup i % 2), each with its own Q/dO ring and its own
-//     dK/dV accumulators.  Per pair: S^T = K Q^T and dP^T = V dO^T (keys are
-//     wgmma's 64 rows, queries its N; both operands from shared memory,
-//     K-major); P^T and dS^T elementwise in the accumulators; then dV +=
-//     P^T dO and dK += dS^T Q with P^T, dS^T packed to bf16 as the register
-//     A operand and dO, Q as the shared-memory B operand, MN-major (the
-//     transpose bit).  At the end each warpgroup leaves one of its sums in
-//     its own ring and adds the other's: dK = dK_0 + dK_1 and dV = dV_1 +
-//     dV_0, one addition each, the same bits every run.  Key tiles are
-//     issued heaviest first (blockIdx.z = key tile: under the causal mask
-//     tile 0 sees every query tile).
-//   * dQ (`attn_bwd_dq_wgmma_kernel`): one block per (128 query rows, head,
-//     b), 64 rows a consumer warpgroup; Q and dO resident, K/V tiles stream
-//     through a two-stage ring.  S = Q K^T and dP = dO V^T from shared
-//     memory, P and dS in the accumulators, dQ += dS K with dS as the
-//     register A operand and K MN-major.  Heaviest row blocks first.
+//     whole-width dK/dV accumulators.  Per pair: S^T = K Q^T and dP^T = V
+//     dO^T (keys are wgmma's 64 rows, queries its N, D / 16 k-slices, slice
+//     kk in half kk / 4 at byte 32 (kk % 4); both operands from shared
+//     memory, K-major); P^T and dS^T elementwise in the accumulators; then
+//     dV += P^T dO and dK += dS^T Q with P^T, dS^T packed to bf16 as the
+//     register A operand and dO, Q as the shared-memory B operand, MN-major
+//     (the transpose bit), one m64n64k16 per half and k-slice into that
+//     half's own 32 accumulators.  At the end each warpgroup leaves one of
+//     its sums in its own ring and adds the other's: dK = dK_0 + dK_1 and
+//     dV = dV_1 + dV_0, one addition each, the same bits every run.  Key
+//     tiles are issued heaviest first (blockIdx.z = key tile: under the
+//     causal mask tile 0 sees every query tile).
+//   * dQ (`attn_bwd_dq_wgmma_kernel<D>`): one block per (128 query rows,
+//     head, b), 64 rows a consumer warpgroup; Q and dO resident, K/V tiles
+//     stream through a two-stage ring.  S = Q K^T and dP = dO V^T from
+//     shared memory, P and dS in the accumulators, dQ += dS K with dS as
+//     the register A operand and K MN-major, a product per half.  Heaviest
+//     row blocks first.
+// At D = 128 the products whose N is D run as two m64n64k16 (one a half)
+// rather than one m64n128k16: the halves' descriptors are the D = 64
+// route's, and at N = 64 the register-A form reads 64 bytes of shared
+// memory a clock, within its rate, so the split costs no bandwidth.  Each
+// warpgroup keeps whole-width dK and dV (128 fp32 registers at D = 128),
+// S^T and dP^T (64) and the packed P^T (16): the consumers take 240
+// registers and the producer 24 (2 x 128 x 240 + 128 x 24 = the 64 512
+// the block holds at launch); splitting dK/dV's columns between the
+// warpgroups instead would make each compute every pair's S^T and dP^T,
+// 7/5 of the tensor work.
 // Q and dO (and K, V) are mapped as 3-D tensors (D, S, B * heads), so a
 // tile's rows past a head's S are zero-filled by TMA instead of read from
-// the next head.  The pre-pass `attn_bwd_prep_kernel` writes LSE * log2(e)
-// (+inf past Sq) and D_i (0 past Sq) padded to whole tiles, which the
-// producer copies with plain bulk copies, and under compute_dtype=bf16 the
-// operand bf16(q * scale) that both kernels then read in place of q.
-// The elementwise work stays branch-free: a thread's 16 LSE and D_i values
-// are read into registers while the products run, P = ex2.approx(.) and the
-// mask is a select (a masked `exp2f` compiled into a branch region per
-// element, which about doubled the kernels' time on the H100).  Each
-// warpgroup waits for a pair's dV/dK products before it issues the next
-// pair's S^T/dP^T: issuing those first measured slower on the H100.
-// ptxas (-Xptxas -v, sm_90a): dK/dV 168 registers at launch (setmaxnreg:
-// 232 for the consumers, 40 for the producer), no spills, 85 064 bytes of
-// dynamic shared memory; dQ 168 registers, no spills, 66 600 bytes.
+// the next head.  The pre-pass `attn_bwd_prep_kernel<D>` writes LSE *
+// log2(e) (+inf past Sq) and D_i (0 past Sq) padded to whole tiles, which
+// the producer copies with plain bulk copies, and under compute_dtype=bf16
+// the operand bf16(q * scale) that both kernels then read in place of q.
+// The elementwise work stays branch-free: P = ex2.approx(.) and the mask
+// is a select (a masked `exp2f` compiled into a branch region per element,
+// which about doubled the kernels' time on the H100); in dK/dV a
+// straddling tile's mask is two comparisons an element against per-pair
+// bounds, and LSE and D_i are read from shared memory where they are used.
+// Each warpgroup waits for a pair's dV/dK products before it issues the
+// next pair's S^T/dP^T: issuing those first measured slower on the H100.
+// At D = 128 the dK/dV consumers hold 208 live accumulator and fragment
+// registers at the peak (dS^T being formed), so everything else is kept
+// small: the mask bounds above, K's and V's slice descriptors formed anew
+// each pair, the producer stepping its pairs without a division (with
+// LSE / D_i held in registers and the masks' full bounds per element,
+// ptxas spilled 28-40 bytes there).
+// ptxas (-Xptxas -v, sm_90a), D = 64: dK/dV 168 registers at launch
+// (setmaxnreg: 232 for the consumers, 40 for the producer), no spills,
+// 85 064 bytes of dynamic shared memory; dQ 168 registers, no spills,
+// 66 600 bytes.  D = 128: dK/dV 168 at launch (setmaxnreg 240 / 24), no
+// spills, 166 984 bytes; dQ 168 (232 / 40), no spills, 132 136 bytes.
 
-constexpr int kD = 64;                     // head dim of this route
-constexpr int kTileBytes = kTile * kD * 2; // one 64 x 64 bf16 tile: 8 KB
-constexpr int kWG = 2;                     // consumer warpgroups a block
+constexpr int kHalf = 64;                     // columns of a swizzled half
+constexpr int kHalfBytes = kTile * kHalf * 2;  // one 64 x 64 bf16 half: 8 KB
+constexpr int kWG = 2;                        // consumer warpgroups a block
 constexpr int kStages = 2;  // ring depth (a warpgroup's, in dK/dV)
 constexpr int kWsThreads = (kWG + 1) * 128;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory of the two kernels, from a 1024-aligned base, and the
+// registers setmaxnreg gives each role
+template <int D>
+struct Wg {
+  static constexpr int NH = D / kHalf;              // swizzled halves a tile
+  static constexpr int kTileBytes = NH * kHalfBytes;  // one 64 x D tile
+  // dK/dV: K, V; then per warpgroup w and stage s a Q and a dO tile; then
+  // LSE/D_i rows; then the barriers
+  static constexpr int kRingBytes = kStages * 2 * kTileBytes;  // a ring
+  static constexpr int kDkdvRows = 2 * kTileBytes + kWG * kRingBytes;
+  static constexpr int kDkdvBars = kDkdvRows + kWG * kStages * 2 * kTile * 4;
+  static constexpr int kDkdvSmem =
+      1024 + kDkdvBars + (1 + 2 * kWG * kStages) * 8;
+  // dQ: Q and dO of each consumer warpgroup; then per stage a K and a V
+  // tile; then the barriers
+  static constexpr int kDqKv = kWG * 2 * kTileBytes;
+  static constexpr int kDqBars = kDqKv + kStages * 2 * kTileBytes;
+  static constexpr int kDqSmem = 1024 + kDqBars + (1 + 2 * kStages) * 8;
+  // dK/dV's consumers and producer (each pair uses the 64 512 registers
+  // the block holds at launch); dQ keeps 232 / 40 at both widths
+  static constexpr int kRegC = D == 64 ? 232 : 240;
+  static constexpr int kRegP = D == 64 ? 40 : 24;
+  static_assert(D == 64 || D == 128, "the wgmma route takes D = 64 or 128");
+  static_assert(kRingBytes >= kTile * D * 4,
+                "a ring holds one 64 x D fp32 sum");
+  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448,
+                "a block's shared memory");
+  static_assert(2 * 128 * kRegC + 128 * kRegP <= 65536, "the SM's registers");
+};
+static_assert(kWG == 2, "the dK/dV sum below pairs two warpgroups");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -483,15 +542,25 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
-// one 64 x 64 tile (D, row, head) of a 3-D tensor map into shared memory
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head) {
+// one 64 x 64 box (columns col.., row.., head) of a 3-D tensor map into
+// shared memory
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int col, int row,
+                                        int head) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
       "r"(head)
       : "memory");
+}
+// one 64 x D tile: its D / 64 halves, 8 KB apart, against one barrier
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head) {
+#pragma unroll
+  for (int h = 0; h < D / kHalf; ++h)
+    tma_box(dst + h * kHalfBytes, map, bar, h * kHalf, row, head);
 }
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) in one copy
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
@@ -503,14 +572,23 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
-// wgmma descriptor of a 128-byte-swizzled bf16 tile of 128-byte rows (as
+// wgmma descriptor of a 128-byte-swizzled bf16 half of 128-byte rows (as
 // TMA writes it): rows 128 bytes apart, 8-row groups 1024 bytes apart (the
 // stride byte offset, for the K-major A/B here and for the MN-major B,
 // whose K runs down the rows), leading byte offset unused (one swizzle atom
-// spans the 64 columns), 1024-byte-aligned tiles (base offset 0)
+// spans the 64 columns), 1024-byte-aligned halves (base offset 0)
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// k-slice kk (columns 16 kk .. + 15) of a K-major 64 x D tile: half kk / 4,
+// 32 bytes a slice within it
+__device__ __forceinline__ uint64_t kslice_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kHalfBytes * (kk >> 2) + 32 * (kk & 3));
+}
+// rows 16 kk .. + 15 of half nh of an MN-major 64 x D tile
+__device__ __forceinline__ uint64_t rows_desc(uint32_t tile, int nh, int kk) {
+  return sw128_desc(tile + kHalfBytes * nh + 2048 * kk);
 }
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -527,6 +605,11 @@ __device__ __forceinline__ void wg_wait() {
 __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int NH>
+__device__ __forceinline__ void fence_acc(float (&d)[NH][32]) {
+#pragma unroll
+  for (int h = 0; h < NH; ++h) fence_acc(d[h]);
 }
 
 // 2^x, flushing results below 2^-126 to 0 (no P that small moves a bf16
@@ -599,17 +682,21 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[32],
 }
 
 // LSE * log2(e) and D_i per row, padded to whole 64-row tiles (+inf and 0
-// past Sq), and under compute_dtype=bf16 qs = bf16(q * scale); eight
+// past Sq), and under compute_dtype=bf16 qs = bf16(q * scale); D / 8
 // threads a row, 16 bytes each
+template <int D>
 __global__ void __launch_bounds__(256)
 attn_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ out,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse, float* __restrict__ lse2,
                      float* __restrict__ di, bf16* __restrict__ qs, int Sq,
                      int sq_pad, float scale) {
-  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
-  const int part = threadIdx.x % 8;
-  const unsigned group = 0xffu << (threadIdx.x % 32 & 24);  // the row's lanes
+  constexpr int TPR = D / 8;  // threads a row: 8 or 16
+  const long long row = (long long)blockIdx.x * (256 / TPR) +
+                        threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  const unsigned group =  // the row's lanes
+      ((1u << TPR) - 1) << (threadIdx.x % 32 & (32 - TPR));
   const long long bh = row / sq_pad;
   const int i = (int)(row % sq_pad);
   if (i >= Sq) {
@@ -620,8 +707,8 @@ attn_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ out,
     return;
   }
   const long long src = bh * Sq + i;
-  const uint4 o = reinterpret_cast<const uint4*>(out + src * kD)[part];
-  const uint4 g = reinterpret_cast<const uint4*>(dout + src * kD)[part];
+  const uint4 o = reinterpret_cast<const uint4*>(out + src * D)[part];
+  const uint4 g = reinterpret_cast<const uint4*>(dout + src * D)[part];
   const uint32_t ow[4] = {o.x, o.y, o.z, o.w}, gw[4] = {g.x, g.y, g.z, g.w};
   float s = 0.f;
 #pragma unroll
@@ -630,13 +717,13 @@ attn_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ out,
     s = fmaf(a.y, b.y, fmaf(a.x, b.x, s));
   }
 #pragma unroll
-  for (int w = 4; w > 0; w >>= 1) s += __shfl_xor_sync(group, s, w);
+  for (int w = TPR / 2; w > 0; w >>= 1) s += __shfl_xor_sync(group, s, w);
   if (part == 0) {
     lse2[row] = lse[src] * kLog2e;
     di[row] = s;
   }
   if (qs != nullptr) {
-    const uint4 x = reinterpret_cast<const uint4*>(q + src * kD)[part];
+    const uint4 x = reinterpret_cast<const uint4*>(q + src * D)[part];
     const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
     uint32_t y[4];
 #pragma unroll
@@ -644,7 +731,7 @@ attn_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ out,
       const float2 f = unpack_bf16(xw[c]);
       y[c] = pack_bf16(f.x * scale, f.y * scale);
     }
-    reinterpret_cast<uint4*>(qs + src * kD)[part] =
+    reinterpret_cast<uint4*>(qs + src * D)[part] =
         make_uint4(y[0], y[1], y[2], y[3]);
   }
 }
@@ -653,38 +740,36 @@ __device__ __forceinline__ uint32_t align1024(uint32_t a) {
   return (a + 1023u) & ~1023u;
 }
 
-// shared memory of the dK/dV kernel, from a 1024-aligned base: K, V; then
-// per warpgroup w and stage s a Q and a dO tile; then LSE/D_i rows; then
-// the barriers
-constexpr int kRingBytes = kStages * 2 * kTileBytes;  // one warpgroup's ring
-constexpr int kDkdvRows = 2 * kTileBytes + kWG * kRingBytes;
-constexpr int kDkdvBars = kDkdvRows + kWG * kStages * 2 * kTile * 4;
-constexpr int kDkdvSmem = 1024 + kDkdvBars + (1 + 2 * kWG * kStages) * 8;
-static_assert(kWG == 2, "the dK/dV sum below pairs two warpgroups");
-static_assert(kRingBytes >= 32 * 128 * 4, "a ring holds one 64 x 64 fp32 sum");
-
 // acc + the other warpgroup's sum (left in shared memory in acc's
 // layout), times mul, as bf16 rows key0 and key0 + 8 of dst (rows < n)
-__device__ __forceinline__ void store_sum(float (&acc)[32], const float* other,
-                                          bf16* dst, float mul, int key0,
-                                          int n, int t4) {
+template <int D>
+__device__ __forceinline__ void store_sum(float (&acc)[D / kHalf][32],
+                                          const float* other, bf16* dst,
+                                          float mul, int key0, int n,
+                                          int t4) {
+  constexpr int NH = D / kHalf;
   const int wt = threadIdx.x % 128;
 #pragma unroll
-  for (int r = 0; r < 32; ++r) acc[r] += other[r * 128 + wt];
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[h][r] += other[(h * 32 + r) * 128 + wt];
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int key = key0 + 8 * h2;
     if (key >= n) continue;
 #pragma unroll
-    for (int j8 = 0; j8 < 8; ++j8) {
-      const int r = 4 * j8 + 2 * h2;
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)key * kD + j8 * 8 +
-                                         2 * t4) =
-          __floats2bfloat162_rn(acc[r] * mul, acc[r + 1] * mul);
-    }
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const int r = 4 * j8 + 2 * h2;
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)key * D +
+                                           h * kHalf + j8 * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[h][r] * mul, acc[h][r + 1] * mul);
+      }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_do,
@@ -695,18 +780,20 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            int H, int Hkv, int Sq, int Skv, int sq_pad,
                            int causal, float scale, int compute_bf16) {
+  using C = Wg<D>;
+  constexpr int NH = C::NH, kTileBytes = C::kTileBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = align1024(raw);
   unsigned char* gbase = smem_raw + (base - raw);
   const uint32_t k_s = base, v_s = base + kTileBytes;
   auto q_s = [&](int w, int s) {
-    return base + 2 * kTileBytes + w * kRingBytes + s * 2 * kTileBytes;
+    return base + 2 * kTileBytes + w * C::kRingBytes + s * 2 * kTileBytes;
   };
   auto rows_off = [&](int w, int s) {  // LSE row, then D_i row (bytes)
-    return kDkdvRows + (w * kStages + s) * 2 * kTile * 4;
+    return C::kDkdvRows + (w * kStages + s) * 2 * kTile * 4;
   };
-  const uint32_t bar_kv = base + kDkdvBars;
+  const uint32_t bar_kv = base + C::kDkdvBars;
   auto bar_full = [&](int w, int s) {
     return bar_kv + 8 * (1 + w * kStages + s);
   };
@@ -737,30 +824,44 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   if (wg == kWG) {  // producer: warp w feeds consumer warpgroup w
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kRegP)
+                 : "memory");
     const int pw = (tid % 128) / 32;
     if (pw < kWG && tid % 32 == 0) {
       if (pw == 0) {
         mbar_expect_tx(bar_kv, 2 * kTileBytes);
-        tma_tile(k_s, &tm_k, bar_kv, k0, b * Hkv + hkv);
-        tma_tile(v_s, &tm_v, bar_kv, k0, b * Hkv + hkv);
+        tma_tile<D>(k_s, &tm_k, bar_kv, k0, b * Hkv + hkv);
+        tma_tile<D>(v_s, &tm_v, bar_kv, k0, b * Hkv + hkv);
       }
-      for (int i = pw, j = 0; i < n_items; i += kWG, ++j) {
+      // pair i = pw + kWG j is head i / nq's query tile qt0 + i % nq,
+      // stepped without a division (the producer keeps few registers)
+      const int bh0 = b * H + hkv * group;
+      const size_t r0 = (size_t)bh0 * sq_pad + qt0 * kTile;
+      const float* lrow = lse2 + r0;
+      const float* drow = di + r0;
+      int hi = 0, ti = pw;
+      for (int j = 0; nq > 0; ++j, ti += kWG) {
+        while (ti >= nq) {
+          ti -= nq;
+          ++hi;
+        }
+        if (hi >= group) break;
         const int s = j % kStages;
         mbar_wait(bar_empty(pw, s), ((j / kStages) & 1) ^ 1);
-        const int bh = b * H + hkv * group + i / nq;
-        const int q0 = (qt0 + i % nq) * kTile;
+        const int q0 = (qt0 + ti) * kTile;
         const uint32_t full = bar_full(pw, s);
         mbar_expect_tx(full, 2 * kTileBytes + 2 * kTile * 4);
-        tma_tile(q_s(pw, s), &tm_q, full, q0, bh);
-        tma_tile(q_s(pw, s) + kTileBytes, &tm_do, full, q0, bh);
-        const size_t r = (size_t)bh * sq_pad + q0;
-        bulk_copy(base + rows_off(pw, s), lse2 + r, kTile * 4, full);
-        bulk_copy(base + rows_off(pw, s) + kTile * 4, di + r, kTile * 4, full);
+        tma_tile<D>(q_s(pw, s), &tm_q, full, q0, bh0 + hi);
+        tma_tile<D>(q_s(pw, s) + kTileBytes, &tm_do, full, q0, bh0 + hi);
+        const int r = hi * sq_pad + ti * kTile;
+        bulk_copy(base + rows_off(pw, s), lrow + r, kTile * 4, full);
+        bulk_copy(base + rows_off(pw, s) + kTile * 4, drow + r, kTile * 4,
+                  full);
       }
     }
   } else {  // consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kRegC)
+                 : "memory");
     const int lane = tid % 32, warp = (tid % 128) / 32;
     const int g = lane >> 2, t4 = lane & 3;
     const bool rnd = compute_bf16 != 0;
@@ -768,60 +869,73 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float sl2 = (rnd ? 1.f : scale) * kLog2e;
     const int key_w = k0 + warp * 16;  // this warp's first key
     const int key0 = key_w + g;        // keys of d[4j], d[4j+1]; +8: the rest
-    float acc_k[32], acc_v[32], st[32], dpt[32];
+    // a straddling tile's mask as two comparisons an element: query column
+    // 2 t4 + cc (cc = 8 j8 + c % 2) of key key0 + 8 (c / 2) is kept iff cc <
+    // qrem and dc[c / 2] <= cc (set per pair below; few live registers)
+    const int kd = key0 - offs - 2 * t4;
+    float acc_k[NH][32], acc_v[NH][32], st[32], dpt[32];
 #pragma unroll
-    for (int r = 0; r < 32; ++r) acc_k[r] = acc_v[r] = st[r] = dpt[r] = 0.f;
+    for (int r = 0; r < 32; ++r) {
+      st[r] = dpt[r] = 0.f;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) acc_k[h][r] = acc_v[h][r] = 0.f;
+    }
 
     mbar_wait(bar_kv, 0);
-    for (int i = wg, j = 0; i < n_items; i += kWG, ++j) {
+    for (int i = wg, j = 0, ti = wg; i < n_items; i += kWG, ++j, ti += kWG) {
+      while (ti >= nq) ti -= nq;  // pair i's query tile qt0 + i % nq
       const int s = j % kStages;
-      const int q0 = (qt0 + i % nq) * kTile;
+      const int q0 = (qt0 + ti) * kTile;
       const uint32_t qa = q_s(wg, s), ga = qa + kTileBytes;
       const float* ls =
           reinterpret_cast<const float*>(gbase + rows_off(wg, s));
       const float* dd = ls + kTile;
       mbar_wait(bar_full(wg, s), (j / kStages) & 1);
-      // S^T = K Q^T and dP^T = V dO^T: keys x queries, over D in 4 k-steps
+      // K's and V's addresses anew each pair, so that their 2 D / 16 slice
+      // descriptors are not held in registers from pair to pair
+      uint32_t ka = k_s, va = v_s;
+      asm volatile("" : "+r"(ka), "+r"(va));
+      // S^T = K Q^T and dP^T = V dO^T: keys x queries, over D in D / 16
+      // k-slices
       fence_acc(st);
       fence_acc(dpt);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss(st, sw128_desc(k_s + 32 * kk), sw128_desc(qa + 32 * kk),
-                 kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st, kslice_desc(ka, kk), kslice_desc(qa, kk), kk);
       wg_commit();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss(dpt, sw128_desc(v_s + 32 * kk), sw128_desc(ga + 32 * kk),
-                 kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, kslice_desc(va, kk), kslice_desc(ga, kk), kk);
       wg_commit();
-      // mask only tiles at the diagonal or a tail
-      const bool straddles = k0 + kTile > Skv || q0 + kTile > Sq ||
-                             (causal && key_w + 15 > q0 + offs);
-      // LSE * log2(e) of this thread's 16 query columns 8 j8 + 2 t4 + e
-      float lq[16];
+      // mask only tiles at the diagonal or a tail: rows past Sq, keys past
+      // Skv (dc = INT_MAX) and, causal, keys past a row's diagonal
+      int qrem = INT_MAX, dc[2] = {INT_MIN, INT_MIN};
+      if (k0 + kTile > Skv || q0 + kTile > Sq ||
+          (causal && key_w + 15 > q0 + offs)) {
+        qrem = Sq - q0 - 2 * t4;
 #pragma unroll
-      for (int j8 = 0; j8 < 8; ++j8) {
-        const float2 x = *reinterpret_cast<const float2*>(ls + j8 * 8 + 2 * t4);
-        lq[2 * j8] = x.x;
-        lq[2 * j8 + 1] = x.y;
+        for (int h2 = 0; h2 < 2; ++h2)
+          dc[h2] = key0 + 8 * h2 >= Skv ? INT_MAX
+                   : causal             ? kd + 8 * h2 - q0
+                                        : INT_MIN;
       }
       wg_wait<1>();
       fence_acc(st);
-      // P^T in place
+      // P^T in place; LSE * log2(e) of this thread's query columns 8 j8 +
+      // 2 t4 + e read where used
 #pragma unroll
-      for (int j8 = 0; j8 < 8; ++j8)
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const float2 x = *reinterpret_cast<const float2*>(ls + j8 * 8 + 2 * t4);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int qc = j8 * 8 + 2 * t4 + (c & 1);
-          const int key = key0 + 8 * (c >> 1);
-          const bool ok = !straddles ||
-                          (key < Skv && q0 + qc < Sq &&
-                           (!causal || key <= q0 + qc + offs));
+          const int cc = j8 * 8 + (c & 1);
+          const bool ok = cc < qrem && dc[c >> 1] <= cc;
           const int r = 4 * j8 + c;
-          const float p = ex2(fmaf(st[r], sl2, -lq[2 * j8 + (c & 1)]));
+          const float p = ex2(fmaf(st[r], sl2, (c & 1) ? -x.y : -x.x));
           st[r] = ok ? p : 0.f;
         }
+      }
       // dV += P^T dO: queries 16 kk .. + 15 are the k-step (dO's rows)
       uint32_t pa[4][4];
 #pragma unroll
@@ -830,27 +944,24 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(acc_v, pa[kk], sw128_desc(ga + 2048 * kk));
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          wgmma_rs(acc_v[h], pa[kk], rows_desc(ga, h, kk));
       wg_commit();
-      float dl[16];  // D_i of the same columns
+      wg_wait<1>();  // dP^T has landed (dV may still run)
+      fence_acc(dpt);
+      // dS^T = P^T * (dP^T - D_i), D_i of the same columns read where used
 #pragma unroll
       for (int j8 = 0; j8 < 8; ++j8) {
         const float2 x = *reinterpret_cast<const float2*>(dd + j8 * 8 + 2 * t4);
-        dl[2 * j8] = x.x;
-        dl[2 * j8 + 1] = x.y;
-      }
-      wg_wait<1>();  // dP^T has landed (dV may still run)
-      fence_acc(dpt);
-      // dS^T = P^T * (dP^T - D_i)
-#pragma unroll
-      for (int j8 = 0; j8 < 8; ++j8)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int r = 4 * j8 + c;
           const float gp =
               rnd ? __bfloat162float(__float2bfloat16(dpt[r])) : dpt[r];
-          dpt[r] = st[r] * (gp - dl[2 * j8 + (c & 1)]);
+          dpt[r] = st[r] * (gp - ((c & 1) ? x.y : x.x));
         }
+      }
       // dK += dS^T Q
       uint32_t sa[4][4];
 #pragma unroll
@@ -859,7 +970,9 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(acc_k, sa[kk], sw128_desc(qa + 2048 * kk));
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          wgmma_rs(acc_k[h], sa[kk], rows_desc(qa, h, kk));
       wg_commit();
       wg_wait<0>();
       keep_frags(pa);
@@ -877,24 +990,22 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float* other = reinterpret_cast<float*>(gbase + (q_s(wg ^ 1, 0) - base));
     const int wt = tid % 128;
 #pragma unroll
-    for (int r = 0; r < 32; ++r)
-      mine[r * 128 + wt] = wg == 0 ? acc_v[r] : acc_k[r];
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        mine[(h * 32 + r) * 128 + wt] = wg == 0 ? acc_v[h][r] : acc_k[h][r];
     asm volatile("bar.sync 1, %0;\n" ::"n"(kWG * 128) : "memory");
-    const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * kD;
+    const size_t kv_off = ((size_t)b * Hkv + hkv) * (size_t)Skv * D;
     // dK = scale * dS^T q (compute fp32) or dS^T bf16(q * scale)
     if (wg == 0)
-      store_sum(acc_k, other, dk + kv_off, rnd ? 1.f : scale, key0, Skv, t4);
+      store_sum<D>(acc_k, other, dk + kv_off, rnd ? 1.f : scale, key0, Skv,
+                   t4);
     else
-      store_sum(acc_v, other, dv + kv_off, 1.f, key0, Skv, t4);
+      store_sum<D>(acc_v, other, dv + kv_off, 1.f, key0, Skv, t4);
   }
 }
 
-// shared memory of the dQ kernel, from a 1024-aligned base: Q and dO of
-// each consumer warpgroup; then per stage a K and a V tile; then barriers
-constexpr int kDqKv = kWG * 2 * kTileBytes;
-constexpr int kDqBars = kDqKv + kStages * 2 * kTileBytes;
-constexpr int kDqSmem = 1024 + kDqBars + (1 + 2 * kStages) * 8;
-
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
@@ -904,6 +1015,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ di, bf16* __restrict__ dq,
                          int H, int Hkv, int Sq, int Skv, int sq_pad,
                          int causal, float scale, int compute_bf16) {
+  using C = Wg<D>;
+  constexpr int NH = C::NH, kTileBytes = C::kTileBytes;
   constexpr int BQ = kWG * kTile;  // query rows a block
   const int h = blockIdx.x, b = blockIdx.y;
   const int n_qb = (Sq + BQ - 1) / BQ;
@@ -919,19 +1032,19 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   const int n_tiles = tiles_to(min(q0b + BQ, Sq) - 1);
   const int tid = threadIdx.x, wg = tid / 128;
-  const size_t q_off = ((size_t)b * H + h) * (size_t)Sq * kD;
+  const size_t q_off = ((size_t)b * H + h) * (size_t)Sq * D;
   if (n_tiles == 0) {  // no row of the block sees a key: zero gradient
-    for (int i = tid; i < BQ * kD; i += kWsThreads) {
-      const int r = q0b + i / kD;
-      if (r < Sq) dq[q_off + (size_t)r * kD + i % kD] = __float2bfloat16(0.f);
+    for (int i = tid; i < BQ * D; i += kWsThreads) {
+      const int r = q0b + i / D;
+      if (r < Sq) dq[q_off + (size_t)r * D + i % D] = __float2bfloat16(0.f);
     }
     return;
   }
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = align1024(smem_addr(smem_raw));
-  auto k_s = [&](int s) { return base + kDqKv + s * 2 * kTileBytes; };
-  const uint32_t bar_q = base + kDqBars;
+  auto k_s = [&](int s) { return base + C::kDqKv + s * 2 * kTileBytes; };
+  const uint32_t bar_q = base + C::kDqBars;
   auto bar_full = [&](int s) { return bar_q + 8 * (1 + s); };
   auto bar_empty = [&](int s) { return bar_q + 8 * (1 + kStages + s); };
   // warpgroups whose rows start past Sq have no tile to load
@@ -952,18 +1065,18 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid % 128 == 0) {
       mbar_expect_tx(bar_q, n_wg_rows * 2 * kTileBytes);
       for (int w = 0; w < n_wg_rows; ++w) {
-        tma_tile(base + w * 2 * kTileBytes, &tm_q, bar_q, q0b + w * kTile,
-                 b * H + h);
-        tma_tile(base + w * 2 * kTileBytes + kTileBytes, &tm_do, bar_q,
-                 q0b + w * kTile, b * H + h);
+        tma_tile<D>(base + w * 2 * kTileBytes, &tm_q, bar_q, q0b + w * kTile,
+                    b * H + h);
+        tma_tile<D>(base + w * 2 * kTileBytes + kTileBytes, &tm_do, bar_q,
+                    q0b + w * kTile, b * H + h);
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         mbar_wait(bar_empty(s), ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(bar_full(s), 2 * kTileBytes);
-        tma_tile(k_s(s), &tm_k, bar_full(s), t * kTile, b * Hkv + hkv);
-        tma_tile(k_s(s) + kTileBytes, &tm_v, bar_full(s), t * kTile,
-                 b * Hkv + hkv);
+        tma_tile<D>(k_s(s), &tm_k, bar_full(s), t * kTile, b * Hkv + hkv);
+        tma_tile<D>(k_s(s) + kTileBytes, &tm_v, bar_full(s), t * kTile,
+                    b * Hkv + hkv);
       }
     }
   } else {  // consumers: warpgroup wg owns rows q0 .. q0 + 63
@@ -985,9 +1098,13 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l2[i] = q0 < Sq ? lse2[r_off + row] : INFINITY;
       dd[i] = q0 < Sq ? di[r_off + row] : 0.f;
     }
-    float acc[32], s_[32], dp[32];
+    float acc[NH][32], s_[32], dp[32];
 #pragma unroll
-    for (int r = 0; r < 32; ++r) acc[r] = s_[r] = dp[r] = 0.f;
+    for (int r = 0; r < 32; ++r) {
+      s_[r] = dp[r] = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) acc[hh][r] = 0.f;
+    }
     if (my_tiles > 0) mbar_wait(bar_q, 0);
 
     for (int t = 0; t < n_tiles; ++t) {
@@ -1000,14 +1117,12 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_acc(dp);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
-          wgmma_ss(s_, sw128_desc(qa + 32 * kk), sw128_desc(ka + 32 * kk),
-                   kk);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(s_, kslice_desc(qa, kk), kslice_desc(ka, kk), kk);
         wg_commit();
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk)
-          wgmma_ss(dp, sw128_desc(ga + 32 * kk), sw128_desc(va + 32 * kk),
-                   kk);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(dp, kslice_desc(ga, kk), kslice_desc(va, kk), kk);
         wg_commit();
         const bool straddles =
             k0 + kTile > Skv || (causal && k0 + kTile - 1 > warp_first + offs);
@@ -1044,7 +1159,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs(acc, sa[kk], sw128_desc(ka + 2048 * kk));
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            wgmma_rs(acc[hh], sa[kk], rows_desc(ka, hh, kk));
         wg_commit();
         wg_wait<0>();
         keep_frags(sa);
@@ -1058,16 +1175,19 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + 8 * i;
       if (row >= Sq) continue;
 #pragma unroll
-      for (int j8 = 0; j8 < 8; ++j8) {
-        float x = acc[4 * j8 + 2 * i], y = acc[4 * j8 + 2 * i + 1];
-        if (rnd) {  // the gradient of q*scale's bf16 rounding, then the scale
-          x = __bfloat162float(__float2bfloat16(x));
-          y = __bfloat162float(__float2bfloat16(y));
+      for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8) {
+          float x = acc[hh][4 * j8 + 2 * i], y = acc[hh][4 * j8 + 2 * i + 1];
+          if (rnd) {  // the gradient of q*scale's bf16 rounding, then the
+                      // scale
+            x = __bfloat162float(__float2bfloat16(x));
+            y = __bfloat162float(__float2bfloat16(y));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dq + q_off + (size_t)row * D +
+                                             hh * kHalf + j8 * 8 + 2 * t4) =
+              __floats2bfloat162_rn(x * scale, y * scale);
         }
-        *reinterpret_cast<__nv_bfloat162*>(dq + q_off + (size_t)row * kD +
-                                           j8 * 8 + 2 * t4) =
-            __floats2bfloat162_rn(x * scale, y * scale);
-      }
     }
   }
 }
@@ -1101,15 +1221,16 @@ EncodeTiled encode_tiled() {
   return f;
 }
 
-// (D, rows, heads) bf16 tensor, 64 x 64 boxes, 128-byte swizzle; rows past
-// `rows` read as zeros
+// (D, rows, heads) bf16 tensor, 64 x 64 boxes (a tile is D / 64 of them),
+// 128-byte swizzle; rows past `rows` read as zeros
+template <int D>
 bool head_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int rows,
               long long heads) {
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)rows,
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2,
-                                 (cuuint64_t)rows * kD * 2};
-  const cuuint32_t box[3] = {kD, kTile, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {kHalf, kTile, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1117,17 +1238,19 @@ bool head_map(CUtensorMap* map, EncodeTiled enc, const void* ptr, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const void* lse, void* dq, void* dk,
                  void* dv, void* scratch, int B, int H, int Hkv, int Sq,
                  int Skv, int causal, float scale, int compute_bf16,
                  cudaStream_t stream) {
+  using C = Wg<D>;
   static std::atomic<unsigned long long> set_dkdv{0}, set_dq{0};
   cudaError_t err = allow_dynamic_smem(
-      set_dkdv, (const void*)attn_bwd_dkdv_wgmma_kernel, kDkdvSmem);
+      set_dkdv, (const void*)attn_bwd_dkdv_wgmma_kernel<D>, C::kDkdvSmem);
   if (err != cudaSuccess) return (int)err;
-  err = allow_dynamic_smem(set_dq, (const void*)attn_bwd_dq_wgmma_kernel,
-                           kDqSmem);
+  err = allow_dynamic_smem(set_dq, (const void*)attn_bwd_dq_wgmma_kernel<D>,
+                           C::kDqSmem);
   if (err != cudaSuccess) return (int)err;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
@@ -1137,26 +1260,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
   float* lse2 = (float*)scratch;
   float* di = lse2 + rows_pad;
   bf16* qs = compute_bf16 ? (bf16*)(di + rows_pad) : nullptr;
-  attn_bwd_prep_kernel<<<(unsigned)(rows_pad / 32), 256, 0, stream>>>(
+  // rows_pad: a multiple of 64, so of the 32 or 16 rows a block
+  attn_bwd_prep_kernel<D><<<(unsigned)(rows_pad / (256 / (D / 8))), 256, 0,
+                            stream>>>(
       (const bf16*)q, (const bf16*)out, (const bf16*)dout, (const float*)lse,
-      lse2, di, qs, Sq, sq_pad, scale);  // rows_pad: a multiple of 64
+      lse2, di, qs, Sq, sq_pad, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
-  if (!head_map(&tm_q, enc, qs ? (const void*)qs : q, Sq, (long long)B * H) ||
-      !head_map(&tm_do, enc, dout, Sq, (long long)B * H) ||
-      !head_map(&tm_k, enc, k, Skv, (long long)B * Hkv) ||
-      !head_map(&tm_v, enc, v, Skv, (long long)B * Hkv))
+  if (!head_map<D>(&tm_q, enc, qs ? (const void*)qs : q, Sq,
+                   (long long)B * H) ||
+      !head_map<D>(&tm_do, enc, dout, Sq, (long long)B * H) ||
+      !head_map<D>(&tm_k, enc, k, Skv, (long long)B * Hkv) ||
+      !head_map<D>(&tm_v, enc, v, Skv, (long long)B * Hkv))
     return (int)cudaErrorInvalidValue;
   const dim3 g_kv(Hkv, B, (Skv + kTile - 1) / kTile);
-  attn_bwd_dkdv_wgmma_kernel<<<g_kv, kWsThreads, kDkdvSmem, stream>>>(
+  attn_bwd_dkdv_wgmma_kernel<D><<<g_kv, kWsThreads, C::kDkdvSmem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, lse2, di, (bf16*)dk, (bf16*)dv, H, Hkv, Sq,
       Skv, sq_pad, causal, scale, compute_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 g_q(H, B, (Sq + kWG * kTile - 1) / (kWG * kTile));
-  attn_bwd_dq_wgmma_kernel<<<g_q, kWsThreads, kDqSmem, stream>>>(
+  attn_bwd_dq_wgmma_kernel<D><<<g_q, kWsThreads, C::kDqSmem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, lse2, di, (bf16*)dq, H, Hkv, Sq, Skv, sq_pad,
       causal, scale, compute_bf16);
   return (int)cudaGetLastError();
@@ -1208,11 +1334,12 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 // dtype: 0 = float32, 1 = bfloat16.  `scratch`: fp32 workspace of at least
 // 2 * B * H * Sq_pad floats (Sq_pad: Sq rounded up to 64), plus
 // B * H * Sq * D / 2 under compute_bf16.  `kernel` receives the route
-// launched: 0 the FMA pair (fp32 at D = 64 or 128, bf16 at D = 128), 1 the
-// wgmma pair (bf16, D = 64), 2 the FMA pair at a small width (any other D
-// up to 128, either dtype, laid out 64 or 128 wide with the columns past D
-// zero).  Returns cudaGetLastError() after the launches (0 on success); -1
-// for a D above 128 or a dtype this file does not build.
+// launched: 0 the FMA pair (fp32 at D = 64 or 128), 1 the wgmma pair at
+// D = 64 (bf16), 2 the FMA pair at a small width (any other D up to 128,
+// either dtype, laid out 64 or 128 wide with the columns past D zero), 3
+// the wgmma pair at D = 128 (bf16).  Returns cudaGetLastError() after the
+// launches (0 on success); -1 for a D above 128 or a dtype this file does
+// not build.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
@@ -1222,8 +1349,13 @@ extern "C" int flash_attention_bwd_launch(
   if (D < 1 || D > 128 || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 1 && D == 64) {
     *kernel = 1;
-    return launch_wgmma(q, k, v, out, dout, lse, dq, dk, dv, scratch, B, H,
-                        Hkv, Sq, Skv, causal, scale, compute_bf16, s);
+    return launch_wgmma<64>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
+                            H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
+  }
+  if (dtype == 1 && D == 128) {
+    *kernel = 3;
+    return launch_wgmma<128>(q, k, v, out, dout, lse, dq, dk, dv, scratch, B,
+                             H, Hkv, Sq, Skv, causal, scale, compute_bf16, s);
   }
   *kernel = (D == 64 || D == 128) ? 0 : 2;
   if (dtype == 0)

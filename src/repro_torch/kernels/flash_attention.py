@@ -14,6 +14,10 @@ with D = 64 or 128 takes the tensor-core kernel, fp32 with D = 64 or 128
 the FMA kernel, and any other D up to ``MAX_HEAD_DIM`` (the reduced
 configs' 16) the small-width route, the FMA kernel laid out 64 or 128 wide
 with the columns past D zero, in either dtype.  A wider head raises.
+K2-bwd's routes follow the same rule: bf16 with D = 64 takes its ``wgmma``
+pair, bf16 with D = 128 the same pair at 128 columns (``wgmma128``), fp32
+with D = 64 or 128 its FMA pair (``fma``), any other D the FMA pair at a
+small width (``small``).
 
 The Pallas kernel has no backward (JAX trains through the jnp attention).
 Here the gradient is a kernel too: ``FlashAttentionFn`` runs the forward
@@ -43,12 +47,16 @@ ROUTES = ("fp32", "mma", "small")
 _route = ctypes.c_int(-1)
 _ROUTE_ADDR = ctypes.addressof(_route)
 # K2-bwd's device kernels (dK/dV, dQ) and route, by the id its C entry
-# point writes: the FMA pair, the wgmma pair (bf16, D = 64), the FMA pair at
-# a small width
+# point writes: the FMA pair (fp32), the wgmma pair at D = 64 (bf16), the
+# FMA pair at a small width, the wgmma pair at D = 128 (bf16)
 BWD_KERNELS = (("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"),
-               ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel"),
-               ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"))
-BWD_ROUTES = ("fma", "wgmma", "small")
+               ("attn_bwd_dkdv_wgmma_kernel<64>",
+                "attn_bwd_dq_wgmma_kernel<64>"),
+               ("attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel"),
+               ("attn_bwd_dkdv_wgmma_kernel<128>",
+                "attn_bwd_dq_wgmma_kernel<128>"))
+BWD_ROUTES = ("fma", "wgmma", "small", "wgmma128")
+BWD_WGMMA = {64: 1, 128: 3}  # bf16 head width -> its wgmma pair's id
 _bwd_route = ctypes.c_int(-1)
 _BWD_ROUTE_ADDR = ctypes.addressof(_bwd_route)
 
@@ -155,7 +163,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
                           for t in (q, k, v, out, dout))
     # fp32 workspace: per row LSE * log2(e) and D_i, padded to whole 64-row
-    # tiles, and under compute_dtype=bf16 the operand bf16(q * scale)
+    # tiles, and under compute_dtype=bf16 the operand bf16(q * scale) (the
+    # wgmma routes' pre-pass; the FMA pair reads D_i alone)
     sq_pad = -(-Sq // 64) * 64
     n = 2 * B * H * sq_pad
     if compute_dtype == torch.bfloat16:

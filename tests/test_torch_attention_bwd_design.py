@@ -13,8 +13,13 @@ of its loops (not code of the main path), the claims its design rests on:
   and dV, plus one block per (64-query tile, head) for dQ, give the
   gradient of ``ref.mha_attention`` — the group's sum taken in-block, no
   atomics;
-* on the tensor-core route (bf16, D = 64) P and dS enter their products
-  rounded once to bf16, which stays inside the bf16 bar;
+* on the tensor-core route (bf16, D = 64 or 128) P and dS enter their
+  products rounded once to bf16, which stays inside the bf16 bar;
+* at D = 128 that route holds a tile as two 64-column halves (TMA's
+  128-byte swizzle caps a box at 64 bf16 columns): the products that
+  reduce over D sum the halves' partial products in order, and those whose
+  N is D (dV, dK, dQ) run one product a half into that half's own
+  accumulators; the model takes them so and keeps the bars;
 * that route's dK/dV block deals its (query head, query tile) pairs to its
   consumer warpgroups in turn (pair i to warpgroup i % split), each with
   its own accumulators, and sums those in a fixed order at the end: the
@@ -71,10 +76,31 @@ def visible(Sq, Skv, causal):
     return ki <= qi if causal else torch.ones(Sq, Skv, dtype=torch.bool)
 
 
-def tile_scores(qs, do, kf, vf, lse, di, q0, k0, Sq, Skv, causal, bf16):
+def over_d(a, b, half):
+    """a @ b.T, reducing over D; with ``half`` columns a half, the halves'
+    partial products added in order (the D = 128 route's k-slices)."""
+    if half is None:
+        return a @ b.T
+    out = torch.zeros(a.shape[0], b.shape[0])
+    for c in range(0, a.shape[1], half):
+        out = out + a[:, c:c + half] @ b[:, c:c + half].T
+    return out
+
+
+def by_halves(a, b, half):
+    """a @ b, whose N is D; with ``half`` columns a half, one product a
+    half (the D = 128 route's dV, dK and dQ)."""
+    if half is None:
+        return a @ b
+    return torch.cat([a @ b[:, c:c + half]
+                      for c in range(0, b.shape[1], half)], 1)
+
+
+def tile_scores(qs, do, kf, vf, lse, di, q0, k0, Sq, Skv, causal, bf16,
+                half=None):
     """P and dS of one (query tile, key tile): the kernel's `scores`."""
-    s = qs @ kf.T
-    dp = rnd(do @ vf.T, bf16)
+    s = over_d(qs, kf, half)
+    dp = rnd(over_d(do, vf, half), bf16)
     rows = torch.arange(q0, q0 + qs.shape[0])
     keys = torch.arange(k0, k0 + kf.shape[0])
     ok = (rows[:, None] < Sq) & (keys[None, :] < Skv)
@@ -101,12 +127,14 @@ def n_pairs(Sq, Skv, k0, group, causal):
 
 
 def bwd_model(q, k, v, out, dout, lse, *, causal, scale, bf16,
-              tensor_cores=False, split=1, dq_rows=TILE):
+              tensor_cores=False, split=1, dq_rows=TILE, half=None):
     """The kernel's three passes, tile by tile, in fp32.  ``tensor_cores``
-    models the bf16 D = 64 route: P and dS enter their products rounded
-    once to bf16.  ``split`` consumer warpgroups share a key tile, pair i
-    going to warpgroup i % split, and their sums are added in warpgroup
-    order; ``dq_rows`` query rows make a dQ block."""
+    models the bf16 route: P and dS enter their products rounded once to
+    bf16.  ``split`` consumer warpgroups share a key tile, pair i going to
+    warpgroup i % split, each with whole-width accumulators, and their sums
+    are added in warpgroup order; ``dq_rows`` query rows make a dQ block;
+    ``half`` columns a tile half (64 at D = 128: ``over_d``,
+    ``by_halves``)."""
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -133,9 +161,11 @@ def bwd_model(q, k, v, out, dout, lse, *, causal, scale, bf16,
                                      pad_rows(lse[b, h], q0, Sq), inf)
                     d_i = pad_rows(di[b, h], q0, Sq)
                     p, ds = tile_scores(qs, do, kf, vf, ls, d_i, q0, k0, Sq,
-                                        Skv, causal, bf16)
-                    acc_v[i % split] += rnd(p, bf16 or tensor_cores).T @ do
-                    acc_k[i % split] += rnd(ds, tensor_cores).T @ qs
+                                        Skv, causal, bf16, half)
+                    acc_v[i % split] += by_halves(
+                        rnd(p, bf16 or tensor_cores).T, do, half)
+                    acc_k[i % split] += by_halves(
+                        rnd(ds, tensor_cores).T, qs, half)
                 gk, gv = acc_k[0], acc_v[0]
                 for w in range(1, split):       # the fixed-order sum
                     gk, gv = gk + acc_k[w], gv + acc_v[w]
@@ -159,8 +189,8 @@ def bwd_model(q, k, v, out, dout, lse, *, causal, scale, bf16,
                     kf = pad_rows(rnd(k[b, hkv].float(), bf16), k0, Skv)
                     vf = pad_rows(rnd(v[b, hkv].float(), bf16), k0, Skv)
                     _, ds = tile_scores(qs, do, kf, vf, ls, d_i, q0, k0, Sq,
-                                        Skv, causal, bf16)
-                    acc += rnd(ds, tensor_cores) @ kf
+                                        Skv, causal, bf16, half)
+                    acc += by_halves(rnd(ds, tensor_cores), kf, half)
                 n = min(TILE, Sq - q0)
                 dq[b, h, q0:q0 + n] = (rnd(acc, bf16) * scale)[:n]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -192,6 +222,13 @@ CASES = {
     "causal right-aligned Sq=70 Skv=150": (1, 4, 2, 70, 150, 64, True),
     "non-causal D=128 Sq=77 Skv=130": (1, 8, 1, 77, 130, 128, False),
     "causal MHA two tiles S=128": (1, 2, 2, 128, 128, 64, True),
+    # the D = 128 route's main paths: olmoe / deepseek / moonshot (MHA),
+    # starcoder2 (GQA 12:1), and its edges
+    "causal MHA D=128 ragged S=100": (1, 2, 2, 100, 100, 128, True),
+    "causal GQA 12:1 D=128 S=70": (1, 12, 1, 70, 70, 128, True),
+    "causal right-aligned D=128 Sq=70 Skv=150": (1, 4, 2, 70, 150, 128,
+                                                 True),
+    "causal empty rows D=128 Sq=150 Skv=60": (1, 2, 2, 150, 60, 128, True),
 }
 
 
@@ -319,6 +356,9 @@ SPLIT_SHAPES = {  # Sq, Skv, group, causal
     "empty rows Sq=300 Skv=100": (300, 100, 1, True),
     "right-aligned Sq=70 Skv=150": (70, 150, 2, True),
     "non-causal Sq=77 Skv=200": (77, 200, 8, False),
+    # D = 128: olmoe-1b-7b's training (MHA), starcoder2-3b's (GQA 12:1)
+    "olmoe training S=1024": (1024, 1024, 1, True),
+    "starcoder2 training S=1024": (1024, 1024, 12, True),
 }
 
 
@@ -367,11 +407,16 @@ def test_split_backward_equals_autograd_fp32(name, split, dq_rows):
 
 @pytest.mark.parametrize("name", ["causal GQA 7:1 ragged S=100",
                                   "causal right-aligned Sq=70 Skv=150",
-                                  "causal MHA two tiles S=128"])
+                                  "causal MHA two tiles S=128",
+                                  "causal MHA D=128 ragged S=100",
+                                  "causal GQA 12:1 D=128 S=70",
+                                  "causal right-aligned D=128 Sq=70 Skv=150",
+                                  "causal empty rows D=128 Sq=150 Skv=60"])
 @pytest.mark.parametrize("cdt", ["fp32", "bf16"])
 def test_split_tensor_core_backward_within_the_bf16_bar(name, cdt):
     """The wgmma route's arithmetic: bf16 inputs, P and dS rounded once to
-    bf16, two warpgroups a key tile, 128-row dQ blocks."""
+    bf16, two warpgroups a key tile, 128-row dQ blocks; at D = 128 each tile
+    in two 64-column halves."""
     B, H, Hkv, Sq, Skv, D, causal = CASES[name]
     q, k, v, dout = case(8, B, H, Hkv, Sq, Skv, D, torch.bfloat16)
     bf16 = cdt == "bf16"
@@ -379,6 +424,86 @@ def test_split_tensor_core_backward_within_the_bf16_bar(name, cdt):
     out, want = autograd(q, k, v, dout, causal, c)
     lse = lse_model(q, k, causal, D ** -0.5, bf16)
     got = bwd_model(q, k, v, out, dout, lse, causal=causal, scale=D ** -0.5,
-                    bf16=bf16, tensor_cores=True, split=2, dq_rows=128)
+                    bf16=bf16, tensor_cores=True, split=2, dq_rows=128,
+                    half=64 if D == 128 else None)
     held(got, want, 6e-2)
+    if causal and Sq > Skv:          # rows that see no key: zero gradient
+        assert bool((got[0][..., :Sq - Skv, :] == 0).all())
 
+
+
+D128_CASES = [n for n in CASES if CASES[n][5] == 128]
+
+
+@pytest.mark.parametrize("name", D128_CASES)
+def test_halves_backward_equals_autograd_fp32(name):
+    """The D = 128 route's structure in fp32: each tile in two 64-column
+    halves, the reductions over D half by half in order, one product a half
+    where N is D, pairs dealt to two warpgroups with whole-width sums added
+    in a fixed order, 128-row dQ blocks: the gradient to 1e-5."""
+    B, H, Hkv, Sq, Skv, D, causal = CASES[name]
+    q, k, v, dout = case(9, B, H, Hkv, Sq, Skv, D)
+    out, want = autograd(q, k, v, dout, causal, torch.float32)
+    lse = lse_model(q, k, causal, D ** -0.5, False)
+    got = bwd_model(q, k, v, out, dout, lse, causal=causal, scale=D ** -0.5,
+                    bf16=False, split=2, dq_rows=128, half=64)
+    held(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("cdt", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["causal MHA D=128 ragged S=100",
+                                  "causal GQA 12:1 D=128 S=70",
+                                  "causal right-aligned D=128 Sq=70 Skv=150",
+                                  "non-causal D=128 Sq=77 Skv=130"])
+def test_halves_backward_equals_jax_vjp(name, cdt):
+    """The D = 128 route's arithmetic against ``jax.vjp`` of the JAX
+    reference: fp32 inputs at 1e-5 (the structure alone), bf16 inputs under
+    compute_dtype=bf16 with P and dS rounded once at the bf16 bar."""
+    B, H, Hkv, Sq, Skv, D, causal = CASES[name]
+    bf16 = cdt == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, dout = case(10, B, H, Hkv, Sq, Skv, D, dtype)
+    out = tref.mha_attention(q, k, v, causal=causal, compute_dtype=dtype)
+    lse = lse_model(q, k, causal, D ** -0.5, bf16)
+    got = bwd_model(q, k, v, out, dout, lse, causal=causal, scale=D ** -0.5,
+                    bf16=bf16, tensor_cores=bf16, split=2, dq_rows=128,
+                    half=64)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    j = lambda t: jnp.asarray(t.float().numpy()).astype(jdt)  # noqa: E731
+    _, vjp = jax.vjp(lambda a, b, c: jref.mha_attention(
+        a, b, c, causal=causal, compute_dtype=jdt), j(q), j(k), j(v))
+    want = [torch.from_numpy(np.array(g.astype(jnp.float32)))
+            for g in vjp(j(dout))]
+    held(got, want, 6e-2 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("name", list(SPLIT_SHAPES))
+def test_straddle_mask_as_two_comparisons(name):
+    """The dK/dV kernel masks only tiles that straddle the diagonal or a
+    tail (per warp of 16 keys), and there as two comparisons an element:
+    column 2 t4 + cc (cc = 8 j8 + e) of key key0 + 8 h is kept iff cc <
+    qrem and dc[h] <= cc, with qrem = Sq - q0 - 2 t4 and dc[h] = +inf past
+    Skv, key - offs - 2 t4 - q0 causal, -inf otherwise.  Both equal the
+    direct mask (key < Skv, row < Sq, causal key <= row + offs) at every
+    (key tile, query tile) pair the kernel visits."""
+    Sq, Skv, _, causal = SPLIT_SHAPES[name]
+    offs = Skv - Sq
+    big = np.iinfo(np.int64).max
+    t4 = np.arange(4)[None, :, None, None]          # (key, t4, j8, e)
+    cc = (8 * np.arange(8)[:, None] + np.arange(2)[None, :])[None, None]
+    for k0 in range(0, Skv, TILE):
+        _, qt0 = n_pairs(Sq, Skv, k0, 1, causal)
+        for q0 in range(qt0 * TILE, Sq, TILE):
+            key = (k0 + np.arange(TILE))[:, None, None, None]
+            row = q0 + cc + 2 * t4
+            direct = (key < Skv) & (row < Sq)
+            if causal:
+                direct &= key <= row + offs
+            dc = np.where(key >= Skv, big,
+                          key - offs - 2 * t4 - q0 if causal else -big)
+            assert np.array_equal(direct, (cc < Sq - q0 - 2 * t4) & (dc <= cc))
+            for w in range(4):                      # a warp's 16 keys
+                key_w = k0 + 16 * w
+                straddles = (k0 + TILE > Skv or q0 + TILE > Sq
+                             or (causal and key_w + 15 > q0 + offs))
+                assert straddles or direct[16 * w:16 * w + 16].all()

@@ -653,47 +653,58 @@ def test_flash_attention_lse_is_the_rows_logsumexp(cuda):
                                    atol=1e-5)
 
 
-def bwd_inputs(cuda, B, H, Hkv, Sq, Skv, seed, dtype=torch.bfloat16):
+def bwd_inputs(cuda, B, H, Hkv, Sq, Skv, seed, dtype=torch.bfloat16, D=64):
     g = torch.Generator().manual_seed(seed)
-    mk = lambda h, s: torch.randn(B, h, s, 64, generator=g).to(  # noqa: E731
+    mk = lambda h, s: torch.randn(B, h, s, D, generator=g).to(  # noqa: E731
         cuda, dtype)
     return mk(H, Sq), mk(Hkv, Skv), mk(Hkv, Skv), mk(H, Sq)
 
 
 @pytest.mark.gpu
 def test_flash_attention_backward_reruns_bitwise(cuda):
-    """No floating-point atomics: the same inputs give the same bits, at a
-    ragged shape and at qwen2's training shape (batch 8 x 1024)."""
-    for B, S in ((2, 257), (8, 1024)):
-        q, k, v, dout = bwd_inputs(cuda, B, 14, 2, S, S, 6)
+    """No floating-point atomics: the same inputs give the same bits, at
+    ragged shapes and at the training shapes of each wgmma pair (qwen2's
+    batch 8 x 1024 at D = 64, olmoe's 4 x 1024 at D = 128; starcoder2's GQA
+    12:1 at a ragged S)."""
+    for B, H, Hkv, S, D in ((2, 14, 2, 257, 64), (8, 14, 2, 1024, 64),
+                            (2, 24, 2, 257, 128), (4, 16, 16, 1024, 128)):
+        q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, S, S, 6, D=D)
         for compute in (torch.float32, torch.bfloat16):
-            lse = torch.empty(B, 14, S, device=cuda)
-            out = fa._forward(q, k, v, True, 0.125, compute, lse)
+            lse = torch.empty(B, H, S, device=cuda)
+            out = fa._forward(q, k, v, True, D ** -0.5, compute, lse)
             a = fa.flash_attention_bwd(q, k, v, out, dout, lse,
                                        compute_dtype=compute)
+            assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[
+                fa.BWD_WGMMA[D]]
             b = fa.flash_attention_bwd(q, k, v, out, dout, lse,
                                        compute_dtype=compute)
             assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv", [
     (1, 14, 2, 65, 65), (1, 14, 2, 127, 127), (1, 14, 2, 1000, 1000),
     (2, 14, 2, 1024, 1024), (1, 4, 4, 300, 100), (1, 4, 4, 127, 127),
-    (1, 4, 2, 70, 150)])
+    (1, 4, 2, 70, 150), (1, 24, 2, 200, 200)])
 def test_flash_attention_backward_wgmma_route(cuda, B, H, Hkv, Sq, Skv,
-                                              compute):
-    """bf16 with D = 64 takes the wgmma pair: ragged tails (65, 127, 1000),
-    whole tiles, GQA 7:1 and 1:1, empty causal rows (Sq > Skv) with zero
-    gradients, right-aligned keys (Skv > Sq); held to the plain version."""
-    q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, Sq, Skv, Sq + Skv + H)
+                                              compute, D):
+    """bf16 with D = 64 or 128 takes that width's wgmma pair: ragged tails
+    (65, 127, 200, 1000), whole tiles, GQA 7:1, 12:1 and 1:1, empty causal
+    rows (Sq > Skv) with zero gradients, right-aligned keys (Skv > Sq);
+    held to the plain version."""
+    q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, Sq, Skv, Sq + Skv + H, D=D)
     lse = torch.empty(B, H, Sq, device=cuda)
-    out = fa._forward(q, k, v, True, 0.125, compute, lse)
+    out = fa._forward(q, k, v, True, D ** -0.5, compute, lse)
+    routes = dict(fa.flash_attention_bwd.routes)
     got = fa.flash_attention_bwd(q, k, v, out, dout, lse,
                                  compute_dtype=compute)
-    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[1] == (
-        "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[
+        fa.BWD_WGMMA[D]] == (f"attn_bwd_dkdv_wgmma_kernel<{D}>",
+                            f"attn_bwd_dq_wgmma_kernel<{D}>")
+    name = fa.BWD_ROUTES[fa.BWD_WGMMA[D]]
+    assert fa.flash_attention_bwd.routes[name] == routes.get(name, 0) + 1
     want = plain_grads(q, k, v, dout, True, compute)
     grad_bar_held(got, want, torch.bfloat16, compute)
     if Sq > Skv:                     # rows that see no key: zero gradient
@@ -702,10 +713,10 @@ def test_flash_attention_backward_wgmma_route(cuda, B, H, Hkv, Sq, Skv,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
-                                     (torch.float32, 128),
-                                     (torch.bfloat16, 128)])
+                                     (torch.float32, 128)])
 def test_flash_attention_backward_fma_route(cuda, dtype, D):
-    """fp32 inputs, and bf16 with D = 128, keep the FMA pair."""
+    """fp32 inputs keep the FMA pair at both widths (their exact fp32
+    products are the reduced fp32 models' contract)."""
     g = torch.Generator().manual_seed(D)
     q, k, v, dout = (torch.randn(1, 4, 70, D, generator=g).to(cuda, dtype)
                      for _ in range(4))
@@ -716,17 +727,20 @@ def test_flash_attention_backward_fma_route(cuda, dtype, D):
 
 
 @pytest.mark.gpu
-def test_flash_attention_backward_takes_a_misaligned_view(cuda):
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_backward_takes_a_misaligned_view(cuda, D):
     """A contiguous view that starts off the 16-byte grid TMA needs is
-    copied, not refused."""
-    q, k, v, dout = bwd_inputs(cuda, 1, 4, 2, 96, 96, 11)
+    copied, not refused, on either wgmma pair."""
+    q, k, v, dout = bwd_inputs(cuda, 1, 4, 2, 96, 96, 11, D=D)
     buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
     qv = buf[1:].view(q.shape)
     qv.copy_(q)
     assert qv.data_ptr() % 16
     lse = torch.empty(1, 4, 96, device=cuda)
-    out = fa._forward(q, k, v, True, 0.125, torch.float32, lse)
+    out = fa._forward(q, k, v, True, D ** -0.5, torch.float32, lse)
     got = fa.flash_attention_bwd(qv, k, v, out, dout, lse)
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[
+        fa.BWD_WGMMA[D]]
     want = fa.flash_attention_bwd(q, k, v, out, dout, lse)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
@@ -806,21 +820,23 @@ def test_flash_attention_kernel_whisper_shapes(cuda, Sq, Skv, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv", [
     (1, 4, 4, 1500, 1500), (1, 4, 4, 448, 1500), (1, 4, 2, 70, 150),
     (1, 4, 4, 150, 70), (2, 4, 4, 1, 1500)])
 def test_flash_attention_backward_wgmma_route_non_causal(cuda, B, H, Hkv, Sq,
-                                                         Skv, compute):
-    """The wgmma pair without the causal mask, at whisper's training shapes
-    (the encoder's 1500 frames; cross-attention Sq = 448 against 1500) and
-    Sq far from Skv either way; held to the plain version."""
-    q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, Sq, Skv, Sq + 2 * Skv)
+                                                         Skv, compute, D):
+    """Either wgmma pair without the causal mask, at whisper's training
+    shapes (the encoder's 1500 frames; cross-attention Sq = 448 against
+    1500) and Sq far from Skv either way; held to the plain version."""
+    q, k, v, dout = bwd_inputs(cuda, B, H, Hkv, Sq, Skv, Sq + 2 * Skv, D=D)
     lse = torch.empty(B, H, Sq, device=cuda)
-    out = fa._forward(q, k, v, False, 0.125, compute, lse)
+    out = fa._forward(q, k, v, False, D ** -0.5, compute, lse)
     got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False,
                                  compute_dtype=compute)
-    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[1]
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[
+        fa.BWD_WGMMA[D]]
     want = plain_grads(q, k, v, dout, False, compute)
     grad_bar_held(got, want, torch.bfloat16, compute)
 
@@ -1157,20 +1173,23 @@ def test_flash_attention_kernel_olmoe_shapes(cuda, B, S):
 
 
 @pytest.mark.gpu
-def test_flash_attention_backward_olmoe_training_shape(cuda):
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_olmoe_training_shape(cuda, compute):
     """K2-bwd at olmoe's training shape (B = 4, 16 heads of 128, S =
-    1024, causal, bf16): the FMA pair, held to autograd through the plain
-    attention, and bitwise on a rerun."""
+    1024, causal, bf16): the wgmma pair at D = 128, held to autograd
+    through the plain attention, and bitwise on a rerun."""
     g = torch.Generator().manual_seed(128)
     q, k, v, dout = (torch.randn(4, 16, 1024, 128, generator=g).to(
         cuda, torch.bfloat16) for _ in range(4))
     lse = torch.empty(4, 16, 1024, device=cuda)
-    out = fa._forward(q, k, v, True, 128 ** -0.5, torch.float32, lse)
-    got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
-    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[0]
-    grad_bar_held(got, plain_grads(q, k, v, dout, True, torch.float32),
-                  torch.bfloat16, torch.float32)
-    again = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    out = fa._forward(q, k, v, True, 128 ** -0.5, compute, lse)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                 compute_dtype=compute)
+    assert fa.flash_attention_bwd.last_kernel == fa.BWD_KERNELS[3]
+    grad_bar_held(got, plain_grads(q, k, v, dout, True, compute),
+                  torch.bfloat16, compute)
+    again = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                   compute_dtype=compute)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
