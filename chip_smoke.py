@@ -157,7 +157,26 @@ those paths against its plain PyTorch version:
      deepseek-7b train_4k, olmoe-1b-7b decode_32k and rwkv6-1.6b
      long_500k on the pod); (c) the three single-device examples
      (``examples/*_torch.py``) on the card, each exiting 0 with its kernels
-     launched; (d) one short autotuner search on the host, printed.
+     launched; (d) one short autotuner search on the host, printed; 13b
+     also holds the pod's tensor-parallel serving cells (deepseek-7b,
+     internvl2-76b, moonshot decode_32k; qwen2-0.5b, deepseek-7b
+     prefill_32k) split over "model", the decode cells within 80 GB;
+ 14. tensor-parallel serving (``models/transformer.py``'s rank programs),
+     as far as one card holds it (one card cannot host two NCCL ranks):
+     (a) qwen2-0.5b and olmoe-1b-7b at full width and depth, bf16, 8
+     prompts of 1024 tokens and 32 greedy steps through ``prefill`` /
+     ``decode_step`` with no mesh and on a 1 x 1 ("data", "model") mesh
+     over NCCL: tokens and logits bitwise equal, K2 exactly L a prefill,
+     each path's decode step ms and busy share (a "model" axis of one
+     rank takes the plain path, so both runs are that path: the rank
+     programs themselves run only on gloo CPU ranks, in the tests); (b) the "seq" layout's
+     log-sum-exp combine at internvl2-76b's decode_32k rank shape (8 rows,
+     64 / 8 heads of 128, bf16, 16 slices of a 32768-deep cache, pos in the
+     first slice and at the end) against the whole sequence at phase 2's
+     bf16 bar; (c) K2 at deepseek-7b's head-parallel prefill_32k rank (2
+     rows, 2 heads of 128, causal) against its plain version at S = 4096,
+     timed at S = 32768 beside SDPA; (d) qwen2-0.5b's decode step on a 1 x
+     1 mesh through the dry run, on meta and on the card: FLOPs equal.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -175,6 +194,7 @@ package ``repro``.
     python3 chip_smoke.py --train-only        # phases 1, 2c, 9 and 11
     python3 chip_smoke.py --moe-only          # 1, 2's K1/K2, 9a and 12
     python3 chip_smoke.py --dryrun-only       # 1 and 13
+    python3 chip_smoke.py --serve-tp-only     # 1, 2 and 14
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -416,6 +436,44 @@ def k1_bound(q, kp, pt, sl):
         B, H, kp.shape[2], D, kp.shape[1], pt.shape[1], sl.tolist(),
         q.element_size())
     return n_tok, nbytes, flops, bound(nbytes, flops, q.dtype)
+
+
+def k2_shape_times(tag, q, k, v, causal, compute_dtype=None) -> dict:
+    """K2 at one more shape of a main path: ms, ms_graph, the bound (4 B H
+    D flops over the (query, key) pairs the mask leaves; q, k, v read, out
+    written), the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    cdt = compute_dtype or torch.float32
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    flops, nbytes = cost.flash_attention(B, H, k.shape[1], Sq, Skv, D,
+                                         causal, q.element_size())
+    b, by = bound(nbytes, flops, q.dtype)
+    call = lambda: fa.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, compute_dtype=cdt)
+    out = {f"ms_{tag}": time_ms(call, iters=50),
+           f"ms_graph_{tag}": time_graph_ms(call, iters=20),
+           f"bound_ms_{tag}": b, f"bound_by_{tag}": by,
+           f"plain_ms_{tag}": time_ms(lambda: ref.mha_attention(
+               q, k, v, causal=causal, compute_dtype=cdt), iters=3,
+               warmup=1),
+           f"library_ms_{tag}": time_ms(
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, enable_gqa=True),
+               iters=50)}
+    print(f"[K2] {tag}: B={B} H={H} Hkv={k.shape[1]} Sq={Sq} Skv={Skv} "
+          f"D={D} bf16 {'causal' if causal else 'non-causal'}, {nbytes} "
+          f"bytes, {flops:.4g} flops: ms={out[f'ms_{tag}']:.5f} "
+          f"ms_graph={out[f'ms_graph_{tag}']:.5f} bound {b:.5f} ({by}),"
+          f" {b / out[f'ms_graph_{tag}']:.3f} of the bound; plain "
+          f"{out[f'plain_ms_{tag}']:.4f}; SDPA "
+          f"{out[f'library_ms_{tag}']:.5f}")
+    return out
 
 
 def run_kernel_checks(report: dict) -> dict:
@@ -664,44 +722,15 @@ def run_kernel_checks(report: dict) -> dict:
         return time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), iters=50)
 
-    def shape_times(tag, q, k, v, causal):
-        """K2 at one more shape of a main path: ms, ms_graph, the bound (4
-        B H D flops over the (query, key) pairs the mask leaves; q, k, v
-        read, out written), the plain version and SDPA."""
-        B, H, Sq, D = q.shape
-        Skv = k.shape[2]
-        flops, nbytes = cost.flash_attention(B, H, k.shape[1], Sq, Skv, D,
-                                             causal, q.element_size())
-        b, by = bound(nbytes, flops, q.dtype)
-        call = lambda: fa.flash_attention(  # noqa: E731
-            q, k, v, causal=causal)
-        out = {f"ms_{tag}": time_ms(call, iters=50),
-               f"ms_graph_{tag}": time_graph_ms(call, iters=20),
-               f"bound_ms_{tag}": b, f"bound_by_{tag}": by,
-               f"plain_ms_{tag}": time_ms(lambda: ref.mha_attention(
-                   q, k, v, causal=causal), iters=3, warmup=1),
-               f"library_ms_{tag}": time_ms(
-                   lambda: F.scaled_dot_product_attention(
-                       q, k, v, is_causal=causal, enable_gqa=True),
-                   iters=50)}
-        print(f"[K2] {tag}: B={B} H={H} Hkv={k.shape[1]} Sq={Sq} Skv={Skv} "
-              f"D={D} bf16 {'causal' if causal else 'non-causal'}, {nbytes} "
-              f"bytes, {flops:.4g} flops: ms={out[f'ms_{tag}']:.5f} "
-              f"ms_graph={out[f'ms_graph_{tag}']:.5f} bound {b:.5f} ({by}),"
-              f" {b / out[f'ms_graph_{tag}']:.3f} of the bound; plain "
-              f"{out[f'plain_ms_{tag}']:.4f}; SDPA "
-              f"{out[f'library_ms_{tag}']:.5f}")
-        return out
-
     shape_t = {}
     for w, (tag, causal, _) in whisper_shapes.items():
-        shape_t.update(shape_times(tag, *whisper[w], causal))
+        shape_t.update(k2_shape_times(tag, *whisper[w], causal))
     del whisper
-    shape_t.update(shape_times("qwen2_train", *q_train, True))
-    shape_t.update(shape_times("qwen2_s1024", *s1024, True))
-    shape_t.update(shape_times("zamba2_shape", *zamba, True))
+    shape_t.update(k2_shape_times("qwen2_train", *q_train, True))
+    shape_t.update(k2_shape_times("qwen2_s1024", *s1024, True))
+    shape_t.update(k2_shape_times("zamba2_shape", *zamba, True))
     for tag, qkv in olmoe.items():
-        shape_t.update(shape_times(tag, *qkv, True))
+        shape_t.update(k2_shape_times(tag, *qkv, True))
     del q_train, olmoe
 
     q, k, v = main
@@ -3660,7 +3689,18 @@ def moe_phases() -> dict:
 DRYRUN_CELLS = (("smollm-135m", "train_4k", "multipod"),
                 ("deepseek-7b", "train_4k", "pod"),
                 ("olmoe-1b-7b", "decode_32k", "pod"),
-                ("rwkv6-1.6b", "long_500k", "pod"))
+                ("rwkv6-1.6b", "long_500k", "pod"),
+                # tensor-parallel serving on the pod (phase 14): split over
+                # "model"; the three decode cells fit 80 GB a rank
+                ("deepseek-7b", "decode_32k", "pod"),
+                ("internvl2-76b", "decode_32k", "pod"),
+                ("moonshot-v1-16b-a3b", "decode_32k", "pod"),
+                ("qwen2-0.5b", "prefill_32k", "pod"),
+                ("deepseek-7b", "prefill_32k", "pod"))
+# the serving cells the rank programs must split, and those that must fit
+SERVE_TP_CELLS = {c for c in DRYRUN_CELLS if c[1] != "train_4k"
+                  and c[0] != "rwkv6-1.6b"}
+SERVE_TP_FIT = {c for c in SERVE_TP_CELLS if c[1] == "decode_32k"}
 # 13c: the single-device examples and the kernels each must launch
 EXAMPLES = {"quickstart_torch.py": ("flash_attention", "flash_attention_bwd"),
             "paged_serving_torch.py": ("paged_attention", "flash_attention"),
@@ -3787,6 +3827,11 @@ def dryrun_cells() -> dict:
                   and "live_bytes_per_device" in mem,
                   f"13b: the smollm multipod cell misses the dry run's "
                   f"bars: {row}")
+        if (arch, shape, mesh) in SERVE_TP_CELLS:
+            check(r["partitioned"] and (
+                mem["fits_hbm"] or (arch, shape, mesh) not in SERVE_TP_FIT),
+                f"13b: {arch} {shape} {mesh} is not split over 'model', "
+                f"or does not fit: {row}")
     return out
 
 
@@ -3864,6 +3909,296 @@ def dryrun_phases() -> dict:
     out["examples"] = phase("13c examples on the card", run_examples)
     out["autotune"] = phase("13d autotuner search", autotune_phase)
     return out
+
+
+# ----------------------------------------------------------------------------
+# phase 14: tensor-parallel serving (models/transformer.py's rank programs)
+# ----------------------------------------------------------------------------
+
+SERVE_TP_MODELS = ("qwen2-0.5b", OLMOE)
+SERVE_TP_BATCH, SERVE_TP_PROMPT, SERVE_TP_STEPS = 8, 1024, 32
+# 14b: internvl2-76b decode_32k's rank on the pod ("seq" layout: batch 128
+# over 16 "data" ranks, the 32768-deep sequence over 16 "model" ranks)
+SEQ_ROWS, SEQ_DEPTH, SEQ_SLICES = 8, 32768, 16
+# 14c: deepseek-7b prefill_32k's rank on the pod ("heads": 32 rows over 16
+# "data" ranks, 32 heads over 16 "model" ranks)
+K2_RANK = dict(B=2, H=2, D=128)
+
+
+def serve_tp_model(name: str, mesh) -> dict:
+    """Phase 14a for one model at full width and depth, bf16, seeded
+    weights: 8 prompts of 1024 tokens prefilled, then 32 greedy decode
+    steps through ``api.get_model(cfg).prefill`` / ``decode_step``, with
+    no mesh and then under ``mesh`` (1 x 1, NCCL) with the parameters cut
+    by ``param_specs`` and the rows by ``batch_specs``, as a rank of a
+    partitioned server: tokens and logits equal bitwise, K2 exactly L
+    launches a prefill, each path's decode step ms and busy share.  On
+    a "model" axis of one rank ``prefill`` and ``decode_step`` take the
+    plain path: the two runs are one code path, and their decode walls
+    its spread.  Returns the mesh run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api, transformer
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.trainer import shard_params
+
+    cfg = configs.get_config(name)
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_TP_BATCH, SERVE_TP_PROMPT))).cuda()
+    P, L = SERVE_TP_PROMPT, cfg.n_layers
+    runs, launches = {}, None
+    for path in ("plain", "mesh"):
+        pspec = tspec = None
+        if path == "mesh":
+            shard_params(cfg, params, mesh)
+            pspec = sharding.batch_specs(cfg, {"t": tokens}, mesh)["t"]
+            tspec = sharding.batch_specs(transformer.serving_cfg(cfg), {
+                "t": tokens[:, :1]}, mesh)["t"]
+        torch.cuda.empty_cache()
+        sharding.set_runtime_mesh(mesh if pspec else None, pspec)
+        try:
+            with torch.no_grad():
+                reset_counts()
+                t0 = time.perf_counter()
+                logits, cache = model.prefill(params, {"tokens": tokens},
+                                              max_len=P + SERVE_TP_STEPS)
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                k2 = read_counts()["flash_attention"]
+                sharding.set_runtime_mesh(mesh if pspec else None, tspec)
+                lgs, toks = [logits], []
+                t0 = time.perf_counter()
+                for i in range(SERVE_TP_STEPS):
+                    t = lgs[-1][:, -1].argmax(-1, keepdim=True)
+                    toks.append(t)
+                    logits, cache = model.decode_step(params, t, cache,
+                                                      P + i)
+                    lgs.append(logits)
+                torch.cuda.synchronize()
+                decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_TP_STEPS
+                counts = read_counts()
+                # the last step again (it rewrites its own row)
+                prof = device_profile(lambda: model.decode_step(
+                    params, toks[-1], cache, P + SERVE_TP_STEPS - 1), 3)
+        finally:
+            sharding.set_runtime_mesh(None)
+        runs[path] = {"logits": torch.cat(lgs, 1), "tokens": torch.cat(
+            toks, 1), "k2_prefill": k2, "prefill_ms": prefill_ms,
+            "decode_step_ms": decode_ms,
+            "decode_step_wall_ms": prof["step_wall_ms"],
+            "decode_device_ms": prof["device_ms"],
+            "decode_busy_share": prof["device_busy_share"]}
+        if path == "mesh":
+            launches = counts
+        del cache
+    a, b = runs["plain"], runs["mesh"]
+    same_tokens = torch.equal(a["tokens"], b["tokens"])
+    same_logits = torch.equal(a["logits"], b["logits"])
+    out = {"model": name, "layers": L, "mesh": [1, 1], "backend": "nccl",
+           "batch": SERVE_TP_BATCH, "prompt": P, "steps": SERVE_TP_STEPS,
+           "tokens_equal": same_tokens, "logits_bitwise": same_logits,
+           "finite": bool(torch.isfinite(b["logits"]).all()),
+           "launches": {k: v for k, v in launches.items() if v},
+           "card": gpu_name_power(),
+           "paths": {p: {k: v for k, v in r.items()
+                         if k not in ("logits", "tokens")}
+                     for p, r in runs.items()}}
+    print(f"[serve tp] {json.dumps(out)}")
+    check(out["finite"], f"14a {name}: a logit is not finite")
+    check(same_tokens and same_logits, f"14a {name}: the 1 x 1 mesh's "
+          "tokens or logits differ from the plain path's")
+    check(a["k2_prefill"] == b["k2_prefill"] == L, f"14a {name}: K2 "
+          f"launched {a['k2_prefill']} / {b['k2_prefill']} times a "
+          f"prefill, not {L}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_tp_entry_points() -> dict:
+    """Phase 14a: qwen2-0.5b and olmoe-1b-7b served through the entry
+    points with no mesh and on a 1 x 1 ("data", "model") mesh over NCCL
+    (world size 1: one card cannot host two NCCL ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        paths = {f"{n}_serve_tp": serve_tp_model(n, mesh)
+                 for n in SERVE_TP_MODELS}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return paths
+
+
+def seq_combine_check() -> dict:
+    """Phase 14b: the "seq" layout's combine at internvl2-76b's decode_32k
+    rank shape (8 rows, 64 heads and 8 KV heads of 128, bf16): the 16 key
+    slices' partials of a 32768-deep cache (``attention.decode_partials``)
+    combined by ``attention.combine_partials``, against the whole
+    sequence's attention (``attention.attend_decode``, what ``attn_decode``
+    runs), with pos inside the first slice (15 slices empty) and at the
+    end, at phase 2's bf16 bar."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import attention
+
+    cfg = configs.get_config("internvl2-76b")
+    B, H, Hkv, D = SEQ_ROWS, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(B, SEQ_DEPTH, Hkv, D, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    n = SEQ_DEPTH // SEQ_SLICES
+    out = {"shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "S": SEQ_DEPTH,
+                     "slices": SEQ_SLICES}, "attn_dtype": cfg.attn_dtype}
+    for pos in (n // 2, SEQ_DEPTH - 1):
+        visible = torch.arange(SEQ_DEPTH, device="cuda") <= pos
+        with torch.no_grad():
+            whole = attention.attend_decode(cfg, q, k, v, visible)
+
+            def split():
+                parts = [attention.decode_partials(
+                    cfg, q, k[:, i:i + n], v[:, i:i + n], visible[i:i + n])
+                    for i in range(0, SEQ_DEPTH, n)]
+                return attention.combine_partials(
+                    *(torch.stack(t) for t in zip(*parts)))
+
+            got = split()
+            torch.cuda.synchronize()
+            row = {"max_abs_err": max_err(got, whole),
+                   "err_over_tol": tol_ratio(got, whole, BF16_TOL),
+                   "finite": bool(torch.isfinite(got).all()),
+                   "empty_slices": int(sum(i > pos for i in
+                                           range(0, SEQ_DEPTH, n))),
+                   "ms_whole": time_ms(lambda: attention.attend_decode(
+                       cfg, q, k, v, visible), iters=5, warmup=1),
+                   "ms_slices_and_combine": time_ms(split, iters=5,
+                                                    warmup=1)}
+        out[f"pos_{pos}"] = row
+        print(f"[seq combine] pos {pos}: {json.dumps(row)}")
+        check(row["finite"] and row["err_over_tol"] <= 1, f"14b: the "
+              f"combine at pos {pos} is off its bar: {row}")
+    out["card"] = gpu_name_power()
+    return out
+
+
+def k2_rank_shape(report: dict) -> dict:
+    """Phase 14c: K2 at a head-parallel rank's shape, deepseek-7b
+    prefill_32k on the pod (2 rows, 2 of its 32 heads of 128, causal):
+    held to its plain version at S = 4096 in both compute dtypes, timed
+    (eager and graph-replayed) at S = 32768 beside SDPA; the times join
+    K2's report (``*_deepseek_rank_s32k``)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, H, D = K2_RANK["B"], K2_RANK["H"], K2_RANK["D"]
+
+    def qkv(S):
+        g = torch.Generator(device="cuda").manual_seed(S)
+        return tuple(torch.randn(B, H, S, D, generator=g, device="cuda")
+                     .to(torch.bfloat16) for _ in range(3))
+
+    q, k, v = qkv(4096)
+    out = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        got = fa.flash_attention(q, k, v, causal=True, compute_dtype=cdt)
+        want = ref.mha_attention(q, k, v, causal=True, compute_dtype=cdt)
+        tol = BF16_TOL
+        if cdt == torch.bfloat16:         # see BF16_COMPUTE_PV
+            pv = ref.mha_attention(q, k, v.abs(), causal=True,
+                                   compute_dtype=cdt).float()
+            tol = (BF16_COMPUTE_REL, BF16_COMPUTE_PV * pv + 1e-5)
+        torch.cuda.synchronize()
+        tag = "fp32" if cdt == torch.float32 else "bf16"
+        out[f"err_over_tol_{tag}"] = s = tol_ratio(got, want, tol)
+        out[f"max_abs_err_{tag}"] = max_err(got, want)
+        print(f"[K2 rank shape] deepseek B={B} H=Hkv={H} S=4096 D={D} "
+              f"compute {tag}: max_abs_err={out[f'max_abs_err_{tag}']:.3e} "
+              f"err/tol={s:.3f}")
+        check(s <= 1, f"14c: K2 at deepseek's rank shape (compute {tag}) "
+              "disagrees with its plain version")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    times = k2_shape_times("deepseek_rank_s32k", *qkv(32768), True)
+    # and 14a's prefill shapes (8 x 1024, causal), for the ranking
+    for name in SERVE_TP_MODELS:
+        cfg = configs.get_config(name)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        q, k, v = (torch.randn(SERVE_TP_BATCH, h, SERVE_TP_PROMPT,
+                               cfg.resolved_head_dim, generator=g,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        times.update(k2_shape_times(f"{name}_serve_tp", q, k, v, True))
+    report["flash_attention"].update(times)
+    out.update(times)
+    out["card"] = gpu_name_power()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_decode_vs_card() -> dict:
+    """Phase 14d: 13a extended by one serving cell, qwen2-0.5b's decode
+    step (batch 8 against a 1056-deep cache) on a 1 x 1 mesh, traced on
+    meta and run on the card inside the analyzer: FLOPs equal as
+    integers."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import api
+
+    cfg = configs.get_config("qwen2-0.5b")
+    mesh = Mesh((1, 1), ("data", "model"), [0], abstract_rank=0)
+    shape = api.ShapeCfg("qwen2_decode", SERVE_TP_PROMPT + SERVE_TP_STEPS,
+                         SERVE_TP_BATCH, "decode")
+    variant = dryrun.get_variant("production")
+    step, args, _ = dryrun.build_decode(cfg, mesh, variant)(shape)
+    meta, _ = dryrun.analyze_step(step, args)
+    del step, args
+    step, args, _ = dryrun.build_decode(cfg, mesh, variant,
+                                        device="cuda")(shape)
+    step()                                  # warm
+    torch.cuda.synchronize()
+    card, _ = dryrun.analyze_step(step, args)
+    torch.cuda.synchronize()
+    del step, args
+    torch.cuda.empty_cache()
+    out = {"model": cfg.name, "batch": SERVE_TP_BATCH,
+           "depth": shape.seq_len, "flops_meta": meta.flops,
+           "flops_card": card.flops, "bytes_meta": meta.bytes,
+           "bytes_card": card.bytes, "peak_predicted_bytes":
+               meta.peak_live_bytes, "card": gpu_name_power()}
+    print(f"[dryrun decode vs card] {json.dumps(out)}")
+    check(meta.flops == card.flops, f"14d: the decode step's FLOPs on "
+          f"meta {meta.flops} differ from the card's {card.flops}")
+    return out
+
+
+def serve_tp_phases(report: dict) -> dict:
+    """Phase 14; returns the launches of 14a's main paths."""
+    paths = phase("14a serve tp entry points", serve_tp_entry_points)
+    phase("14b seq combine", seq_combine_check)
+    phase("14c K2 at a head-parallel rank", k2_rank_shape, report)
+    phase("14d dry run decode vs card", dryrun_decode_vs_card)
+    return paths
 
 
 # ----------------------------------------------------------------------------
@@ -4087,6 +4422,9 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
         "mamba2_scan_bwd": {"zamba2_train": {"": None}},
         "rwkv6_scan_bwd": {"rwkv6_train": {"": None}}}
     split["flash_attention"]["qwen2_train_gspmd"] = {"_qwen2_train": None}
+    for name in SERVE_TP_MODELS:          # phase 14a, timed in 14c
+        split["flash_attention"][f"{name}_serve_tp"] = {
+            f"_{name}_serve_tp": None}
     split["flash_attention_bwd"]["qwen2_train_gspmd"] = {"": None}
     # olmoe: its engine's batch of 8 (K1) and longest prompt (K2), and the
     # training shapes
@@ -4150,6 +4488,9 @@ def main() -> int:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="the build and phase 13 (the dry run held against "
                          "the card, the examples, the autotuner) alone")
+    ap.add_argument("--serve-tp-only", action="store_true",
+                    help="the build, phase 2's kernel checks and phase 14 "
+                         "(tensor-parallel serving) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4194,6 +4535,13 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.serve_tp_only:
+        phase("2 kernels vs plain", run_kernel_checks, report)
+        paths = serve_tp_phases(report)
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+        print(f"[launches] {json.dumps(paths)}")
+        print(card)
+        return 0
     if args.dryrun_only:
         dryrun_phases()
         print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
@@ -4267,6 +4615,8 @@ def main() -> int:
     paths.update(moe_phases())
     # the dry run held against the card, the examples, the autotuner
     dryrun_phases()
+    # tensor-parallel serving: the entry points on a 1 x 1 mesh
+    paths.update(serve_tp_phases(report))
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")

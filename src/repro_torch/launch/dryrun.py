@@ -18,12 +18,17 @@ against one H100 (``core.hw.H100_SXM``):
     step's arguments are counted once; without ``donate`` the caller's
     copies of the parameters and moments stay live beside the new ones;
   * prefill and decode cells run the model's own entry points on the
-    rank's batch rows, its parameters sharded and gathered where a layer
-    reads them (``models.common.Params``).  The port's serving entry
-    points do not split a layer over "model" (JAX's partitioner does), so
-    these cells run the program the port has, and the JSON says so:
-    ``"partitioned": false`` (ROADMAP: tensor-parallel serving).  A decode
-    cell's state is the rank's rows of the whole cache.
+    rank's part of the batch (``batch_specs``: its rows, and its slice of
+    the sequence where the spec puts it over "model"), its parameters
+    sharded by ``param_specs``, a decode cell's state sharded by
+    ``decode_state_specs``.  The decoder families (dense, moe, vlm) run
+    their rank programs (``models/transformer.py``: heads, d_ff and
+    experts over "model", or the sequence); the recurrent and
+    encoder-decoder families still run each layer whole on every rank of
+    a "model" line, their sharded leaves gathered where a layer reads them
+    (``models.common.Params``), and their JSON says ``"partitioned":
+    false``.  The embedding and the LM head are read gathered; their bytes
+    are in the collectives (``all-gather``).
 
 The JSON keeps JAX's keys where their meaning holds.  There is no
 compile and no XLA cost analysis, so ``t_compile_s`` and ``cost_analysis``
@@ -54,7 +59,7 @@ from repro_torch.core import hw
 from repro_torch.core.apelink import protocol_efficiency
 from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import api
+from repro_torch.models import api, transformer
 from repro_torch.optim import AdamWConfig
 from repro_torch.parallel import sharding, spmd
 from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
@@ -212,13 +217,22 @@ def model_attn_flops(cfg, shape, *, decode: bool = False) -> float:
 # ----------------------------------------------------------------------------
 
 
+# the families whose serving entry points run a rank's part of the
+# partitioned program (models/transformer.py); the others take whole
+# sequences and states
+_TP_SERVING = ("dense", "moe", "vlm")
+
+
 def _rows(cfg, batch: dict, mesh) -> tuple[dict, tuple]:
-    """This rank's batch rows (the batch dim over the dividing DP-axis
-    prefix) and their spec; the serving entry points take whole
-    sequences."""
-    spec = (sharding.batch_specs(cfg, batch, mesh)["tokens"][0],)
-    return {k: spmd.shard(v, spec, mesh).clone()
-            for k, v in batch.items()}, spec
+    """This rank's part of the batch as ``batch_specs`` lays it out (the
+    batch dim over the dividing DP-axis prefix; under dp_only the
+    sequence over an idle "model" axis, for the families of
+    ``_TP_SERVING``) and the tokens' spec."""
+    specs = sharding.batch_specs(cfg, batch, mesh)
+    if cfg.family not in _TP_SERVING:
+        specs = {k: v[:1] for k, v in specs.items()}
+    return {k: spmd.shard(v, specs[k], mesh).clone()
+            for k, v in batch.items()}, tuple(specs["tokens"])
 
 
 def _serving(mesh, spec, fn):
@@ -267,7 +281,9 @@ def build_train(cfg, mesh, variant: Variant, *, device="meta"):
     return specs
 
 
-def build_prefill(cfg, mesh, variant: Variant):
+def build_prefill(cfg, mesh, variant: Variant, *, max_len=None):
+    """The prefill's rank program: ``specs(shape_name) -> (step, args,
+    spec)``, its cache ``max_len`` deep (default the prompt's length)."""
     model = api.get_model(cfg)
 
     def specs(shape_name):
@@ -275,9 +291,10 @@ def build_prefill(cfg, mesh, variant: Variant):
         params = weights.model_class(cfg)(cfg, device="meta")
         shard_params(cfg, params, mesh)
         local, spec = _rows(cfg, batch, mesh)
+        depth = max_len or shape.seq_len
         kw = ({} if cfg.family in ("rwkv6", "mamba2") else
-              {"max_len": shape.seq_len, "remat": False}
-              if cfg.family == "encdec" else {"max_len": shape.seq_len})
+              {"max_len": depth, "remat": False}
+              if cfg.family == "encdec" else {"max_len": depth})
         step = _serving(mesh, spec, lambda: model.prefill(params, local,
                                                           **kw))
         return step, (list(params.parameters()), local), spec
@@ -285,24 +302,37 @@ def build_prefill(cfg, mesh, variant: Variant):
     return specs
 
 
-def build_decode(cfg, mesh, variant: Variant):
-    # decode is weight-read-bound: JAX serves with TP-sharded params even
-    # for dp_only-trained archs, and so do the port's sharded leaves
-    if cfg.parallelism == "dp_only":
-        cfg = dataclasses.replace(cfg, parallelism="tp_dp")
+def build_decode(cfg, mesh, variant: Variant, *, device="meta"):
+    """The decode step's rank program: ``specs(shape) -> (step, args,
+    spec)`` for a shape's name or a ``ShapeCfg``; on ``device`` (meta, or
+    elsewhere with seeded weights, zero tokens and a zero cache)."""
+    cfg = transformer.serving_cfg(cfg)    # TP specs even under dp_only
     model = api.get_model(cfg)
 
-    def specs(shape_name):
-        shape = api.SHAPES[shape_name]
+    def specs(shape):
+        if isinstance(shape, str):
+            shape = api.SHAPES[shape]
         token = torch.empty((shape.global_batch, 1), dtype=api.TOKEN_DTYPE,
                             device="meta")
         local, spec = _rows(cfg, {"tokens": token}, mesh)
-        rows = local["tokens"].shape[0]
-        # the rank's rows of the whole state (every head, the whole
-        # sequence): the port's decode step takes no sharded cache
-        st = api.decode_input_specs(cfg, dataclasses.replace(
-            shape, global_batch=rows))["state"]
-        params = weights.model_class(cfg)(cfg, device="meta")
+        if cfg.family in _TP_SERVING:   # the rank's shard of the cache
+            st = api.decode_input_specs(cfg, shape)["state"]
+            sspecs = sharding.decode_state_specs(cfg, st, mesh,
+                                                 shape.global_batch)
+            st = {k: spmd.shard(v, sspecs[k], mesh).clone()
+                  for k, v in st.items()}
+        else:     # the rank's rows of the whole state
+            st = api.decode_input_specs(cfg, dataclasses.replace(
+                shape, global_batch=local["tokens"].shape[0]))["state"]
+        if device == "meta":
+            params = weights.model_class(cfg)(cfg, device="meta")
+        else:
+            params = model.init(torch.Generator(device).manual_seed(0))
+            local, st = ({k: torch.zeros(v.shape, dtype=v.dtype,
+                                         device=device)
+                          for k, v in t.items()} for t in (local, st))
+        if cfg.family in _TP_SERVING:   # the whole cache's depth
+            st["max_len"] = shape.seq_len
         shard_params(cfg, params, mesh)
         step = _serving(mesh, spec, lambda: model.decode_step(
             params, local["tokens"], st, shape.seq_len - 1))
@@ -337,16 +367,24 @@ def analyze_step(step, args, *, donate: bool = True):
     return ana.result, time.perf_counter() - t0
 
 
+# the collectives of the rank programs that split a layer over "model":
+# training's tensor- and sequence-parallel stack; serving's heads, d_ff
+# and experts (all-reduces "act", "expert"), the sequence (K/V gathered,
+# "kv") and a decode cache's slices (the log-sum-exp combine, "combine")
+_SPLIT_TAGS = {"train": ("act", "seq", "kv"),
+               "prefill": ("act", "expert", "kv"),
+               "decode": ("act", "expert", "combine")}
+
+
 def _partitioned(mesh, spec, kind: str) -> bool:
     """Whether the ranks of a "model" line split the step's layers: its
-    batch rows or sequence over "model", or the dense stack's tensor- or
-    sequence-parallel collectives ran."""
+    batch rows or sequence over "model", or a rank program's collectives
+    that split a layer ran (``_SPLIT_TAGS``)."""
     if mesh.shape.get("model", 1) == 1:
         return True
     if any("model" in sharding.spec_axes(e) for e in spec):
         return True
-    return kind == "train" and any(
-        tag in ("act", "seq", "kv") for _, tag in spmd.counts)
+    return any(tag in _SPLIT_TAGS[kind] for _, tag in spmd.counts)
 
 
 def roofline(flops: float, nbytes: float, link_bytes: float,

@@ -5,7 +5,11 @@ prefill computes ``ref.mha_attention``; here the same function goes through
 ``ops.flash_attention``, which runs the CUDA kernel K2 on the card and the
 plain version on the CPU.  ``attn_decode`` is one token against a dense
 (B, S_max, Hkv, hd) cache, inline PyTorch as the JAX version is inline
-jnp; unlike JAX it writes the new K/V row into the cache in place.  The
+jnp; unlike JAX it writes the new K/V row into the cache in place.  Under
+tensor-parallel serving it runs on a rank's heads (``w=``, ``heads=``, as
+``attn_full``); a rank that holds a slice of the cache's positions takes
+its slice's softmax partials (``decode_partials``), which are combined by
+their log-sum-exp (``combine_partials``).  The
 serving engine decodes through its paged pool instead (K1).
 ``attn_cross`` (the encoder-decoder family) is non-causal attention of the
 decoder's queries against the encoder's precomputed K/V, through the same
@@ -36,22 +40,26 @@ def init_attn(cfg: ArchCfg, gen, device) -> Params:
     return Params(**p)
 
 
+def qkv_products(cfg: ArchCfg, w, xq: torch.Tensor, xkv: torch.Tensor):
+    """xq @ wq, xkv @ wk and xkv @ wv, biases added, unsplit into heads;
+    ``w`` reads a weight by name."""
+    q, k, v = xq @ w("wq"), xkv @ w("wk"), xkv @ w("wv")
+    if cfg.qkv_bias:
+        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
+    return q, k, v
+
+
 def _project_qkv(cfg: ArchCfg, p: Params, xq: torch.Tensor,
                  xkv: torch.Tensor, *, w=None, heads=None):
     """q (B, Sq, H, hd), k and v (B, Skv, Hkv, hd).  ``w`` reads a weight
     by name (default ``p[name]``) and ``heads`` is the (H, Hkv) its
     weights give (default the config's): the tensor-parallel stack passes
     its rank's slices and head counts."""
-    w = w or p.__getitem__
     H, Hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
     hd = cfg.resolved_head_dim
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
-    q = xq @ w("wq")
-    k = xkv @ w("wk")
-    v = xkv @ w("wv")
-    if cfg.qkv_bias:
-        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
+    q, k, v = qkv_products(cfg, w or p.__getitem__, xq, xkv)
     q = q.reshape(B, Sq, H, hd)
     k = k.reshape(B, Skv, Hkv, hd)
     v = v.reshape(B, Skv, Hkv, hd)
@@ -120,43 +128,98 @@ def init_kv_cache(cfg: ArchCfg, batch: int, max_len: int, *, layers: int,
 
 def attn_decode(cfg: ArchCfg, p: Params, x: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, *,
-                freqs=None):
+                freqs=None, w=None, heads=None):
     """One-token decode against a dense cache.
 
     x: (B, 1, d); k_cache/v_cache: (B, S_max, Hkv, hd); pos: the index this
     token writes to (== the current context length).  The new K/V row is
     written into the caches IN PLACE (JAX returns updated copies); returns
-    (out, k_cache, v_cache) with the caches the same tensors."""
+    (out, k_cache, v_cache) with the caches the same tensors.  ``w`` and
+    ``heads`` as in ``attn_full`` (the head-parallel rank's slices: its
+    caches hold its KV heads, and ``out`` is its partial product with
+    wo)."""
+    w = w or p.__getitem__
     B = x.shape[0]
-    S_max = k_cache.shape[1]
-    hd = cfg.resolved_head_dim
-    q, k, v = _project_qkv(cfg, p, x, x)            # (B,1,H,hd)/(B,1,Hkv,hd)
-    if freqs is not None:
-        posb = torch.full((B, 1), pos, device=x.device)
-        q = apply_rope(q, posb, freqs)
-        k = apply_rope(k, posb, freqs)
+    q, k, v = _project_qkv(cfg, p, x, x, w=w, heads=heads)
+    if freqs is not None:                      # (B,1,H,hd)/(B,1,Hkv,hd)
+        q, k = rope_at(q, k, pos, freqs)
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    group = cfg.n_heads // cfg.n_kv_heads
-    visible = torch.arange(S_max, device=x.device) <= pos
+    visible = torch.arange(k_cache.shape[1], device=x.device) <= pos
+    out = attend_decode(cfg, q[:, 0], k_cache, v_cache, visible)
+    return out.to(x.dtype).reshape(B, 1, -1) @ w("wo"), k_cache, v_cache
+
+
+def rope_at(q: torch.Tensor, k: torch.Tensor, pos: int, freqs):
+    """RoPE on a decode step's q (B, 1, H, hd) and k (B, 1, Hkv, hd), both
+    at position ``pos``."""
+    posb = torch.full((q.shape[0], 1), pos, device=q.device)
+    return apply_rope(q, posb, freqs), apply_rope(k, posb, freqs)
+
+
+def _scores(cfg: ArchCfg, q, k_cache, v_cache, visible):
+    """The logits of q (B, H, hd) against a cache (B, S, Hkv, hd), -inf
+    where not ``visible``, and ``pv(probs)``: the (B, H, hd) fp32 product
+    with the values.  Under bf16 compute q * scale and the probabilities
+    are rounded to bf16, the cache is read in its own dtype and the
+    grouped-query products accumulate in fp32 (JAX's ``attn_decode``);
+    else fp32 with the KV heads repeated over their group."""
+    B, H, hd = q.shape
+    Hkv = k_cache.shape[2]
+    group = H // Hkv
     if compute_dtype(cfg) == torch.bfloat16:
-        # q*scale and the probabilities rounded to bf16, the cache read in
-        # its own dtype, grouped-query products accumulated in fp32
-        qf = (q[:, 0].float() * hd ** -0.5).to(torch.bfloat16).float()
-        q4 = qf.reshape(B, cfg.n_kv_heads, group, hd)
+        qf = (q.float() * hd ** -0.5).to(torch.bfloat16).float()
+        q4 = qf.reshape(B, Hkv, group, hd)
         logits = torch.einsum("bkgd,bskd->bkgs", q4, k_cache.float())
         logits = logits.masked_fill(~visible, float("-inf"))
-        probs = torch.softmax(logits, -1).to(torch.bfloat16).float()
-        out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
-        out = out.to(x.dtype).reshape(B, 1, -1)
-        return out @ p["wo"], k_cache, v_cache
-    qf = q[:, 0].float() * hd ** -0.5
+        return logits, lambda probs: torch.einsum(
+            "bkgs,bskd->bkgd", probs.to(torch.bfloat16).float(),
+            v_cache.float()).reshape(B, H, hd)
+    qf = q.float() * hd ** -0.5
     kf, vf = k_cache.float(), v_cache.float()
     if group > 1:
         kf = kf.repeat_interleave(group, dim=2)
         vf = vf.repeat_interleave(group, dim=2)
     logits = torch.einsum("bhd,bshd->bhs", qf, kf)
     logits = logits.masked_fill(~visible, float("-inf"))
-    probs = torch.softmax(logits, -1)
-    out = torch.einsum("bhs,bshd->bhd", probs, vf).to(x.dtype)
-    return out.reshape(B, 1, -1) @ p["wo"], k_cache, v_cache
+    return logits, lambda probs: torch.einsum("bhs,bshd->bhd", probs, vf)
+
+
+def attend_decode(cfg: ArchCfg, q, k_cache, v_cache, visible):
+    """q (B, H, hd) over the whole cache's ``visible`` positions: (B, H,
+    hd) fp32, one softmax over the sequence."""
+    logits, pv = _scores(cfg, q, k_cache, v_cache, visible)
+    return pv(torch.softmax(logits, -1))
+
+
+def decode_partials(cfg: ArchCfg, q, k_cache, v_cache, visible):
+    """``attend_decode`` over one slice of the positions: (o, m, l), o
+    (B, H, hd) fp32 the slice's own softmax applied to its values, m and l
+    (B, H) its largest logit and its sum of exp(logit - m).  A slice with
+    no visible position gives m = -inf, l = 0 and o = 0.  Under bf16
+    compute the slice's probabilities are rounded to bf16, where the whole
+    sequence's are (``attend_decode``): the two part by that rounding."""
+    logits, pv = _scores(cfg, q, k_cache, v_cache, visible)
+    m = logits.amax(-1)
+    e = torch.exp(logits - torch.where(torch.isfinite(m), m, 0)[..., None])
+    l = e.sum(-1)
+    o = pv(e / torch.where(l > 0, l, 1)[..., None])
+    B, H = q.shape[:2]
+    return o, m.reshape(B, H), l.reshape(B, H)
+
+
+def combine_partials(o, m, l, *, rmax=None, rsum=None):
+    """The whole sequence's decode attention from its slices' partials,
+    stacked on a leading dim (``decode_partials``): with m* the largest m,
+    o = sum_r e^(m_r - m*) l_r o_r / sum_r e^(m_r - m*) l_r.  ``rmax`` and
+    ``rsum`` reduce over the slices keeping that dim (default: over the
+    stack; a rank of a "model" line holding one slice passes the max and
+    sum all-reduces).  An empty slice weighs 0; a row with none visible
+    gives 0."""
+    rmax = rmax or (lambda t: t.amax(0, keepdim=True))
+    rsum = rsum or (lambda t: t.sum(0, keepdim=True))
+    top = rmax(m)
+    wgt = torch.exp(m - torch.where(torch.isfinite(top), top, 0)) * l
+    nd = rsum(torch.cat([wgt[..., None] * o, wgt[..., None]], -1))[0]
+    den = nd[..., -1:]
+    return nd[..., :-1] / torch.where(den > 0, den, 1)

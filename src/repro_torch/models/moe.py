@@ -28,7 +28,10 @@ expert's capacity buffer to the "model" rank that holds the expert (the
 expert weights stay in their "model" shards), runs its own experts and
 sends the outputs back (``parallel.spmd.all_to_all``, differentiable).
 ``apply_moe_global`` is the global dispatch under such a mesh: the rows
-gathered, dispatched together, this rank's rows kept.
+gathered, dispatched together, this rank's rows kept.  ``apply_moe_tp``
+is serving's (the decode step's capacity dispatch, and the dropless one):
+each rank runs the slots of its own experts for every token, and their
+contributions are summed over "model".
 """
 from __future__ import annotations
 
@@ -64,10 +67,13 @@ def _expert_counts(flat_e: torch.Tensor, E: int) -> torch.Tensor:
         .scatter_add_(0, flat_e, torch.ones_like(flat_e))
 
 
-def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int):
+def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int,
+                    experts: tuple[int, int] | None = None):
     """Route a token block xt (T, d): returns (buf (E*C, d), combine,
     probs (T, E), flat_e (T*K,)); ``combine(outbuf)`` gives the (T, d)
-    fp32 sum of each token's kept expert rows, weighted."""
+    fp32 sum of each token's kept expert rows, weighted.  ``experts``
+    (lo, hi) fills the slots of those experts alone (buf ((hi-lo)*C, d)),
+    and ``combine`` sums their rows alone."""
     T, d = xt.shape
     n = T * K
     dev = xt.device
@@ -85,14 +91,17 @@ def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int):
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(n, device=dev) - starts[sorted_e]
     keep = pos_in_e < C                                      # capacity mask
+    lo, hi = experts or (0, E)
+    if experts is not None:                  # the rows of those experts
+        keep = keep & (sorted_e >= lo) & (sorted_e < hi)
     # each sorted row's buffer slot; a dropped row reads slot i mod E*C,
     # masked below
-    slot = torch.where(keep, sorted_e * C + pos_in_e,
-                       torch.arange(n, device=dev) % (E * C))
+    slot = torch.where(keep, (sorted_e - lo) * C + pos_in_e,
+                       torch.arange(n, device=dev) % ((hi - lo) * C))
     # buffer slot (e, c) holds the c-th row routed to e, if there is one
     c = torch.arange(C, device=dev)
-    filled = (c[None, :] < counts[:, None]).reshape(-1, 1)
-    src = ((starts[:, None] + c[None, :]) % max(n, 1)).reshape(-1)
+    filled = (c[None, :] < counts[lo:hi, None]).reshape(-1, 1)
+    src = ((starts[lo:hi, None] + c[None, :]) % max(n, 1)).reshape(-1)
     xk = xt[:, None].expand(T, K, d).reshape(n, d)           # token k times
     buf = torch.where(filled, xk[order[src]], 0)
 
@@ -149,22 +158,50 @@ def apply_moe_global(cfg: ArchCfg, p: Params, x: torch.Tensor):
     return spmd.shard(y, (axes,), mesh), aux
 
 
+def apply_moe_tp(cfg: ArchCfg, p: Params, x: torch.Tensor, *,
+                 dropless: bool = False):
+    """``apply_moe`` (JAX's capacity dispatch of the decode step, or
+    serving's dropless one) as a rank program under the runtime mesh:
+    the capacity dispatch sees the global batch (the rows gathered over
+    the batch axes, this rank's kept after); every rank routes every
+    token with the router, fills and runs the capacity slots of its
+    E/|model| experts alone, from its "model" shard of each expert
+    tensor, and the experts' fp32 contributions are summed over "model"
+    (one all-reduce).  Where "model" does not split the experts, the
+    global dispatch (``apply_moe_global``; dropless: ``apply_moe``) with
+    the experts gathered where read."""
+    mesh = sharding.runtime_mesh()
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    tp = 1 if mesh is None else sharding.tp_size(mesh, cfg)
+    if tp <= 1 or E % tp:
+        if dropless or mesh is None:
+            return apply_moe(cfg, p, x, dropless=dropless)
+        return apply_moe_global(cfg, p, x)
+    rows = sharding.runtime_batch_spec()[0]
+    xg = x if dropless else spmd.all_gather(x, 0, mesh, rows, tag="moe")
+    B, S, d = xg.shape
+    T = B * S
+    C = T if dropless else capacity(cfg, T)
+    E_loc = E // tp
+    lo = mesh.axis_index("model") * E_loc
+    buf, combine, probs, flat_e = _local_dispatch(
+        cfg, xg.reshape(T, d), p["router"], K, E, C,
+        experts=(lo, lo + E_loc))
+    me = probs.mean(0)
+    ce = _expert_counts(flat_e, E).float() / (T * K)
+    aux = m.router_aux_weight * E * torch.sum(me * ce)
+    w = {k: spmd.tp_slice(p.local(k), 0, mesh)
+         for k in ("w_gate", "w_up", "w_down")}
+    out = _expert_ffn(buf.reshape(E_loc, C, d), w["w_gate"], w["w_up"],
+                      w["w_down"], x.dtype).reshape(E_loc * C, d)
+    y = spmd.all_reduce(combine(out), mesh, "model", tag="expert")
+    y = y.reshape(B, S, d).to(x.dtype)
+    return (y if dropless else spmd.shard(y, (rows,), mesh)), aux
+
+
 def _parts(mesh, entry) -> int:
     return math.prod(mesh.shape[a] for a in sharding.spec_axes(entry))
-
-
-def _relayout(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
-    """This rank's part of a tensor under spec ``src`` -> its part under
-    ``dst``: a dim whose entries differ is gathered over ``src``'s axes
-    (differentiable) and cut to ``dst``'s."""
-    for dim, (a, b) in enumerate(zip(src, dst)):
-        if sharding.spec_axes(a) == sharding.spec_axes(b):
-            continue
-        if a is not None:
-            x = spmd.all_gather(x, dim, mesh, a, tag="moe")
-        if b is not None:
-            x = spmd.shard(x, (None,) * dim + (b,), mesh)
-    return x
 
 
 def apply_moe_ep(cfg: ArchCfg, p: Params, x: torch.Tensor):
@@ -192,7 +229,7 @@ def apply_moe_ep(cfg: ArchCfg, p: Params, x: torch.Tensor):
     all_axes = tuple(dpx) + ("model",)
     n_all = _parts(mesh, all_axes)
     blk = (tuple(dpx) or None, "model")
-    xs = _relayout(x, src, blk, mesh)                 # this rank's block
+    xs = spmd.relayout(x, src, blk, mesh, "moe")     # this rank's block
     xt = xs.reshape(-1, d)
     buf, combine, probs, flat_e = _local_dispatch(cfg, xt, p["router"], K,
                                                   E, C)
@@ -217,4 +254,4 @@ def apply_moe_ep(cfg: ArchCfg, p: Params, x: torch.Tensor):
         .reshape(tp, E_loc * C, d)
     ret = spmd.all_to_all(back, 0, 0, mesh, "model", tag="moe")
     y = combine(ret.reshape(E * C, d)).reshape(xs.shape).to(x.dtype)
-    return _relayout(y, blk, src, mesh), aux
+    return spmd.relayout(y, blk, src, mesh, "moe"), aux

@@ -40,6 +40,7 @@ serving's dropless dispatch and the dense decode step stay global.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -86,19 +87,43 @@ def init_lm(cfg: ArchCfg, generator: torch.Generator) -> TransformerLM:
 
 
 def _mix(cfg: ArchCfg, lp: Block, h: torch.Tensor, *,
-         moe_dropless: bool = False, ep: bool = False) -> torch.Tensor:
+         moe_dropless: bool = False, ep: bool = False,
+         mode: str | None = None) -> torch.Tensor:
     """The feed-forward half of a layer, on the residual stream h; an MoE
     layer dispatches dropless when asked, else expert-parallel where
-    ``ep`` and the config say so (JAX's prefill), else globally (JAX's
-    decode step)."""
+    ``ep`` and the config say so (JAX's prefill), else with capacity
+    (JAX's decode step), each on the rank's experts under a mesh
+    (``moe.apply_moe_tp``).  ``mode`` is serving's under a mesh
+    (``_prefill_mode``): "heads" runs the MLP on the rank's d_ff slice
+    where d_ff divides; "kv" (h a slice of the sequence) sends the whole
+    sequence through an MoE layer and keeps the slice."""
     x2 = common.apply_norm(cfg, lp.ln2, h)
+    mesh = sharding.runtime_mesh()
     if cfg.moe is None:
-        return common.apply_mlp(cfg, lp.mlp, x2)
-    if moe_dropless:
-        return moe.apply_moe(cfg, lp.moe, x2, dropless=True)[0]
-    if ep and cfg.moe_impl == "ep_a2a":
+        tp = 1 if mode != "heads" else sharding.tp_size(mesh, cfg)
+        if tp <= 1 or cfg.d_ff % tp:
+            return common.apply_mlp(cfg, lp.mlp, x2)
+        return common.apply_mlp(cfg, lp.mlp, x2, w=_local(lp.mlp, mesh),
+                                reduce=_act_sum(mesh))
+    if mode == "kv":
+        s = x2.shape[1]
+        spec = sharding.runtime_batch_spec()
+        sharding.set_runtime_mesh(mesh, (spec[0], None))
+        try:
+            y = _mix_moe(cfg, lp, spmd.all_gather(x2, 1, mesh, "model",
+                                                  tag="seq"),
+                         moe_dropless, ep)
+        finally:
+            sharding.set_runtime_mesh(mesh, spec)
+        return y.narrow(1, mesh.axis_index("model") * s, s)
+    return _mix_moe(cfg, lp, x2, moe_dropless, ep)
+
+
+def _mix_moe(cfg: ArchCfg, lp: Block, x2: torch.Tensor, dropless: bool,
+             ep: bool) -> torch.Tensor:
+    if not dropless and ep and cfg.moe_impl == "ep_a2a":
         return moe.apply_moe_ep(cfg, lp.moe, x2)[0]
-    return moe.apply_moe(cfg, lp.moe, x2)[0]
+    return moe.apply_moe_tp(cfg, lp.moe, x2, dropless=dropless)[0]
 
 
 def _layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
@@ -265,10 +290,6 @@ def _tp_layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
     mesh = sharding.runtime_mesh()
     tp, dtype = mesh.shape["model"], h.dtype
 
-    def local(p):
-        return lambda name: spmd.tp_slice(
-            p.local(name), 0 if name in _ROW_PARALLEL else -1, mesh)
-
     def gather(x):
         return x if mode == "allreduce" else _seq_gather(x, mesh, mode)
 
@@ -277,12 +298,13 @@ def _tp_layer_fwd(cfg: ArchCfg, lp: Block, h: torch.Tensor, freqs,
 
     a, _ = attn.attn_full(cfg, lp.attn,
                           gather(common.apply_norm(cfg, lp.ln1, h)),
-                          freqs=freqs, causal=causal, w=local(lp.attn),
+                          freqs=freqs, causal=causal,
+                          w=_local(lp.attn, mesh),
                           heads=(cfg.n_heads // tp, cfg.n_kv_heads // tp))
     h = h + reduce(a)
     return h + common.apply_mlp(cfg, lp.mlp,
                                 gather(common.apply_norm(cfg, lp.ln2, h)),
-                                w=local(lp.mlp), reduce=reduce)
+                                w=_local(lp.mlp, mesh), reduce=reduce)
 
 
 def embed_inputs(cfg: ArchCfg, params: TransformerLM, batch: dict):
@@ -323,25 +345,66 @@ def prefill(cfg: ArchCfg, params: TransformerLM, batch: dict, *,
     own logits position for padded prompts].  ``moe_dropless`` forces the
     capacity-free MoE dispatch serving requires.
 
-    cache: {"k", "v"} of shape (L, B, max_len, Hkv, hd)."""
+    cache: {"k", "v"} of shape (L, B, max_len, Hkv, hd); under a runtime
+    mesh with a "model" axis of more than one rank, this rank's shard of
+    it as ``decode_state_specs`` lays it out, and "max_len", the whole
+    cache's depth, from which ``decode_step`` reads that layout."""
+    mesh = sharding.runtime_mesh()
+    rows, seq = sharding.runtime_batch_spec()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        mesh = None
+    if mesh is not None and seq is not None and "prefix_embeds" in batch:
+        # the prefix and the tokens come cut apart: the whole sequence
+        batch = dict(batch, **{k: spmd.all_gather(batch[k], 1, mesh, seq,
+                                                  tag="seq")
+                               for k in ("tokens", "prefix_embeds")})
+        seq = None
     h, _ = embed_inputs(cfg, params, batch)
-    B, S, _ = h.shape
+    sliced = mesh is not None and seq is not None
+    n = math.prod(mesh.shape[a] for a in sharding.spec_axes(seq)) \
+        if sliced else 1
+    B, S = h.shape[0], h.shape[1] * n        # S: the whole sequence
     # VLM prefix embeddings extend S beyond the token budget: the cache must
     # cover the full (prefix + tokens) context
     max_len = max(max_len or S, S)
     freqs = common.rope_freqs(cfg, h.device)
+    mode = _prefill_mode(cfg, mesh, S)
+    reduce, akw = (lambda a: a), {}
+    if mode == "heads":
+        tp = mesh.shape["model"]
+        akw["heads"] = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
+        reduce = _act_sum(mesh)
+    elif mode == "kv":             # this rank's slice of the sequence
+        s = S // mesh.shape["model"]
+        i0 = mesh.axis_index("model") * s
+        if not sliced:
+            h = h.narrow(1, i0, s)
+        akw["positions"] = (i0 + torch.arange(s, device=h.device))[None]
+        akw["kv"] = functools.partial(_gather_kv, mesh=mesh, causal=True)
     ks, vs = [], []
     for lp in params.layers:
         x = common.apply_norm(cfg, lp.ln1, h)
-        a, (k, v) = attn.attn_full(cfg, lp.attn, x, freqs=freqs, causal=True)
-        h = h + a
-        h = h + _mix(cfg, lp, h, moe_dropless=moe_dropless, ep=True)
-        pad = max_len - S
-        ks.append(torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)))
-        vs.append(torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)))
+        w = _local(lp.attn, mesh) if mode == "heads" else None
+        a, (k, v) = attn.attn_full(cfg, lp.attn, x, freqs=freqs, causal=True,
+                                   w=w, **akw)
+        h = h + reduce(a)
+        h = h + _mix(cfg, lp, h, moe_dropless=moe_dropless, ep=True,
+                     mode=mode)
+        ks.append(k)
+        vs.append(v)
     h = common.apply_norm(cfg, params.final_norm, h)
-    logits = common.lm_head(cfg, params.embed, h[:, -1:])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    last = h[:, -1:]
+    if mode == "kv":    # the last position is the last slice's
+        last = spmd.all_gather(last, 1, mesh, "model", tag="seq")[:, -1:]
+        if return_hidden:
+            h = spmd.all_gather(h, 1, mesh, "model", tag="seq")
+    logits = common.lm_head(cfg, params.embed, last)
+    src = (None, rows, "model" if mode == "kv" else None,
+           "model" if mode == "heads" else None, None)
+    cache = {"k": _cache_out(cfg, ks, src, B, S, max_len, mesh),
+             "v": _cache_out(cfg, vs, src, B, S, max_len, mesh)}
+    if mesh is not None:
+        cache["max_len"] = max_len
     if return_hidden:
         return logits, cache, h
     return logits, cache
@@ -351,7 +414,21 @@ def decode_step(cfg: ArchCfg, params: TransformerLM, token: torch.Tensor,
                 cache: dict, pos: int):
     """token: (B, 1) int; cache {"k", "v"}: (L, B, S_max, Hkv, hd); pos: the
     position this token writes to.  Returns (logits (B, 1, V), cache), the
-    cache written in place."""
+    cache written in place.
+
+    Under a runtime mesh with a "model" axis of more than one rank, token
+    holds this rank's rows and the cache its shard as
+    ``decode_state_specs`` lays out a cache of depth ``cache["max_len"]``
+    (for the serving config: TP specs even under dp_only, as JAX's dry run
+    serves; ``prefill`` returns it so): attention runs on the
+    rank's KV heads ("heads"), or every head on the rank's slice of the
+    positions with the slices' log-sum-exp combined ("seq"); any other
+    layout is gathered over "model" where a layer reads it and cut back
+    after.  The MLP runs on the rank's d_ff slice where d_ff divides, an
+    MoE layer on the rank's experts (``moe.apply_moe_tp``)."""
+    mesh = sharding.runtime_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return _decode_tp(serving_cfg(cfg), params, token, cache, pos, mesh)
     h = common.embed_tokens(params.embed, token)
     freqs = common.rope_freqs(cfg, h.device)
     for i, lp in enumerate(params.layers):
@@ -360,5 +437,206 @@ def decode_step(cfg: ArchCfg, params: TransformerLM, token: torch.Tensor,
                                    cache["v"][i], pos, freqs=freqs)
         h = h + a
         h = h + _mix(cfg, lp, h)
+    h = common.apply_norm(cfg, params.final_norm, h)
+    return common.lm_head(cfg, params.embed, h), cache
+
+
+# ----------------------------------------------------------------------------
+# serving under a mesh: prefill and decode_step as one rank's part of JAX's
+# partitioned program (its in_shardings: param_specs, batch_specs,
+# decode_state_specs).  Each rank holds its shards; a decode cache is laid
+# out by decode_state_specs:
+#
+#   "heads": (L, B/dp, S, Hkv/tp, hd)  this rank's heads: q/k/v from its
+#            column slices, out @ wo's rows --AR--> ; MLP on its d_ff
+#            slice --AR-->
+#   "seq":   (L, B/dp, S/tp, Hkv, hd)  every head: q/k/v column slices
+#            --AG-->, the rank's keys -> (o, m, l) --AR max, AR sum-->
+#            combined o, its columns @ wo's rows --AR--> ; MLP as above
+#
+# prefill returns its cache in that layout, with the whole cache's depth
+# ("max_len"), which is what names the layout (a rank's shard alone does
+# not: a slice of a deep cache has the shape of a shallow whole one):
+# "heads" straight from the rank's heads; "kv" (the sequence over
+# "model", from the batch spec under dp_only or where the KV heads do not
+# divide) the rank's slice of K/V, moved to its slice of max_len where
+# that is deeper; anything else re-laid by spmd.relayout, a layer at a
+# time.
+# ----------------------------------------------------------------------------
+
+def serving_cfg(cfg: ArchCfg) -> ArchCfg:
+    """The config a decode step runs under a mesh: JAX serves with
+    TP-sharded parameters even for dp_only-trained archs (its dry run's
+    ``build_decode``), since decode is weight-read-bound."""
+    if cfg.parallelism == "dp_only":
+        return dataclasses.replace(cfg, parallelism="tp_dp")
+    return cfg
+
+
+def _prefill_mode(cfg: ArchCfg, mesh, S: int) -> str | None:
+    """How prefill runs under the registered mesh (None: no mesh, or a
+    "model" axis of one rank): None (the plain layers on this rank's rows,
+    sharded leaves gathered where read), "heads" (attention on the rank's
+    heads, the MLP on its d_ff slice where d_ff divides, an MoE layer on
+    its experts) or "kv" (the plain layers on the rank's slice of the
+    sequence, K/V gathered a layer: the batch spec puts the sequence over
+    "model", or the KV heads do not divide and S does).  S is the whole
+    sequence, VLM prefix included."""
+    if mesh is None or cfg.n_heads == 0:
+        return None
+    batch, seq = (sharding.spec_axes(e)
+                  for e in sharding.runtime_batch_spec())
+    if "model" in seq:
+        return "kv"
+    tp = sharding.tp_size(mesh, cfg)
+    if "model" in batch or tp <= 1:
+        return None    # the ranks of a "model" line hold other rows
+    if not (cfg.n_heads % tp or cfg.n_kv_heads % tp):
+        return "heads"
+    return None if S % tp else "kv"
+
+
+def _local(p, mesh):
+    """A weight getter of this rank's slices: column-parallel weights by
+    their output dim, row-parallel ones by their input dim."""
+    return lambda name: spmd.tp_slice(
+        p.local(name), 0 if name in _ROW_PARALLEL else -1, mesh)
+
+
+def _act_sum(mesh):
+    """The sum over "model" of a row-parallel product's partials."""
+    return functools.partial(spmd.all_reduce, mesh=mesh, entry="model",
+                             tag="act")
+
+
+def _cache_out(cfg: ArchCfg, ts: list, src: tuple, B: int, S: int,
+               max_len: int, mesh) -> torch.Tensor:
+    """The layers' K or V, each (rows, S, Hkv, hd) as prefill computed it
+    under spec ``src`` (its first entry the layers'), padded to
+    ``max_len`` and laid out as the decode step takes it: (L, ...) this
+    rank's shard.  One layer at a time, so that a rank holds no more than
+    one layer's whole sequence beside its shards."""
+    pad = (0, 0, 0, 0, 0, max_len - S)
+    if mesh is None:
+        return torch.nn.functional.pad(torch.stack(ts), pad)
+    rows, seq, heads = src[1:4]
+    Bg = B * math.prod(mesh.shape[a] for a in sharding.spec_axes(rows))
+    _, dst = sharding.cache_layout(serving_cfg(cfg), mesh, Bg, max_len)
+    idx, n = spmd.axis_index(mesh, dst[0])      # the layers this rank keeps
+    per = len(ts) // n
+    out = None
+    for i, t in enumerate(ts):
+        at = seq
+        if seq is not None and (max_len != S or sharding.spec_axes(dst[2])
+                                != sharding.spec_axes(seq)):
+            t, at = spmd.all_gather(t, 1, mesh, seq, tag="cache"), None
+        if at is None and max_len != S:
+            t = torch.nn.functional.pad(t, pad)
+        t = spmd.relayout(t, (rows, at, heads), dst[1:], mesh, tag="cache")
+        if i // per == idx:      # copied out of the whole layer it cuts
+            if out is None:
+                out = t.new_empty((per,) + tuple(t.shape))
+            out[i % per].copy_(t)
+    return out
+
+
+def _attn_seq(cfg: ArchCfg, lp: Block, x: torch.Tensor, kc: torch.Tensor,
+              vc: torch.Tensor, pos: int, freqs, mesh) -> torch.Tensor:
+    """The "seq" layout's attention in a decode step, kc and vc (B, S,
+    Hkv, hd) this rank's slice of the positions: every head's q, k and v
+    (where the heads' widths divide "model", from the rank's column slices
+    of wq, wk and wv, the three products gathered at once); the new row
+    written by the rank whose slice holds ``pos``; the slice's softmax
+    partials combined over "model" (a max and a sum all-reduce); and the
+    product with wo (where the widths divide, with the rank's rows of it,
+    a partial summed over "model")."""
+    tp, idx = mesh.shape["model"], mesh.axis_index("model")
+    B, S = x.shape[0], kc.shape[1]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if not 0 <= pos < S * tp:
+        raise IndexError(f"decode position {pos} is past a cache of "
+                         f"{S * tp}")
+    split = not (H * hd % tp or Hkv * hd % tp)
+    w = _local(lp.attn, mesh) if split else lp.attn.__getitem__
+    q, k, v = attn.qkv_products(cfg, w, x, x)
+    if split:
+        nq, nqk = q.shape[-1], q.shape[-1] + k.shape[-1]
+        parts = spmd.all_gather(torch.cat([q, k, v], -1)[..., None, :], -2,
+                                mesh, "model", tag="qkv")
+        q, k, v = (parts[..., nq0:nq1].flatten(-2)
+                   for nq0, nq1 in ((0, nq), (nq, nqk), (nqk, None)))
+    q, k, v = (q.reshape(B, 1, H, hd), k.reshape(B, 1, Hkv, hd),
+               v.reshape(B, 1, Hkv, hd))
+    if freqs is not None:
+        q, k = attn.rope_at(q, k, pos, freqs)
+    start = idx * S
+    if start <= pos < start + S:
+        kc[:, pos - start] = k[:, 0].to(kc.dtype)
+        vc[:, pos - start] = v[:, 0].to(vc.dtype)
+    visible = start + torch.arange(S, device=x.device) <= pos
+    o, m, l = attn.decode_partials(cfg, q[:, 0], kc, vc, visible)
+    o = attn.combine_partials(
+        o[None], m[None], l[None],
+        rmax=lambda t: spmd.all_reduce_max(t, mesh, "model", tag="combine"),
+        rsum=lambda t: spmd.all_reduce(t, mesh, "model", tag="combine"))
+    o = o.to(x.dtype).reshape(B, 1, -1)
+    if not split:
+        return o @ w("wo")
+    c = o.shape[-1] // tp
+    return _act_sum(mesh)(o.narrow(-1, idx * c, c) @ w("wo"))
+
+
+def _decode_tp(cfg: ArchCfg, params: TransformerLM, token: torch.Tensor,
+               cache: dict, pos: int, mesh):
+    """``decode_step``'s rank program on a "model" axis of tp > 1 ranks."""
+    tp = mesh.shape["model"]
+    rows = sharding.runtime_batch_spec()[0]
+    B = token.shape[0] * math.prod(mesh.shape[a]
+                                   for a in sharding.spec_axes(rows))
+    if "max_len" not in cache:
+        raise ValueError("decode_step under a mesh takes the cache that "
+                         "prefill returns there, with its depth (max_len)")
+    layout, spec = sharding.cache_layout(cfg, mesh, B, cache["max_len"])
+    whole = (cfg.n_layers, B, cache["max_len"], cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    local = tuple(d // spmd.axis_index(mesh, e)[1]
+                  for d, e in zip(whole, spec))
+    if tuple(cache["k"].shape) != local:
+        raise ValueError(f"decode_step: a cache shard of shape "
+                         f"{tuple(cache['k'].shape)}, where decode_state_"
+                         f"specs gives {local}")
+    want = sharding.P(None, rows, None, None, None)   # every head, every key
+    work = cache
+    if layout == "other" and spec[0] is not None:     # the layers split
+        work = {n: spmd.relayout(cache[n], spec, want, mesh, tag="cache")
+                for n in ("k", "v")}
+    act = _act_sum(mesh)
+    h = common.embed_tokens(params.embed, token)
+    freqs = common.rope_freqs(cfg, h.device)
+    for i, lp in enumerate(params.layers):
+        x = common.apply_norm(cfg, lp.ln1, h)
+        kc, vc = work["k"][i], work["v"][i]
+        if layout == "heads":
+            a = act(attn.attn_decode(
+                cfg, lp.attn, x, kc, vc, pos, freqs=freqs,
+                w=_local(lp.attn, mesh),
+                heads=(cfg.n_heads // tp, cfg.n_kv_heads // tp))[0])
+        elif layout == "seq":
+            a = _attn_seq(cfg, lp, x, kc, vc, pos, freqs, mesh)
+        else:          # every head on every key, the layer's cache gathered
+            lay = work is cache and layout == "other"
+            if lay:
+                kc, vc = (spmd.relayout(t, spec[1:], want[1:], mesh,
+                                        tag="cache") for t in (kc, vc))
+            a = attn.attn_decode(cfg, lp.attn, x, kc, vc, pos,
+                                 freqs=freqs)[0]
+            if lay:
+                for t, full in ((work["k"][i], kc), (work["v"][i], vc)):
+                    t.copy_(spmd.relayout(full, want[1:], spec[1:], mesh))
+        h = h + a
+        h = h + _mix(cfg, lp, h, mode="heads")
+    if work is not cache:
+        for n in ("k", "v"):
+            cache[n].copy_(spmd.relayout(work[n], want, spec, mesh))
     h = common.apply_norm(cfg, params.final_norm, h)
     return common.lm_head(cfg, params.embed, h), cache

@@ -279,6 +279,32 @@ def decode_state_specs(cfg, state_shapes, mesh, global_batch: int):
     return tree_map_with_path(one, state_shapes)
 
 
+class _Shape:
+    def __init__(self, shape) -> None:
+        self.shape = tuple(shape)
+
+
+def cache_layout(cfg, mesh, global_batch: int, max_len: int):
+    """How ``decode_state_specs`` lays a decoder's dense cache (L, B,
+    max_len, Hkv, hd) out: (layout, spec), the layout "heads" (the KV
+    heads over "model"), "seq" (the sequence over "model"), None (nothing
+    but the batch split) or "other" (the spec falls on B or L, or puts
+    another axis on the sequence)."""
+    shape = (cfg.n_layers, global_batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    spec = P(*decode_state_specs(cfg, {"k": _Shape(shape)}, mesh,
+                                 global_batch)["k"])
+    rest = spec[:1] + spec[2:]
+    if "model" not in spec_axes(spec[1]):
+        for name, at in (("heads", 3), ("seq", 2)):
+            if rest == tuple("model" if i == at else None
+                             for i in (0, 2, 3, 4)):
+                return name, spec
+        if not any(rest):
+            return None, spec
+    return "other", spec
+
+
 # ----------------------------------------------------------------------------
 # runtime mesh registry: models are functions of (cfg, params, batch), but
 # the GSPMD trainer's per-rank programs need the ambient mesh — the dense

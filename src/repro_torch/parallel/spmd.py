@@ -13,6 +13,10 @@ gradient of the sum of the ranks' objectives:
   * ``all_reduce``     (sum)                      <->  ``all_reduce``
   * ``all_to_all``     (split one dim, concatenate another) <-> its inverse
 
+``all_reduce_max`` (the element-wise maximum: serving's log-sum-exp
+combine over the slices of a decode cache) has no adjoint and raises
+under grad.
+
 A collective over several axes (an entry of a spec such as
 ``("data", "model")``) runs on the group of those axes, the first axis the
 major one, as JAX lays a dimension over several axes.  On a line of one
@@ -28,7 +32,8 @@ the dry run's) a collective moves nothing: it takes meta tensors only
 reports its kind (JAX's HLO names: "all-gather", "reduce-scatter",
 "all-reduce", "all-to-all"), operand, result and group size to every sink
 in ``collective_sinks`` (``launch/op_analysis.py``'s).  ``shard`` / ``unshard`` cut a global tensor to
-this rank's part of a spec and gather it back; ``gather_param`` is what a
+this rank's part of a spec and gather it back, and ``relayout`` takes a
+part under one spec to the part under another; ``gather_param`` is what a
 model's parameter access (``models.common.Params``) runs for a leaf the
 trainer holds sharded; ``tp_slice`` gives this rank's 1/|model| slice of a
 weight along one dim for the tensor-parallel layers, from whatever layout
@@ -111,11 +116,11 @@ def _scatter(x, dim, group, n):
     return out.movedim(0, dim)
 
 
-def _reduce(x, group):
+def _reduce(x, group, op=dist.ReduceOp.SUM):
     if isinstance(group, AbstractGroup):
         return _abstract("all-reduce", x, x.shape, group)
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -228,6 +233,20 @@ def all_reduce(x, mesh, entry, tag: str = ""):
     return _AllReduce.apply(x, group, tag)
 
 
+def all_reduce_max(x, mesh, entry, tag: str = ""):
+    """The element-wise maximum of ``x`` over the axes of ``entry``,
+    counted as ("all_reduce_max", tag).  It has no adjoint: serving takes
+    no gradient, and a tensor that requires one under grad raises."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("all_reduce_max has no gradient: call it under "
+                           "torch.no_grad()")
+    group, n = _group(mesh, entry)
+    if n == 1:
+        return x
+    _count("all_reduce_max", tag)
+    return _reduce(x, group, dist.ReduceOp.MAX)
+
+
 def all_to_all(x, split_dim: int, concat_dim: int, mesh, entry,
                tag: str = ""):
     """Split ``x`` along ``split_dim`` into one part a rank of ``entry``'s
@@ -270,6 +289,21 @@ def unshard(t: torch.Tensor, spec, mesh, tag: str = "") -> torch.Tensor:
         if entry is not None:
             t = all_gather(t, dim, mesh, entry, tag)
     return t
+
+
+def relayout(x: torch.Tensor, src, dst, mesh, tag: str = "") -> torch.Tensor:
+    """This rank's part of a tensor under spec ``src`` -> its part under
+    ``dst``: a dim whose entries differ is gathered over ``src``'s axes
+    (differentiable) and cut to ``dst``'s."""
+    src, dst = _padded(src, x.dim()), _padded(dst, x.dim())
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if sharding.spec_axes(a) == sharding.spec_axes(b):
+            continue
+        if a is not None:
+            x = all_gather(x, dim, mesh, a, tag)
+        if b is not None:
+            x = shard(x, (None,) * dim + (b,), mesh)
+    return x
 
 
 def gather_param(p: torch.Tensor) -> torch.Tensor:

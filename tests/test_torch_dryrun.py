@@ -383,3 +383,69 @@ def test_partitioned_train_cell_runs_tensor_parallel():
     assert out["memory_analysis"]["fits_hbm"] is False
     assert out["n_params"] == japi.param_count(
         jconfigs.get_config("deepseek-7b"))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "internvl2-76b",
+                                  "moonshot-v1-16b-a3b", "olmoe-1b-7b"])
+def test_pod_decode_cells_are_partitioned_and_fit(arch):
+    """decode_32k on the pod (batch 128, 32768 deep): each rank holds its
+    ``decode_state_specs`` shard of the cache (deepseek, moonshot and
+    olmoe their KV heads, internvl2 its slice of the sequence) and its
+    experts, and the step splits its layers over "model"; the three cells
+    that did not fit 80 GB with every head a rank now fit."""
+    out = dryrun.run_cell(arch, "decode_32k", "pod",
+                          dryrun.get_variant("baseline"))
+    assert out["partitioned"] is True
+    assert out["memory_analysis"]["fits_hbm"] is True
+    assert out["memory_analysis"]["live_bytes_per_device"] < 20e9
+    kinds = out["collectives"]
+    assert kinds["all-reduce"]["count"] >= 2 * configs.get_config(
+        arch).n_layers
+
+
+def test_qwen2_prefill_cell_is_partitioned_through_the_sequence():
+    """qwen2-0.5b's 2 KV heads do not divide the pod's 16-way "model"
+    axis: prefill_32k runs each rank on its 2048 positions, K/V gathered a
+    layer; as shipped (dp_only) the batch spec itself cuts the sequence."""
+    for variant in ("baseline", "production"):
+        spmd.reset_counts()
+        out = dryrun.run_cell("qwen2-0.5b", "prefill_32k", "pod",
+                              dryrun.get_variant(variant))
+        assert out["partitioned"] is True
+        assert spmd.counts[("all_gather", "kv")] == 24
+        assert ("all_reduce", "act") not in spmd.counts
+
+
+def test_deepseek_prefill_cell_is_partitioned_over_heads():
+    spmd.reset_counts()
+    out = dryrun.run_cell("deepseek-7b", "prefill_32k", "pod",
+                          dryrun.get_variant("baseline"))
+    assert out["partitioned"] is True
+    assert spmd.counts[("all_reduce", "act")] == 2 * 30
+    assert out["kernels"]["flash_attention"]["count"] == 30
+
+
+def test_prefill_into_a_deeper_cache_relays_it_a_layer_at_a_time():
+    """internvl2-76b's prefill_32k on the pod into a 65536-deep cache: the
+    rank computes its 2048 positions (the KV heads do not divide "model")
+    and each layer's K and V move to the rank's 4096 positions of the
+    deeper cache one layer at a time.  The peak grows by no more than the
+    two cache shards' growth and two layers' whole sequence; gathering the
+    whole stack of K over the rank's rows at that depth would take 21.5 GB
+    more."""
+    cfg = configs.get_config("internvl2-76b")
+    mesh = make_production_mesh(multi_pod=False, abstract=True)
+    peaks = []
+    for depth in (None, 65536):
+        spmd.reset_counts()
+        step, args, _ = dryrun.build_prefill(
+            cfg, mesh, dryrun.get_variant("baseline"),
+            max_len=depth)("prefill_32k")
+        peaks.append(dryrun.analyze_step(step, args)[0].peak_live_bytes)
+    assert spmd.counts[("all_gather", "cache")] == 2 * cfg.n_layers
+    rows = api.SHAPES["prefill_32k"].global_batch // mesh.shape["data"]
+    layer = rows * 65536 * cfg.n_kv_heads * cfg.resolved_head_dim \
+        * cfg.dtype.itemsize
+    growth = 2 * cfg.n_layers * layer // 2 // mesh.shape["model"]
+    assert cfg.n_layers * layer > 21e9
+    assert peaks[1] - peaks[0] <= growth + 2 * layer

@@ -17,12 +17,14 @@ the JAX package — run as subprocesses by ``test_torch_collectives.py`` and
     # for RANK in 0..7
     # the expert-parallel MoE layer (jax-ep OUT, rank-ep OUT RANK 8
     # STORE_FILE) and the sharded attention wrappers (jax-sharded,
-    # rank-sharded), likewise
+    # rank-sharded), likewise; tensor-parallel serving: jax-serve_tp OUT
+    # PART for PART in 0, 1, rank-serve_tp OUT RANK 8 STORE_FILE
 
 Both sides draw their inputs from the same numpy seeds and write what they
 computed to ``OUT`` (``.npz`` / ``.json``); the tests compare the files.
 The port's side imports no JAX, the JAX side no torch.
 """
+import functools
 import json
 import os
 import sys
@@ -96,7 +98,7 @@ def wait_for(path: str, timeout: float = 600.0) -> str:
 def launch(mode: str, out_dir: str, *, world: int = 8,
            timeout: float = 600.0, jax: bool = True) -> None:
     """Run the JAX reference of ``mode`` ("collectives", "trainer",
-    "gspmd", "ep" or "sharded"; none with ``jax=False``) and the port's ``world`` gloo ranks side by side; raise with
+    "gspmd", "ep", "sharded" or "serve_tp"; none with ``jax=False``) and the port's ``world`` gloo ranks side by side; raise with
     the logs if any process fails."""
     import subprocess
     import tempfile
@@ -107,8 +109,9 @@ def launch(mode: str, out_dir: str, *, world: int = 8,
         "--xla_force_host_platform_device_count=8"))
     me = os.path.abspath(__file__)
     store = os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
-    parts = [[str(i)] for i in range(len(GSPMD_JAX_PARTS))] \
-        if mode == "gspmd" else [[]] if jax else []
+    n = {"gspmd": len(GSPMD_JAX_PARTS), "serve_tp": SERVE_JAX_PARTS}
+    parts = [[str(i)] for i in range(n[mode])] if mode in n \
+        else [[]] if jax else []
     procs = [subprocess.Popen(
         [sys.executable, me, f"jax-{mode}", out_dir] + part, env=jax_env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -1171,6 +1174,272 @@ def rank_ep_step(out_dir: str, rank: int, world: int, store: str):
     dist.destroy_process_group()
 
 
+# ----------------------------------------------------------------------------
+# tensor-parallel serving (prefill, then greedy decode steps) over ("data",
+# "model") meshes: JAX's prefill and decode_step jitted with its dry run's
+# in_shardings (param_specs, batch_specs, decode_state_specs), and unsharded
+# ----------------------------------------------------------------------------
+
+SERVE_MESHES = ((8, 1), (4, 2), (2, 4))
+SERVE_STEPS = 8
+SERVE_PROMPT = 8
+
+
+def serve_cfgs(configs_mod, ArchCfg, dtype):
+    """{tag: (cfg, batch, meshes, max_len)}: TINY, manual_sp_check.py's
+    deepseek, the reduced qwen2 (dp_only, batch 4: its prefill takes the
+    sequence over "model"), the reduced olmoe with the global dispatch and
+    as configured (``ep_a2a``) and the reduced internvl2 (vlm: 4 prefix
+    embeddings before the prompt; fp32 attention) on every mesh, with a
+    32-deep cache (4 slices of 8 where "model" is 4: the first decode
+    steps leave the last two empty); TINY on (2, 4) with a 24-deep cache
+    (slices of 6, shallower than the 8-token prompt) and a 48-deep one
+    (slices of 12, the prompt inside the first): a "seq" shard whose depth
+    alone would pass for a whole cache's; ODD (1 KV head) with a 17-deep cache
+    on (4, 2), where ``decode_state_specs`` puts the batch over "model" at
+    batch 2 and, at batch 4 (the batch over "data"), the layers (the
+    "other" layout); and the reduced internvl2 as
+    configured (bf16 attention) on (2, 4), where the "seq" layout's split
+    softmax rounds its probabilities slice by slice (``SERVE_FORCED``).
+    The order is the port's; the JAX processes take alternate tags."""
+    import dataclasses
+
+    def reduced(name, **kw):
+        return dataclasses.replace(configs_mod.get_reduced(name), **kw,
+                                   dtype=dtype)
+
+    return {
+        "tiny": (ArchCfg(**TINY, dtype=dtype), 8, SERVE_MESHES, 32),
+        "tiny24": (ArchCfg(**TINY, dtype=dtype), 8, ((2, 4),), 24),
+        "tiny48": (ArchCfg(**TINY, dtype=dtype), 8, ((2, 4),), 48),
+        "olmoe": (reduced("olmoe-1b-7b", moe_impl="global"), 8,
+                  SERVE_MESHES, 32),
+        "dsk": (reduced("deepseek-7b", **DSK), 8, SERVE_MESHES, 32),
+        "olmoe-ep": (reduced("olmoe-1b-7b"), 8, SERVE_MESHES, 32),
+        "qwen": (reduced("qwen2-0.5b"), 4, SERVE_MESHES, 32),
+        "vlm": (reduced("internvl2-76b", attn_dtype="f32"), 8,
+                SERVE_MESHES, 32),
+        "odd": (ArchCfg(**ODD, dtype=dtype), 2, ((4, 2),), 17),
+        "oddl": (ArchCfg(**ODD, dtype=dtype), 4, ((4, 2),), 17),
+        "vlm-bf16": (reduced("internvl2-76b"), 8, ((2, 4),), 32),
+    }
+
+
+# JAX's processes (run side by side): alternate tags of serve_cfgs
+SERVE_JAX_PARTS = 2
+# the cases fed the JAX run's greedy tokens (teacher forcing), where the
+# port's split softmax parts from the reference by bf16 rounding and a
+# near-tie can flip a token
+SERVE_FORCED = ("vlm-bf16",)
+
+
+def serve_batch(cfg, batch: int) -> dict:
+    """The prompt (and a VLM's prefix embeddings), from one seed."""
+    rng = np.random.default_rng(7)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, SERVE_PROMPT))
+           .astype(np.int32)}
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = rng.normal(
+            size=(batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve_context(cfg) -> int:
+    """The prompt's positions: the first decode step writes there."""
+    return SERVE_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+
+
+def jax_serve_tp(out_dir: str, part: int) -> None:
+    import contextlib
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro import configs as jconfigs
+    from repro.launch.mesh import make_mesh
+    from repro.models import api
+    from repro.models.common import ArchCfg
+    from repro.parallel import sharding
+
+    assert jax.device_count() == 8, jax.device_count()
+
+    def flat(tree):
+        leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+        return {"/".join(str(getattr(p, "key", p)) for p in path):
+                np.asarray(leaf) for path, leaf in leaves}
+
+    cfgs = serve_cfgs(jconfigs, ArchCfg, jnp.float32)
+    for tag in list(cfgs)[part::SERVE_JAX_PARTS]:
+        cfg, B, meshes, max_len = cfgs[tag]
+        # JAX's build_decode: TP specs for the decode step even under
+        # dp_only
+        dcfg = dataclasses.replace(cfg, parallelism="tp_dp") \
+            if cfg.parallelism == "dp_only" else cfg
+        model, dmodel = api.get_model(cfg), api.get_model(dcfg)
+        params = model.init(jax.random.PRNGKey(0))
+        _save_npz(os.path.join(out_dir, f"jax_serve_init_{tag}.npz"),
+                  flat(params))
+        batch = {k: jnp.asarray(v) for k, v in serve_batch(cfg, B).items()}
+        ctx = serve_context(cfg)
+        for shape in (None,) + tuple(meshes):
+            prefill = functools.partial(model.prefill, max_len=max_len)
+            if shape is None:
+                mesh, scope = None, contextlib.nullcontext()
+                pre, dec = jax.jit(prefill), jax.jit(dmodel.decode_step)
+            else:
+                mesh = make_mesh(shape, ("data", "model"))
+                scope = mesh
+                psh = sharding.named(mesh, sharding.param_specs(cfg, params,
+                                                                mesh))
+                bsh = sharding.named(mesh, sharding.batch_specs(cfg, batch,
+                                                                mesh))
+                pre = jax.jit(prefill, in_shardings=(psh, bsh))
+            sharding.set_runtime_mesh(mesh)
+            try:
+                with scope:
+                    logits, cache = pre(params, batch)
+                    if mesh is not None:
+                        tok = jax.ShapeDtypeStruct((B, 1), jnp.int32)
+                        dsh = (sharding.named(mesh, sharding.param_specs(
+                                   dcfg, params, mesh)),
+                               sharding.named(mesh, sharding.batch_specs(
+                                   dcfg, {"t": tok}, mesh))["t"],
+                               sharding.named(mesh, sharding.decode_state_specs(
+                                   dcfg, cache, mesh, B)),
+                               NamedSharding(mesh, P()))
+                        dec = jax.jit(dmodel.decode_step, in_shardings=dsh)
+                    res = {"prefill_k": cache["k"], "prefill_v": cache["v"]}
+                    lgs, toks = [logits[:, -1]], []
+                    for i in range(SERVE_STEPS):
+                        t = jnp.argmax(lgs[-1], -1).astype(jnp.int32)[:, None]
+                        toks.append(t[:, 0])
+                        if mesh is not None:   # committed to the specs
+                            t, cache = jax.device_put((t, cache), dsh[1:3])
+                        logits, cache = dec(params, t, cache,
+                                            jnp.int32(ctx + i))
+                        lgs.append(logits[:, -1])
+            finally:
+                sharding.set_runtime_mesh(None)
+            res.update(logits=jnp.stack(lgs), tokens=jnp.stack(toks),
+                       k=cache["k"], v=cache["v"])
+            name = "whole" if shape is None else f"{shape[0]}x{shape[1]}"
+            _save_npz(os.path.join(out_dir, f"jax_serve_{tag}_{name}.npz"),
+                      {k: np.asarray(v) for k, v in res.items()})
+
+
+def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
+    """Each config and mesh: the JAX weights sharded by ``param_specs``
+    (the decode step's by the serving config's), the prompt's rows (and
+    sequence) by ``batch_specs``, ``prefill`` then 8 greedy
+    ``decode_step``s under the runtime mesh; per rank the logits, the
+    tokens, the cache shards, the collectives of the prefill and of one
+    decode step, the parameters gathered in a decode step, and the shapes
+    held."""
+    import copy
+
+    torch, dist = _init(rank, world, store)
+    from repro_torch import configs, weights
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, transformer
+    from repro_torch.models.common import ArchCfg
+    from repro_torch.parallel import sharding, spmd
+    from repro_torch.runtime.trainer import shard_params
+
+    gathered = []
+    plain_gather = spmd.gather_param
+
+    def gather_param(p):     # the parameters a layer reads gathered
+        gathered.append(list(p.shape))
+        return plain_gather(p)
+
+    spmd.gather_param = gather_param
+    res, arrays = {}, {}
+    for tag, (cfg, B, meshes, max_len) in serve_cfgs(
+            configs, ArchCfg, torch.float32).items():
+        with np.load(wait_for(os.path.join(
+                out_dir, f"jax_serve_init_{tag}.npz"))) as z:
+            init = weights.from_jax_params(
+                cfg, weights.nest({k: z[k] for k in z.files}), device="cpu")
+        batch = {k: torch.from_numpy(v).long() if k == "tokens" else
+                 torch.from_numpy(v) for k, v in serve_batch(cfg, B).items()}
+        dcfg = transformer.serving_cfg(cfg)
+        ctx = serve_context(cfg)
+        for shape in meshes:
+            case = _tag(tag, shape)
+            mesh = make_mesh(shape, ("data", "model"))
+            params = copy.deepcopy(init)
+            shard_params(cfg, params, mesh)
+            dparams = params
+            if dcfg is not cfg:
+                dparams = copy.deepcopy(init)
+                shard_params(dcfg, dparams, mesh)
+            bspec = sharding.batch_specs(cfg, batch, mesh)
+            local = {k: spmd.shard(v, bspec[k], mesh) for k, v in
+                     batch.items()}
+            tspec = sharding.batch_specs(dcfg, {"t": batch["tokens"][:, :1]},
+                                         mesh)["t"]
+            rows = spmd.shard(torch.arange(B), (tspec[0],), mesh)
+            out = {"counts": {}}
+            sharding.set_runtime_mesh(mesh, bspec["tokens"])
+            spmd.reset_counts()
+            try:
+                with torch.no_grad():
+                    logits, cache = api.get_model(cfg).prefill(
+                        params, local, max_len=max_len)
+            finally:
+                sharding.set_runtime_mesh(None)
+            out["counts"]["prefill"] = {f"{op}/{t}": n for (op, t), n
+                                        in spmd.counts.items()}
+            logits = spmd.relayout(logits, (bspec["tokens"][0],),
+                                   (tspec[0],), mesh)
+            arrays[f"{case}/prefill_k"] = cache["k"].clone().numpy()
+            arrays[f"{case}/prefill_v"] = cache["v"].clone().numpy()
+            lgs, toks = [logits[:, -1]], []
+            forced = None
+            if tag in SERVE_FORCED:
+                with np.load(wait_for(os.path.join(
+                        out_dir, f"jax_serve_{case}.npz"))) as z:
+                    forced = torch.from_numpy(z["tokens"]).long()[:, rows]
+            sharding.set_runtime_mesh(mesh, tspec)
+            try:
+                for i in range(SERVE_STEPS):
+                    t = lgs[-1].argmax(-1)[:, None] if forced is None \
+                        else forced[i][:, None]
+                    toks.append(t[:, 0])
+                    spmd.reset_counts()
+                    gathered.clear()
+                    with torch.no_grad():
+                        logits, cache = api.get_model(dcfg).decode_step(
+                            dparams, t, cache, ctx + i)
+                    if i == 0:
+                        out["counts"]["decode"] = {
+                            f"{op}/{t}": n for (op, t), n
+                            in spmd.counts.items()}
+                        out["decode_gathered"] = list(gathered)
+                    lgs.append(logits[:, -1])
+            finally:
+                sharding.set_runtime_mesh(None)
+            logits = torch.stack(lgs)
+            out["finite"] = bool(torch.isfinite(logits).all())
+            out["layout"] = sharding.cache_layout(dcfg, mesh, B, max_len)[0]
+            out["rows"] = rows.tolist()
+            out["params"] = {k: list(v.shape) for k, v in
+                             params.named_parameters()}
+            out["decode_params"] = {k: list(v.shape) for k, v in
+                                    dparams.named_parameters()}
+            res[case] = out
+            arrays.update({f"{case}/logits": logits.numpy(),
+                           f"{case}/tokens": torch.stack(toks).numpy(),
+                           f"{case}/k": cache["k"].numpy(),
+                           f"{case}/v": cache["v"].numpy()})
+    _save_npz(os.path.join(out_dir, f"rank{rank}_serve_tp.npz"), arrays)
+    _save_json(os.path.join(out_dir, f"rank{rank}_serve_tp.json"), res)
+    dist.destroy_process_group()
+
+
 def main(argv) -> None:
     mode, out_dir = argv[1], argv[2]
     if mode == "jax-collectives":
@@ -1183,13 +1452,17 @@ def main(argv) -> None:
         jax_ep(out_dir)
     elif mode == "jax-sharded":
         jax_sharded(out_dir)
+    elif mode == "jax-serve_tp":
+        jax_serve_tp(out_dir, int(argv[3]))
     elif mode in ("rank-collectives", "rank-trainer", "rank-gspmd",
-                  "rank-ep", "rank-sharded", "rank-ep_step"):
+                  "rank-ep", "rank-sharded", "rank-ep_step",
+                  "rank-serve_tp"):
         rank, world, store = int(argv[3]), int(argv[4]), argv[5]
         fn = {"rank-collectives": rank_collectives,
               "rank-trainer": rank_trainer, "rank-gspmd": rank_gspmd,
               "rank-ep": rank_ep, "rank-sharded": rank_sharded,
-              "rank-ep_step": rank_ep_step}[mode]
+              "rank-ep_step": rank_ep_step,
+              "rank-serve_tp": rank_serve_tp}[mode]
         fn(out_dir, rank, world, store)
     else:
         raise SystemExit(f"unknown mode {mode}")
