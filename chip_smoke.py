@@ -177,6 +177,23 @@ those paths against its plain PyTorch version:
      rows, 2 heads of 128, causal) against its plain version at S = 4096,
      timed at S = 32768 beside SDPA; (d) qwen2-0.5b's decode step on a 1 x
      1 mesh through the dry run, on meta and on the card: FLOPs equal.
+ 15. partitioned serving of the recurrent families (the rank programs of
+     ``models/rwkv.py``, ``ssm.py`` and ``hybrid.py``): (a) K4's split-key
+     route at rwkv6-1.6b's decode_32k pod rank (8 rows, 32 heads, 4 of 64
+     keys) against its plain version, and the sum of the 16 key slices'
+     readout parts against K4's full-state S = 1 route, timed; (b) K4 and
+     K3 at a prefill rank's heads (2 of 32, 4 of 64) and at the whole
+     heads, 4 x 1024 tokens, against their plain versions, timed; (c)
+     rwkv6-1.6b and zamba2-1.2b through the entry points on a 1 x 1 NCCL
+     mesh, bitwise the plain path's (a gate: no rank program runs);
+     (d) the rank programs run whole on 4 gloo ranks, each a process on
+     the one card (gloo stages their collectives in host memory): both
+     models at full width and depth, 4 prompts of 256 tokens and 4 decode
+     steps fed the plain path's tokens, bf16 (the main path: K4 at the
+     rank's heads and the split-key route, K3 and K2 at zamba2's, launches
+     counted) and fp32 (logits within FP32_LOGIT_TOL of the plain path's,
+     the same argmax on every row), every state leaf the rank's
+     ``decode_state_specs`` shard.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -195,6 +212,7 @@ package ``repro``.
     python3 chip_smoke.py --moe-only          # 1, 2's K1/K2, 9a and 12
     python3 chip_smoke.py --dryrun-only       # 1 and 13
     python3 chip_smoke.py --serve-tp-only     # 1, 2 and 14
+    python3 chip_smoke.py --serve-rec-tp-only # 1, 2's K3/K4 and 15
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -207,7 +225,9 @@ versions compared on one card in one call.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1293,6 +1313,7 @@ def kernel_wrappers() -> dict:
             "mamba2_scan": m2.mamba2_scan,
             "mamba2_scan_bwd": m2.mamba2_scan_bwd,
             "rwkv6_scan": rw.rwkv6_scan,
+            "rwkv6_scan_split": rw.rwkv6_scan_split,
             "rwkv6_scan_bwd": rw.rwkv6_scan_bwd}
 
 
@@ -3366,34 +3387,56 @@ def route_flips(a: list, b: list) -> tuple[int, int]:
     return differ[0], sum(differ)
 
 
-def held_layerwise(fn):
-    """fn() with every call of ``ops.paged_attention`` (K1) and
-    ``ops.flash_attention`` (K2) also run through its plain version on the
-    kernel path's own inputs, and held there at phase 2's bars (BF16_TOL
-    for bf16 outputs, FP32_TOL for fp32; compute dtype fp32).  Returns
-    (fn's result, {wrapper: [calls, largest err/tol]})."""
+def held_layerwise(fn, names=("paged_attention", "flash_attention")):
+    """fn() with every call of the ``ops`` wrappers ``names`` (K1 and K2 by
+    default; K3, K4 and K4's split-key route besides) also run through its
+    plain version on the kernel path's own inputs, and held there: the
+    attention kernels at phase 2's bars (BF16_TOL for bf16 outputs,
+    FP32_TOL for fp32; compute dtype fp32), the scans' outputs and final
+    states at phase 2's scan bars, the split route's fp32 outputs at
+    FP32_TOL (as 15a holds it).  Returns (fn's result, {wrapper: [calls,
+    largest err/tol]})."""
     import torch
 
     from repro_torch.kernels import ops, ref
-    plain = {"paged_attention": ref.paged_attention,
-             "flash_attention": ref.mha_attention}
-    real = {k: getattr(ops, k) for k in plain}
-    worst = {k: [0, 0.0] for k in plain}
+
+    def attention(got, want):
+        return tol_ratio(got, want, BF16_TOL if got.dtype == torch.bfloat16
+                         else FP32_TOL)
+
+    def scan(got, want):
+        bars = ((SCAN_OUT_REL, SCAN_OUT_ABS),
+                (SCAN_STATE_REL, SCAN_STATE_ABS))
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        return max(tol_ratio(g, w, scan_tol(w, *b))
+                   for g, w, b in zip(got, want, bars))
+
+    def split(got, want):
+        return max(tol_ratio(g, w, FP32_TOL) for g, w in zip(got, want))
+
+    plain = {"paged_attention": (ref.paged_attention, attention),
+             "flash_attention": (ref.mha_attention, attention),
+             "mamba2_scan": (ref.mamba2_scan_chunked, scan),
+             "rwkv6_scan": (ref.rwkv6_scan_chunked, scan),
+             "rwkv6_scan_split": (ref.rwkv6_scan_split, split)}
+    real = {k: getattr(ops, k) for k in names}
+    worst = {k: [0, 0.0] for k in names}
 
     def wrap(name):
         def call(*a, **kw):
-            cdt = kw.get("compute_dtype", torch.float32)
-            check(cdt == torch.float32, f"held_layerwise: {name} under "
-                  f"compute_dtype {cdt}")
+            if plain[name][1] is attention:
+                cdt = kw.get("compute_dtype", torch.float32)
+                check(cdt == torch.float32, f"held_layerwise: {name} under "
+                      f"compute_dtype {cdt}")
             got = real[name](*a, **kw)
-            want = plain[name](*a, **kw)
-            tol = BF16_TOL if got.dtype == torch.bfloat16 else FP32_TOL
+            want = plain[name][0](*a, **kw)
             worst[name][0] += 1
-            worst[name][1] = max(worst[name][1], tol_ratio(got, want, tol))
+            worst[name][1] = max(worst[name][1], plain[name][1](got, want))
             return got
         return call
 
-    for k in plain:
+    for k in names:
         setattr(ops, k, wrap(k))
     try:
         return fn(), worst
@@ -4202,6 +4245,527 @@ def serve_tp_phases(report: dict) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 15: partitioned serving of the recurrent families (the rank programs
+# of models/rwkv.py, ssm.py and hybrid.py) and K4's split-key route
+# ----------------------------------------------------------------------------
+
+REC_TP_MODELS = ("rwkv6-1.6b", "zamba2-1.2b")
+# 15a: rwkv6-1.6b decode_32k's rank on the pod: 128 rows over 16 "data"
+# ranks, the wkv state's 64 keys of each of 32 heads over 16 "model" ranks
+SPLIT_POD = dict(B=8, H=32, dk=4, dv=64)
+# 15b: a prefill rank's heads on the pod (16 "model" ranks): rwkv6 2 of its
+# 32 wkv heads, zamba2 4 of its 64 SSM heads, at phase 5's prompts; beside
+# the whole heads
+REC_RANK_HEADS = {"rwkv6_scan": (2, 32), "mamba2_scan": (4, 64)}
+# 15c: phase 5's prompts (4 x 1024) and REC_TP_STEPS greedy steps.  15d:
+# the rank programs run whole on REC_RANKS gloo ranks (processes) sharing
+# the card, mesh (1, REC_RANKS), 4 prompts cut to REC_TP_PROMPT tokens
+# (gloo stages every collective's parts in host memory, and a prefill's
+# gathers grow with the prompt), REC_TP_STEPS decode steps fed the plain
+# path's greedy tokens (a full run's 15d took 138.5 s at 8 steps, 2.4 s
+# a rank's decode step)
+REC_RANKS, REC_TP_PROMPT, REC_TP_STEPS = 4, 256, 4
+# 15d's bf16 logits at full depth with random weights are chaotic: the
+# bf16 plain path itself is 0.67 (rwkv6) and 2.05 (zamba2) from the fp32
+# truth at |logit| ~5 (H100), so the 3x bar cannot tell a fault.  The
+# models are also run REC_TP_CUT_LAYERS deep (zamba2: one shared block)
+# and held there besides: the bf16 rank program nearer the bf16 plain
+# path than that path is to the truth (partitioning moves the logits
+# less than bf16 rounding does; H100: 0.148 vs 0.212, 0.180 vs 0.738).
+REC_TP_CUT_LAYERS = 6
+
+
+def split_route_checks(report: dict) -> dict:
+    """Phase 15a: K4's split-key route (``rw.rwkv6_scan_split``) at the
+    pod rank's decode shape (8 rows, 32 heads, 4 of 64 keys, fp32 state),
+    in fp32 and bf16: each of the 16 key slices held to its plain version
+    (``ref.rwkv6_scan_split``; fp32 outputs, FP32_TOL), and the sum of
+    the 16 slices' readout parts held to K4's full-state S = 1 route
+    (``rwkv6_scan_decode_kernel``) at phase 2's bars, the slices' state
+    rows to its state.  Timed in bf16 (``ms``, ``ms_graph``) beside the
+    plain version, the bound from ``cost.rwkv6_scan_split`` and the full
+    route at the same rows and heads; also at 15d's rank shape (4 rows,
+    16 of 64 keys: ``*_ranks``)."""
+    import torch
+
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    B, H, dk, dv = (SPLIT_POD[k] for k in ("B", "H", "dk", "dv"))
+    errs, out = [], {"shape": dict(SPLIT_POD)}
+
+    def slices(r, k, v, w, u, s0, dk):
+        for i in range(dv // dk):
+            keys = slice(i * dk, (i + 1) * dk)
+            yield (r[..., keys].contiguous(), k[..., keys].contiguous(), v,
+                   w[..., keys].contiguous(), u[:, keys].contiguous(),
+                   s0[:, :, keys].contiguous())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        case = rwkv_case(B, 1, H, dtype, s0=True, seed=50)
+        y_full, s_full = rw.rwkv6_scan(*case[:5], s0=case[5],
+                                       return_state=True)
+        check(rw.rwkv6_scan.last_kernel == "rwkv6_scan_decode_kernel",
+              f"15a: the full-state step took {rw.rwkv6_scan.last_kernel}")
+        ys, ss, worst = [], [], 0.0
+        for i, args in enumerate(slices(*case, dk)):
+            n0 = rw.rwkv6_scan_split.launches
+            y, st = rw.rwkv6_scan_split(*args)
+            check(rw.rwkv6_scan_split.launches == n0 + 1,
+                  "15a: the split route did not count its launch")
+            y_w, s_w = ref.rwkv6_scan_split(*args)
+            torch.cuda.synchronize()
+            ratio = max(tol_ratio(y, y_w, FP32_TOL),
+                        tol_ratio(st, s_w, FP32_TOL))
+            errs.append(max(max_err(y, y_w), max_err(st, s_w)))
+            worst = max(worst, ratio)
+            check(ratio <= 1, f"15a: key slice {i} ({dtype}) disagrees "
+                  f"with its plain version: err/tol {ratio:.3f}")
+            ys.append(y)
+            ss.append(st)
+        summed = sum(ys).to(dtype)
+        tol = FP32_TOL if dtype == torch.float32 else scan_tol(
+            y_full, SCAN_OUT_REL, SCAN_OUT_ABS)
+        states = torch.cat(ss, 2)
+        row = {"slices_err_over_tol": worst,
+               "sum_vs_full_max_abs_err": max_err(summed, y_full),
+               "sum_vs_full_err_over_tol": tol_ratio(summed, y_full, tol),
+               "state_vs_full_max_abs_err": max_err(states, s_full),
+               "state_bitwise_full": bool(torch.equal(states, s_full))}
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        out[tag] = row
+        print(f"[split route] {tag}: {json.dumps(row)}")
+        check(row["sum_vs_full_err_over_tol"] <= 1
+              and tol_ratio(states, s_full, FP32_TOL) <= 1,
+              f"15a: the {dv // dk} slices' sum ({tag}) disagrees with the "
+              f"full-state route: {row}")
+    # timed in bf16 (the pod's dtype), one slice's inputs
+    args = next(slices(*case, dk))
+    split = lambda: rw.rwkv6_scan_split(*args)          # noqa: E731
+    full = lambda: rw.rwkv6_scan(*case[:5], s0=case[5],  # noqa: E731
+                                 return_state=True)
+    flops, nbytes = cost.rwkv6_scan_split(B, H, dk, dv, 2)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    res = dict(name="rwkv6_scan_split", route="cuda",
+               source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+               replaces="src/repro/kernels/rwkv6_scan.py:59",
+               max_abs_err=max(errs), ms=time_ms(split, iters=50),
+               ms_graph=time_graph_ms(split),
+               plain_ms=time_ms(lambda: ref.rwkv6_scan_split(*args),
+                                iters=50),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               shape=f"B={B} H={H} dk={dk} dv={dv} bf16, fp32 state in and "
+                     "out",
+               ms_full_route=time_ms(full, iters=50),
+               ms_graph_full_route=time_graph_ms(full))
+    # 15d's rank shape: phase 5's 4 rows, 32 heads, 64 / REC_RANKS keys
+    case = rwkv_case(N_PROMPTS, 1, H, torch.bfloat16, s0=True, seed=51)
+    args_r = next(slices(*case, dv // REC_RANKS))
+    ranks = lambda: rw.rwkv6_scan_split(*args_r)        # noqa: E731
+    flops, nbytes = cost.rwkv6_scan_split(N_PROMPTS, H, dv // REC_RANKS,
+                                          dv, 2)
+    res.update(ms_ranks=time_ms(ranks, iters=50),
+               ms_graph_ranks=time_graph_ms(ranks),
+               bound_ms_ranks=bound(nbytes, flops, torch.bfloat16)[0])
+    res["kernel_ms"] = res["ms"]
+    print(f"[rwkv6_scan_split] ms={res['ms']:.5f} ms_graph="
+          f"{res['ms_graph']:.5f} plain_ms={res['plain_ms']:.4f} bound_ms="
+          f"{b_ms:.6f} ({b_by}); full route ms={res['ms_full_route']:.5f} "
+          f"ms_graph={res['ms_graph_full_route']:.5f}; library: none (no "
+          "single PyTorch call computes the step)")
+    report["rwkv6_scan_split"] = res
+    out["card"] = gpu_name_power()
+    return out
+
+
+def prefill_rank_heads(report: dict) -> dict:
+    """Phase 15b: K4 and K3 at a prefill rank's heads on the pod (rwkv6 2
+    of 32 wkv heads, zamba2 4 of 64 SSM heads, x / B / C the mixer's
+    strided views) and at the whole heads, phase 5's 4 x 1024 prompts,
+    bf16, state out: each held to its plain version at phase 2's scan
+    bars, timed (``ms``, ``ms_graph``) beside its bound.  The rank's rows
+    join K4's and K3's reports (``*_prefill_rank``)."""
+    import torch
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    bf, out = torch.bfloat16, {}
+    for name, heads in REC_RANK_HEADS.items():
+        for H in heads:
+            if name == "rwkv6_scan":
+                r, k, v, w, u, _ = rwkv_case(N_PROMPTS, PROMPT_LEN, H, bf,
+                                             s0=False, seed=60 + H)
+                fn = lambda: rw.rwkv6_scan(r, k, v, w, u,  # noqa: E731
+                                           return_state=True)
+                plain = lambda: ref.rwkv6_scan_chunked(  # noqa: E731
+                    r, k, v, w, u, return_state=True)
+                flops, nbytes = cost.rwkv6_scan(N_PROMPTS, PROMPT_LEN, H,
+                                                64, 2, state_in=False)
+            else:
+                x, dt, A, Bm, Cm, D, _ = mixer_views(mamba_case(
+                    N_PROMPTS, PROMPT_LEN, H, bf, h0=False, seed=70 + H))
+                fn = lambda: m2.mamba2_scan(  # noqa: E731
+                    x, dt, A, Bm, Cm, D, return_state=True)
+                plain = lambda: ref.mamba2_scan_chunked(  # noqa: E731
+                    x, dt, A, Bm, Cm, D, return_state=True)
+                flops, nbytes = cost.mamba2_scan(N_PROMPTS, PROMPT_LEN, H,
+                                                 64, 64, 2, state_in=False)
+            (gy, gs), (wy, ws) = fn(), plain()
+            torch.cuda.synchronize()
+            ry = tol_ratio(gy, wy, scan_tol(wy, SCAN_OUT_REL, SCAN_OUT_ABS))
+            rs = tol_ratio(gs, ws, scan_tol(ws, SCAN_STATE_REL,
+                                            SCAN_STATE_ABS))
+            b_ms, b_by = bound(nbytes, flops, bf)
+            row = {"heads": H, "err_over_tol_out": ry,
+                   "err_over_tol_state": rs, "max_abs_err": max_err(gy, wy),
+                   "ms": time_ms(fn), "ms_graph": time_graph_ms(fn, iters=20),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "kernel": (rw.rwkv6_scan if name == "rwkv6_scan"
+                              else m2.mamba2_scan).last_kernel}
+            out[f"{name}_{H}h"] = row
+            print(f"[rank heads] {name} B={N_PROMPTS} S={PROMPT_LEN} H={H} "
+                  f"bf16: {json.dumps(row)}")
+            check(ry <= 1 and rs <= 1, f"15b: {name} at {H} heads "
+                  f"disagrees with its plain version: {row}")
+            if H == heads[0]:
+                report[name].update({"ms_prefill_rank": row["ms"],
+                                     "ms_graph_prefill_rank": row["ms_graph"],
+                                     "bound_ms_prefill_rank": b_ms,
+                                     "heads_prefill_rank": H})
+    out["card"] = gpu_name_power()
+    return out
+
+
+def rec_model(name: str, dtype=None, prompt: int = PROMPT_LEN,
+              layers: int | None = None):
+    """(cfg, model, seeded params on the card, phase 5's prompts cut to
+    ``prompt`` tokens, the prefill's keywords) for ``name`` at full width
+    and depth (or ``layers`` deep), in ``dtype`` (default the
+    config's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_config(name)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(N_PROMPTS, PROMPT_LEN))[:, :prompt]).cuda()
+    kw = ({"max_len": prompt + REC_TP_STEPS}
+          if cfg.family == "zamba2" else {})
+    return cfg, model, params, tokens, kw
+
+
+def rec_serve(model, params, tokens, kw, feed=None, *, mesh=None, cfg=None):
+    """Prefill ``tokens`` and take REC_TP_STEPS decode steps (fed ``feed``,
+    the tokens to decode, else greedy); under ``mesh`` as its rank, the
+    rows cut by ``batch_specs``.  Returns (the logits of every step
+    (B, 1 + steps, V), the tokens decoded, the final state, prefill ms,
+    decode ms a step)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.parallel import sharding
+    pspec = tspec = None
+    if mesh is not None:
+        pspec = sharding.batch_specs(cfg, {"t": tokens}, mesh)["t"]
+        tspec = sharding.batch_specs(transformer.serving_cfg(cfg), {
+            "t": tokens[:, :1]}, mesh)["t"]
+    P = tokens.shape[1]
+    sharding.set_runtime_mesh(mesh, pspec)
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, state = model.prefill(params, {"tokens": tokens}, **kw)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            sharding.set_runtime_mesh(mesh, tspec)
+            lgs, toks = [logits[:, -1]], []
+            t0 = time.perf_counter()
+            for i in range(REC_TP_STEPS):
+                t = lgs[-1].argmax(-1)[:, None] if feed is None \
+                    else feed[:, i:i + 1]
+                toks.append(t)
+                logits, state = model.decode_step(params, t, state, P + i)
+                lgs.append(logits[:, -1])
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3 / REC_TP_STEPS
+    finally:
+        sharding.set_runtime_mesh(None)
+    return (torch.stack(lgs, 1), torch.cat(toks, 1), state, pre_ms,
+            dec_ms)
+
+
+def rec_tp_one_rank() -> dict:
+    """Phase 15c, a gate: rwkv6-1.6b and zamba2-1.2b through the entry
+    points with no mesh and on a 1 x 1 ("data", "model") mesh over NCCL
+    (world size 1), the parameters cut by ``param_specs``: logits and
+    tokens bitwise the plain path's (a "model" line of one rank runs the
+    plain path: no rank program)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import shard_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for name in REC_TP_MODELS:
+            cfg, model, params, tokens, kw = rec_model(name)
+            a = rec_serve(model, params, tokens, kw)
+            shard_params(cfg, params, mesh)
+            b = rec_serve(model, params, tokens, kw, mesh=mesh, cfg=cfg)
+            out[name] = {"logits_bitwise": bool(torch.equal(a[0], b[0])),
+                         "tokens_equal": bool(torch.equal(a[1], b[1]))}
+            print(f"[rec tp 1x1] {name}: {json.dumps(out[name])}")
+            check(out[name]["logits_bitwise"] and out[name]["tokens_equal"],
+                  f"15c {name}: the 1 x 1 mesh's logits or tokens differ "
+                  "from the plain path's")
+            del params, a, b
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def rec_tp_runs(name: str, mesh, layers: int | None = None) -> dict:
+    """15d's runs of one model on this rank: the seed's bf16 weights, and
+    the same values in fp32; the fp32 plain path (the truth) decodes
+    greedily, and every other run is fed its tokens: the bf16 plain path,
+    then, with the parameters cut by ``param_specs``, the fp32 rank
+    program (at full depth) and the bf16 one through the entry points.
+    At full depth (``layers`` None) the bf16 rank run is the main path:
+    its launches counted, every kernel call held to its plain version on
+    its own inputs (``held_layerwise``).  Each run's logits against the
+    truth's, the rank programs' state shards against
+    ``decode_state_specs``."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.trainer import shard_params
+
+    main = layers is None
+    cfg, model, params, tokens, kw = rec_model(
+        name, torch.bfloat16, REC_TP_PROMPT, layers)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = api.get_model(cfg32)
+    params32 = copy.deepcopy(params).float()
+    truth = rec_serve(model32, params32, tokens, kw)
+    feed = truth[1]
+    plain = rec_serve(model, params, tokens, kw, feed)
+    runs = {}
+    if main:
+        shard_params(cfg32, params32, mesh)
+        runs["fp32"] = rec_serve(model32, params32, tokens, kw, feed,
+                                 mesh=mesh, cfg=cfg32)
+    del params32
+    torch.cuda.empty_cache()
+    shard_params(cfg, params, mesh)
+    kernels = ("flash_attention", "mamba2_scan", "rwkv6_scan",
+               "rwkv6_scan_split")
+    if main:
+        reset_counts()                       # the main path's run ...
+    runs["bf16"], held = held_layerwise(lambda: rec_serve(
+        model, params, tokens, kw, feed, mesh=mesh, cfg=cfg),
+        kernels if main else ())
+    counts = read_counts() if main else None   # ... ends here
+    layout = sharding.state_layout(
+        cfg, mesh, N_PROMPTS, model.init_decode_state(
+            N_PROMPTS, kw.get("max_len"), device="meta"))
+    t = truth[0].float()
+    top2 = t.topk(2, -1).values
+    row = {"layers": cfg.n_layers, "max_abs_logit": float(t.abs().max()),
+           "plain_prefill_ms": plain[3], "plain_decode_ms": plain[4]}
+    for tag, run in runs.items():
+        try:
+            sharding.check_state_shards(layout, run[2], mesh)
+            shards = True
+        except ValueError:
+            shards = False
+        b = run[0].float()
+        row[tag] = {"max_abs_err": max_err(b, t),
+                    "argmax_equal_share": float(
+                        (b.argmax(-1) == t.argmax(-1)).float().mean()),
+                    "finite": bool(torch.isfinite(b).all()),
+                    "shards_as_specs": shards,
+                    "rank_prefill_ms": run[3], "rank_decode_ms": run[4]}
+    bf = row["bf16"]
+    bf["plain_max_abs_err"] = max_err(plain[0], t)
+    bf["vs_plain_max_abs_err"] = max_err(runs["bf16"][0], plain[0])
+    bf["bar"] = max(REC_SPREAD_FACTOR * bf["plain_max_abs_err"], LOGIT_TOL)
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * bf["bar"]
+    bf["clear_rows"] = int(clear.sum())
+    bf["argmax_equal_on_clear_rows"] = bool(
+        (runs["bf16"][0].float().argmax(-1) == t.argmax(-1))[clear].all())
+    if main:
+        bf["held"] = held
+        bf["launches"] = counts
+    del params, truth, plain, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def rec_tp_rank(rank: int, where: str) -> int:
+    """One of 15d's REC_RANKS gloo ranks (a process of its own on the
+    card): ``rec_tp_runs`` of each model on mesh (1, REC_RANKS) at full
+    depth and REC_TP_CUT_LAYERS deep.  Writes ``rank<r>.json`` under
+    ``where``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{where}/store",
+                            rank=rank, world_size=REC_RANKS)
+    res = {}
+    try:
+        mesh = make_mesh((1, REC_RANKS), ("data", "model"))
+        for name in REC_TP_MODELS:
+            res[name] = rec_tp_runs(name, mesh)
+            res[f"{name}_cut"] = rec_tp_runs(name, mesh, REC_TP_CUT_LAYERS)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def rec_tp_ranks() -> dict:
+    """Phase 15d: the recurrent rank programs run whole on the card, as
+    REC_RANKS gloo ranks in processes of their own sharing it (NCCL takes
+    one rank a card; the collectives stage their parts in host memory):
+    rwkv6-1.6b and zamba2-1.2b at full width and depth on mesh (1,
+    REC_RANKS), 4 prompts of REC_TP_PROMPT tokens and REC_TP_STEPS decode
+    steps (``rec_tp_rank``).
+    Holds every rank's runs against the fp32 plain path on the same
+    weight values (the truth): the fp32 rank program at FP32_LOGIT_TOL
+    with the same argmax on every row; the bf16 one (the main path), at
+    full depth and REC_TP_CUT_LAYERS deep, within REC_SPREAD_FACTOR times
+    the bf16 plain path's own distance from the truth (never below
+    LOGIT_TOL), with the truth's argmax on every row whose top-2 gap
+    exceeds twice that; REC_TP_CUT_LAYERS deep also nearer the bf16 plain
+    path than that path is to the truth; at full depth each of its
+    kernel calls within its plain version's bar (``held_layerwise``).
+    Every state its ``decode_state_specs`` shard; the bf16 run's
+    launches: K4 at the rank's heads once a layer in prefill and the
+    split-key route once a layer a decode step (rwkv6); K3 once a layer
+    and K2 once a shared block in prefill (zamba2), each launch held.
+    Returns each model's launches, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    where = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=root)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         "--tp-dir", where], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(REC_RANKS)]
+    logs, failed = [], False
+    try:
+        for p in procs:
+            log, _ = p.communicate(timeout=600)
+            logs.append(log)
+            failed |= p.returncode != 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise AssertionError("15d: a rank failed:\n" + "\n".join(
+            f"--- rank {r}: exit {p.returncode}\n{log[-3000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    ranks = []
+    for r in range(REC_RANKS):
+        with open(os.path.join(where, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(where, ignore_errors=True)
+    from repro_torch import configs
+    paths, out = {}, {"ranks": REC_RANKS, "mesh": [1, REC_RANKS],
+                      "backend": "gloo", "steps": REC_TP_STEPS}
+    for name in REC_TP_MODELS:
+        cfg = configs.get_config(name)
+        want = dict.fromkeys(kernel_wrappers(), 0)
+        if cfg.family == "rwkv6":
+            want["rwkv6_scan"] = cfg.n_layers
+            want["rwkv6_scan_split"] = cfg.n_layers * REC_TP_STEPS
+        else:
+            want["mamba2_scan"] = cfg.n_layers
+            want["flash_attention"] = cfg.n_layers // cfg.attn_every
+        held_want = {k: n for k, n in want.items() if n}
+        want = by_route(want, cfg)
+        total = dict.fromkeys(want, 0)
+        for r, res in enumerate(ranks):
+            row = res[name]
+            bf, fp = row["bf16"], row["fp32"]
+            check(bf.pop("launches") == want, f"15d {name} rank {r}: "
+                  f"launches differ from {want}")
+            for k in total:
+                total[k] += want[k]
+            held = bf["held"]
+            check(all(held[k][0] == n and held[k][1] <= 1
+                      for k, n in held_want.items()),
+                  f"15d {name} rank {r}: a kernel call off its plain "
+                  f"version, or not held ({held_want} calls): {held}")
+            for tag, run in (("bf16", bf), ("fp32", fp)):
+                check(run["finite"] and run["shards_as_specs"],
+                      f"15d {name} {tag} rank {r}: {run}")
+            check(fp["max_abs_err"] <= FP32_LOGIT_TOL
+                  and fp["argmax_equal_share"] == 1.0,
+                  f"15d {name} fp32 rank {r}: logits off the truth's: {fp}")
+            for key in (name, f"{name}_cut"):
+                b = res[key]["bf16"]
+                check(b["finite"] and b["shards_as_specs"]
+                      and b["max_abs_err"] <= b["bar"]
+                      and b["argmax_equal_on_clear_rows"],
+                      f"15d {key} bf16 rank {r}: logits off the truth's by "
+                      f"more than {REC_SPREAD_FACTOR} times the bf16 plain "
+                      f"path's: {b}")
+            cut = res[f"{name}_cut"]["bf16"]
+            check(cut["vs_plain_max_abs_err"] <= cut["plain_max_abs_err"],
+                  f"15d {name}_cut bf16 rank {r}: the rank program parts "
+                  f"from the bf16 plain path by more than that path parts "
+                  f"from the truth: {cut}")
+        out[name] = {"rank0": ranks[0][name],
+                     "rank0_cut": ranks[0][f"{name}_cut"],
+                     "launches_all_ranks": {k: v for k, v in total.items()
+                                            if v}}
+        paths[f"{name}_tp_ranks"] = total
+        print(f"[rec tp ranks] {name}: {json.dumps(out[name])}")
+    out["card"] = gpu_name_power()
+    return paths
+
+
+def serve_rec_tp_phases(report: dict) -> dict:
+    """Phase 15; returns the launches of 15d's main paths."""
+    phase("15a K4 split-key route", split_route_checks, report)
+    phase("15b scans at a prefill rank's heads", prefill_rank_heads, report)
+    phase("15c recurrent 1 x 1 mesh gate", rec_tp_one_rank)
+    return phase("15d recurrent rank programs on gloo ranks", rec_tp_ranks)
+
+
+# ----------------------------------------------------------------------------
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
@@ -4420,7 +4984,9 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
         "rwkv6_scan": {"rwkv6-1.6b": {"": rw, "_decode": rw * DECODE_STEPS},
                        "rwkv6_train": {"": None}},
         "mamba2_scan_bwd": {"zamba2_train": {"": None}},
-        "rwkv6_scan_bwd": {"rwkv6_train": {"": None}}}
+        "rwkv6_scan_bwd": {"rwkv6_train": {"": None}},
+        # phase 15d's ranks, timed at their shape in 15a
+        "rwkv6_scan_split": {"rwkv6-1.6b_tp_ranks": {"_ranks": None}}}
     split["flash_attention"]["qwen2_train_gspmd"] = {"_qwen2_train": None}
     for name in SERVE_TP_MODELS:          # phase 14a, timed in 14c
         split["flash_attention"][f"{name}_serve_tp"] = {
@@ -4488,6 +5054,12 @@ def main() -> int:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="the build and phase 13 (the dry run held against "
                          "the card, the examples, the autotuner) alone")
+    ap.add_argument("--serve-rec-tp-only", action="store_true",
+                    help="the build, phase 2's scan checks and phase 15 "
+                         "(partitioned serving of the recurrent families) "
+                         "alone")
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--serve-tp-only", action="store_true",
                     help="the build, phase 2's kernel checks and phase 14 "
                          "(tensor-parallel serving) alone")
@@ -4496,6 +5068,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.tp_rank is not None:
+        return rec_tp_rank(args.tp_rank, args.tp_dir)
     if args.engine_only:
         engine_only(args.engine_only)
         return 0
@@ -4535,6 +5109,13 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.serve_rec_tp_only:
+        phase("2 scans vs plain", run_scan_checks, report)
+        paths = serve_rec_tp_phases(report)
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+        print(f"[launches] {json.dumps(paths)}")
+        print(card)
+        return 0
     if args.serve_tp_only:
         phase("2 kernels vs plain", run_kernel_checks, report)
         paths = serve_tp_phases(report)
@@ -4617,6 +5198,9 @@ def main() -> int:
     dryrun_phases()
     # tensor-parallel serving: the entry points on a 1 x 1 mesh
     paths.update(serve_tp_phases(report))
+    # the recurrent families' rank programs: K4's split-key route, then
+    # the rank programs whole on gloo ranks sharing the card
+    paths.update(serve_rec_tp_phases(report))
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")

@@ -53,6 +53,10 @@ SIGNATURES = {
                              [_vp] * 15 + [_i] * 4 + [_vp, _vp]),
 }
 
+# second entry points of a kernel's source: name -> (source, signature)
+ENTRIES = {"rwkv6_scan_split": ("rwkv6_scan", (
+    "rwkv6_scan_split_launch", [_vp] * 8 + [_i] * 5 + [_vp]))}
+
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -167,12 +171,13 @@ def build_all(names=KERNELS) -> None:
 
 
 def load(name: str):
-    """The C entry point of kernel ``name``, building it if needed."""
+    """The C entry point ``name`` (a kernel's, or one of ``ENTRIES``),
+    building its source if needed."""
     fn = _loaded.get(name)
     if fn is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        sym, argtypes = SIGNATURES[name]
+        src, (sym, argtypes) = ENTRIES.get(name) or (name, SIGNATURES[name])
+        build_all((src,))
+        lib = ctypes.CDLL(str(library_path(src)))
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

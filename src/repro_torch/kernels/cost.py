@@ -106,6 +106,18 @@ def rwkv6_scan(B: int, S: int, H: int, dh: int, itemsize: int, *,
     return flops, nbytes
 
 
+def rwkv6_scan_split(B: int, H: int, dk: int, dv: int, itemsize: int, *,
+                     state_in: bool = True):
+    """K4's split-key route, one decode step on dk of the dv keys of every
+    head: (flops, bytes): r, k, w (dk) and v (dv) in, the fp32 part of the
+    readout (dv) out, the slice's fp32 bonus, its fp32 state rows in (as
+    asked) and out; 5 dk dv operations a head."""
+    nbytes = B * H * (3 * dk + dv) * itemsize + B * H * dv * 4 \
+        + H * dk * 4 + (int(state_in) + 1) * B * H * dk * dv * 4
+    flops = B * H * 5.0 * dk * dv
+    return flops, nbytes
+
+
 def scan_bwd(B: int, S: int, H: int, dh: int, itemsize: int,
              n_vec_in: int, n_vec_out: int, extra_bytes: int):
     """A scan's gradient: (flops, bytes): ``n_vec_in`` (B, S, H, dh)

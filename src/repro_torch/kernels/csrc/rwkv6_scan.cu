@@ -74,6 +74,14 @@
 // takes `rwkv6_scan_small_kernel`, the small-width route at the end of
 // this file: one block a (b, h) stepping t, the state in shared memory.
 //
+// A second entry point, `rwkv6_scan_split_launch`, takes one decode step
+// (S = 1) on a slice of the key channels: a rank of a "model" line that
+// holds dk of every head's dv keys (the serving layout of
+// `decode_state_specs`: the wkv state's key dim over "model").
+// `rwkv6_scan_split_kernel` updates the slice's rows of the state and
+// writes the slice's part of the readout in fp32; the readout is the sum
+// of every slice's part, which the caller reduces over the line.
+//
 // Layouts (all contiguous): r, k, v, w, y (B, S, H, dh) in T (float or
 // __nv_bfloat16); u (H, dh) fp32; s0, s_out (B, H, dh, dh) fp32, row index
 // = k channel, column index = v channel; s0 and s_out may be null.
@@ -970,6 +978,60 @@ int launch_small(const void* r, const void* k, const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Split key width, S = 1, either dtype: one decode step on dk of the dv key
+// channels of every head.  r, k, w (B, H, dk), v (B, H, dv) in T; u
+// (H, dk) fp32, the slice's bonus; s0, s_out (B, H, dk, dv) fp32, the
+// slice's rows of the state; y (B, H, dv) fp32, the slice's part of
+//   y[j] = sum_i r_i (S_ij + u_i k_i v_j),   S'_ij = w_i S_ij + k_i v_j
+// (i over the slice's keys).  The columns are independent: one thread a
+// column j, walking the slice's dk rows in order with the fused
+// multiply-adds of `rwkv6_scan_decode_kernel`; a warp's loads and stores of
+// a state row are contiguous, and r, k, w, u are read by every thread of a
+// block at one address.  dk is small on a rank (4 at rwkv6-1.6b's 64 keys
+// over 16 ranks): the kernel is the state's bytes, 2 dk dv fp32 a head.
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitThreads = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads)
+rwkv6_scan_split_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ w,
+                        const float* __restrict__ u,
+                        const float* __restrict__ s0, float* __restrict__ y,
+                        float* __restrict__ s_out, int H, int dk, int dv) {
+  const int j = blockIdx.x * kSplitThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (j >= dv) return;
+  const size_t kvec = ((size_t)b * H + h) * dk;    // r, k, w rows
+  const size_t vvec = ((size_t)b * H + h) * dv;    // v, y rows
+  const size_t sbase = kvec * dv;                  // the (dk x dv) block
+  const float vj = to_float(v[vvec + j]);
+  float acc = 0.f;
+  for (int i = 0; i < dk; ++i) {
+    const float ri = to_float(r[kvec + i]), ki = to_float(k[kvec + i]);
+    const float wi = to_float(w[kvec + i]), ui = u[(size_t)h * dk + i];
+    const size_t e = sbase + (size_t)i * dv + j;
+    const float s = s0 ? s0[e] : 0.f;
+    const float kv = ki * vj;
+    acc = fmaf(ri, fmaf(ui, kv, s), acc);
+    s_out[e] = fmaf(s, wi, kv);
+  }
+  y[vvec + j] = acc;
+}
+
+template <typename T>
+int launch_split(const void* r, const void* k, const void* v, const void* w,
+                 const void* u, const void* s0, void* y, void* s_out, int B,
+                 int H, int dk, int dv, cudaStream_t stream) {
+  dim3 grid((dv + kSplitThreads - 1) / kSplitThreads, H, B);
+  rwkv6_scan_split_kernel<T><<<grid, kSplitThreads, 0, stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, (const T*)w, (const float*)u,
+      (const float*)s0, (float*)y, (float*)s_out, H, dk, dv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, y).  s0 / s_out may be
@@ -1005,4 +1067,24 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   }
   *kernel = 0;
   return launch_fma(r, k, v, w, u, s0, y, s_out, B, S, H, st);
+}
+
+// One decode step on a slice of the key channels (see the file's header):
+// r, k, w (B, 1, H, dk) and v (B, 1, H, dv) in the dtype (0 = float32, 1 =
+// bfloat16); u (H, dk), s0 and s_out (B, H, dk, dv) fp32, s0 may be null
+// (a zero state); y_part (B, 1, H, dv) fp32.  Returns cudaGetLastError()
+// after the launch; -1 for dk or dv below 1, dk above dv or a dtype this
+// file does not build.
+extern "C" int rwkv6_scan_split_launch(const void* r, const void* k,
+                                       const void* v, const void* w,
+                                       const void* u, const void* s0,
+                                       void* y_part, void* s_out, int B,
+                                       int H, int dk, int dv, int dtype,
+                                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dk < 1 || dv < 1 || dk > dv || (dtype != 0 && dtype != 1)) return -1;
+  return dtype == 0 ? launch_split<float>(r, k, v, w, u, s0, y_part, s_out,
+                                          B, H, dk, dv, st)
+                    : launch_split<bf16>(r, k, v, w, u, s0, y_part, s_out, B,
+                                         H, dk, dv, st);
 }

@@ -143,12 +143,35 @@ def rwkv6_scan(r, k, v, w, u, *, s0=None, return_state: bool = False):
                                   return_state=return_state)
 
 
+def rwkv6_scan_split(r, k, v, w, u, s0=None):
+    """One decode step on a slice of the key channels (a rank's share of a
+    wkv state split over "model"): r/k/w (B,1,H,dk), v (B,1,H,dv), u
+    (H,dk), s0 (B,H,dk,dv) -> (y_part (B,1,H,dv) fp32, the slice's part of
+    the readout; the new state rows (B,H,dk,dv) fp32).  Serving only: on
+    the card it has no backward, and raises under grad."""
+    route = _route(r, "rwkv6_scan_split")
+    if route == "cuda":
+        _build.refuse_grad("rwkv6_scan_split", "serving runs it only",
+                           r, k, v, w, u, s0)
+        return _rw.rwkv6_scan_split(r, k, v, w, u, s0)
+    if route == "meta":
+        B, _, H, dk = r.shape
+        dv = v.shape[-1]
+        cost.launched("rwkv6_scan_split", cost.rwkv6_scan_split, B, H, dk,
+                      dv, r.element_size(), state_in=s0 is not None)
+        return (torch.empty((B, 1, H, dv), dtype=torch.float32,
+                            device="meta"),
+                torch.empty((B, H, dk, dv), dtype=torch.float32,
+                            device="meta"))
+    return ref.rwkv6_scan_split(r, k, v, w, u, s0)
+
+
 def launch_counts() -> dict[str, int]:
     """Each hand-written kernel's launches in this process, by wrapper."""
     return {fn.__name__: fn.launches for fn in (
         _pa.paged_attention, _fa.flash_attention, _fa.flash_attention_bwd,
         _m2.mamba2_scan, _m2.mamba2_scan_bwd, _rw.rwkv6_scan,
-        _rw.rwkv6_scan_bwd)}
+        _rw.rwkv6_scan_split, _rw.rwkv6_scan_bwd)}
 
 
 # ----------------------------------------------------------------------------

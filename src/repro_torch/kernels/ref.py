@@ -237,6 +237,27 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (y, s) if return_state else y
 
 
+def rwkv6_scan_split(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     s0: torch.Tensor | None = None):
+    """One decode step (S = 1) of the RWKV6 wkv recurrence on a slice of
+    the key channels, the plain version of K4's split-key route.
+
+    r, k, w: (B, 1, H, dk) the slice's keys; v: (B, 1, H, dv); u: (H, dk)
+    the slice's bonus; s0: (B, H, dk, dv) the state's rows of those keys
+    (zeros if None).  Returns (y_part (B, 1, H, dv) fp32, the slice's part
+    of ``rwkv6_scan``'s readout, which is the sum of every slice's part;
+    the new state rows (B, H, dk, dv) fp32).
+    """
+    B, _, H, dk = r.shape
+    rf, kf, wf = (t[:, 0].float() for t in (r, k, w))
+    vf = v[:, 0].float()
+    s = _state(s0, (B, H, dk, vf.shape[-1]), r.device)
+    kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
+    y = torch.einsum("bhk,bhkv->bhv", rf, s + u.float()[None, :, :, None] * kv)
+    return y[:, None], s * wf[..., None] + kv
+
+
 RWKV_SCAN_CHUNK = 32
 
 

@@ -30,6 +30,13 @@ raises.  The decode
 step calls this wrapper once a layer, so it keeps its host work short: one
 pass of checks, no copies of tensors that are already fp32 and
 contiguous, and the stream read as a raw handle.
+
+``rwkv6_scan_split`` is the split-key route (``rwkv6_scan_split_kernel``,
+entry point ``rwkv6_scan_split_launch`` of the same source; plain version
+``ref.rwkv6_scan_split``): one decode step of a rank that holds dk of the
+dv key channels of every head, giving the new rows of the state and the
+rank's fp32 part of the readout, which the serving rank program sums over
+"model" (``models/rwkv.py``).  It counts its own launches.
 """
 from __future__ import annotations
 
@@ -134,6 +141,61 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rwkv6_scan.launches = 0
 rwkv6_scan.routes = {}
 rwkv6_scan.last_kernel = None
+
+
+def rwkv6_scan_split(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     s0: torch.Tensor | None = None):
+    """One decode step on a slice of the key channels: r, k, w (B, 1, H,
+    dk) and v (B, 1, H, dv) of one dtype, contiguous, dk dividing dv; u
+    (H, dk); s0 (B, H, dk, dv) or None (zeros) -> (y_part (B, 1, H, dv)
+    fp32, the slice's part of the readout; the new state rows (B, H, dk,
+    dv) fp32).  ``u`` and ``s0`` are read as fp32."""
+    dev, dtype = r.device, r.dtype
+    if dev.type != "cuda" or any(t.device != dev for t in (k, v, w, u)) \
+            or (s0 is not None and s0.device != dev):
+        raise ValueError("rwkv6_scan_split kernel: every tensor must lie on "
+                         "the same CUDA device")
+    if dtype not in DTYPES or any(t.dtype != dtype for t in (k, v, w)):
+        raise TypeError(f"rwkv6_scan_split kernel: r/k/v/w must share a "
+                        f"dtype in {list(DTYPES)}")
+    if r.dim() != 4 or r.shape[1] != 1:
+        raise ValueError(f"rwkv6_scan_split kernel: r must be (B, 1, H, dk),"
+                         f" got {tuple(r.shape)}")
+    B, _, H, dk = r.shape
+    dv = v.shape[-1]
+    if k.shape != r.shape or w.shape != r.shape \
+            or tuple(v.shape) != (B, 1, H, dv) or dv % dk \
+            or tuple(u.shape) != (H, dk) or (
+                s0 is not None and tuple(s0.shape) != (B, H, dk, dv)):
+        raise ValueError(
+            f"rwkv6_scan_split kernel: unsupported shapes r/k/w "
+            f"{[tuple(t.shape) for t in (r, k, w)]}, v {tuple(v.shape)}, u "
+            f"{tuple(u.shape)}, s0 "
+            f"{None if s0 is None else tuple(s0.shape)} (dk must divide dv)")
+    if not all(t.is_contiguous() for t in (r, k, v, w)):
+        raise ValueError("rwkv6_scan_split kernel: r/k/v/w must be "
+                         "contiguous")
+    u, s0 = _build.fp32(u), _build.fp32(s0)
+    y = torch.empty((B, 1, H, dv), dtype=torch.float32, device=dev)
+    s_out = torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
+    if B * H:
+        fn = _build.load("rwkv6_scan_split")
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), None if s0 is None else s0.data_ptr(),
+                 y.data_ptr(), s_out.data_ptr(), B, H, dk, dv, DTYPES[dtype],
+                 _build.raw_stream(dev))
+        if err:
+            raise RuntimeError(f"rwkv6_scan_split kernel launch failed: "
+                               f"CUDA error {err}")
+        _build.count(rwkv6_scan_split, "split")
+        cost.launched("rwkv6_scan_split", cost.rwkv6_scan_split, B, H, dk,
+                      dv, r.element_size(), state_in=s0 is not None)
+    return y, s_out
+
+
+rwkv6_scan_split.launches = 0
+rwkv6_scan_split.routes = {}
 
 
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

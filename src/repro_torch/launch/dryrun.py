@@ -23,10 +23,13 @@ against one H100 (``core.hw.H100_SXM``):
     sharded by ``param_specs``, a decode cell's state sharded by
     ``decode_state_specs``.  The decoder families (dense, moe, vlm) run
     their rank programs (``models/transformer.py``: heads, d_ff and
-    experts over "model", or the sequence); the recurrent and
-    encoder-decoder families still run each layer whole on every rank of
-    a "model" line, their sharded leaves gathered where a layer reads them
-    (``models.common.Params``), and their JSON says ``"partitioned":
+    experts over "model", or the sequence), and so do the recurrent ones
+    (rwkv6, mamba2, zamba2: ``models/rwkv.py``, ``models/ssm.py``,
+    ``models/hybrid.py``; decode on the state's slice of the readout's
+    contracted dim, prefill on the rank's heads); the encoder-decoder
+    family still runs each layer whole on every rank of a "model" line,
+    its sharded leaves gathered where a layer reads them
+    (``models.common.Params``), and its JSON says ``"partitioned":
     false``.  The embedding and the LM head are read gathered; their bytes
     are in the collectives (``all-gather``).
 
@@ -218,9 +221,11 @@ def model_attn_flops(cfg, shape, *, decode: bool = False) -> float:
 
 
 # the families whose serving entry points run a rank's part of the
-# partitioned program (models/transformer.py); the others take whole
-# sequences and states
-_TP_SERVING = ("dense", "moe", "vlm")
+# partitioned program (models/transformer.py, rwkv.py, ssm.py, hybrid.py);
+# the others take whole sequences and states
+_TP_SERVING = ("dense", "moe", "vlm", "rwkv6", "mamba2", "zamba2")
+# of those, the families whose decode state carries its caches' depth
+_DEPTH = ("dense", "moe", "vlm", "zamba2")
 
 
 def _rows(cfg, batch: dict, mesh) -> tuple[dict, tuple]:
@@ -315,12 +320,12 @@ def build_decode(cfg, mesh, variant: Variant, *, device="meta"):
         token = torch.empty((shape.global_batch, 1), dtype=api.TOKEN_DTYPE,
                             device="meta")
         local, spec = _rows(cfg, {"tokens": token}, mesh)
-        if cfg.family in _TP_SERVING:   # the rank's shard of the cache
+        if cfg.family in _TP_SERVING:   # the rank's shard of the state
             st = api.decode_input_specs(cfg, shape)["state"]
             sspecs = sharding.decode_state_specs(cfg, st, mesh,
                                                  shape.global_batch)
-            st = {k: spmd.shard(v, sspecs[k], mesh).clone()
-                  for k, v in st.items()}
+            st = _tree(lambda v, sp: spmd.shard(v, sp, mesh).clone(), st,
+                       sspecs)
         else:     # the rank's rows of the whole state
             st = api.decode_input_specs(cfg, dataclasses.replace(
                 shape, global_batch=local["tokens"].shape[0]))["state"]
@@ -328,10 +333,10 @@ def build_decode(cfg, mesh, variant: Variant, *, device="meta"):
             params = weights.model_class(cfg)(cfg, device="meta")
         else:
             params = model.init(torch.Generator(device).manual_seed(0))
-            local, st = ({k: torch.zeros(v.shape, dtype=v.dtype,
-                                         device=device)
-                          for k, v in t.items()} for t in (local, st))
-        if cfg.family in _TP_SERVING:   # the whole cache's depth
+            local, st = (_tree(lambda v: torch.zeros(
+                v.shape, dtype=v.dtype, device=device), t)
+                for t in (local, st))
+        if cfg.family in _DEPTH:   # the whole cache's depth
             st["max_len"] = shape.seq_len
         shard_params(cfg, params, mesh)
         step = _serving(mesh, spec, lambda: model.decode_step(
@@ -339,6 +344,15 @@ def build_decode(cfg, mesh, variant: Variant, *, device="meta"):
         return step, (list(params.parameters()), local, st), spec
 
     return specs
+
+
+def _tree(fn, tree, *others):
+    """``fn`` over the leaves of nested dicts (and the matching leaves of
+    ``others``)."""
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
 
 
 def build_cell(cfg, mesh, shape_name: str, variant: Variant):
@@ -370,10 +384,11 @@ def analyze_step(step, args, *, donate: bool = True):
 # the collectives of the rank programs that split a layer over "model":
 # training's tensor- and sequence-parallel stack; serving's heads, d_ff
 # and experts (all-reduces "act", "expert"), the sequence (K/V gathered,
-# "kv") and a decode cache's slices (the log-sum-exp combine, "combine")
+# "kv"), a decode cache's slices (the log-sum-exp combine, "combine") and
+# a recurrent state's slices (the readout's partial sums, "readout")
 _SPLIT_TAGS = {"train": ("act", "seq", "kv"),
                "prefill": ("act", "expert", "kv"),
-               "decode": ("act", "expert", "combine")}
+               "decode": ("act", "expert", "combine", "readout")}
 
 
 def _partitioned(mesh, spec, kind: str) -> bool:

@@ -56,12 +56,14 @@ from repro_torch.parallel import spmd
 #   reduce-scatter  ~ 1x full operand
 #   all-to-all      ~ 1x buffer
 #   collective-permute ~ 1x buffer (one hop)
+#   broadcast       ~ 1x buffer (pipelined from one rank)
 COLLECTIVE_TRAFFIC = {
     "all-reduce": ("res", 2.0),
     "all-gather": ("res", 1.0),
     "reduce-scatter": ("arg", 1.0),
     "all-to-all": ("res", 1.0),
     "collective-permute": ("res", 1.0),
+    "broadcast": ("res", 1.0),
 }
 
 _aten = torch.ops.aten

@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models import common
+from repro_torch.models import common, transformer
 from repro_torch.models.common import ArchCfg, Params, dense_init
+from repro_torch.parallel import sharding, spmd
 
 DECAY_LORA = 64
 
@@ -103,13 +104,17 @@ def _decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
     return torch.exp(-torch.exp(p["w0"] + lo))
 
 
-def _head_norm(cfg: ArchCfg, p: Params, y: torch.Tensor) -> torch.Tensor:
-    """Per-head RMS normalisation of the wkv output (fp32 out)."""
-    H, hd = _heads(cfg)
+def _head_norm(cfg: ArchCfg, p: Params, y: torch.Tensor,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-head RMS normalisation of the wkv output (fp32 out); ``scale``
+    is the gain of y's columns (default the whole ``gn_scale``: y every
+    head)."""
+    hd = cfg.resolved_head_dim
     shp = y.shape
-    yf = y.float().reshape(shp[:-1] + (H, hd))
+    yf = y.float().reshape(shp[:-1] + (shp[-1] // hd, hd))
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + cfg.norm_eps)
-    return yf.reshape(shp) * p["gn_scale"].float()
+    return yf.reshape(shp) * (p["gn_scale"] if scale is None
+                              else scale).float()
 
 
 def time_mix(cfg: ArchCfg, p: Params, x: torch.Tensor, *, state=None,
@@ -209,7 +214,14 @@ def _step_layers(cfg: ArchCfg, params: RwkvLM, h: torch.Tensor, state):
 
 
 def prefill(cfg: ArchCfg, params: RwkvLM, batch: dict):
-    """Returns (last-token logits (B, 1, V), decode state) — O(1) in S."""
+    """Returns (last-token logits (B, 1, V), decode state) — O(1) in S.
+
+    Under a runtime mesh with a "model" axis of more than one rank, this
+    rank's part of JAX's partitioned prefill (``_step_layers_tp``): the
+    state comes back as this rank's ``decode_state_specs`` shard."""
+    mesh = sharding.serving_mesh(cfg)
+    if mesh is not None:
+        return _step_layers_tp(cfg, params, batch["tokens"], None, mesh)
     h = common.embed_tokens(params.embed, batch["tokens"])
     h, state = _step_layers(cfg, params, h, None)
     return common.lm_head(cfg, params.embed, h[:, -1:]), state
@@ -218,7 +230,214 @@ def prefill(cfg: ArchCfg, params: RwkvLM, batch: dict):
 def decode_step(cfg: ArchCfg, params: RwkvLM, token: torch.Tensor,
                 state: dict, pos=None):
     """token: (B, 1); state {"tm_shift", "cm_shift", "wkv"} with a leading
-    layer axis; ``pos`` is unused (O(1) state).  Returns (logits, state)."""
+    layer axis; ``pos`` is unused (O(1) state).  Returns (logits, state).
+
+    Under a runtime mesh with a "model" axis of more than one rank, token
+    holds this rank's rows and state its ``decode_state_specs`` shard, as
+    ``prefill`` returns it there (``_step_layers_tp``)."""
+    mesh = sharding.serving_mesh(transformer.serving_cfg(cfg))
+    if mesh is not None:
+        return _step_layers_tp(transformer.serving_cfg(cfg), params, token,
+                               state, mesh)
     h = common.embed_tokens(params.embed, token)
     h, state = _step_layers(cfg, params, h, state)
     return common.lm_head(cfg, params.embed, h), state
+
+
+# ----------------------------------------------------------------------------
+# serving under a mesh: prefill and decode_step as one rank's part of JAX's
+# partitioned program (its in_shardings: param_specs, batch_specs,
+# decode_state_specs).  The residual stream stays whole on every rank of a
+# "model" line; each rank reads its own shards of the weights (the column
+# slices of w_r, w_k, w_v, w_g, w_o and of the channel-mix's w_k and w_r,
+# the rows of its w_v, its share of the decay LoRA's rank) and holds its
+# shard of the state, which decode_state_specs lays out as
+#
+#   wkv  (L, B/dp, H, dh/tp, dh)  dh/tp of the keys of every head: the rank
+#        program's own layout (the state's key dim is the readout's
+#        contracted dim)
+#   tm_shift, cm_shift (L, B/dp, d)  whole, or the layers over "model"
+#        where tp divides L (read a layer at a time: the rank that holds
+#        it broadcasts it)
+#
+# decode, a layer (tp > 1, dh divisible by tp):
+#   time-mix: r|k|v|g column slices --AG--> every rank slices its keys of
+#     r, k (and of the decay, whose LoRA partial is reduce-scattered
+#     straight onto those keys); K4's split-key route: the rank's rows of
+#     the state and its part of the readout --AR--> the head norm, the
+#     gate, and w_o's column slice --AG-->
+#   channel-mix: relu(x w_k[:, f slice])^2 @ w_v[f slice] --RS--> times
+#     sigmoid(x w_r[:, d slice]) --AG-->
+# prefill, a layer (tp dividing the heads): the time-mix on the rank's
+#   heads through K4 at full width (the decay's LoRA reduce-scattered onto
+#   the rank's columns, u's rows re-laid by one all-to-all, w_o's rows
+#   likewise; its partial --AR-->), the channel-mix as above; the final
+#   wkv state re-laid from the rank's heads to its keys one layer at a
+#   time (spmd.layer_out).
+# Where the split does not divide, a layer runs the plain path with its
+# weights gathered where read and its state re-laid a layer at a time.
+# ----------------------------------------------------------------------------
+
+_STATE = ("tm_shift", "cm_shift", "wkv")
+
+
+def _col(p: Params, name: str, mesh) -> torch.Tensor:
+    """This rank's column slice of weight ``name`` (its output dim)."""
+    return spmd.tp_slice(p.local(name), -1, mesh)
+
+
+def _row(p: Params, name: str, mesh) -> torch.Tensor:
+    """This rank's row slice of weight ``name`` (its input dim)."""
+    return spmd.tp_slice(p.local(name), 0, mesh)
+
+
+def _lora_part(p: Params, xw: torch.Tensor, mesh) -> torch.Tensor | None:
+    """The rank's part of the decay LoRA, tanh(xw A[:, r]) B[r, :] over its
+    slice r of the LoRA's rank (summed over "model" it is the whole); None
+    where the rank does not divide."""
+    if DECAY_LORA % mesh.shape["model"]:
+        return None
+    return torch.tanh(xw.float() @ _col(p, "w_lora_a", mesh)) \
+        @ _row(p, "w_lora_b", mesh)
+
+
+def _time_mix_keys(cfg: ArchCfg, p: Params, x: torch.Tensor, prev, wkv0,
+                   mesh):
+    """One decode step of the time-mix on this rank's keys: x (B, 1, d)
+    whole, prev (B, d) the layer's token shift, wkv0 (B, H, dh/tp, dh) the
+    rank's rows of the state.  Returns (out (B, 1, d) whole, (x's last
+    token, the new state rows))."""
+    H, hd = _heads(cfg)
+    B, S, d = x.shape
+    tp, idx = mesh.shape["model"], mesh.axis_index("model")
+    dk = hd // tp
+    xx = _shift(x, prev)
+    mr, mk, mv, mw, mg = p["mu"]
+    parts = torch.stack([_lerp(x, xx, m) @ _col(p, n, mesh) for m, n in (
+        (mr, "w_r"), (mk, "w_k"), (mv, "w_v"), (mg, "w_g"))])
+    r, k, v, g = spmd.all_gather(parts, -1, mesh, "model",
+                                 tag="rkvg").unbind(0)
+    keys = slice(idx * dk, (idx + 1) * dk)
+
+    def mine(t):                        # the rank's keys of every head
+        return t.reshape(B, S, H, hd)[..., keys].contiguous()
+
+    xw = _lerp(x, xx, mw)
+    part = _lora_part(p, xw, mesh)
+    if part is None:
+        lo = mine(torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"])
+    else:       # reduce-scattered onto the keys: (tp, B, S, H, dk) summed
+        lo = spmd.reduce_scatter(
+            part.reshape(B, S, H, tp, dk).movedim(3, 0).contiguous(), 0,
+            mesh, "model", tag="lora")[0]
+    w0 = p["w0"].reshape(H, hd)[:, keys]
+    w = torch.exp(-torch.exp(w0 + lo))
+    r = mine(r)
+    y, wkv = ops.rwkv6_scan_split(r, mine(k),
+                                  v.reshape(B, S, H, hd).contiguous(),
+                                  w.to(r.dtype).contiguous(),
+                                  _col(p, "u", mesh), s0=wkv0)
+    y = spmd.all_reduce(y, mesh, "model", tag="readout").to(r.dtype)
+    y = _head_norm(cfg, p, y.reshape(B, S, d)) * F.silu(g.float())
+    out = spmd.all_gather(y.to(x.dtype) @ _col(p, "w_o", mesh), -1, mesh,
+                          "model", tag="act")
+    return out, (x[:, -1], wkv)
+
+
+def _time_mix_heads(cfg: ArchCfg, p: Params, x: torch.Tensor, mesh):
+    """The prefill's time-mix on this rank's heads (tp dividing them):
+    x (B, S, d) whole.  Returns (out (B, S, d) whole, (x's last token, the
+    final state of the rank's heads (B, H/tp, dh, dh)))."""
+    H, hd = _heads(cfg)
+    B, S, d = x.shape
+    tp, idx = mesh.shape["model"], mesh.axis_index("model")
+    c = d // tp
+    xx = _shift(x)
+    mr, mk, mv, mw, mg = p["mu"]
+    # the kernel takes contiguous rows; a product with a column slice of
+    # a weight need not come out so
+    r, k, v = ((_lerp(x, xx, m) @ _col(p, n, mesh)).reshape(B, S, -1, hd)
+               .contiguous()
+               for m, n in ((mr, "w_r"), (mk, "w_k"), (mv, "w_v")))
+    g = F.silu((_lerp(x, xx, mg) @ _col(p, "w_g", mesh)).float())
+    xw = _lerp(x, xx, mw)
+    part = _lora_part(p, xw, mesh)
+    if part is None:
+        lo = (torch.tanh(xw.float() @ p["w_lora_a"])
+              @ p["w_lora_b"]).narrow(-1, idx * c, c)
+    else:            # reduce-scattered onto the rank's columns
+        lo = spmd.reduce_scatter(part, -1, mesh, "model", tag="lora")
+    w = torch.exp(-torch.exp(p["w0"].narrow(0, idx * c, c) + lo))
+    y, wkv = ops.rwkv6_scan(r, k, v, w.reshape(B, S, -1, hd).to(
+        r.dtype).contiguous(), _row(p, "u", mesh), return_state=True)
+    y = _head_norm(cfg, p, y.reshape(B, S, c),
+                   p["gn_scale"].narrow(0, idx * c, c)) * g
+    out = spmd.all_reduce(y.to(x.dtype) @ _row(p, "w_o", mesh), mesh,
+                          "model", tag="act")
+    return out, (x[:, -1], wkv)
+
+
+def _channel_mix_tp(cfg: ArchCfg, p: Params, x: torch.Tensor, state,
+                    mesh):
+    """The channel-mix on this rank's d_ff slice (the plain one, weights
+    gathered, where d_ff or d does not divide): x (B, S, d) whole, state
+    the token shift (None: zeros).  Returns (out whole, x's last
+    token)."""
+    tp = mesh.shape["model"]
+    if cfg.d_ff % tp or cfg.d_model % tp:
+        return channel_mix(cfg, p, x, state=state, return_state=True)
+    xx = _shift(x, state)
+    mk, mr = p["mu"]
+    k = torch.relu((_lerp(x, xx, mk) @ _col(p, "w_k", mesh)).float()
+                   ).square()
+    kv = spmd.reduce_scatter(k.to(x.dtype) @ _row(p, "w_v", mesh), -1, mesh,
+                             "model", tag="act")
+    rgate = torch.sigmoid((_lerp(x, xx, mr) @ _col(p, "w_r", mesh)).float())
+    out = spmd.all_gather((rgate * kv.float()).to(x.dtype), -1, mesh,
+                          "model", tag="act")
+    return out, x[:, -1]
+
+
+def _step_layers_tp(cfg: ArchCfg, params: RwkvLM, tokens: torch.Tensor,
+                    state: dict | None, mesh):
+    """``prefill`` (state None, tokens the rank's rows of the prompt) or
+    ``decode_step`` (tokens (B, 1), state the rank's shard) as this rank's
+    part of the partitioned program; returns (logits, the state's shard
+    under ``decode_state_specs``)."""
+    seq = sharding.runtime_batch_spec()[1]
+    if seq is not None:      # the recurrence takes the whole sequence
+        tokens = spmd.all_gather(tokens, 1, mesh, seq, tag="seq")
+    H, hd = _heads(cfg)
+    tp = mesh.shape["model"]
+    # the wkv state's keys (decode) or heads (prefill) over "model" where
+    # they divide
+    if state is not None:
+        split = {} if hd % tp else {"wkv": 2}
+    else:
+        split = {} if H % tp else {"wkv": 1}
+    st = spmd.RankStates(cfg, mesh, tokens.shape[0], state,
+                         lambda b: init_state(cfg, b, layers=cfg.n_layers,
+                                              device="meta"), _STATE, split)
+    h = common.embed_tokens(params.embed, tokens)
+    for i, lp in enumerate(params.layers):
+        tm_in = cm_in = None
+        if state is not None:
+            tm_in, cm_in, wkv0 = (st.read(i, n) for n in _STATE)
+        x1 = common.apply_norm(cfg, lp.ln1, h)
+        if not st.split:
+            y, (tm, wkv) = time_mix(cfg, lp.tm, x1, return_state=True,
+                                    state=None if state is None
+                                    else (tm_in, wkv0))
+        elif state is None:
+            y, (tm, wkv) = _time_mix_heads(cfg, lp.tm, x1, mesh)
+        else:
+            y, (tm, wkv) = _time_mix_keys(cfg, lp.tm, x1, tm_in, wkv0, mesh)
+        h = h + y
+        y, cm = _channel_mix_tp(cfg, lp.cm, common.apply_norm(cfg, lp.ln2, h),
+                                cm_in, mesh)
+        h = h + y
+        for n, t in zip(_STATE, (tm, cm, wkv)):
+            st.write(i, n, t)
+    h = common.apply_norm(cfg, params.final_norm, h)
+    logits = common.lm_head(cfg, params.embed, h[:, -1:])
+    return logits, st.stacks()

@@ -305,6 +305,67 @@ def cache_layout(cfg, mesh, global_batch: int, max_len: int):
     return "other", spec
 
 
+def state_layout(cfg, mesh, global_batch: int, whole: dict) -> dict:
+    """How ``decode_state_specs`` lays a decode state out: {"/"-joined
+    leaf path: (spec, whole shape)}, ``whole`` the family's own state at
+    the global batch (its ``init_state`` on meta).  Looked up from the
+    global batch and the whole state's shapes, never from a shard's shape
+    (a shard of a deep cache has the shape of a shallow whole one)."""
+    leaves = state_paths(whole)
+    specs = decode_state_specs(cfg, leaves, mesh, global_batch)
+    return {k: (P(*specs[k]), tuple(v.shape)) for k, v in leaves.items()}
+
+
+def state_paths(state: dict, prefix: str = "") -> dict:
+    """{"/"-joined path: leaf} of nested dicts, entries that are no
+    tensor (zamba2's "max_len") left out."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(state_paths(v, f"{prefix}{k}/"))
+        elif hasattr(v, "shape"):
+            out[prefix + k] = v
+    return out
+
+
+def state_leaf(state: dict, path: str):
+    """The leaf of nested dicts at a "/"-joined ``path``."""
+    for k in path.split("/"):
+        state = state[k]
+    return state
+
+
+def check_state_shards(layout: dict, state: dict, mesh) -> None:
+    """Raise unless every leaf of ``state`` has the shape of its shard
+    under ``layout`` (``state_layout``'s)."""
+    for path, (spec, whole) in layout.items():
+        got, want = tuple(state_leaf(state, path).shape), \
+            local_shape(spec, whole, mesh)
+        if got != want:
+            raise ValueError(f"decode_step: a {path} shard of shape {got}, "
+                             f"where decode_state_specs gives {want}")
+
+
+def local_shape(spec, shape, mesh) -> tuple:
+    """The shape of this rank's part of a tensor of ``shape`` under
+    ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // math.prod(mesh.shape[a] for a in spec_axes(e))
+                 for d, e in zip(shape, spec))
+
+
+def serving_mesh(cfg):
+    """The registered mesh where serving runs a rank program on it (a
+    "model" axis of more than one rank that splits the layers' work, not
+    the batch rows), else None: then the plain path runs on this rank's
+    rows."""
+    mesh = _RUNTIME_MESH
+    if mesh is None or tp_size(mesh, cfg) <= 1 \
+            or "model" in spec_axes(runtime_batch_spec()[0]):
+        return None
+    return mesh
+
+
 # ----------------------------------------------------------------------------
 # runtime mesh registry: models are functions of (cfg, params, batch), but
 # the GSPMD trainer's per-rank programs need the ambient mesh — the dense

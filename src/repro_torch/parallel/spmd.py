@@ -14,8 +14,9 @@ gradient of the sum of the ranks' objectives:
   * ``all_to_all``     (split one dim, concatenate another) <-> its inverse
 
 ``all_reduce_max`` (the element-wise maximum: serving's log-sum-exp
-combine over the slices of a decode cache) has no adjoint and raises
-under grad.
+combine over the slices of a decode cache) and ``broadcast`` (one rank's
+tensor to its line: serving's read of a state layer that one rank holds)
+have no adjoint and raise under grad.
 
 A collective over several axes (an entry of a spec such as
 ``("data", "model")``) runs on the group of those axes, the first axis the
@@ -33,18 +34,27 @@ reports its kind (JAX's HLO names: "all-gather", "reduce-scatter",
 "all-reduce", "all-to-all"), operand, result and group size to every sink
 in ``collective_sinks`` (``launch/op_analysis.py``'s).  ``shard`` / ``unshard`` cut a global tensor to
 this rank's part of a spec and gather it back, and ``relayout`` takes a
-part under one spec to the part under another; ``gather_param`` is what a
+part under one spec to the part under another; ``layer_in`` /
+``layer_out`` read and write one layer of a stack held under a spec,
+and ``RankStates`` a serving program's whole decode state so, a layer
+at a time; ``gather_param`` is what a
 model's parameter access (``models.common.Params``) runs for a leaf the
 trainer holds sharded; ``tp_slice`` gives this rank's 1/|model| slice of a
 weight along one dim for the tensor-parallel layers, from whatever layout
 the specs gave it.
+
+A CUDA tensor on a gloo group goes through the host (``_staged``): that
+route exists only so that several gloo ranks can share one card, which
+NCCL does not allow.
 """
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.launch.mesh import AbstractGroup
 from repro_torch.parallel import sharding
@@ -84,6 +94,27 @@ def _abstract(kind: str, x, shape, group) -> torch.Tensor:
     return out
 
 
+def _host(x, group) -> bool:
+    """Whether a collective on ``group`` takes ``x`` through the host: a
+    CUDA tensor on a gloo group (ranks sharing one card, which NCCL does
+    not allow: each stages its part in host memory)."""
+    return x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _staged(at: int):
+    """``fn(x, *args)``, its group ``args[at]``, on the host where
+    ``_host`` says so, its result moved back to x's device."""
+    def wrap(fn):
+        def run(x, *args):
+            group = args[at]
+            if isinstance(group, AbstractGroup) or not _host(x, group):
+                return fn(x, *args)
+            return fn(x.cpu(), *args).to(x.device)
+        return run
+    return wrap
+
+
+@_staged(1)
 def _gather(x, dim, group, n):
     if isinstance(group, AbstractGroup):
         shape = list(x.shape)
@@ -98,6 +129,7 @@ def _gather(x, dim, group, n):
     return out.movedim(0, dim)
 
 
+@_staged(1)
 def _scatter(x, dim, group, n):
     xt = x.movedim(dim, 0).contiguous()
     if xt.shape[0] % n:
@@ -116,6 +148,7 @@ def _scatter(x, dim, group, n):
     return out.movedim(0, dim)
 
 
+@_staged(0)
 def _reduce(x, group, op=dist.ReduceOp.SUM):
     if isinstance(group, AbstractGroup):
         return _abstract("all-reduce", x, x.shape, group)
@@ -124,6 +157,7 @@ def _reduce(x, group, op=dist.ReduceOp.SUM):
     return out
 
 
+@_staged(2)
 def _exchange(x, split_dim, concat_dim, group, n):
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
@@ -247,6 +281,30 @@ def all_reduce_max(x, mesh, entry, tag: str = ""):
     return _reduce(x, group, dist.ReduceOp.MAX)
 
 
+@_staged(0)
+def _broadcast(x, group, src: int):
+    if isinstance(group, AbstractGroup):
+        return _abstract("broadcast", x, x.shape, group)
+    out = x.contiguous().clone()
+    dist.broadcast(out, src=src, group=group)
+    return out
+
+
+def broadcast(x, src: int, mesh, entry, tag: str = ""):
+    """The ``x`` of the rank at position ``src`` of this rank's line
+    along ``entry``, on every rank of the line (the others pass a tensor
+    of its shape and dtype, whose values are not read); counted as
+    ("broadcast", tag).  It has no adjoint: serving takes no gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("broadcast has no gradient: call it under "
+                           "torch.no_grad()")
+    group, n = _group(mesh, entry)
+    if n == 1:
+        return x
+    _count("broadcast", tag)
+    return _broadcast(x, group, mesh.line(sharding.spec_axes(entry))[src])
+
+
 def all_to_all(x, split_dim: int, concat_dim: int, mesh, entry,
                tag: str = ""):
     """Split ``x`` along ``split_dim`` into one part a rank of ``entry``'s
@@ -304,6 +362,94 @@ def relayout(x: torch.Tensor, src, dst, mesh, tag: str = "") -> torch.Tensor:
         if b is not None:
             x = shard(x, (None,) * dim + (b,), mesh)
     return x
+
+
+def layer_in(stack: torch.Tensor, i: int, n_layers: int, spec, want, mesh,
+             tag: str = "") -> torch.Tensor:
+    """Layer ``i`` of a stacked tensor this rank holds under ``spec`` (its
+    first entry the layers'), as this rank's part under ``want`` (the
+    layer's own dims): one layer moved, never the stack.  Where the spec
+    splits the layers, the rank that holds layer ``i`` broadcasts it over
+    that entry's line first."""
+    spec = _padded(spec, stack.dim())
+    idx, n = axis_index(mesh, spec[0])
+    if n > 1:
+        owner = i // (n_layers // n)
+        t = stack[i % (n_layers // n)] if owner == idx \
+            else torch.empty_like(stack[0])
+        t = broadcast(t, owner, mesh, spec[0], tag)
+    else:
+        t = stack[i]
+    return relayout(t, spec[1:], want, mesh, tag)
+
+
+def layer_out(t: torch.Tensor, i: int, n_layers: int, src, spec, mesh,
+              tag: str = "") -> torch.Tensor | None:
+    """Layer ``i`` of a stack to be held under ``spec`` (its first entry
+    the layers'), from ``t``, this rank's part of the layer under ``src``:
+    re-laid to ``spec``'s part (every rank of a line takes part in the
+    collectives) and returned where this rank holds layer ``i``, else
+    None."""
+    spec = _padded(spec, t.dim() + 1)
+    t = relayout(t, src, spec[1:], mesh, tag)
+    idx, n = axis_index(mesh, spec[0])
+    return t if i // (n_layers // n) == idx else None
+
+
+class RankStates:
+    """One rank's shard of a serving program's stacked decode state, read
+    and written a layer at a time (``layer_in`` / ``layer_out``), never
+    the stack.  Each leaf's layer is computed with its rows as the
+    tokens' and, where ``split`` names one of the layer's dims (the
+    layer dim dropped), that dim over "model".  ``init(batch)`` is the
+    family's own whole state at a global batch on meta, from which
+    ``sharding.state_layout`` looks the layout up; ``state`` (None in
+    prefill) is this rank's shard, refused where a leaf has another
+    shape.  ``names`` are the leaves read and written here, under
+    ``prefix`` in the state ("mamba/": zamba2's backbone)."""
+
+    def __init__(self, cfg, mesh, rows_here: int, state, init, names,
+                 split: dict, *, prefix: str = "") -> None:
+        rows = sharding.runtime_batch_spec()[0]
+        batch = rows_here * math.prod(mesh.shape[a]
+                                      for a in sharding.spec_axes(rows))
+        # the whole state on meta for its shapes alone, made outside any
+        # dispatch mode: it holds no memory (a dry run's tracker would
+        # count it as held)
+        with _disable_current_modes():
+            whole = init(batch)
+        self.layout = sharding.state_layout(cfg, mesh, batch, whole)
+        if state is not None:
+            sharding.check_state_shards(self.layout, state, mesh)
+        self.mesh, self.state, self.prefix = mesh, state, prefix
+        self.split = bool(split)
+        self.at = {}
+        for n in names:
+            at = [rows] + [None] * (len(self.layout[prefix + n][1]) - 2)
+            if n in split:
+                at[split[n]] = "model"
+            self.at[n] = tuple(at)
+        self.kept = {n: [] for n in names}
+
+    def read(self, i: int, name: str) -> torch.Tensor:
+        """Layer ``i`` of leaf ``name``, in the layout it is computed in."""
+        spec, whole = self.layout[self.prefix + name]
+        return layer_in(sharding.state_leaf(self.state, self.prefix + name),
+                        i, whole[0], spec, self.at[name], self.mesh,
+                        tag="state")
+
+    def write(self, i: int, name: str, t: torch.Tensor) -> None:
+        """Layer ``i`` of leaf ``name`` from ``t`` (in the layout it was
+        computed in), kept where this rank holds it."""
+        spec, whole = self.layout[self.prefix + name]
+        t = layer_out(t, i, whole[0], self.at[name], spec, self.mesh,
+                      tag="state")
+        if t is not None:
+            self.kept[name].append(t)
+
+    def stacks(self) -> dict:
+        """This rank's shards of the written layers, by leaf."""
+        return {n: torch.stack(ts) for n, ts in self.kept.items()}
 
 
 def gather_param(p: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import op_analysis as OA  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.parallel import spmd  # noqa: E402
+from repro_torch.parallel import sharding, spmd  # noqa: E402
 
 ARCHS = [configs.canonical(a) for a in configs.ALL_ARCHS]
 
@@ -449,3 +449,57 @@ def test_prefill_into_a_deeper_cache_relays_it_a_layer_at_a_time():
     growth = 2 * cfg.n_layers * layer // 2 // mesh.shape["model"]
     assert cfg.n_layers * layer > 21e9
     assert peaks[1] - peaks[0] <= growth + 2 * layer
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_recurrent_pod_decode_cells_are_partitioned_and_fit(arch, shape):
+    """The recurrent families' decode cells on the pod run their rank
+    programs: each rank holds its ``decode_state_specs`` shard (rwkv6's
+    wkv keys, zamba2's SSD ds slice and its shared block's KV heads) and
+    sums its part of every layer's readout over "model"; zamba2-1.2b's
+    live bytes fall from 20.1 GB (decode_32k) and 34.7 GB (long_500k) a
+    rank, every head's cache on every rank, to under 2 GB."""
+    cfg = configs.get_config(arch)
+    spmd.reset_counts()
+    out = dryrun.run_cell(arch, shape, "pod", dryrun.get_variant("baseline"))
+    assert out["partitioned"] is True
+    assert out["memory_analysis"]["fits_hbm"] is True
+    assert out["memory_analysis"]["live_bytes_per_device"] < 2e9
+    assert spmd.counts[("all_reduce", "readout")] == cfg.n_layers
+    assert out["kernels"].get("rwkv6_scan_split", {}).get("count", 0) == (
+        cfg.n_layers if cfg.family == "rwkv6" else 0)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_recurrent_prefill_relays_its_state_a_layer_at_a_time(arch,
+                                                              monkeypatch):
+    """prefill_32k on the pod: the prefill runs each layer on the rank's
+    heads (K4 / K3 at full width, zamba2's shared block through K2) and
+    re-lays each layer's final state onto the decode layout (the rank's
+    keys or ds slice) on its own: every state or cache re-lay takes one
+    layer (no layer dim), one gather of the heads a layer; the shared
+    block's caches are the rank's KV heads already and move not at
+    all."""
+    cfg = configs.get_config(arch)
+    seen = []
+    plain = spmd.relayout
+
+    def relayout(x, src, dst, mesh, tag=""):
+        if tag in ("state", "cache"):
+            seen.append((tag, x.dim()))
+        return plain(x, src, dst, mesh, tag)
+
+    monkeypatch.setattr(spmd, "relayout", relayout)
+    spmd.reset_counts()
+    out = dryrun.run_cell(arch, "prefill_32k", "pod",
+                          dryrun.get_variant("baseline"))
+    assert out["partitioned"] is True
+    layer_dims = {t.dim() - 1 for t in sharding.state_paths(
+        api.get_model(cfg).init_decode_state(32, 32768,
+                                             device="meta")).values()}
+    assert seen and {d for _, d in seen} <= layer_dims
+    assert spmd.counts[("all_gather", "state")] == cfg.n_layers
+    assert ("all_gather", "cache") not in spmd.counts
+    kernel = "rwkv6_scan" if cfg.family == "rwkv6" else "mamba2_scan"
+    assert out["kernels"][kernel]["count"] == cfg.n_layers

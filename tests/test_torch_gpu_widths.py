@@ -389,3 +389,45 @@ def test_reduced_config_trained_on_the_card_gives_the_cpus_losses(
             n = small_launches(before)
             assert all(n[k] > 0 for k in kernels), n
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,dk,dv", [(8, 32, 4, 64), (2, 4, 8, 16),
+                                       (3, 5, 1, 70)])
+def test_k4_split_key_route_matches_its_plain_version(cuda, dtype, B, H, dk,
+                                                      dv):
+    """K4's split-key route (one decode step on dk of the dv keys of every
+    head; rwkv6-1.6b's pod rank: 8 rows, 32 heads, 4 of 64 keys) against
+    ``ref.rwkv6_scan_split``: the fp32 readout part and the state rows,
+    one launch; at dv = 64 the sum of the dv/dk slices' parts against the
+    full-state S = 1 route (``rwkv6_scan_decode_kernel``)."""
+    g = torch.Generator(device="cuda").manual_seed(dk)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    r, k, w = (rnd(B, 1, H, dv).to(dtype) for _ in range(3))
+    w = (torch.sigmoid(w.float()) * 0.5 + 0.45).to(dtype)
+    v = rnd(B, 1, H, dv).to(dtype)
+    u = rnd(H, dv) * 0.1
+    s0 = rnd(B, H, dv, dv)
+    n = rw.rwkv6_scan_split.launches
+    parts = []
+    for i in range(dv // dk):
+        keys = slice(i * dk, (i + 1) * dk)
+        args = (r[..., keys].contiguous(), k[..., keys].contiguous(), v,
+                w[..., keys].contiguous(), u[:, keys].contiguous(),
+                s0[:, :, keys].contiguous())
+        y, s = ops.rwkv6_scan_split(*args)
+        y_w, s_w = ref.rwkv6_scan_split(*args)
+        assert y.dtype == s.dtype == torch.float32
+        torch.testing.assert_close(y, y_w, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(s, s_w, rtol=1e-6, atol=1e-6)
+        parts.append(y)
+    assert rw.rwkv6_scan_split.launches == n + dv // dk
+    if dv == 64:
+        y, _ = rw.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+        assert rw.rwkv6_scan.last_kernel == "rwkv6_scan_decode_kernel"
+        assert (sum(parts).to(dtype).float() - y.float()).abs().max() \
+            <= tol(dtype) * y.float().abs().max()

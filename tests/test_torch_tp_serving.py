@@ -1,5 +1,6 @@
-"""Tensor-parallel serving of the decoder families (``prefill`` and
-``decode_step`` under a runtime mesh) against the JAX package's, on the CPU.
+"""Tensor-parallel serving of the decoder and recurrent families
+(``prefill`` and ``decode_step`` under a runtime mesh) against the JAX
+package's, on the CPU.
 
 One module fixture runs ``tests/torch_dist_checks.py``'s "serve_tp" mode
 once: JAX's ``prefill`` and ``decode_step`` jitted with its dry run's
@@ -12,9 +13,13 @@ the port's 8 gloo ranks, each config starting from JAX's initial weights
 48 deep, whose "seq" slices of 6 and 12 have the depth of a whole cache
 that nothing splits; ODD on (4, 2) at batch 2 and 4, whose cache specs
 put the batch and the layers over "model"; the reduced internvl2 with
-its bf16 attention on (2, 4)).  Each case prefills an 8-token prompt into
-a 32-deep cache (24 and 48 for those TINY cases, 17 for ODD) and takes 8
-greedy decode steps.
+its bf16 attention on (2, 4); the reduced rwkv6, mamba2 and zamba2 on the
+three meshes, rwkv6 at batch 2 on (4, 2), zamba2 with a 2-token prompt
+on (2, 4), and rwkv6 and zamba2 in bf16 on (2, 4)).  Each case prefills
+an 8-token prompt (the short one aside) into a 32-deep cache (24 and 48
+for those TINY cases, 17 for ODD; the recurrent states are O(1),
+zamba2's shared block's caches 32 deep) and takes 8 greedy decode
+steps.
 
 Bars: fp32 logits (prefill's last and 8 decode steps') rtol 1e-4 / atol
 1e-5 against JAX's partitioned run; greedy tokens identical; each rank's
@@ -22,9 +27,22 @@ cache shard equal to the ``decode_state_specs`` slice of JAX's cache at
 rtol 1e-5 (atol 1e-5 of its largest value).  The "seq" layout combines its slices'
 softmaxes by their log-sum-exp, so under bf16 attention it rounds each
 slice's probabilities where JAX rounds the whole row's: that case is fed
-JAX's tokens and held to 2^-6 of the largest logit.  The combine itself
-is held here in one process against whole-sequence attention.
+JAX's tokens and held to 2^-6 of the largest logit.  The bf16 rwkv6 and
+zamba2 are fed JAX's tokens too and held within 3x the spread of the
+bf16 runs (JAX's unsharded run, fed the same tokens, against the port's
+plain path and against JAX's partitioned run): the frameworks round
+bf16 apart even unpartitioned.  The combine itself is held here in one
+process against whole-sequence attention.
+
+The recurrent families' rank programs split each state on its readout's
+contracted dim (rwkv6's wkv keys, the SSD state's ds): each rank's part of
+the readout is summed over "model".  Held here in one process, with the
+ranks as threads meeting at in-process collectives (``_lockstep``): the
+split-key step of K4's plain version against the full-state step, and the
+ds-split mamba step and rwkv6's key-split time-mix against their plain
+layers.
 """
+import threading
 import json
 import os
 import sys
@@ -37,7 +55,7 @@ torch.set_num_threads(1)
 
 from repro_torch import configs, weights  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
-from repro_torch.models import attention, transformer  # noqa: E402
+from repro_torch.models import api, attention, transformer  # noqa: E402
 from repro_torch.models.common import ArchCfg  # noqa: E402
 from repro_torch.parallel import sharding, spmd  # noqa: E402
 from repro_torch.runtime.trainer import shard_params  # noqa: E402
@@ -45,13 +63,19 @@ from repro_torch.runtime.trainer import shard_params  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_dist_checks as tdc  # noqa: E402
 
-CFGS = tdc.serve_cfgs(configs, ArchCfg, torch.float32)
+CFGS = tdc.serve_cfgs(configs, ArchCfg, torch.float32, torch.bfloat16)
 CASES = [tdc._tag(t, s) for t, (_, _, meshes, _) in CFGS.items()
          for s in meshes]
 EXACT = [c for c in CASES if c.split("_")[0] not in tdc.SERVE_FORCED]
-FORCED = [c for c in CASES if c.split("_")[0] in tdc.SERVE_FORCED]
+RECURRENT = [c for c in CASES if c.split("_")[0] in tdc.SERVE_RECURRENT]
+DECODER = [c for c in CASES if c not in RECURRENT]
+FORCED = [c for c in DECODER if c.split("_")[0] in tdc.SERVE_FORCED]
+REC_BF16 = [c for c in RECURRENT if c.split("_")[0] in tdc.SERVE_FORCED]
 RTOL, ATOL = 1e-4, 1e-5
 BF16_BAR = 2.0 ** -6
+# a bf16 recurrent case's bar over the frameworks' plain spread: the
+# factor chip_smoke.py holds the card's bf16 recurrent logits to
+REC_SPREAD = 3.0
 
 
 @pytest.fixture(scope="module")
@@ -78,6 +102,18 @@ def _case(case):
     tag, m = case.split("_")
     cfg, batch, _, max_len = CFGS[tag]
     return cfg, batch, tuple(int(x) for x in m.split("x")), max_len
+
+
+def _whole_state(cfg, batch, max_len):
+    """The family's whole decode state at ``batch`` on meta."""
+    return api.get_model(cfg).init_decode_state(batch, max_len,
+                                                device="meta")
+
+
+def _layout(cfg, mesh, batch, max_len):
+    """``sharding.state_layout`` of the family's whole state."""
+    return sharding.state_layout(cfg, mesh, batch,
+                                 _whole_state(cfg, batch, max_len))
 
 
 def _coords(rank, mesh_shape):
@@ -137,6 +173,42 @@ def test_bf16_seq_layout_within_its_bar(run, case):
         assert res[case]["finite"]
 
 
+def _bf16_bar(run, case, name):
+    """The bar of a bf16 recurrent case's array ``name`` (its logits, a
+    state leaf): REC_SPREAD times the larger spread of JAX's unsharded
+    run from the port's plain path (the frameworks' own bf16 rounding)
+    and from JAX's partitioned run (its partitioner's), all fed the
+    partitioned run's tokens; never below 2^-6 of its largest value."""
+    tag = case.split("_")[0]
+    whole, part = run["jax"](case, "whole")[name], run["jax"](case)[name]
+    plain = run["arrays"][0][f"{tag}_whole/{name}"]
+    spread = max(np.abs(plain - whole).max(), np.abs(part - whole).max())
+    return max(REC_SPREAD * float(spread),
+               BF16_BAR * float(np.abs(part).max()))
+
+
+@pytest.mark.parametrize("case", REC_BF16)
+def test_recurrent_bf16_rank_programs_within_their_bar(run, case):
+    """The reduced rwkv6 and zamba2 in bf16 on (2, 4), fed the tokens of
+    JAX's partitioned bf16 run, against it: every logit of the prefill
+    and the 8 decode steps within ``_bf16_bar`` (the two frameworks round
+    bf16 apart even unpartitioned, and each partitioned run sums bf16
+    partials over "model" in its own order), the greedy token equal
+    wherever JAX's top-2 gap exceeds twice that bar."""
+    want = run["jax"](case)
+    bar = _bf16_bar(run, case, "logits")
+    top2 = np.sort(want["logits"], -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2 * bar
+    assert clear.any()
+    for res, arr in zip(run["ranks"], run["arrays"]):
+        rows = res[case]["rows"]
+        got = arr[f"{case}/logits"]
+        assert np.abs(got - want["logits"][:, rows]).max() <= bar
+        hit = got.argmax(-1) == want["logits"][:, rows].argmax(-1)
+        assert hit[clear[:, rows]].all()
+        assert res[case]["finite"]
+
+
 def test_jax_partitioned_ep_prefill_parts_from_its_unsharded_run(run):
     """On a "model" axis JAX's ``ep_a2a`` prefill dispatches expert-
     parallel, each (rows x sequence) block with its own capacity, where
@@ -154,21 +226,30 @@ def test_jax_partitioned_ep_prefill_parts_from_its_unsharded_run(run):
 
 @pytest.mark.parametrize("case", CASES)
 def test_cache_shards_are_the_decode_state_specs_slices(run, case):
-    """Each rank's cache, after prefill and after the 8 decode steps, is
-    its ``decode_state_specs`` slice (the serving config's: TP specs even
-    under dp_only) of JAX's cache, and holds nothing else."""
+    """Each rank's cache (a recurrent family's state: every leaf), after
+    prefill and after the 8 decode steps, is its ``decode_state_specs``
+    slice (the serving config's: TP specs even under dp_only) of JAX's,
+    and holds nothing else."""
     cfg, batch, mesh_shape, _ = _case(case)
     mesh = sharding.abstract_mesh(mesh_shape, ("data", "model"))
     want = run["jax"](case)
-    spec = sharding.decode_state_specs(
-        transformer.serving_cfg(cfg), {"k": want["k"]}, mesh, batch)["k"]
+    leaves = [k for k in want if f"prefill_{k}" in want]
+    assert sorted(leaves) == sorted(
+        ["k", "v"] if case in DECODER else
+        sharding.state_paths(_whole_state(cfg, batch, _case(case)[3])))
     forced = case.split("_")[0] in tdc.SERVE_FORCED
     for r, arr in enumerate(run["arrays"]):
-        for name in ("prefill_k", "prefill_v", "k", "v"):
+        for name in [p + n for n in leaves for p in ("prefill_", "")]:
+            leaf = name.removeprefix("prefill_")
+            spec = sharding.decode_state_specs(
+                transformer.serving_cfg(cfg), {leaf: want[leaf]}, mesh,
+                batch)[leaf]
             w = _shard_np(want[name], spec, mesh_shape, r)
             got = arr[f"{case}/{name}"]
             assert got.shape == w.shape, (r, name)
-            if forced and not name.startswith("prefill"):
+            if case in REC_BF16:
+                assert np.abs(got - w).max() <= _bf16_bar(run, case, name)
+            elif forced and not name.startswith("prefill"):
                 scale = float(np.abs(want[name]).max())
                 assert np.abs(got - w).max() <= BF16_BAR * scale
             else:    # values of order 1: atol 1e-5 of the largest
@@ -185,7 +266,7 @@ def _expected_params(cfg, mesh_shape, rank):
     return {k: list(v.shape) for k, v in model.named_parameters()}
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", DECODER)
 def test_each_rank_holds_only_its_spec_shards(run, case):
     """Every rank's parameters (prefill's, and the decode step's under the
     serving config) are its ``param_specs`` shards; on a "model" axis of
@@ -214,7 +295,7 @@ def test_each_rank_holds_only_its_spec_shards(run, case):
             assert len(shape) == 2 and tuple(shape) in readable, shape
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c.endswith("x2")
+@pytest.mark.parametrize("case", [c for c in DECODER if c.endswith("x2")
                                   or c.endswith("x4")])
 def test_the_collectives_a_decode_layer_issues(run, case):
     """One decode step's collectives, by layout: "heads" two all-reduces
@@ -256,6 +337,8 @@ def test_layouts_follow_the_kv_heads(run):
     ("other")."""
     port = run["ranks"][0]
     for case, held in port.items():
+        if case in RECURRENT:
+            continue
         cfg, _, mesh_shape, _ = _case(case)
         if case.startswith("odd"):
             assert held["layout"] == "other"
@@ -286,10 +369,368 @@ def test_all_masked_slices_give_no_nan(run):
     no visible key, their partials m = -inf and l = 0, and every logit
     stays finite (and within the bars above); TINY's 48-deep cache leaves
     slices 2 and 3 empty through all 8 steps."""
-    for case in [c for c in CASES if c.endswith("_2x4")]:
+    for case in [c for c in DECODER if c.endswith("_2x4")]:
         for res in run["ranks"]:
             if res[case]["layout"] == "seq":
                 assert res[case]["finite"], case
+
+
+# ----------------------------------------------------------------------------
+# the recurrent families on 8 ranks
+# ----------------------------------------------------------------------------
+
+def _split_dim(spec):
+    return [i for i, e in enumerate(spec) if "model" in sharding.spec_axes(e)]
+
+
+@pytest.mark.parametrize("case", RECURRENT)
+def test_recurrent_ranks_hold_their_shards_and_move_a_layer_at_a_time(
+        run, case):
+    """Every rank's parameters (prefill's and the decode step's) are its
+    ``param_specs`` shards; a decode step gathers no weight but the
+    embedding (the LM head) and rwkv6's token-shift lerps (mu, (5, d) and
+    (2, d)), save where "model" does not divide the shared block's heads
+    (it runs whole: its weights gathered); every collective of a state or
+    cache layer moves one layer (its result has no layer dim): no state
+    leaf and no shared-block cache is gathered whole, and a cache split
+    by its KV heads moves not at all."""
+    cfg, batch, mesh_shape, max_len = _case(case)
+    mesh = sharding.abstract_mesh(mesh_shape, ("data", "model"))
+    layout = _layout(cfg, mesh, batch, max_len)
+    ndim = {len(shape) for _, shape in layout.values()}
+    whole_block = cfg.family == "zamba2" and cfg.n_heads % mesh_shape[1]
+    by_heads = cfg.family != "zamba2" or _split_dim(layout["kv/k"][0]) == [3]
+    for r, res in enumerate(run["ranks"]):
+        held = res[case]
+        assert held["params"] == _expected_params(cfg, mesh_shape, r)
+        dec = _expected_params(transformer.serving_cfg(cfg), mesh_shape, r)
+        assert held["decode_params"] == dec
+        readable = {tuple(v) for k, v in dec.items()
+                    if k.startswith("embed.") or k.endswith(".mu")
+                    or whole_block and k.startswith("shared.")}
+        for shape in held["decode_gathered"]:
+            assert tuple(shape) in readable, shape
+        for op, tag, shape in held["decode_moved"]:
+            assert len(shape) + 1 in ndim, (op, tag, shape)
+            assert tag != "cache" or not by_heads, (op, shape)
+
+
+@pytest.mark.parametrize("case", [c for c in RECURRENT if c.endswith("x2")
+                                  or c.endswith("x4")])
+def test_the_collectives_a_recurrent_decode_layer_issues(run, case):
+    """One decode step's collectives a layer.  rwkv6: the r|k|v|g column
+    slices gathered, the decay LoRA's partial reduce-scattered onto the
+    rank's keys, the readout's partials summed, w_o's slices gathered; the
+    channel-mix one reduce-scatter and one all-gather.  A mamba layer: the
+    projection's slices gathered, the readout's partials summed, w_out's
+    partial summed; the shared block two all-reduces.  A state leaf split
+    by the layers is broadcast a layer by the rank that holds it; one
+    split by its batch rows gathered a layer."""
+    cfg, batch, mesh_shape, max_len = _case(case)
+    mesh = sharding.abstract_mesh(mesh_shape, ("data", "model"))
+    layout = _layout(cfg, mesh, batch, max_len)
+    L = cfg.n_layers
+    on_l = sum(_split_dim(spec) == [0] for spec, _ in layout.values())
+    on_rows = sum(_split_dim(spec) == [1] for spec, _ in layout.values())
+    apps = L // cfg.attn_every if cfg.family == "zamba2" else 0
+    for res in run["ranks"]:
+        n = res[case]["counts"]["decode"]
+        if cfg.family == "rwkv6":
+            want = {"all_gather/rkvg": L, "reduce_scatter/lora": L,
+                    "all_reduce/readout": L, "all_gather/act": 2 * L,
+                    "reduce_scatter/act": L}
+        else:
+            want = {"all_gather/proj": L, "all_reduce/readout": L,
+                    "all_reduce/act": L + 2 * apps}
+        for k, v in want.items():
+            assert n[k] == v, (k, n)
+        assert n.get("broadcast/state", 0) == on_l * L
+        assert n.get("all_gather/state", 0) == on_rows * L
+        assert "all_reduce_max/combine" not in n
+
+
+def test_recurrent_layouts_on_the_test_meshes():
+    """``decode_state_specs`` on the test meshes: the wkv and SSD states'
+    dim 3 (the readout's contracted dim) over "model" wherever it splits;
+    rwkv6's token shifts on the layers on (4, 2) (2 layers), whole on
+    (2, 4); the conv states on the layers on both; at batch 2 on (4, 2)
+    the shifts' and conv's batch rows over "model" (no "data" split)."""
+    def split(tag, shape, batch=8):
+        cfg = CFGS[tag][0]
+        mesh = sharding.abstract_mesh(shape, ("data", "model"))
+        return {k: _split_dim(v[0]) for k, v in _layout(
+            cfg, mesh, batch, 32).items()}
+
+    assert split("rwkv", (4, 2)) == {"tm_shift": [0], "cm_shift": [0],
+                                     "wkv": [3]}
+    assert split("rwkv", (2, 4)) == {"tm_shift": [], "cm_shift": [],
+                                     "wkv": [3]}
+    assert split("rwkv", (4, 2), 2) == {"tm_shift": [1], "cm_shift": [1],
+                                        "wkv": [3]}
+    for shape in ((4, 2), (2, 4)):
+        assert split("mamba", shape) == {"conv": [0], "ssd": [3]}
+        assert split("zamba", shape) == {"mamba/conv": [0], "mamba/ssd": [3],
+                                         "kv/k": [3], "kv/v": [3]}
+    assert set(map(tuple, split("zamba", (8, 1)).values())) == {()}
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("rwkv6-1.6b", {"tm_shift": (None, ("data",), None),
+                    "cm_shift": (None, ("data",), None),
+                    "wkv": (None, ("data",), None, "model", None)}),
+    ("zamba2-1.2b", {"mamba/conv": (None, ("data",), None, None),
+                     "mamba/ssd": (None, ("data",), None, "model", None),
+                     "kv/k": (None, ("data",), None, "model", None),
+                     "kv/v": (None, ("data",), None, "model", None)})])
+def test_recurrent_state_layout_on_the_pod(arch, want):
+    """``decode_32k`` on the 16x16 pod (batch 128): rwkv6-1.6b's wkv state
+    on its keys (4 of every head's 64 a rank), its 24 layers' shifts whole
+    (16 does not divide 24); zamba2-1.2b's SSD state on ds (4 of 64), its
+    conv states whole (38 layers), its shared block's caches on their KV
+    heads."""
+    cfg = configs.get_config(arch)
+    got = _layout(cfg, sharding.abstract_mesh((16, 16), ("data", "model")),
+                  128, 32768)
+    assert {k: tuple(v[0]) for k, v in got.items()} == want
+
+
+# ----------------------------------------------------------------------------
+# the recurrent rank programs in one process: ranks as threads
+# ----------------------------------------------------------------------------
+
+class _Line:
+    """The ranks of one "model" line meeting at in-process collectives:
+    each deposits its tensor, and every rank reads them all in rank
+    order."""
+
+    def __init__(self, n: int) -> None:
+        self.n, self.slots = n, [None] * n
+        self.barrier = threading.Barrier(n)
+
+    def exchange(self, rank: int, x):
+        self.slots[rank] = x
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+
+class _Group:
+    def __init__(self, line: _Line, rank: int) -> None:
+        self.line, self.rank, self.size = line, rank, line.n
+
+
+class _Mesh:
+    """A (1, tp) mesh that plays rank ``rank`` of the "model" line."""
+
+    def __init__(self, line: _Line, rank: int) -> None:
+        self.shape = {"data": 1, "model": line.n}
+        self.axis_names = ("data", "model")
+        self.rank, self._group = rank, _Group(line, rank)
+
+    def axis_index(self, axis):
+        return self.rank if axis == "model" else 0
+
+    def group(self, axis):
+        return self._group
+
+
+@pytest.fixture
+def lockstep(monkeypatch):
+    """``lockstep(tp, fn)``: fn(mesh) on tp threads, one a rank, the
+    collectives of ``spmd`` among them; returns the ranks' results."""
+    def gather(x, dim, group, n):
+        return torch.cat(group.line.exchange(group.rank, x), dim)
+
+    def scatter(x, dim, group, n):
+        total = sum(group.line.exchange(group.rank, x))
+        return total.chunk(n, dim)[group.rank]
+
+    def reduce(x, group, op=None):
+        parts = group.line.exchange(group.rank, x)
+        if op is not None and op != torch.distributed.ReduceOp.SUM:
+            return torch.stack(parts).amax(0)
+        return sum(parts)
+
+    monkeypatch.setattr(spmd, "_gather", gather)
+    monkeypatch.setattr(spmd, "_scatter", scatter)
+    monkeypatch.setattr(spmd, "_reduce", reduce)
+
+    def run(tp, fn):
+        line, out, errors = _Line(tp), [None] * tp, []
+
+        def one(r):
+            try:
+                with torch.no_grad():
+                    out[r] = fn(_Mesh(line, r))
+            except BaseException as e:      # surfaced below
+                errors.append(e)
+                line.barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,))
+                   for r in range(tp)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+    return run
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 16])
+def test_k4_split_plain_version_sums_to_the_full_step(tp):
+    """``ref.rwkv6_scan_split`` on tp slices of the 64 keys: its state
+    rows are the full-state step's rows, and the sum of its readout parts
+    the full readout (``ref.rwkv6_scan`` at S = 1, fp32)."""
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(tp)
+    B, H, dh = 3, 4, 64
+    r, k, v = (torch.randn(B, 1, H, dh, generator=g) for _ in range(3))
+    w = torch.rand(B, 1, H, dh, generator=g) * 0.5 + 0.45
+    u = torch.randn(H, dh, generator=g) * 0.1
+    s0 = torch.randn(B, H, dh, dh, generator=g)
+    y, s = ref.rwkv6_scan(r, k, v, w, u, s0=s0, return_state=True)
+    dk, parts = dh // tp, []
+    for i in range(tp):
+        keys = slice(i * dk, (i + 1) * dk)
+        yp, sp = ref.rwkv6_scan_split(
+            *(t[..., keys].contiguous() for t in (r, k)), v,
+            w[..., keys].contiguous(), u[:, keys], s0[:, :, keys])
+        assert yp.dtype == sp.dtype == torch.float32
+        assert yp.shape == (B, 1, H, dh) and sp.shape == (B, H, dk, dh)
+        torch.testing.assert_close(sp, s[:, :, keys], rtol=1e-6, atol=1e-6)
+        parts.append(yp)
+    torch.testing.assert_close(sum(parts), y, rtol=1e-5, atol=1e-5)
+
+
+def _block(module, name, **over):
+    import dataclasses
+    cfg = dataclasses.replace(configs.get_reduced(name), **over)
+    return cfg, module(cfg, torch.Generator().manual_seed(5), "cpu")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_mamba_ds_split_step_counts_d_x_once(lockstep, tp):
+    """``ssm.mamba_decode_ds`` on tp ranks, each holding ds/tp of the SSD
+    state's rows, against the plain ``mamba_decode_step``: the output on
+    every rank, the conv state and each rank's new rows.  D is 3 (the
+    reduced config's is 1), so adding D x on every rank, not once after
+    the readout's sum, would miss by (tp - 1) 3 x."""
+    from repro_torch.models import ssm
+    cfg, blk = _block(ssm.MambaBlock, "zamba2-1.2b")
+    p = blk.mixer
+    p.D.data.fill_(3.0)
+    d_inner, H, ds, cw = ssm._dims(cfg)
+    g = torch.Generator().manual_seed(1)
+    hx = torch.randn(2, 1, cfg.d_model, generator=g)
+    conv = torch.randn(2, cw - 1, d_inner + 2 * ds, generator=g)
+    ssd = torch.randn(2, H, ds, cfg.ssm.head_dim, generator=g)
+    with torch.no_grad():
+        out, conv1, ssd1 = ssm.mamba_decode_step(cfg, p, hx, conv, ssd)
+    n = ds // tp
+    got = lockstep(tp, lambda mesh: ssm.mamba_decode_ds(
+        cfg, p, hx, conv, ssd[:, :, mesh.rank * n:(mesh.rank + 1) * n],
+        mesh))
+    for r, (o, c, s) in enumerate(got):
+        torch.testing.assert_close(o, out, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(c, conv1, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(s, ssd1[:, :, r * n:(r + 1) * n],
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rwkv6_key_split_time_mix_is_the_plain_step(lockstep, tp):
+    """``rwkv._time_mix_keys`` on tp ranks, each holding dh/tp of every
+    head's keys of the wkv state (u's bonus for its keys in its part of
+    the readout), against the plain ``time_mix`` with the whole state."""
+    from repro_torch.models import rwkv
+    cfg, blk = _block(rwkv.RwkvBlock, "rwkv6-1.6b")
+    H, hd = rwkv._heads(cfg)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 1, cfg.d_model, generator=g)
+    prev = torch.randn(2, cfg.d_model, generator=g)
+    wkv = torch.randn(2, H, hd, hd, generator=g)
+    with torch.no_grad():
+        out, (_, wkv1) = rwkv.time_mix(cfg, blk.tm, x, state=(prev, wkv))
+    n = hd // tp
+    got = lockstep(tp, lambda mesh: rwkv._time_mix_keys(
+        cfg, blk.tm, x, prev,
+        wkv[:, :, mesh.rank * n:(mesh.rank + 1) * n], mesh))
+    for r, (o, (last, s)) in enumerate(got):
+        torch.testing.assert_close(o, out, rtol=1e-5, atol=1e-5)
+        assert torch.equal(last, x[:, -1])
+        torch.testing.assert_close(s, wkv1[:, :, r * n:(r + 1) * n],
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,family", [
+    ("rwkv6-1.6b", None), ("zamba2-1.2b", "mamba2"), ("zamba2-1.2b", None)])
+def test_recurrent_serving_on_one_rank_is_the_plain_path(name, family):
+    """On a 1 x 1 mesh (a "model" line of one rank) ``prefill`` and
+    ``decode_step`` are the plain path's, bitwise."""
+    import dataclasses
+
+    cfg = configs.get_reduced(name)
+    if family:
+        cfg = dataclasses.replace(cfg, family=family)
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 5),
+                         generator=torch.Generator().manual_seed(1))
+    kw = {"max_len": 8} if cfg.family == "zamba2" else {}
+
+    def serve():
+        with torch.no_grad():
+            lg, st = model.prefill(params, {"tokens": toks}, **kw)
+            l2, st = model.decode_step(params, lg.argmax(-1), st, 5)
+        return lg, l2, tdc.state_leaves(st)
+
+    want = serve()
+    sharding.set_runtime_mesh(Mesh((1, 1), ("data", "model"), [0],
+                                   abstract_rank=0), sharding.P("data"))
+    try:
+        got = serve()
+    finally:
+        sharding.set_runtime_mesh(None)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2].keys() == want[2].keys()
+    assert all(torch.equal(got[2][k], want[2][k]) for k in want[2])
+
+
+@pytest.mark.parametrize("name,family", [
+    ("rwkv6-1.6b", None), ("zamba2-1.2b", "mamba2"), ("zamba2-1.2b", None)])
+def test_recurrent_decode_refuses_a_shard_of_another_shape(name, family):
+    """Under a mesh the decode step reads its state's layout from the
+    global batch (and zamba2's carried cache depth), never from a shard's
+    shape: a state whose shards are not ``decode_state_specs``' raises
+    before anything moves, as does a zamba2 state without its depth."""
+    import dataclasses
+
+    cfg = configs.get_reduced(name)
+    if family:
+        cfg = dataclasses.replace(cfg, family=family)
+    model = api.get_model(cfg)
+    mesh = Mesh((2, 4), ("data", "model"), range(8), abstract_rank=1)
+    params = weights.model_class(cfg)(cfg, device="meta")
+    shard_params(cfg, params, mesh)
+    state = _whole_state(cfg, 8, 16)       # every leaf whole: wrong
+    if cfg.family == "zamba2":
+        state["max_len"] = 16
+    token = torch.zeros((4, 1), dtype=torch.long, device="meta")
+    sharding.set_runtime_mesh(mesh, sharding.P("data"))
+    spmd.reset_counts()
+    try:
+        with pytest.raises(ValueError, match="decode_state_specs gives"):
+            model.decode_step(params, token, state, 3)
+        if cfg.family == "zamba2":
+            del state["max_len"]
+            with pytest.raises(ValueError, match="max_len"):
+                model.decode_step(params, token, state, 3)
+    finally:
+        sharding.set_runtime_mesh(None)
+    assert not spmd.counts
 
 
 # ----------------------------------------------------------------------------
@@ -393,6 +834,32 @@ def test_all_reduce_max_refuses_grad_and_reports_an_all_reduce():
     assert out.shape == (3, 5) and out.device.type == "meta"
     assert seen == [("all-reduce", 4)]
     assert spmd.counts == {("all_reduce_max", "combine"): 1}
+
+
+def test_each_staged_collective_finds_its_group(monkeypatch):
+    """The host staging of a CUDA tensor on a gloo group (``_staged``)
+    reads each collective's group: on an abstract mesh every collective
+    is recognised as abstract there and never asks whether to stage (a
+    wrong argument taken for the group would ask, with a number)."""
+    asked = []
+    monkeypatch.setattr(spmd, "_host", lambda x, g: asked.append(g))
+    mesh = Mesh((2, 4), ("data", "model"), range(8), abstract_rank=5)
+    x = torch.empty(4, 8, device="meta")
+    seen = []
+    spmd.collective_sinks.append(lambda *a: seen.append(a[0]))
+    try:
+        with torch.no_grad():
+            spmd.all_gather(x, 0, mesh, "model")
+            spmd.reduce_scatter(x, 1, mesh, "model")
+            spmd.all_reduce(x, mesh, "model")
+            spmd.all_reduce_max(x, mesh, "model")
+            spmd.all_to_all(x, 0, 1, mesh, "model")
+            spmd.broadcast(x, 1, mesh, "model")
+    finally:
+        spmd.collective_sinks.clear()
+    assert not asked
+    assert seen == ["all-gather", "reduce-scatter", "all-reduce",
+                    "all-reduce", "all-to-all", "broadcast"]
 
 
 @pytest.mark.parametrize("arch,layout", [

@@ -72,9 +72,11 @@ def bucket_inputs(tag: str):
 
 def _save_npz(path: str, arrays: dict) -> None:
     """Written whole, then renamed: a reader polling for ``path`` never
-    sees a part of it."""
+    sees a part of it.  A bf16 array (JAX's, as numpy gives it) is written
+    as fp32, which holds it exactly."""
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **arrays)
+    np.savez(tmp, **{k: a.astype(np.float32) if a.dtype.name == "bfloat16"
+                     else a for k, a in arrays.items()})
     os.rename(tmp, path)
 
 
@@ -243,6 +245,11 @@ TINY = dict(name="tiny", family="dense", n_layers=2, d_model=32, n_heads=4,
 ODD = dict(TINY, d_model=12, n_heads=2, n_kv_heads=1)
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=50)
 APEX = dict(batch=8, seq_len=32, comm="apex", dp_axis="x")
+# the re-mesh runs, whose event lists are compared: a step slower than 3x
+# the running median adds a "straggler" event on that side alone (a
+# wall-clock reading: one stalled rank of eight under a loaded host is
+# enough), so the detector is off there on both sides
+REMESH_QUIET = dict(straggler_factor=float("inf"))
 
 
 def jax_trainer(out_dir: str) -> None:
@@ -276,10 +283,13 @@ def jax_trainer(out_dir: str) -> None:
         fabric.lower_all_gather(t8, ("x",)),
         fabric.lower_all_reduce(t8, ("x",), mean=True)))
     # apex: the init every port run starts from, 4 fault-free losses (a
-    # checkpoint at step 3), then an elastic re-mesh after a dead node
+    # checkpoint at step 3), then an elastic re-mesh after a dead node.
+    # Its events are compared with the port's, so the wall-clock
+    # straggler detector is off (REMESH_QUIET; it has a test of its own)
     ck = f"{out_dir}/jax_remesh"
     tr = Trainer(cfg, TrainerConfig(ckpt_dir=ck, ckpt_every=3, opt=opt,
-                                    **APEX), mesh=make_mesh((8,), ("x",)))
+                                    **APEX, **REMESH_QUIET),
+                 mesh=make_mesh((8,), ("x",)))
     _save_npz(os.path.join(out_dir, "jax_init.npz"), flat(tr.params))
     res["apex_losses"] = [m["loss"] for m in tr.train(4)]
     res["apex_predicted_comm_s"] = tr.predicted_comm_s
@@ -352,8 +362,8 @@ def gspmd_cfgs(configs_mod, ArchCfg, dtype):
     import dataclasses
 
     def reduced(name, **kw):
-        return dataclasses.replace(configs_mod.get_reduced(name), **kw,
-                                   dtype=dtype)
+        return dataclasses.replace(configs_mod.get_reduced(name),
+                                   **{"dtype": dtype, **kw})
 
     return {
         "tiny": (ArchCfg(**TINY, dtype=dtype), 8, GSPMD_MESHES),
@@ -681,8 +691,8 @@ def rank_trainer(out_dir: str, rank: int, world: int, store: str):
         torch.equal(a, b) for a, b in zip(seq.params.parameters(),
                                           ov.params.parameters()))
     # apex, fault-free (a checkpoint at step 3), then an elastic re-mesh
-    # after a dead node
-    tr = trainer("remesh", ckpt_every=3)
+    # after a dead node; no straggler detector, as in JAX's run
+    tr = trainer("remesh", ckpt_every=3, **REMESH_QUIET)
     res["apex_losses"] = [m["loss"] for m in tr.train(4)]
     res["apex_predicted_comm_s"] = tr.predicted_comm_s
 
@@ -1185,7 +1195,7 @@ SERVE_STEPS = 8
 SERVE_PROMPT = 8
 
 
-def serve_cfgs(configs_mod, ArchCfg, dtype):
+def serve_cfgs(configs_mod, ArchCfg, dtype, half):
     """{tag: (cfg, batch, meshes, max_len)}: TINY, manual_sp_check.py's
     deepseek, the reduced qwen2 (dp_only, batch 4: its prefill takes the
     sequence over "model"), the reduced olmoe with the global dispatch and
@@ -1201,14 +1211,30 @@ def serve_cfgs(configs_mod, ArchCfg, dtype):
     "other" layout); and the reduced internvl2 as
     configured (bf16 attention) on (2, 4), where the "seq" layout's split
     softmax rounds its probabilities slice by slice (``SERVE_FORCED``).
-    The order is the port's; the JAX processes take alternate tags."""
+    ``half`` is the framework's bf16: the reduced rwkv6 and zamba2 in bf16
+    on (2, 4), whose rank programs sum bf16 partials over "model" as JAX's
+    partitioned program does (``SERVE_FORCED`` too).
+    The recurrent families (``SERVE_RECURRENT``): the reduced rwkv6,
+    mamba2 (the reduced zamba2's backbone) and zamba2 on every mesh, where
+    ``decode_state_specs`` splits the wkv / ssd states on their readout's
+    contracted dim and, on (4, 2) and (2, 4) where "model" divides the
+    layers, puts the token shifts (rwkv6's 2 layers, (4, 2) only) and the
+    conv states (4 layers) on the layers; rwkv6 and zamba2 on (1, 8) too,
+    where 8 divides neither rwkv6's 4 heads (its prefill runs whole and
+    re-lays the state onto the keys) nor zamba2's 4 shared-block heads
+    (the block runs whole, its caches split on the sequence and re-laid
+    an application at a time); rwkv6 at batch 2 on (4, 2),
+    whose shifts take the batch over "model"; zamba2 on (2, 4) with a
+    2-token prompt, shorter than its conv window (``SERVE_PROMPTS``).
+    The order is the port's; the JAX processes take alternate tags.  The
+    environment's ``SERVE_TAGS`` (comma-separated) runs a subset."""
     import dataclasses
 
     def reduced(name, **kw):
-        return dataclasses.replace(configs_mod.get_reduced(name), **kw,
-                                   dtype=dtype)
+        return dataclasses.replace(configs_mod.get_reduced(name),
+                                   **{"dtype": dtype, **kw})
 
-    return {
+    cfgs = {
         "tiny": (ArchCfg(**TINY, dtype=dtype), 8, SERVE_MESHES, 32),
         "tiny24": (ArchCfg(**TINY, dtype=dtype), 8, ((2, 4),), 24),
         "tiny48": (ArchCfg(**TINY, dtype=dtype), 8, ((2, 4),), 48),
@@ -1222,21 +1248,68 @@ def serve_cfgs(configs_mod, ArchCfg, dtype):
         "odd": (ArchCfg(**ODD, dtype=dtype), 2, ((4, 2),), 17),
         "oddl": (ArchCfg(**ODD, dtype=dtype), 4, ((4, 2),), 17),
         "vlm-bf16": (reduced("internvl2-76b"), 8, ((2, 4),), 32),
+        "rwkv": (reduced("rwkv6-1.6b"), 8, SERVE_MESHES + ((1, 8),), 32),
+        "mamba": (reduced("zamba2-1.2b", family="mamba2"), 8, SERVE_MESHES,
+                  32),
+        "zamba": (reduced("zamba2-1.2b"), 8, SERVE_MESHES + ((1, 8),), 32),
+        "rwkvb2": (reduced("rwkv6-1.6b"), 2, ((4, 2),), 32),
+        "zambas": (reduced("zamba2-1.2b"), 8, ((2, 4),), 32),
+        "rwkv-bf16": (reduced("rwkv6-1.6b", dtype=half), 8, ((2, 4),), 32),
+        "zamba-bf16": (reduced("zamba2-1.2b", dtype=half), 8, ((2, 4),),
+                       32),
     }
+    only = os.environ.get("SERVE_TAGS")     # a comma-separated subset
+    return {k: v for k, v in cfgs.items()
+            if not only or k in only.split(",")}
+
+
+# the recurrent families' tags, and the prompts other than SERVE_PROMPT
+SERVE_RECURRENT = ("rwkv", "mamba", "zamba", "rwkvb2", "zambas",
+                   "rwkv-bf16", "zamba-bf16")
+SERVE_PROMPTS = {"zambas": 2}
+# the tags whose unsharded JAX run is kept (beside the partitioned ones)
+SERVE_WHOLE = ("olmoe-ep", "rwkv-bf16", "zamba-bf16")
+# the tags whose port also runs its plain path (no mesh) on rank 0, and
+# whose unsharded JAX run is fed the tokens of their one partitioned run,
+# as that plain path is: the spread of the four bf16 runs
+SERVE_PLAIN = ("rwkv-bf16", "zamba-bf16")
+
+
+def serve_prompt(tag: str) -> int:
+    return SERVE_PROMPTS.get(tag, SERVE_PROMPT)
+
+
+def serve_prefill_kw(cfg, max_len: int) -> dict:
+    """The prefill's keywords: the caches' depth, for the families whose
+    decode state has one."""
+    return {} if cfg.family in ("rwkv6", "mamba2") else {"max_len": max_len}
+
+
+def state_leaves(state) -> dict:
+    """{"/"-joined path: tensor or array} of a decode state's leaves (a
+    decoder's cache {"k", "v"}; a recurrent family's state), its depth
+    entry ("max_len") left out."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{p}": t for p, t in state_leaves(v).items()})
+        elif k != "max_len":
+            out[k] = v
+    return out
 
 
 # JAX's processes (run side by side): alternate tags of serve_cfgs
 SERVE_JAX_PARTS = 2
 # the cases fed the JAX run's greedy tokens (teacher forcing), where the
-# port's split softmax parts from the reference by bf16 rounding and a
-# near-tie can flip a token
-SERVE_FORCED = ("vlm-bf16",)
+# port parts from the reference by bf16 rounding (the split softmax; the
+# bf16 models' sums in another order) and a near-tie can flip a token
+SERVE_FORCED = ("vlm-bf16", "rwkv-bf16", "zamba-bf16")
 
 
-def serve_batch(cfg, batch: int) -> dict:
+def serve_batch(cfg, batch: int, prompt: int = SERVE_PROMPT) -> dict:
     """The prompt (and a VLM's prefix embeddings), from one seed."""
     rng = np.random.default_rng(7)
-    out = {"tokens": rng.integers(0, cfg.vocab, (batch, SERVE_PROMPT))
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt))
            .astype(np.int32)}
     if cfg.family == "vlm":
         out["prefix_embeds"] = rng.normal(
@@ -1244,9 +1317,9 @@ def serve_batch(cfg, batch: int) -> dict:
     return out
 
 
-def serve_context(cfg) -> int:
+def serve_context(cfg, prompt: int = SERVE_PROMPT) -> int:
     """The prompt's positions: the first decode step writes there."""
-    return SERVE_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    return prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
 
 
 def jax_serve_tp(out_dir: str, part: int) -> None:
@@ -1271,7 +1344,7 @@ def jax_serve_tp(out_dir: str, part: int) -> None:
         return {"/".join(str(getattr(p, "key", p)) for p in path):
                 np.asarray(leaf) for path, leaf in leaves}
 
-    cfgs = serve_cfgs(jconfigs, ArchCfg, jnp.float32)
+    cfgs = serve_cfgs(jconfigs, ArchCfg, jnp.float32, jnp.bfloat16)
     for tag in list(cfgs)[part::SERVE_JAX_PARTS]:
         cfg, B, meshes, max_len = cfgs[tag]
         # JAX's build_decode: TP specs for the decode step even under
@@ -1282,10 +1355,19 @@ def jax_serve_tp(out_dir: str, part: int) -> None:
         params = model.init(jax.random.PRNGKey(0))
         _save_npz(os.path.join(out_dir, f"jax_serve_init_{tag}.npz"),
                   flat(params))
-        batch = {k: jnp.asarray(v) for k, v in serve_batch(cfg, B).items()}
-        ctx = serve_context(cfg)
-        for shape in (None,) + tuple(meshes):
-            prefill = functools.partial(model.prefill, max_len=max_len)
+        prompt = serve_prompt(tag)
+        batch = {k: jnp.asarray(v)
+                 for k, v in serve_batch(cfg, B, prompt).items()}
+        ctx = serve_context(cfg, prompt)
+        whole = (None,) if tag in SERVE_WHOLE else ()
+        # a SERVE_PLAIN tag's unsharded run comes last, fed the tokens of
+        # its partitioned run
+        shapes = tuple(meshes) + whole if tag in SERVE_PLAIN \
+            else whole + tuple(meshes)
+        fed = None
+        for shape in shapes:
+            prefill = functools.partial(model.prefill,
+                                        **serve_prefill_kw(cfg, max_len))
             if shape is None:
                 mesh, scope = None, contextlib.nullcontext()
                 pre, dec = jax.jit(prefill), jax.jit(dmodel.decode_step)
@@ -1311,10 +1393,13 @@ def jax_serve_tp(out_dir: str, part: int) -> None:
                                    dcfg, cache, mesh, B)),
                                NamedSharding(mesh, P()))
                         dec = jax.jit(dmodel.decode_step, in_shardings=dsh)
-                    res = {"prefill_k": cache["k"], "prefill_v": cache["v"]}
+                    res = {f"prefill_{k}": v
+                           for k, v in state_leaves(cache).items()}
                     lgs, toks = [logits[:, -1]], []
                     for i in range(SERVE_STEPS):
-                        t = jnp.argmax(lgs[-1], -1).astype(jnp.int32)[:, None]
+                        t = jnp.argmax(lgs[-1], -1).astype(
+                            jnp.int32)[:, None] if fed is None \
+                            else fed[i][:, None]
                         toks.append(t[:, 0])
                         if mesh is not None:   # committed to the specs
                             t, cache = jax.device_put((t, cache), dsh[1:3])
@@ -1324,7 +1409,9 @@ def jax_serve_tp(out_dir: str, part: int) -> None:
             finally:
                 sharding.set_runtime_mesh(None)
             res.update(logits=jnp.stack(lgs), tokens=jnp.stack(toks),
-                       k=cache["k"], v=cache["v"])
+                       **state_leaves(cache))
+            if tag in SERVE_PLAIN:
+                fed = res["tokens"]
             name = "whole" if shape is None else f"{shape[0]}x{shape[1]}"
             _save_npz(os.path.join(out_dir, f"jax_serve_{tag}_{name}.npz"),
                       {k: np.asarray(v) for k, v in res.items()})
@@ -1337,7 +1424,8 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
     ``decode_step``s under the runtime mesh; per rank the logits, the
     tokens, the cache shards, the collectives of the prefill and of one
     decode step, the parameters gathered in a decode step, and the shapes
-    held."""
+    held; for the recurrent families the collectives of state and cache
+    layers in a decode step, with their results' shapes."""
     import copy
 
     torch, dist = _init(rank, world, store)
@@ -1356,17 +1444,41 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
         return plain_gather(p)
 
     spmd.gather_param = gather_param
+    moved = []       # (op, tag, result shape) of the state's collectives
+
+    def watch(op, at):        # at: the position of the tag argument
+        plain = getattr(spmd, op)
+
+        def run(*args, **kw):
+            out = plain(*args, **kw)
+            tag = kw.get("tag", args[at] if len(args) > at else "")
+            if tag in ("state", "cache"):
+                moved.append([op, tag, list(out.shape)])
+            return out
+        return run
+
+    for op, at in (("all_gather", 4), ("broadcast", 4),
+                   ("reduce_scatter", 4), ("all_reduce", 3),
+                   ("all_to_all", 5)):
+        setattr(spmd, op, watch(op, at))
     res, arrays = {}, {}
     for tag, (cfg, B, meshes, max_len) in serve_cfgs(
-            configs, ArchCfg, torch.float32).items():
+            configs, ArchCfg, torch.float32, torch.bfloat16).items():
         with np.load(wait_for(os.path.join(
                 out_dir, f"jax_serve_init_{tag}.npz"))) as z:
             init = weights.from_jax_params(
                 cfg, weights.nest({k: z[k] for k in z.files}), device="cpu")
+        prompt = serve_prompt(tag)
         batch = {k: torch.from_numpy(v).long() if k == "tokens" else
-                 torch.from_numpy(v) for k, v in serve_batch(cfg, B).items()}
+                 torch.from_numpy(v)
+                 for k, v in serve_batch(cfg, B, prompt).items()}
         dcfg = transformer.serving_cfg(cfg)
-        ctx = serve_context(cfg)
+        ctx = serve_context(cfg, prompt)
+        if tag in SERVE_PLAIN and rank == 0:
+            arrays.update({f"{tag}_whole/{k}": v for k, v in _serve_plain(
+                cfg, init, batch, max_len, ctx,
+                os.path.join(out_dir, f"jax_serve_{_tag(tag, meshes[0])}"
+                             ".npz")).items()})
         for shape in meshes:
             case = _tag(tag, shape)
             mesh = make_mesh(shape, ("data", "model"))
@@ -1388,15 +1500,15 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
             try:
                 with torch.no_grad():
                     logits, cache = api.get_model(cfg).prefill(
-                        params, local, max_len=max_len)
+                        params, local, **serve_prefill_kw(cfg, max_len))
             finally:
                 sharding.set_runtime_mesh(None)
             out["counts"]["prefill"] = {f"{op}/{t}": n for (op, t), n
                                         in spmd.counts.items()}
             logits = spmd.relayout(logits, (bspec["tokens"][0],),
                                    (tspec[0],), mesh)
-            arrays[f"{case}/prefill_k"] = cache["k"].clone().numpy()
-            arrays[f"{case}/prefill_v"] = cache["v"].clone().numpy()
+            for k, v in state_leaves(cache).items():
+                arrays[f"{case}/prefill_{k}"] = v.clone().float().numpy()
             lgs, toks = [logits[:, -1]], []
             forced = None
             if tag in SERVE_FORCED:
@@ -1411,6 +1523,7 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
                     toks.append(t[:, 0])
                     spmd.reset_counts()
                     gathered.clear()
+                    moved.clear()
                     with torch.no_grad():
                         logits, cache = api.get_model(dcfg).decode_step(
                             dparams, t, cache, ctx + i)
@@ -1419,25 +1532,55 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
                             f"{op}/{t}": n for (op, t), n
                             in spmd.counts.items()}
                         out["decode_gathered"] = list(gathered)
+                        out["decode_moved"] = list(moved)
                     lgs.append(logits[:, -1])
             finally:
                 sharding.set_runtime_mesh(None)
             logits = torch.stack(lgs)
             out["finite"] = bool(torch.isfinite(logits).all())
-            out["layout"] = sharding.cache_layout(dcfg, mesh, B, max_len)[0]
+            if tag not in SERVE_RECURRENT:
+                out["layout"] = sharding.cache_layout(dcfg, mesh, B,
+                                                      max_len)[0]
             out["rows"] = rows.tolist()
             out["params"] = {k: list(v.shape) for k, v in
                              params.named_parameters()}
             out["decode_params"] = {k: list(v.shape) for k, v in
                                     dparams.named_parameters()}
             res[case] = out
-            arrays.update({f"{case}/logits": logits.numpy(),
-                           f"{case}/tokens": torch.stack(toks).numpy(),
-                           f"{case}/k": cache["k"].numpy(),
-                           f"{case}/v": cache["v"].numpy()})
+            arrays.update({f"{case}/logits": logits.float().numpy(),
+                           f"{case}/tokens": torch.stack(toks).numpy()})
+            arrays.update({f"{case}/{k}": v.float().numpy()
+                           for k, v in state_leaves(cache).items()})
     _save_npz(os.path.join(out_dir, f"rank{rank}_serve_tp.npz"), arrays)
     _save_json(os.path.join(out_dir, f"rank{rank}_serve_tp.json"), res)
     dist.destroy_process_group()
+
+
+def _serve_plain(cfg, params, batch, max_len, ctx, fed_from):
+    """The port's plain path (no mesh) on the whole batch: prefill, then
+    SERVE_STEPS decode steps fed the tokens of the JAX run saved at
+    ``fed_from``.  Returns
+    its logits (1 + steps, B, V) and its state's leaves after the prefill
+    ("prefill_" and the path) and after the steps, as fp32 arrays."""
+    import torch
+
+    from repro_torch.models import api
+    with np.load(wait_for(fed_from)) as z:
+        forced = torch.from_numpy(z["tokens"]).long()
+    model = api.get_model(cfg)
+    with torch.no_grad():
+        logits, state = model.prefill(params, batch,
+                                      **serve_prefill_kw(cfg, max_len))
+        out = {f"prefill_{k}": v.clone().float().numpy()
+               for k, v in state_leaves(state).items()}
+        lgs = [logits[:, -1]]
+        for i in range(SERVE_STEPS):
+            logits, state = model.decode_step(params, forced[i][:, None],
+                                              state, ctx + i)
+            lgs.append(logits[:, -1])
+    out.update({k: v.float().numpy() for k, v in state_leaves(state).items()})
+    out["logits"] = torch.stack(lgs).float().numpy()
+    return out
 
 
 def main(argv) -> None:
