@@ -8,8 +8,9 @@ from a seed — paged serving (``PagedLM`` + ``Engine``) of qwen2-0.5b,
 recurrent serving (``api.get_model``: prefill, then greedy ``decode_step``s
 against an O(1) state) of rwkv6-1.6b and zamba2-1.2b, training of qwen2,
 whisper-large-v3 served and trained, rwkv6-1.6b and zamba2-1.2b trained,
-and olmoe-1b-7b (MoE) served and trained — and holds every CUDA kernel of
-those paths against its plain PyTorch version:
+olmoe-1b-7b (MoE) served and trained, and the partitioned rank programs of
+the recurrent families and whisper — and holds every CUDA kernel of those
+paths against its plain PyTorch version:
 
   1. set-up: the card's name and power limit; build the kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
@@ -194,6 +195,23 @@ those paths against its plain PyTorch version:
      counted) and fp32 (logits within FP32_LOGIT_TOL of the plain path's,
      the same argmax on every row), every state leaf the rank's
      ``decode_state_specs`` shard.
+ 16. partitioned serving of the encoder-decoder family (the rank programs
+     of ``models/encdec.py``), last: (a) whisper-large-v3 through the
+     entry points on a 1 x 1 NCCL mesh, bitwise the plain path's (a
+     gate); (b) K2's LSE route at a rank's frames slice of its decode
+     cross-attention (8 rows, 20 heads of 64, Sq = 1, 4 slices of 375 of
+     1500 frames, bf16): each slice's output and LSE against its plain
+     version, the slices' LSE combine against K2 over all the frames,
+     timed beside the bound and SDPA; (c) the rank programs run whole on
+     8 gloo ranks sharing the card, whisper-large-v3 at full width and
+     depth, 2 segments of 1500 frames, a 64-token prompt and 4 decode
+     steps fed the fp32 plain path's tokens, on mesh (1, 8) (the pod's
+     layouts: self K/V on the sequence, cross K/V on the layers, the
+     layer's owner computing its cross-attention) and on ranks 0-2 on
+     (1, 3) (the cross K/V on the frames: K2's LSE route); fp32 within
+     FP32_LOGIT_TOL of the plain path with its argmax, bf16 (the main
+     path) every K2 call held to its plain version and the launches
+     exact, every state leaf its ``decode_state_specs`` shard.
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -213,6 +231,7 @@ package ``repro``.
     python3 chip_smoke.py --dryrun-only       # 1 and 13
     python3 chip_smoke.py --serve-tp-only     # 1, 2 and 14
     python3 chip_smoke.py --serve-rec-tp-only # 1, 2's K3/K4 and 15
+    python3 chip_smoke.py --serve-encdec-tp-only  # 1 and 16
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -1309,6 +1328,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import rwkv6_scan as rw
     return {"paged_attention": pa.paged_attention,
             "flash_attention": fa.flash_attention,
+            "flash_attention_lse": fa.flash_attention_lse,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "mamba2_scan": m2.mamba2_scan,
             "mamba2_scan_bwd": m2.mamba2_scan_bwd,
@@ -1346,7 +1366,8 @@ def small_widths(cfg) -> set:
     other than 64 or 128 wide; scans other than 64 wide)."""
     out = set()
     if cfg.n_heads and cfg.resolved_head_dim not in (64, 128):
-        out |= {"paged_attention", "flash_attention", "flash_attention_bwd"}
+        out |= {"paged_attention", "flash_attention", "flash_attention_lse",
+                "flash_attention_bwd"}
     if cfg.family == "rwkv6" and cfg.resolved_head_dim != 64:
         out |= {"rwkv6_scan", "rwkv6_scan_bwd"}
     if cfg.ssm is not None and (cfg.ssm.head_dim, cfg.ssm.d_state) \
@@ -3394,8 +3415,10 @@ def held_layerwise(fn, names=("paged_attention", "flash_attention")):
     attention kernels at phase 2's bars (BF16_TOL for bf16 outputs,
     FP32_TOL for fp32; compute dtype fp32), the scans' outputs and final
     states at phase 2's scan bars, the split route's fp32 outputs at
-    FP32_TOL (as 15a holds it).  Returns (fn's result, {wrapper: [calls,
-    largest err/tol]})."""
+    FP32_TOL (as 15a holds it); K2's LSE route (``return_lse``) under
+    ``flash_attention_lse``, its output at the attention bar and its fp32
+    LSE at FP32_TOL.  Returns (fn's result, {wrapper: [calls, largest
+    err/tol]})."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -3415,6 +3438,14 @@ def held_layerwise(fn, names=("paged_attention", "flash_attention")):
     def split(got, want):
         return max(tol_ratio(g, w, FP32_TOL) for g, w in zip(got, want))
 
+    def lse(got, want):      # (out, fp32 LSE): no key seen, +inf on both
+        (o, g), (wo, w) = got, want
+        if not torch.equal(torch.isinf(g), torch.isinf(w)):
+            return float("inf")
+        seen = torch.isfinite(w)
+        return max(attention(o, wo), tol_ratio(g[seen], w[seen], FP32_TOL)
+                   if bool(seen.any()) else 0.0)
+
     plain = {"paged_attention": (ref.paged_attention, attention),
              "flash_attention": (ref.mha_attention, attention),
              "mamba2_scan": (ref.mamba2_scan_chunked, scan),
@@ -3431,8 +3462,12 @@ def held_layerwise(fn, names=("paged_attention", "flash_attention")):
                       f"compute_dtype {cdt}")
             got = real[name](*a, **kw)
             want = plain[name][0](*a, **kw)
-            worst[name][0] += 1
-            worst[name][1] = max(worst[name][1], plain[name][1](got, want))
+            key, bar = name, plain[name][1]
+            if kw.get("return_lse"):       # K2's LSE route, counted apart
+                key, bar = "flash_attention_lse", lse
+                worst.setdefault(key, [0, 0.0])
+            worst[key][0] += 1
+            worst[key][1] = max(worst[key][1], bar(got, want))
             return got
         return call
 
@@ -4465,44 +4500,53 @@ def rec_model(name: str, dtype=None, prompt: int = PROMPT_LEN,
     return cfg, model, params, tokens, kw
 
 
-def rec_serve(model, params, tokens, kw, feed=None, *, mesh=None, cfg=None):
-    """Prefill ``tokens`` and take REC_TP_STEPS decode steps (fed ``feed``,
-    the tokens to decode, else greedy); under ``mesh`` as its rank, the
-    rows cut by ``batch_specs``.  Returns (the logits of every step
-    (B, 1 + steps, V), the tokens decoded, the final state, prefill ms,
-    decode ms a step)."""
+def serve_steps(model, params, batch, kw, steps, feed=None, *, mesh=None,
+                cfg=None):
+    """Prefill ``batch`` (the prefill's keywords ``kw``) and take ``steps``
+    decode steps (fed ``feed``, the tokens to decode, else greedy); under
+    ``mesh`` as its rank, the rows cut by ``batch_specs``.  Returns (the
+    logits of every step (B, 1 + steps, V), the tokens decoded, the final
+    state, prefill ms, decode ms a step)."""
     import torch
 
     from repro_torch.models import transformer
-    from repro_torch.parallel import sharding
+    from repro_torch.parallel import sharding, spmd
+    P = batch["tokens"].shape[1]
     pspec = tspec = None
     if mesh is not None:
-        pspec = sharding.batch_specs(cfg, {"t": tokens}, mesh)["t"]
+        bspec = sharding.batch_specs(cfg, batch, mesh)
         tspec = sharding.batch_specs(transformer.serving_cfg(cfg), {
-            "t": tokens[:, :1]}, mesh)["t"]
-    P = tokens.shape[1]
+            "t": batch["tokens"][:, :1]}, mesh)["t"]
+        batch = {k: spmd.shard(v, bspec[k], mesh) for k, v in batch.items()}
+        pspec = bspec["tokens"]
     sharding.set_runtime_mesh(mesh, pspec)
     try:
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits, state = model.prefill(params, {"tokens": tokens}, **kw)
+            logits, state = model.prefill(params, batch, **kw)
             torch.cuda.synchronize()
             pre_ms = (time.perf_counter() - t0) * 1e3
             sharding.set_runtime_mesh(mesh, tspec)
             lgs, toks = [logits[:, -1]], []
             t0 = time.perf_counter()
-            for i in range(REC_TP_STEPS):
+            for i in range(steps):
                 t = lgs[-1].argmax(-1)[:, None] if feed is None \
                     else feed[:, i:i + 1]
                 toks.append(t)
                 logits, state = model.decode_step(params, t, state, P + i)
                 lgs.append(logits[:, -1])
             torch.cuda.synchronize()
-            dec_ms = (time.perf_counter() - t0) * 1e3 / REC_TP_STEPS
+            dec_ms = (time.perf_counter() - t0) * 1e3 / steps
     finally:
         sharding.set_runtime_mesh(None)
     return (torch.stack(lgs, 1), torch.cat(toks, 1), state, pre_ms,
             dec_ms)
+
+
+def rec_serve(model, params, tokens, kw, feed=None, *, mesh=None, cfg=None):
+    """``serve_steps`` of ``tokens`` for REC_TP_STEPS decode steps."""
+    return serve_steps(model, params, {"tokens": tokens}, kw, REC_TP_STEPS,
+                       feed, mesh=mesh, cfg=cfg)
 
 
 def rec_tp_one_rank() -> dict:
@@ -4766,6 +4810,460 @@ def serve_rec_tp_phases(report: dict) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 16: partitioned serving of the encoder-decoder family (the rank
+# programs of models/encdec.py) and K2's LSE route
+# ----------------------------------------------------------------------------
+
+WHISPER = "whisper-large-v3"
+# 16b: a rank's slice of whisper-large-v3's decode cross-attention on the
+# frames: 8 rows, 20 heads of 64, one query against 4 slices of 375 of the
+# 1500 frames, bf16 (compute fp32, whisper's attn_dtype)
+LSE_SLICE = dict(B=8, H=20, D=64, F=1500, slices=4)
+# 16a, 16c: 2 segments of 1500 frames, phase 10's 224-token prompt cut to
+# 64 (gloo stages every collective in host memory, and 8 ranks share the
+# card), 4 decode steps fed the plain path's tokens, the self K/V
+# WHISPER_TP_MAX_LEN deep: a multiple of 8 and of 3, so that both meshes
+# put the sequence over "model"
+WHISPER_TP_BATCH, WHISPER_TP_PROMPT, WHISPER_TP_STEPS = 2, 64, 4
+WHISPER_TP_MAX_LEN = 72
+# 16c: (1, 8) gives the pod's layouts (the self K/V on the sequence, the
+# cross K/V on the layers, 4 a rank); (1, 3), on ranks 0-2, the cross K/V
+# on the frames (500 a rank: K2's LSE route) and the encoder on its frames
+WHISPER_TP_RANKS = 8
+WHISPER_TP_MESHES = ((1, 8), (1, 3))
+
+
+def whisper_tp_model(seed: int = 0):
+    """(cfg, model, bf16 params on the card from ``seed``, the batch: 16a's
+    and 16c's frames and prompts) for whisper-large-v3 at full width and
+    depth."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_config(WHISPER)
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    batch = whisper_batch(cfg, WHISPER_TP_BATCH, WHISPER_TP_PROMPT, seed=5)
+    return cfg, model, params, batch
+
+
+def fp32_copy(cfg, params):
+    """(fp32 config, model, params): ``params``' values in fp32, each
+    parameter's spec (``shard_params``) kept."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import api
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = copy.deepcopy(params).float()
+    for a, b in zip(p32.parameters(), params.parameters()):
+        if hasattr(b, "spec"):
+            a.spec = b.spec
+    return cfg32, api.get_model(cfg32), p32
+
+
+def whisper_serve(model, params, batch, feed=None, *, mesh=None, cfg=None):
+    """``serve_steps`` of ``batch`` into a WHISPER_TP_MAX_LEN-deep state
+    for WHISPER_TP_STEPS decode steps."""
+    return serve_steps(model, params, batch, {"max_len": WHISPER_TP_MAX_LEN},
+                       WHISPER_TP_STEPS, feed, mesh=mesh, cfg=cfg)
+
+
+def whisper_tp_one_rank() -> dict:
+    """Phase 16a, a gate: whisper-large-v3 at full width and depth through
+    the entry points with no mesh and on a 1 x 1 ("data", "model") mesh
+    over NCCL (world size 1), the parameters cut by ``param_specs``:
+    logits, tokens and every state leaf bitwise the plain path's (a
+    "model" line of one rank runs the plain path: no rank program)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import shard_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg, model, params, batch = whisper_tp_model()
+        a = whisper_serve(model, params, batch)
+        shard_params(cfg, params, mesh)
+        b = whisper_serve(model, params, batch, mesh=mesh, cfg=cfg)
+        leaves = sorted(a[2])
+        out = {"model": cfg.name,
+               "logits_bitwise": bool(torch.equal(a[0], b[0])),
+               "tokens_equal": bool(torch.equal(a[1], b[1])),
+               "state_leaves": leaves,
+               "state_bitwise": sorted(b[2]) == leaves and all(
+                   torch.equal(a[2][k], b[2][k]) for k in leaves),
+               "finite": bool(torch.isfinite(b[0]).all()),
+               "card": gpu_name_power()}
+        print(f"[whisper tp 1x1] {json.dumps(out)}")
+        check(out["logits_bitwise"] and out["tokens_equal"]
+              and out["state_bitwise"] and out["finite"],
+              "16a: the 1 x 1 mesh's logits, tokens or state differ from "
+              "the plain path's")
+        del params, a, b
+        torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def lse_route_checks(report: dict) -> dict:
+    """Phase 16b: K2's LSE route (``fa.flash_attention_lse``) at a rank's
+    frames slice of whisper-large-v3's decode cross-attention (8 rows, 20
+    heads of 64, Sq = 1, 4 slices of 375 of 1500 frames, bf16, compute
+    fp32): each slice's output against its plain version at phase 2's
+    bf16 bar and its fp32 LSE at FP32_TOL; the slices combined by their
+    LSE (``attention.combine_lse``) against K2 over all 1500 frames at
+    the bf16 bar.  Timed (``ms``, ``ms_graph``) beside the bound
+    (``cost.flash_attention`` with the LSE), the plain version, SDPA (the
+    output alone: no single PyTorch call returns the LSE) and K2 over the
+    whole frames; also at 16c's (1, 3) rank shape (2 rows, 500 frames:
+    ``*_frames_rank``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    cfg = configs.get_config(WHISPER)
+    cdt = attention.compute_dtype(cfg)
+    B, H, D, Fr, n = (LSE_SLICE[k] for k in ("B", "H", "D", "F", "slices"))
+    m = Fr // n
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q = torch.randn(B, H, 1, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(B, H, Fr, D, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    slices = [tuple(t[:, :, i * m:(i + 1) * m].contiguous() for t in (k, v))
+              for i in range(n)]
+    outs, lses, errs, worst = [], [], [], 0.0
+    for i, (ks, vs) in enumerate(slices):
+        n0, n1 = fa.flash_attention_lse.launches, fa.flash_attention.launches
+        o, lse = fa.flash_attention_lse(q, ks, vs, causal=False,
+                                        compute_dtype=cdt)
+        check(fa.flash_attention_lse.launches == n0 + 1
+              and fa.flash_attention.launches == n1,
+              "16b: the LSE route did not count its launch apart")
+        check(fa.flash_attention_lse.last_kernel
+              == "flash_attention_mma_kernel",
+              f"16b: the LSE route took {fa.flash_attention_lse.last_kernel}")
+        wo, wl = ref.mha_attention(q, ks, vs, causal=False,
+                                   compute_dtype=cdt, return_lse=True)
+        torch.cuda.synchronize()
+        ratio = max(tol_ratio(o, wo, BF16_TOL), tol_ratio(lse, wl, FP32_TOL))
+        errs.append(max(max_err(o, wo), max_err(lse, wl)))
+        worst = max(worst, ratio)
+        check(ratio <= 1, f"16b: frames slice {i} disagrees with its plain "
+              f"version: err/tol {ratio:.3f}")
+        outs.append(o)
+        lses.append(lse)
+    whole = fa.flash_attention(q, k, v, causal=False, compute_dtype=cdt)
+
+    def combine():
+        return attention.combine_lse(torch.stack(outs),
+                                     torch.stack(lses)).to(q.dtype)
+
+    def slices_and_combine():
+        for ks, vs in slices:
+            fa.flash_attention_lse(q, ks, vs, causal=False,
+                                   compute_dtype=cdt)
+        return combine()
+
+    got = combine()
+    torch.cuda.synchronize()
+    row = {"slices_err_over_tol": worst,
+           "combine_vs_whole_max_abs_err": max_err(got, whole),
+           "combine_vs_whole_err_over_tol": tol_ratio(got, whole, BF16_TOL),
+           "finite": bool(torch.isfinite(got).all())}
+    print(f"[lse route] {json.dumps(row)}")
+    check(row["finite"] and row["combine_vs_whole_err_over_tol"] <= 1,
+          f"16b: the {n} slices' combine disagrees with K2 over all {Fr} "
+          f"frames: {row}")
+    ks, vs = slices[0]
+    call = lambda: fa.flash_attention_lse(  # noqa: E731
+        q, ks, vs, causal=False, compute_dtype=cdt)
+    flops, nbytes = cost.flash_attention(B, H, H, 1, m, D, False, 2,
+                                         lse=True)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    res = dict(name="flash_attention_lse", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:85",
+               max_abs_err=max(errs), ms=time_ms(call, iters=50),
+               ms_graph=time_graph_ms(call),
+               plain_ms=time_ms(lambda: ref.mha_attention(
+                   q, ks, vs, causal=False, compute_dtype=cdt,
+                   return_lse=True), iters=20),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   q, ks, vs), iters=50),
+               shape=f"B={B} H=Hkv={H} Sq=1 Skv={m} (1 of {n} slices of "
+                     f"{Fr} frames) D={D} bf16, compute fp32, fp32 LSE",
+               ms_whole_frames_k2=time_ms(lambda: fa.flash_attention(
+                   q, k, v, causal=False, compute_dtype=cdt), iters=50),
+               ms_slices_and_combine=time_ms(slices_and_combine, iters=20),
+               **row)
+    # 16c's (1, 3) rank: 2 rows, 500 of the 1500 frames
+    Br, mr = WHISPER_TP_BATCH, Fr // WHISPER_TP_MESHES[1][1]
+    qr = q[:Br].contiguous()
+    kr, vr = (t[:Br, :, :mr].contiguous() for t in (k, v))
+    rank = lambda: fa.flash_attention_lse(  # noqa: E731
+        qr, kr, vr, causal=False, compute_dtype=cdt)
+    flops, nbytes = cost.flash_attention(Br, H, H, 1, mr, D, False, 2,
+                                         lse=True)
+    res.update(ms_frames_rank=time_ms(rank, iters=50),
+               ms_graph_frames_rank=time_graph_ms(rank),
+               bound_ms_frames_rank=bound(nbytes, flops,
+                                          torch.bfloat16)[0])
+    res["kernel_ms"] = res["ms"]
+    print(f"[flash_attention_lse] ms={res['ms']:.5f} ms_graph="
+          f"{res['ms_graph']:.5f} plain_ms={res['plain_ms']:.4f} bound_ms="
+          f"{b_ms:.6f} ({b_by}) SDPA {res['library_ms']:.5f}; K2 over the "
+          f"{Fr} frames {res['ms_whole_frames_k2']:.5f}, the {n} slices "
+          f"and their combine {res['ms_slices_and_combine']:.5f}")
+    report["flash_attention_lse"] = res
+    out = dict(row, card=gpu_name_power())
+    del q, k, v, slices
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_tp_want(cfg, tp: int) -> dict:
+    """The launches of one rank's prefill and WHISPER_TP_STEPS decode
+    steps on mesh (1, tp): K2 on every encoder layer and every decoder
+    layer's self- and cross-attention in prefill; in a decode step (the
+    self-attention inline PyTorch) the cross-attention by its layout: K2's
+    LSE route on every layer (the frames split), K2 on the layers the rank
+    holds (the layers split), else K2 on every layer."""
+    from repro_torch.models import encdec
+    from repro_torch.parallel import sharding
+    lay = sharding.encdec_layout(
+        cfg, sharding.abstract_mesh((1, tp), ("data", "model")),
+        WHISPER_TP_BATCH, WHISPER_TP_MAX_LEN)
+    cross = encdec._cross_spec_layout(lay["cross_k"][0])
+    L, steps = cfg.n_layers, WHISPER_TP_STEPS
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["flash_attention"] = cfg.n_enc_layers + 2 * L
+    if cross == "frames":
+        want["flash_attention_lse"] = L * steps
+    else:
+        want["flash_attention"] += (L // tp if cross == "layers" else L) \
+            * steps
+    return by_route(want, cfg)
+
+
+def whisper_tp_truth(where: str) -> None:
+    """16c's truth, on rank 0 before the others start: the fp32 plain path
+    on the seed's bf16 weight values, greedy, and the bf16 plain path fed
+    its tokens; saved to ``where``/truth.pt."""
+    import torch
+
+    cfg, model, params, batch = whisper_tp_model()
+    _, model32, p32 = fp32_copy(cfg, params)
+    truth = whisper_serve(model32, p32, batch)
+    del p32
+    torch.cuda.empty_cache()
+    plain = whisper_serve(model, params, batch, truth[1])
+    torch.save({"logits": truth[0].cpu(), "tokens": truth[1].cpu(),
+                "plain_bf16": plain[0].cpu(), "plain_prefill_ms": plain[3],
+                "plain_decode_ms": plain[4]},
+               os.path.join(where, "truth.pt"))
+    del params, truth, plain
+    torch.cuda.empty_cache()
+
+
+def whisper_tp_runs(mesh, truth: dict) -> dict:
+    """16c's runs on this rank of ``mesh``: the seed's weights cut by
+    ``param_specs``, fed the truth's tokens; the fp32 rank program (the
+    same values in fp32), then the bf16 one, the main path: its launches
+    counted, every K2 call (either route) held to its plain version on its
+    own inputs (``held_layerwise``).  Each run's logits against the truth,
+    its state against ``decode_state_specs`` (``sharding.encdec_layout``)."""
+    import torch
+
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.trainer import shard_params
+
+    cfg, model, params, batch = whisper_tp_model()
+    shard_params(cfg, params, mesh)
+    torch.cuda.empty_cache()
+    feed = truth["tokens"].cuda()
+    cfg32, model32, p32 = fp32_copy(cfg, params)
+    runs = {"fp32": whisper_serve(model32, p32, batch, feed, mesh=mesh,
+                                  cfg=cfg32)}
+    del p32
+    torch.cuda.empty_cache()
+    reset_counts()                           # the main path's run ...
+    runs["bf16"], held = held_layerwise(lambda: whisper_serve(
+        model, params, batch, feed, mesh=mesh, cfg=cfg),
+        ("flash_attention",))
+    counts = read_counts()                   # ... ends here
+    layout = sharding.encdec_layout(cfg, mesh, WHISPER_TP_BATCH,
+                                    WHISPER_TP_MAX_LEN)
+    t = truth["logits"].cuda().float()
+    row = {"mesh": list(mesh.shape.values()),
+           "max_abs_logit": float(t.abs().max()),
+           "layout": {k: [list(e) if isinstance(e, tuple) else e
+                          for e in spec] for k, (spec, _) in layout.items()}}
+    for tag, run in runs.items():
+        try:
+            sharding.check_state_shards(layout, run[2], mesh)
+            shards = True
+        except ValueError:
+            shards = False
+        b = run[0].float()
+        row[tag] = {"max_abs_err": max_err(b, t),
+                    "argmax_equal_share": float(
+                        (b.argmax(-1) == t.argmax(-1)).float().mean()),
+                    "finite": bool(torch.isfinite(b).all()),
+                    "shards_as_specs": shards,
+                    "max_len_carried": run[2].get("max_len"),
+                    "rank_prefill_ms": run[3], "rank_decode_ms": run[4]}
+    bf = row["bf16"]
+    plain = truth["plain_bf16"].cuda()
+    bf["plain_max_abs_err"] = max_err(plain, t)
+    bf["vs_plain_max_abs_err"] = max_err(runs["bf16"][0], plain)
+    bf["held"] = held
+    bf["launches"] = counts
+    del params, runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_tp_rank(rank: int, where: str) -> int:
+    """One of 16c's WHISPER_TP_RANKS gloo ranks (a process of its own on
+    the card): rank 0 makes the truth (``whisper_tp_truth``); then every
+    rank runs ``whisper_tp_runs`` on mesh (1, 8), and ranks 0-2 on (1,
+    3).  Writes ``rank<r>.json`` under ``where``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{where}/store",
+                            rank=rank, world_size=WHISPER_TP_RANKS)
+    res = {}
+    try:
+        if rank == 0:
+            whisper_tp_truth(where)
+        dist.barrier()
+        truth = torch.load(os.path.join(where, "truth.pt"))
+        res["truth"] = {k: v for k, v in truth.items() if "ms" in k}
+        for shape in WHISPER_TP_MESHES:
+            if rank < shape[0] * shape[1]:
+                mesh = make_mesh(shape, ("data", "model"))
+                res[f"{shape[0]}x{shape[1]}"] = whisper_tp_runs(mesh, truth)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(where, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def whisper_tp_ranks() -> dict:
+    """Phase 16c: whisper's rank programs run whole on the card, as
+    WHISPER_TP_RANKS gloo ranks in processes of their own sharing it: at
+    full width and depth, 2 segments of 1500 frames, a 64-token prompt,
+    4 decode steps fed the fp32 plain path's tokens, on mesh (1, 8) (the
+    pod's layouts) and, on ranks 0-2, (1, 3) (the cross K/V on the
+    frames).  Holds every rank's runs: the fp32 rank program within
+    FP32_LOGIT_TOL of the fp32 plain path (the truth) with the same argmax
+    on every row; the bf16 one (the main path) with every K2 call within
+    its plain version's bar (``held_layerwise``) and its launches exactly
+    ``whisper_tp_want``'s; every state the rank's ``decode_state_specs``
+    shard, carrying its depth.  Returns each mesh's launches, summed over
+    its ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    where = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=root)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         "--tp-dir", where, "--tp-job", "whisper"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for r in range(WHISPER_TP_RANKS)]
+    logs, failed = [], False
+    try:
+        for p in procs:
+            log, _ = p.communicate(timeout=600)
+            logs.append(log)
+            failed |= p.returncode != 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise AssertionError("16c: a rank failed:\n" + "\n".join(
+            f"--- rank {r}: exit {p.returncode}\n{log[-3000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    ranks = []
+    for r in range(WHISPER_TP_RANKS):
+        with open(os.path.join(where, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(where, ignore_errors=True)
+    cfg = configs.get_config(WHISPER)
+    paths, out = {}, {"backend": "gloo", "batch": WHISPER_TP_BATCH,
+                      "prompt": WHISPER_TP_PROMPT,
+                      "steps": WHISPER_TP_STEPS,
+                      "max_len": WHISPER_TP_MAX_LEN,
+                      "truth": ranks[0]["truth"]}
+    for shape in WHISPER_TP_MESHES:
+        key, tp = f"{shape[0]}x{shape[1]}", shape[0] * shape[1]
+        want = whisper_tp_want(cfg, tp)
+        held_want = {k: n for k, n in want.items() if n}
+        total = dict.fromkeys(want, 0)
+        for r in range(tp):
+            row = ranks[r][key]
+            bf, fp = row["bf16"], row["fp32"]
+            check(bf.pop("launches") == want, f"16c {key} rank {r}: "
+                  f"launches differ from {want}")
+            for k in total:
+                total[k] += want[k]
+            held = bf["held"]
+            check(all(held.get(k, [0])[0] == n and held[k][1] <= 1
+                      for k, n in held_want.items()),
+                  f"16c {key} rank {r}: a K2 call off its plain version, "
+                  f"or not held ({held_want} calls): {held}")
+            for tag, run in (("bf16", bf), ("fp32", fp)):
+                check(run["finite"] and run["shards_as_specs"]
+                      and run["max_len_carried"] == WHISPER_TP_MAX_LEN,
+                      f"16c {key} {tag} rank {r}: {run}")
+            check(fp["max_abs_err"] <= FP32_LOGIT_TOL
+                  and fp["argmax_equal_share"] == 1.0,
+                  f"16c {key} fp32 rank {r}: logits off the truth's: {fp}")
+        out[key] = {"rank0": ranks[0][key], "launches_all_ranks": {
+            k: v for k, v in total.items() if v}}
+        paths["whisper_tp_ranks" if tp == WHISPER_TP_RANKS
+              else "whisper_tp_frames"] = total
+    out["card"] = gpu_name_power()
+    print(f"[whisper tp ranks] {json.dumps(out)}")
+    return paths
+
+
+def serve_encdec_tp_phases(report: dict) -> dict:
+    """Phase 16; returns the launches of 16c's main paths."""
+    phase("16a whisper 1 x 1 mesh gate", whisper_tp_one_rank)
+    phase("16b K2's LSE route at a frames slice", lse_route_checks, report)
+    return phase("16c whisper rank programs on gloo ranks",
+                 whisper_tp_ranks)
+
+
+# ----------------------------------------------------------------------------
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
@@ -4986,7 +5484,10 @@ def kernel_ranking(report: dict, paths: dict) -> dict:
         "mamba2_scan_bwd": {"zamba2_train": {"": None}},
         "rwkv6_scan_bwd": {"rwkv6_train": {"": None}},
         # phase 15d's ranks, timed at their shape in 15a
-        "rwkv6_scan_split": {"rwkv6-1.6b_tp_ranks": {"_ranks": None}}}
+        "rwkv6_scan_split": {"rwkv6-1.6b_tp_ranks": {"_ranks": None}},
+        # phase 16c's (1, 3) ranks, timed at their shape in 16b
+        "flash_attention_lse": {"whisper_tp_frames": {"_frames_rank":
+                                                      None}}}
     split["flash_attention"]["qwen2_train_gspmd"] = {"_qwen2_train": None}
     for name in SERVE_TP_MODELS:          # phase 14a, timed in 14c
         split["flash_attention"][f"{name}_serve_tp"] = {
@@ -5058,8 +5559,13 @@ def main() -> int:
                     help="the build, phase 2's scan checks and phase 15 "
                          "(partitioned serving of the recurrent families) "
                          "alone")
+    ap.add_argument("--serve-encdec-tp-only", action="store_true",
+                    help="the build and phase 16 (partitioned serving of "
+                         "the encoder-decoder family) alone")
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-job", default="rec", choices=("rec", "whisper"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--serve-tp-only", action="store_true",
                     help="the build, phase 2's kernel checks and phase 14 "
                          "(tensor-parallel serving) alone")
@@ -5069,6 +5575,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if args.tp_rank is not None:
+        if args.tp_job == "whisper":
+            return whisper_tp_rank(args.tp_rank, args.tp_dir)
         return rec_tp_rank(args.tp_rank, args.tp_dir)
     if args.engine_only:
         engine_only(args.engine_only)
@@ -5109,6 +5617,12 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.serve_encdec_tp_only:
+        paths = serve_encdec_tp_phases(report)
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+        print(f"[launches] {json.dumps(paths)}")
+        print(card)
+        return 0
     if args.serve_rec_tp_only:
         phase("2 scans vs plain", run_scan_checks, report)
         paths = serve_rec_tp_phases(report)
@@ -5201,6 +5715,8 @@ def main() -> int:
     # the recurrent families' rank programs: K4's split-key route, then
     # the rank programs whole on gloo ranks sharing the card
     paths.update(serve_rec_tp_phases(report))
+    # the encoder-decoder's rank programs and K2's LSE route, last
+    paths.update(serve_encdec_tp_phases(report))
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")

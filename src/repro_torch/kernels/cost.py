@@ -65,11 +65,13 @@ def paged_attention(B: int, H: int, Hkv: int, D: int, page: int,
 
 
 def flash_attention(B: int, H: int, Hkv: int, Sq: int, Skv: int, D: int,
-                    causal: bool, itemsize: int):
+                    causal: bool, itemsize: int, *, lse: bool = False):
     """K2: (flops, bytes): QK^T and PV over the pairs the mask leaves; q,
-    k, v read and the output written once (the LSE, when asked for, is
+    k, v read and the output written once; with ``lse`` (K2's serving
+    route that returns it) its fp32 LSE written too (training's LSE is
     K2-bwd's input and counted there)."""
-    nbytes = (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D) * itemsize
+    nbytes = (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D) * itemsize \
+        + (4 * B * H * Sq if lse else 0)
     flops = 4.0 * B * H * D * attn_pairs(Sq, Skv, causal)
     return flops, nbytes
 

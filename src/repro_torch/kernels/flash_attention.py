@@ -19,6 +19,11 @@ pair, bf16 with D = 128 the same pair at 128 columns (``wgmma128``), fp32
 with D = 64 or 128 its FMA pair (``fma``), any other D the FMA pair at a
 small width (``small``).
 
+``flash_attention_lse`` is the same kernel writing its per-row log-sum-
+exp beside the output, as a serving route of its own (its own count): a
+rank holding a slice of the keys (the encoder-decoder's cross K/V split
+over its frames) joins the slices by their LSE.
+
 The Pallas kernel has no backward (JAX trains through the jnp attention).
 Here the gradient is a kernel too: ``FlashAttentionFn`` runs the forward
 with its per-row log-sum-exp and the backward through
@@ -90,7 +95,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what} kernel: tensors must be contiguous")
 
 
-def _forward(q, k, v, causal, scale, compute_dtype, lse):
+def _forward(q, k, v, causal, scale, compute_dtype, lse, counted=None):
+    """One launch of K2, counted under ``counted`` (default
+    ``flash_attention``), its LSE written where ``lse`` is given."""
+    counted = counted or flash_attention
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -105,10 +113,11 @@ def _forward(q, k, v, causal, scale, compute_dtype, lse):
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    _build.count(flash_attention, ROUTES[_route.value])
-    cost.launched("flash_attention", cost.flash_attention, B, H, Hkv, Sq, Skv,
-                  D, causal, q.element_size())
-    flash_attention.last_kernel = KERNELS[_route.value]
+    _build.count(counted, ROUTES[_route.value])
+    cost.launched(counted.__name__, cost.flash_attention, B, H, Hkv, Sq, Skv,
+                  D, causal, q.element_size(),
+                  lse=counted is flash_attention_lse)
+    counted.last_kernel = KERNELS[_route.value]
     return out
 
 
@@ -130,6 +139,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.routes = {}
 flash_attention.last_kernel = None
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None,
+                        compute_dtype: torch.dtype = torch.float32):
+    """K2 with its per-row log-sum-exp as a serving route of its own: (out
+    (B,H,Sq,D) in q.dtype, fp32 lse (B,H,Sq) of the scaled logits, +inf
+    where a row sees no key).  A rank of a "model" line that holds a slice
+    of the keys (the cross-attention's frames) combines the slices' outputs
+    by their LSE.  Counted apart from ``flash_attention``; serving only, so
+    it raises under grad."""
+    _build.refuse_grad("flash_attention_lse", "serving runs it only",
+                       q, k, v)
+    _check(q, k, v, compute_dtype, "flash_attention_lse")
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = _forward(q, k, v, causal, scale, compute_dtype, lse,
+                   counted=flash_attention_lse)
+    return out, lse
+
+
+flash_attention_lse.launches = 0
+flash_attention_lse.routes = {}
+flash_attention_lse.last_kernel = None
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,

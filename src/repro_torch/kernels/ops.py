@@ -60,11 +60,17 @@ def _wants_grad(*ts) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    return_lse: bool = False):
     """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D).  On the card with
     grad enabled and an input requiring grad, K2 runs inside an autograd
-    Function whose backward is K2-bwd."""
+    Function whose backward is K2-bwd.  ``return_lse`` (serving only: no
+    gradient) returns (out, fp32 LSE (B,H,Sq) of the scaled logits, +inf
+    where a row sees no key), on the card through K2's LSE route
+    (``flash_attention_lse``)."""
     route = _route(q, "flash_attention")
+    if return_lse:
+        return _attention_lse(route, q, k, v, causal, scale, compute_dtype)
     if route == "meta":
         if _wants_grad(q, k, v):
             return _MetaAttentionFn.apply(q, k, v, causal)
@@ -77,6 +83,23 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                                    compute_dtype=compute_dtype)
     return ref.mha_attention(q, k, v, causal=causal, scale=scale,
                              compute_dtype=compute_dtype)
+
+
+def _attention_lse(route, q, k, v, causal, scale, compute_dtype):
+    if route == "cuda":
+        return _fa.flash_attention_lse(q, k, v, causal=causal, scale=scale,
+                                       compute_dtype=compute_dtype)
+    _build.refuse_grad("flash_attention_lse", "serving runs it only",
+                       q, k, v)
+    if route == "meta":
+        B, H, Sq, D = q.shape
+        cost.launched("flash_attention_lse", cost.flash_attention, B, H,
+                      k.shape[1], Sq, k.shape[2], D, causal,
+                      q.element_size(), lse=True)
+        return torch.empty_like(q), torch.empty(
+            (B, H, Sq), dtype=torch.float32, device="meta")
+    return ref.mha_attention(q, k, v, causal=causal, scale=scale,
+                             compute_dtype=compute_dtype, return_lse=True)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
@@ -169,7 +192,8 @@ def rwkv6_scan_split(r, k, v, w, u, s0=None):
 def launch_counts() -> dict[str, int]:
     """Each hand-written kernel's launches in this process, by wrapper."""
     return {fn.__name__: fn.launches for fn in (
-        _pa.paged_attention, _fa.flash_attention, _fa.flash_attention_bwd,
+        _pa.paged_attention, _fa.flash_attention, _fa.flash_attention_lse,
+        _fa.flash_attention_bwd,
         _m2.mamba2_scan, _m2.mamba2_scan_bwd, _rw.rwkv6_scan,
         _rw.rwkv6_scan_split, _rw.rwkv6_scan_bwd)}
 

@@ -36,12 +36,15 @@ def _softmax_rows(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: float | None = None,
-                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.float32,
+                  return_lse: bool = False):
     """Multi-head attention with grouped KV heads.
 
     q: (B, H, Sq, D);  k, v: (B, Hkv, Skv, D) with H % Hkv == 0.  Causal
     keys are right-aligned: query i sees keys <= i + (Skv - Sq).
-    Returns (B, H, Sq, D) in q.dtype; softmax in fp32.
+    Returns (B, H, Sq, D) in q.dtype; softmax in fp32.  With
+    ``return_lse`` also each row's log-sum-exp of its scaled logits, fp32
+    (B, H, Sq), +inf where the row sees no key (K2's convention).
 
     ``compute_dtype`` is the dtype the products' operands are rounded to
     (``q*scale``, ``k``, ``v`` and the probabilities); accumulation is fp32
@@ -68,7 +71,11 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     probs = _softmax_rows(logits, mask)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(compute_dtype).float(), vf)
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), -1)
+    return out.to(q.dtype), lse.masked_fill(lse == float("-inf"),
+                                            float("inf"))
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

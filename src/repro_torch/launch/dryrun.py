@@ -26,12 +26,11 @@ against one H100 (``core.hw.H100_SXM``):
     experts over "model", or the sequence), and so do the recurrent ones
     (rwkv6, mamba2, zamba2: ``models/rwkv.py``, ``models/ssm.py``,
     ``models/hybrid.py``; decode on the state's slice of the readout's
-    contracted dim, prefill on the rank's heads); the encoder-decoder
-    family still runs each layer whole on every rank of a "model" line,
-    its sharded leaves gathered where a layer reads them
-    (``models.common.Params``), and its JSON says ``"partitioned":
-    false``.  The embedding and the LM head are read gathered; their bytes
-    are in the collectives (``all-gather``).
+    contracted dim, prefill on the rank's heads), and so does the
+    encoder-decoder (``models/encdec.py``: its self K/V laid out as a
+    decoder's cache, its cross K/V on the heads, the frames or the layers,
+    ``sharding.encdec_layout``).  The embedding and the LM head are read
+    gathered; their bytes are in the collectives (``all-gather``).
 
 The JSON keeps JAX's keys where their meaning holds.  There is no
 compile and no XLA cost analysis, so ``t_compile_s`` and ``cost_analysis``
@@ -220,22 +219,17 @@ def model_attn_flops(cfg, shape, *, decode: bool = False) -> float:
 # ----------------------------------------------------------------------------
 
 
-# the families whose serving entry points run a rank's part of the
-# partitioned program (models/transformer.py, rwkv.py, ssm.py, hybrid.py);
-# the others take whole sequences and states
-_TP_SERVING = ("dense", "moe", "vlm", "rwkv6", "mamba2", "zamba2")
-# of those, the families whose decode state carries its caches' depth
-_DEPTH = ("dense", "moe", "vlm", "zamba2")
+# every family's serving entry points run a rank's part of the partitioned
+# program (models/transformer.py, rwkv.py, ssm.py, hybrid.py, encdec.py);
+# the families whose decode state carries its caches' depth
+_DEPTH = ("dense", "moe", "vlm", "zamba2", "encdec")
 
 
 def _rows(cfg, batch: dict, mesh) -> tuple[dict, tuple]:
     """This rank's part of the batch as ``batch_specs`` lays it out (the
     batch dim over the dividing DP-axis prefix; under dp_only the
-    sequence over an idle "model" axis, for the families of
-    ``_TP_SERVING``) and the tokens' spec."""
+    sequence over an idle "model" axis) and the tokens' spec."""
     specs = sharding.batch_specs(cfg, batch, mesh)
-    if cfg.family not in _TP_SERVING:
-        specs = {k: v[:1] for k, v in specs.items()}
     return {k: spmd.shard(v, specs[k], mesh).clone()
             for k, v in batch.items()}, tuple(specs["tokens"])
 
@@ -320,15 +314,15 @@ def build_decode(cfg, mesh, variant: Variant, *, device="meta"):
         token = torch.empty((shape.global_batch, 1), dtype=api.TOKEN_DTYPE,
                             device="meta")
         local, spec = _rows(cfg, {"tokens": token}, mesh)
-        if cfg.family in _TP_SERVING:   # the rank's shard of the state
-            st = api.decode_input_specs(cfg, shape)["state"]
+        # the rank's shard of the state
+        st = api.decode_input_specs(cfg, shape)["state"]
+        if cfg.family == "encdec":     # the cross K/V in the port's layout
+            sspecs = {k: sp for k, (sp, _) in sharding.encdec_layout(
+                cfg, mesh, shape.global_batch, shape.seq_len).items()}
+        else:
             sspecs = sharding.decode_state_specs(cfg, st, mesh,
                                                  shape.global_batch)
-            st = _tree(lambda v, sp: spmd.shard(v, sp, mesh).clone(), st,
-                       sspecs)
-        else:     # the rank's rows of the whole state
-            st = api.decode_input_specs(cfg, dataclasses.replace(
-                shape, global_batch=local["tokens"].shape[0]))["state"]
+        st = _tree(lambda v, sp: spmd.shard(v, sp, mesh).clone(), st, sspecs)
         if device == "meta":
             params = weights.model_class(cfg)(cfg, device="meta")
         else:

@@ -14,7 +14,10 @@ serving engine decodes through its paged pool instead (K1).
 ``attn_cross`` (the encoder-decoder family) is non-causal attention of the
 decoder's queries against the encoder's precomputed K/V, through the same
 ``ops.flash_attention``; it takes those K/V in the kernel's (B, Hkv, F, hd)
-layout, where JAX keeps (B, F, Hkv, hd), so a decode step copies none.
+layout, where JAX keeps (B, F, Hkv, hd), so a decode step copies none.  A
+rank that holds a slice of the frames takes its slice's output and
+log-sum-exp (K2's LSE route), and the slices are joined by their
+log-sum-exp (``combine_lse``).
 """
 from __future__ import annotations
 
@@ -98,23 +101,41 @@ def attn_full(cfg: ArchCfg, p: Params, x: torch.Tensor, *, freqs=None,
     return out @ w("wo"), (k, v)
 
 
-def attn_cross(cfg: ArchCfg, p: Params, x: torch.Tensor, kv_cache):
+def attn_cross(cfg: ArchCfg, p: Params, x: torch.Tensor, kv_cache, *,
+               w=None, heads=None):
     """Cross-attention against precomputed (k, v) from the encoder.
 
     x: (B, S, d); k, v: contiguous (B, Hkv, F, hd), the kernel's layout.
     Non-causal, so a query row sees every key: only F = 0 leaves a row
-    empty, and that row gives 0 (``ref.mha_attention``, K2)."""
+    empty, and that row gives 0 (``ref.mha_attention``, K2).  ``w`` and
+    ``heads`` as in ``attn_full`` (the head-parallel rank's slices and
+    head counts: k and v then hold its KV heads, and the result is its
+    partial product with wo)."""
+    w = w or p.__getitem__
     B, S, _ = x.shape
+    H = heads[0] if heads else cfg.n_heads
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"]
+    q = x @ w("wq")
     if cfg.qkv_bias:
-        q = q + p["bq"]
-    q = q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2).contiguous()
+        q = q + w("bq")
+    q = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
     k, v = kv_cache
     out = ops.flash_attention(q, k, v, causal=False,
                               compute_dtype=compute_dtype(cfg))
     out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ p["wo"]
+    return out @ w("wo")
+
+
+def combine_lse(o, lse, *, rmax=None, rsum=None):
+    """The attention over every slice of the keys from the slices' (o,
+    lse), stacked on a leading dim (each slice's output and fp32 log-sum-
+    exp, ``ops.flash_attention(..., return_lse=True)``): ``combine_partials``
+    with m = lse and l = 1 (an empty slice, lse = +inf, with m = -inf and
+    l = 0).  fp32; ``rmax`` and ``rsum`` as there."""
+    seen = torch.isfinite(lse)
+    m = torch.where(seen, lse, float("-inf"))
+    return combine_partials(o.float(), m, seen.float(), rmax=rmax,
+                            rsum=rsum)
 
 
 def init_kv_cache(cfg: ArchCfg, batch: int, max_len: int, *, layers: int,

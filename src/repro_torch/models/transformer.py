@@ -540,10 +540,11 @@ def _cache_out(cfg: ArchCfg, ts: list, src: tuple, B: int, S: int,
     return out
 
 
-def _attn_seq(cfg: ArchCfg, lp: Block, x: torch.Tensor, kc: torch.Tensor,
+def _attn_seq(cfg: ArchCfg, p, x: torch.Tensor, kc: torch.Tensor,
               vc: torch.Tensor, pos: int, freqs, mesh) -> torch.Tensor:
-    """The "seq" layout's attention in a decode step, kc and vc (B, S,
-    Hkv, hd) this rank's slice of the positions: every head's q, k and v
+    """The "seq" layout's attention in a decode step, p the attention's
+    parameters and kc and vc (B, S, Hkv, hd) this rank's slice of the
+    positions: every head's q, k and v
     (where the heads' widths divide "model", from the rank's column slices
     of wq, wk and wv, the three products gathered at once); the new row
     written by the rank whose slice holds ``pos``; the slice's softmax
@@ -557,7 +558,7 @@ def _attn_seq(cfg: ArchCfg, lp: Block, x: torch.Tensor, kc: torch.Tensor,
         raise IndexError(f"decode position {pos} is past a cache of "
                          f"{S * tp}")
     split = not (H * hd % tp or Hkv * hd % tp)
-    w = _local(lp.attn, mesh) if split else lp.attn.__getitem__
+    w = _local(p, mesh) if split else p.__getitem__
     q, k, v = attn.qkv_products(cfg, w, x, x)
     if split:
         nq, nqk = q.shape[-1], q.shape[-1] + k.shape[-1]
@@ -579,17 +580,75 @@ def _attn_seq(cfg: ArchCfg, lp: Block, x: torch.Tensor, kc: torch.Tensor,
         o[None], m[None], l[None],
         rmax=lambda t: spmd.all_reduce_max(t, mesh, "model", tag="combine"),
         rsum=lambda t: spmd.all_reduce(t, mesh, "model", tag="combine"))
-    o = o.to(x.dtype).reshape(B, 1, -1)
+    return out_rows(p, o.to(x.dtype).reshape(B, 1, -1), mesh, split)
+
+
+def out_rows(p, o: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+    """o (B, S, H hd), every head's attention output on every rank of a
+    "model" line, times wo: with ``split`` (the heads' width divides
+    "model") the rank's columns of o by its rows of wo, the partials
+    summed over "model"; else o by the whole (gathered) wo."""
     if not split:
-        return o @ w("wo")
-    c = o.shape[-1] // tp
-    return _act_sum(mesh)(o.narrow(-1, idx * c, c) @ w("wo"))
+        return o @ p["wo"]
+    c = o.shape[-1] // mesh.shape["model"]
+    return _act_sum(mesh)(o.narrow(-1, mesh.axis_index("model") * c, c)
+                          @ _local(p, mesh)("wo"))
+
+
+def decode_cache_in(cache: dict, layout, spec, mesh) -> dict:
+    """The caches {"k", "v"} a decode step's layers read: ``cache`` itself,
+    or, where the "other" layout splits the layers, the whole stack of the
+    rank's rows (re-laid once; ``decode_cache_out`` lays it back)."""
+    if layout == "other" and spec[0] is not None:
+        want = sharding.P(None, sharding.runtime_batch_spec()[0], None,
+                          None, None)
+        return {n: spmd.relayout(cache[n], spec, want, mesh, tag="cache")
+                for n in ("k", "v")}
+    return cache
+
+
+def decode_cache_out(cache: dict, work: dict, spec, mesh) -> None:
+    """``work``'s rows written back to ``cache``'s shards, where
+    ``decode_cache_in`` re-laid the stack."""
+    if work is not cache:
+        want = sharding.P(None, sharding.runtime_batch_spec()[0], None,
+                          None, None)
+        for n in ("k", "v"):
+            cache[n].copy_(spmd.relayout(work[n], want, spec, mesh))
+
+
+def decode_attn(cfg: ArchCfg, p, x: torch.Tensor, cache: dict, work: dict,
+                i: int, layout, spec, pos: int, freqs, mesh) -> torch.Tensor:
+    """Layer ``i``'s self-attention in a decode step's rank program, p its
+    parameters, the cache laid out by ``sharding.cache_layout`` (``layout``,
+    ``spec``) and read from ``work`` (``decode_cache_in``): the rank's KV
+    heads ("heads"), every head on the rank's slice of the positions
+    ("seq"), else every head on every key, the layer's cache gathered over
+    "model" where read and cut back after.  The result summed over
+    "model"."""
+    tp = mesh.shape["model"]
+    kc, vc = work["k"][i], work["v"][i]
+    if layout == "heads":
+        return _act_sum(mesh)(attn.attn_decode(
+            cfg, p, x, kc, vc, pos, freqs=freqs, w=_local(p, mesh),
+            heads=(cfg.n_heads // tp, cfg.n_kv_heads // tp))[0])
+    if layout == "seq":
+        return _attn_seq(cfg, p, x, kc, vc, pos, freqs, mesh)
+    lay = work is cache and layout == "other"
+    want = (sharding.runtime_batch_spec()[0], None, None, None)
+    if lay:
+        kc, vc = (spmd.relayout(t, spec[1:], want, mesh, tag="cache")
+                  for t in (kc, vc))
+    a = attn.attn_decode(cfg, p, x, kc, vc, pos, freqs=freqs)[0]
+    if lay:
+        for t, full in ((work["k"][i], kc), (work["v"][i], vc)):
+            t.copy_(spmd.relayout(full, want, spec[1:], mesh))
+    return a
 
 
 def _decode_tp(cfg: ArchCfg, params: TransformerLM, token: torch.Tensor,
                cache: dict, pos: int, mesh):
     """``decode_step``'s rank program on a "model" axis of tp > 1 ranks."""
-    tp = mesh.shape["model"]
     rows = sharding.runtime_batch_spec()[0]
     B = token.shape[0] * math.prod(mesh.shape[a]
                                    for a in sharding.spec_axes(rows))
@@ -605,38 +664,14 @@ def _decode_tp(cfg: ArchCfg, params: TransformerLM, token: torch.Tensor,
         raise ValueError(f"decode_step: a cache shard of shape "
                          f"{tuple(cache['k'].shape)}, where decode_state_"
                          f"specs gives {local}")
-    want = sharding.P(None, rows, None, None, None)   # every head, every key
-    work = cache
-    if layout == "other" and spec[0] is not None:     # the layers split
-        work = {n: spmd.relayout(cache[n], spec, want, mesh, tag="cache")
-                for n in ("k", "v")}
-    act = _act_sum(mesh)
+    work = decode_cache_in(cache, layout, spec, mesh)
     h = common.embed_tokens(params.embed, token)
     freqs = common.rope_freqs(cfg, h.device)
     for i, lp in enumerate(params.layers):
         x = common.apply_norm(cfg, lp.ln1, h)
-        kc, vc = work["k"][i], work["v"][i]
-        if layout == "heads":
-            a = act(attn.attn_decode(
-                cfg, lp.attn, x, kc, vc, pos, freqs=freqs,
-                w=_local(lp.attn, mesh),
-                heads=(cfg.n_heads // tp, cfg.n_kv_heads // tp))[0])
-        elif layout == "seq":
-            a = _attn_seq(cfg, lp, x, kc, vc, pos, freqs, mesh)
-        else:          # every head on every key, the layer's cache gathered
-            lay = work is cache and layout == "other"
-            if lay:
-                kc, vc = (spmd.relayout(t, spec[1:], want[1:], mesh,
-                                        tag="cache") for t in (kc, vc))
-            a = attn.attn_decode(cfg, lp.attn, x, kc, vc, pos,
-                                 freqs=freqs)[0]
-            if lay:
-                for t, full in ((work["k"][i], kc), (work["v"][i], vc)):
-                    t.copy_(spmd.relayout(full, want[1:], spec[1:], mesh))
-        h = h + a
+        h = h + decode_attn(cfg, lp.attn, x, cache, work, i, layout, spec,
+                            pos, freqs, mesh)
         h = h + _mix(cfg, lp, h, mode="heads")
-    if work is not cache:
-        for n in ("k", "v"):
-            cache[n].copy_(spmd.relayout(work[n], want, spec, mesh))
+    decode_cache_out(cache, work, spec, mesh)
     h = common.apply_norm(cfg, params.final_norm, h)
     return common.lm_head(cfg, params.embed, h), cache

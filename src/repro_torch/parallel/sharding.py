@@ -305,6 +305,32 @@ def cache_layout(cfg, mesh, global_batch: int, max_len: int):
     return "other", spec
 
 
+def encdec_layout(cfg, mesh, global_batch: int, max_len: int) -> dict:
+    """How ``decode_state_specs`` lays the encoder-decoder's decode state
+    out, in the port's layout: {leaf: (spec, whole shape)} for the self-
+    attention caches "k"/"v" (L, B, max_len, Hkv, hd) and the cross K/V
+    "cross_k"/"cross_v", kept as (L, B, Hkv, F, hd) where JAX keeps (L,
+    B, F, Hkv, hd).  The specs are taken on JAX's shapes and the cross
+    ones' entries 2 and 3 swapped onto the port's: the rule walks the
+    dims from the last, so on the port's own shape it would pick the
+    frames where JAX picks the KV heads."""
+    L, hd, Hkv = cfg.n_layers, cfg.resolved_head_dim, cfg.n_kv_heads
+    B = global_batch
+    shapes = {"k": (L, B, max_len, Hkv, hd), "v": (L, B, max_len, Hkv, hd),
+              "cross_k": (L, B, cfg.n_frames, Hkv, hd),
+              "cross_v": (L, B, cfg.n_frames, Hkv, hd)}
+    specs = decode_state_specs(cfg, {k: _Shape(s) for k, s in shapes.items()},
+                               mesh, B)
+    out = {}
+    for name, shape in shapes.items():
+        spec = tuple(specs[name])
+        if name.startswith("cross_"):
+            spec = spec[:2] + (spec[3], spec[2]) + spec[4:]
+            shape = shape[:2] + (shape[3], shape[2]) + shape[4:]
+        out[name] = (P(*spec), shape)
+    return out
+
+
 def state_layout(cfg, mesh, global_batch: int, whole: dict) -> dict:
     """How ``decode_state_specs`` lays a decode state out: {"/"-joined
     leaf path: (spec, whole shape)}, ``whole`` the family's own state at

@@ -503,3 +503,32 @@ def test_recurrent_prefill_relays_its_state_a_layer_at_a_time(arch,
     assert ("all_gather", "cache") not in spmd.counts
     kernel = "rwkv6_scan" if cfg.family == "rwkv6" else "mamba2_scan"
     assert out["kernels"][kernel]["count"] == cfg.n_layers
+
+
+def test_whisper_pod_serving_cells_are_partitioned_and_fit():
+    """whisper-large-v3 on the pod runs its rank programs.  decode_32k
+    (batch 128): each rank holds its ``decode_state_specs`` shard, the
+    self K/V on its 2048 positions and the cross K/V on its 2 of the 32
+    layers, and the step splits every layer over "model" (the self
+    attention's log-sum-exp combine; the cross-attention computed by the
+    layer's owner, its output broadcast: K2 twice a step on a rank, the
+    cross K/V never moved); its live bytes fall from 49.2 GB a rank (the
+    rank's rows of the whole state) to under 5 GB.  prefill_32k: the
+    encoder whole (20 heads and 1500 frames on 16), the decoder on the
+    rank's 2048 positions, K/V gathered a layer."""
+    spmd.reset_counts()
+    out = dryrun.run_cell("whisper-large-v3", "decode_32k", "pod",
+                          dryrun.get_variant("baseline"))
+    L = configs.get_config("whisper-large-v3").n_layers
+    assert out["partitioned"] is True
+    assert out["memory_analysis"]["live_bytes_per_device"] < 5e9
+    assert spmd.counts[("all_reduce_max", "combine")] == L
+    assert spmd.counts[("broadcast", "cross")] == L
+    assert not any(tag in ("cache", "state") for _, tag in spmd.counts)
+    assert out["kernels"]["flash_attention"]["count"] == 2
+    spmd.reset_counts()
+    out = dryrun.run_cell("whisper-large-v3", "prefill_32k", "pod",
+                          dryrun.get_variant("baseline"))
+    assert out["partitioned"] is True
+    assert spmd.counts[("all_gather", "kv")] == L
+    assert out["kernels"]["flash_attention"]["count"] == 3 * L

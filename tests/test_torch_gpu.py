@@ -167,6 +167,37 @@ def test_flash_attention_kernel_matches_plain(cuda, Sq, Skv, D, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Skv,D,causal", [(8, 20, 1, 375, 64, False),
+                                                 (2, 4, 1, 4, 16, False),
+                                                 (2, 6, 70, 65, 64, True),
+                                                 (2, 4, 9, 3, 128, True)])
+def test_flash_attention_lse_route_matches_plain(cuda, B, H, Sq, Skv, D,
+                                                 causal, dtype):
+    """K2's LSE route (``fa.flash_attention_lse``, ``ops.flash_attention(
+    ..., return_lse=True)``): the output as K2's, the fp32 LSE within 1e-4
+    of the plain version's (+inf where a causal row sees no key: Sq >
+    Skv); one count of its own, none of ``flash_attention``'s.  The first
+    case is a rank's frames slice of whisper-large-v3's decode (375 of
+    1500 frames, 20 heads of 64)."""
+    g = torch.Generator().manual_seed(Sq + Skv)
+    q = torch.randn(B, H, Sq, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, H // 2, Skv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, H // 2, Skv, D, generator=g).to(cuda, dtype)
+    n, m = fa.flash_attention_lse.launches, fa.flash_attention.launches
+    got, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert fa.flash_attention_lse.launches == n + 1
+    assert fa.flash_attention.launches == m
+    want, wlse = ref.mha_attention(q, k, v, causal=causal, return_lse=True)
+    t = tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert torch.equal(torch.isinf(lse), torch.isinf(wlse))
+    seen = torch.isfinite(wlse)
+    torch.testing.assert_close(lse[seen], wlse[seen], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_build(cuda):
     q = torch.randn(1, 2, 8, 160, device=cuda)         # D = 160 > 128
     with pytest.raises(ValueError, match="D=160"):

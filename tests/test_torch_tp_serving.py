@@ -1,6 +1,6 @@
-"""Tensor-parallel serving of the decoder and recurrent families
-(``prefill`` and ``decode_step`` under a runtime mesh) against the JAX
-package's, on the CPU.
+"""Tensor-parallel serving of the decoder, recurrent and encoder-decoder
+families (``prefill`` and ``decode_step`` under a runtime mesh) against the
+JAX package's, on the CPU.
 
 One module fixture runs ``tests/torch_dist_checks.py``'s "serve_tp" mode
 once: JAX's ``prefill`` and ``decode_step`` jitted with its dry run's
@@ -15,7 +15,10 @@ that nothing splits; ODD on (4, 2) at batch 2 and 4, whose cache specs
 put the batch and the layers over "model"; the reduced internvl2 with
 its bf16 attention on (2, 4); the reduced rwkv6, mamba2 and zamba2 on the
 three meshes, rwkv6 at batch 2 on (4, 2), zamba2 with a 2-token prompt
-on (2, 4), and rwkv6 and zamba2 in bf16 on (2, 4)).  Each case prefills
+on (2, 4), and rwkv6 and zamba2 in bf16 on (2, 4); the reduced whisper
+with its 8 frames on the three meshes and (1, 8), with 6 frames and 4
+layers on (2, 4) and (1, 8), at batch 2 on (4, 2) and in bf16 on (2, 4)).
+Each case prefills
 an 8-token prompt (the short one aside) into a 32-deep cache (24 and 48
 for those TINY cases, 17 for ODD; the recurrent states are O(1),
 zamba2's shared block's caches 32 deep) and takes 8 greedy decode
@@ -27,12 +30,20 @@ cache shard equal to the ``decode_state_specs`` slice of JAX's cache at
 rtol 1e-5 (atol 1e-5 of its largest value).  The "seq" layout combines its slices'
 softmaxes by their log-sum-exp, so under bf16 attention it rounds each
 slice's probabilities where JAX rounds the whole row's: that case is fed
-JAX's tokens and held to 2^-6 of the largest logit.  The bf16 rwkv6 and
-zamba2 are fed JAX's tokens too and held within 3x the spread of the
-bf16 runs (JAX's unsharded run, fed the same tokens, against the port's
-plain path and against JAX's partitioned run): the frameworks round
-bf16 apart even unpartitioned.  The combine itself is held here in one
+JAX's tokens and held to 2^-6 of the largest logit.  The bf16 rwkv6,
+zamba2 and whisper are fed JAX's tokens too and held within 3x the
+spread of the bf16 runs (JAX's unsharded run, fed the same tokens,
+against the port's plain path and against JAX's partitioned run): the
+frameworks round bf16 apart even unpartitioned.  The combine itself is held here in one
 process against whole-sequence attention.
+
+Whisper's cross K/V lie on the heads, the frames (each rank's slice's
+output and log-sum-exp, K2's LSE route, combined over "model"), the
+layers (the layer's owner computes its cross-attention and broadcasts the
+output) or not over "model"; the port keeps them (L, B, Hkv, F, hd), so
+its specs are JAX's with entries 2 and 3 swapped and its arrays are
+compared permuted to JAX's (L, B, F, Hkv, hd).  The frames combine is held
+here in one process too, with the ranks as threads.
 
 The recurrent families' rank programs split each state on its readout's
 contracted dim (rwkv6's wkv keys, the SSD state's ds): each rank's part of
@@ -68,9 +79,12 @@ CASES = [tdc._tag(t, s) for t, (_, _, meshes, _) in CFGS.items()
          for s in meshes]
 EXACT = [c for c in CASES if c.split("_")[0] not in tdc.SERVE_FORCED]
 RECURRENT = [c for c in CASES if c.split("_")[0] in tdc.SERVE_RECURRENT]
-DECODER = [c for c in CASES if c not in RECURRENT]
+ENCDEC = [c for c in CASES if c.split("_")[0] in tdc.SERVE_ENCDEC]
+DECODER = [c for c in CASES if c not in RECURRENT and c not in ENCDEC]
 FORCED = [c for c in DECODER if c.split("_")[0] in tdc.SERVE_FORCED]
 REC_BF16 = [c for c in RECURRENT if c.split("_")[0] in tdc.SERVE_FORCED]
+# the bf16 cases held within the spread of the bf16 runs (_bf16_bar)
+SPREAD_BF16 = [c for c in CASES if c.split("_")[0] in tdc.SERVE_PLAIN]
 RTOL, ATOL = 1e-4, 1e-5
 BF16_BAR = 2.0 ** -6
 # a bf16 recurrent case's bar over the frameworks' plain spread: the
@@ -195,6 +209,20 @@ def test_recurrent_bf16_rank_programs_within_their_bar(run, case):
     bf16 apart even unpartitioned, and each partitioned run sums bf16
     partials over "model" in its own order), the greedy token equal
     wherever JAX's top-2 gap exceeds twice that bar."""
+    _hold_bf16_logits(run, case)
+
+
+@pytest.mark.parametrize("case", [c for c in SPREAD_BF16 if c in ENCDEC])
+def test_encdec_bf16_rank_program_within_its_bar(run, case):
+    """The reduced whisper in bf16 on (2, 4) (self K/V on the sequence,
+    cross K/V on the frames: both softmaxes split over "model"), fed the
+    tokens of JAX's partitioned bf16 run, against it as the recurrent
+    bf16 cases are: every logit within ``_bf16_bar``, the greedy token
+    equal wherever JAX's top-2 gap exceeds twice that bar."""
+    _hold_bf16_logits(run, case)
+
+
+def _hold_bf16_logits(run, case):
     want = run["jax"](case)
     bar = _bf16_bar(run, case, "logits")
     top2 = np.sort(want["logits"], -1)[..., -2:]
@@ -226,16 +254,19 @@ def test_jax_partitioned_ep_prefill_parts_from_its_unsharded_run(run):
 
 @pytest.mark.parametrize("case", CASES)
 def test_cache_shards_are_the_decode_state_specs_slices(run, case):
-    """Each rank's cache (a recurrent family's state: every leaf), after
-    prefill and after the 8 decode steps, is its ``decode_state_specs``
-    slice (the serving config's: TP specs even under dp_only) of JAX's,
-    and holds nothing else."""
+    """Each rank's cache (a recurrent family's state, the encoder-
+    decoder's self and cross K/V: every leaf), after prefill and after the
+    8 decode steps, is its ``decode_state_specs`` slice (the serving
+    config's: TP specs even under dp_only) of JAX's, and holds nothing
+    else; the port's cross K/V (L, B, Hkv, F, hd) are compared permuted
+    to JAX's (L, B, F, Hkv, hd)."""
     cfg, batch, mesh_shape, _ = _case(case)
     mesh = sharding.abstract_mesh(mesh_shape, ("data", "model"))
     want = run["jax"](case)
     leaves = [k for k in want if f"prefill_{k}" in want]
     assert sorted(leaves) == sorted(
         ["k", "v"] if case in DECODER else
+        ["cross_k", "cross_v", "k", "v"] if case in ENCDEC else
         sharding.state_paths(_whole_state(cfg, batch, _case(case)[3])))
     forced = case.split("_")[0] in tdc.SERVE_FORCED
     for r, arr in enumerate(run["arrays"]):
@@ -247,7 +278,7 @@ def test_cache_shards_are_the_decode_state_specs_slices(run, case):
             w = _shard_np(want[name], spec, mesh_shape, r)
             got = arr[f"{case}/{name}"]
             assert got.shape == w.shape, (r, name)
-            if case in REC_BF16:
+            if case in SPREAD_BF16:
                 assert np.abs(got - w).max() <= _bf16_bar(run, case, name)
             elif forced and not name.startswith("prefill"):
                 scale = float(np.abs(want[name]).max())
@@ -495,6 +526,156 @@ def test_recurrent_state_layout_on_the_pod(arch, want):
 
 
 # ----------------------------------------------------------------------------
+# the encoder-decoder on 8 ranks
+# ----------------------------------------------------------------------------
+
+def _encdec_layout(case):
+    """(self layout, cross layout, L) of an encoder-decoder case, from
+    ``sharding.encdec_layout``."""
+    from repro_torch.models import encdec
+    cfg, batch, mesh_shape, max_len = _case(case)
+    lay = sharding.encdec_layout(
+        transformer.serving_cfg(cfg),
+        sharding.abstract_mesh(mesh_shape, ("data", "model")), batch, max_len)
+    self_at = _split_dim(lay["k"][0])
+    return ({(): None, (3,): "heads", (2,): "seq"}.get(tuple(self_at),
+                                                       "other"),
+            encdec._cross_spec_layout(lay["cross_k"][0]), cfg.n_layers)
+
+
+@pytest.mark.parametrize("case", ENCDEC)
+def test_encdec_ranks_hold_their_shards_and_move_no_stack(run, case):
+    """Every rank's parameters (prefill's and the decode step's) are its
+    ``param_specs`` shards; a decode step gathers no weight but the
+    embedding and the LM head; no self or cross K/V leaf is gathered or
+    broadcast, whole or a layer: the only collective of the state is, where
+    the cross K/V are split by the layers, the broadcast of each layer's
+    cross-attention output (B/dp, 1, H hd) by the rank that holds it."""
+    cfg, batch, mesh_shape, _ = _case(case)
+    dcfg = transformer.serving_cfg(cfg)
+    _, cross, L = _encdec_layout(case)
+    width = cfg.n_heads * cfg.resolved_head_dim
+    for r, res in enumerate(run["ranks"]):
+        held = res[case]
+        assert held["params"] == _expected_params(cfg, mesh_shape, r)
+        dec = _expected_params(dcfg, mesh_shape, r)
+        assert held["decode_params"] == dec
+        readable = {tuple(v) for k, v in dec.items()
+                    if k.startswith("embed.")}
+        for shape in held["decode_gathered"]:
+            assert tuple(shape) in readable, shape
+        moved = held["decode_moved"]
+        if cross == "layers":
+            rows = len(held["rows"])
+            assert moved == [["broadcast", "cross", [rows, 1, width]]] * L
+        else:
+            assert moved == []
+
+
+@pytest.mark.parametrize("case", [c for c in ENCDEC if not c.endswith("x1")])
+def test_the_collectives_an_encdec_decode_layer_issues(run, case):
+    """One decode step's collectives a layer, by layout.  Self-attention:
+    "heads" one all-reduce (wo); "seq" the q/k/v column slices gathered,
+    the combine's max and sum, one all-reduce.  Cross-attention: "heads"
+    one all-reduce; otherwise q's column slices gathered and one
+    all-reduce (o's columns by wo's rows), with "frames" the LSE
+    combine's max and sum and "layers" one broadcast of o.  The MLP one
+    all-reduce."""
+    self_layout, cross, L = _encdec_layout(case)
+    for res in run["ranks"]:
+        n = res[case]["counts"]["decode"]
+        assert n["all_reduce/act"] == 3 * L
+        assert n.get("all_gather/qkv", 0) == (L if self_layout == "seq"
+                                              else 0)
+        assert n.get("all_gather/q", 0) == (0 if cross == "heads" else L)
+        splits = (self_layout == "seq") + (cross == "frames")
+        assert n.get("all_reduce_max/combine", 0) == splits * L
+        assert n.get("all_reduce/combine", 0) == splits * L
+        assert n.get("broadcast/cross", 0) == (L if cross == "layers"
+                                               else 0)
+        assert not any(k.endswith("/cache") or (
+            k.endswith("/cross") and not k.startswith("broadcast"))
+            for k in n)
+
+
+def test_encdec_layouts_on_the_test_meshes(run):
+    """The cases' layouts (self K/V, cross K/V): the reduced whisper's 2
+    KV heads divide (4, 2)'s "model" (heads, heads), not (2, 4)'s or (1,
+    8)'s, whose sequence (32) and 8 frames do (seq, frames); with 6
+    frames and 4 layers (2, 4) splits the cross K/V's layers and (1, 8)
+    nothing of them; at batch 2 on (4, 2) the heads, the batch over no
+    axis."""
+    got = {c: _encdec_layout(c)[:2] for c in ENCDEC}
+    assert got == {
+        "whisper_8x1": (None, None), "whisper_4x2": ("heads", "heads"),
+        "whisper_2x4": ("seq", "frames"), "whisper_1x8": ("seq", "frames"),
+        "whisper6x4_2x4": ("seq", "layers"),
+        "whisper6x4_1x8": ("seq", None),
+        "whisperb2_4x2": ("heads", "heads"),
+        "whisper-bf16_2x4": ("seq", "frames")}
+    for r, res in enumerate(run["ranks"]):
+        for c in ENCDEC:
+            assert res[c]["layout"] == got[c][0], (r, c)
+
+
+@pytest.mark.parametrize("name,kw,batch,mesh_shape,max_len", [
+    ("whisper-large-v3", {}, 128, (16, 16), 32768),
+    ("whisper-large-v3", {}, 8, (1, 8), 72),
+    ("whisper-large-v3", {}, 8, (1, 4), 72),
+    ("whisper-large-v3", {}, 2, (1, 3), 72),
+    ("reduced", {}, 8, (4, 2), 32),
+    ("reduced", {}, 8, (2, 4), 32),
+    ("reduced", {}, 8, (1, 8), 32),
+    ("reduced", dict(n_frames=6, n_layers=4), 8, (2, 4), 32),
+    ("reduced", dict(n_frames=6, n_layers=4), 8, (1, 8), 32),
+    ("reduced", {}, 2, (4, 2), 32)])
+def test_encdec_layout_is_jax_decode_state_specs(name, kw, batch, mesh_shape,
+                                                 max_len):
+    """``sharding.encdec_layout`` against JAX's ``decode_state_specs`` on
+    JAX's state shapes (self (L, B, S, Hkv, hd), cross (L, B, F, Hkv,
+    hd)): the self specs equal, the cross specs with entries 2 and 3
+    swapped onto the port's (L, B, Hkv, F, hd); on the pod (batch 128)
+    the self K/V on the sequence and the cross K/V on the layers, the
+    batch over "data"; on the production widths (1, 8) gives the pod's
+    layouts, (1, 4) the heads, (1, 3) the sequence and the frames."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.parallel import sharding as jsharding
+
+    def cfg_of(mod):
+        if name == "reduced":
+            return dataclasses.replace(
+                mod.get_reduced("whisper-large-v3"), **kw)
+        return mod.get_config(name)
+
+    cfg, jcfg = cfg_of(configs), cfg_of(jconfigs)
+    mesh = sharding.abstract_mesh(mesh_shape, ("data", "model"))
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    sd = jax.ShapeDtypeStruct
+    shapes = {"k": sd((L, batch, max_len, Hkv, hd), jnp.float32),
+              "cross_k": sd((L, batch, cfg.n_frames, Hkv, hd), jnp.float32)}
+    def axes(spec):      # JAX writes an entry of one axis as its name
+        return tuple(sharding.spec_axes(e) for e in spec)
+
+    want = jsharding.decode_state_specs(jcfg, shapes, mesh, batch)
+    got = sharding.encdec_layout(cfg, mesh, batch, max_len)
+    assert axes(got["k"][0]) == axes(want["k"])
+    assert axes(got["v"][0]) == axes(want["k"])
+    w = axes(want["cross_k"])
+    assert axes(got["cross_k"][0]) == w[:2] + (w[3], w[2]) + w[4:]
+    assert got["cross_k"][1] == (L, batch, Hkv, cfg.n_frames, hd)
+    assert got["cross_v"] == got["cross_k"]
+    if mesh_shape == (16, 16):
+        assert axes(got["k"][0]) == ((), ("data",), ("model",), (), ())
+        assert axes(got["cross_k"][0]) == (("model",), ("data",), (), (),
+                                           ())
+
+
+# ----------------------------------------------------------------------------
 # the recurrent rank programs in one process: ranks as threads
 # ----------------------------------------------------------------------------
 
@@ -733,6 +914,144 @@ def test_recurrent_decode_refuses_a_shard_of_another_shape(name, family):
     assert not spmd.counts
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("attn_dtype", ["f32", "bf16"])
+def test_encdec_frames_combine_is_whole_cross_attention(lockstep, tp,
+                                                        attn_dtype):
+    """The "frames" layout's cross-attention in a decode step
+    (``encdec._cross_decode``) on tp ranks, each holding F/tp of the
+    frames: every head's q from the rank's column slices, K2's function
+    with its LSE on the rank's frames, the slices combined by their
+    log-sum-exp and o's columns by wo's rows summed over "model", against
+    the plain ``attn_cross`` over every frame.  fp32 compute to 1e-5; bf16
+    compute rounds each slice's probabilities to bf16 where the whole
+    row's are rounded, and each slice's output, so to 2^-6 of the largest
+    output."""
+    import dataclasses
+
+    from repro_torch.models import encdec
+    cfg = dataclasses.replace(configs.get_reduced("whisper-large-v3"),
+                              n_frames=16, attn_dtype=attn_dtype)
+    g = torch.Generator().manual_seed(4)
+    lp = encdec.DecLayer(cfg, g, "cpu")
+    B, Hkv, hd, Fr = 3, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_frames
+    x = torch.randn(B, 1, cfg.d_model, generator=g)
+    k, v = (torch.randn(B, Hkv, Fr, hd, generator=g) for _ in range(2))
+    with torch.no_grad():
+        want = attention.attn_cross(cfg, lp.cross_attn, x, (k, v))
+    n = Fr // tp
+    spec = sharding.P(None, None, None, "model", None)
+
+    def rank(mesh):
+        i = mesh.rank
+        state = {"cross_k": k[None, :, :, i * n:(i + 1) * n].contiguous(),
+                 "cross_v": v[None, :, :, i * n:(i + 1) * n].contiguous()}
+        return encdec._cross_decode(cfg, lp.cross_attn, x, state, 0, spec,
+                                    mesh)
+
+    got = lockstep(tp, rank)
+    for r, o in enumerate(got):
+        if attn_dtype == "f32":
+            torch.testing.assert_close(o, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert (o - want).abs().max() <= 2.0 ** -6 * want.abs().max(), r
+
+
+def test_k2_lse_plain_version_is_the_rows_logsumexp():
+    """``ops.flash_attention(..., return_lse=True)`` on the CPU (the plain
+    version): the output is the one without the LSE; the LSE is each
+    row's log-sum-exp of its scaled logits over the keys it sees (causal,
+    grouped heads), +inf for a row that sees none (K2's convention); on
+    meta the shapes, fp32."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn(2, 4, 5, 16, generator=g)
+    k, v = (torch.randn(2, 2, 3, 16, generator=g) for _ in range(2))
+    o, lse = ops.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=True))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q * 16 ** -0.5,
+                          k.repeat_interleave(2, 1))
+    seen = torch.arange(3)[None, :] <= torch.arange(5)[:, None] - 2
+    want = torch.logsumexp(logits.masked_fill(~seen, float("-inf")), -1)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 5)
+    assert torch.isinf(lse[:, :, :2]).all() and (lse[:, :, :2] > 0).all()
+    torch.testing.assert_close(lse[:, :, 2:], want[:, :, 2:], rtol=1e-6,
+                               atol=1e-6)
+    mo, ml = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                                 causal=False, return_lse=True)
+    assert mo.shape == q.shape and ml.shape == (2, 4, 5)
+    assert ml.dtype == torch.float32 and ml.device.type == "meta"
+
+
+def test_encdec_serving_on_one_rank_is_the_plain_path():
+    """On a 1 x 1 mesh (a "model" line of one rank) whisper's ``prefill``
+    and ``decode_step`` are the plain path's, bitwise."""
+    cfg = configs.get_reduced("whisper-large-v3")
+    model = api.get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 5), generator=g),
+             "frames": torch.randn(2, cfg.n_frames, cfg.d_model,
+                                   generator=g)}
+
+    def serve():
+        with torch.no_grad():
+            lg, st = model.prefill(params, batch, max_len=8)
+            l2, st = model.decode_step(params, lg.argmax(-1), st, 5)
+        return lg, l2, tdc.state_leaves(st)
+
+    want = serve()
+    sharding.set_runtime_mesh(Mesh((1, 1), ("data", "model"), [0],
+                                   abstract_rank=0), sharding.P("data"))
+    try:
+        got = serve()
+    finally:
+        sharding.set_runtime_mesh(None)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2].keys() == want[2].keys()
+    assert all(torch.equal(got[2][k], want[2][k]) for k in want[2])
+
+
+def test_encdec_decode_refuses_a_shard_of_another_shape():
+    """Under a mesh whisper's decode step reads its state's layout from the
+    global batch and the carried depth, never from a shard's shape: a
+    state whose leaves are whole, or a cross K/V left in JAX's layout,
+    raises before anything moves, as does a state without its depth.
+    16 frames, so that a rank's quarter of them (4) is not the KV heads'
+    count (2)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_reduced("whisper-large-v3"),
+                              n_frames=16)
+    model = api.get_model(cfg)
+    mesh = Mesh((2, 4), ("data", "model"), range(8), abstract_rank=1)
+    params = weights.model_class(cfg)(cfg, device="meta")
+    shard_params(cfg, params, mesh)
+    lay = sharding.encdec_layout(cfg, mesh, 8, 16)
+
+    def meta(shape):
+        return torch.empty(shape, device="meta")
+
+    whole = {n: meta(shape) for n, (_, shape) in lay.items()}
+    jax_cross = {n: meta(sharding.local_shape(spec, shape, mesh))
+                 for n, (spec, shape) in lay.items()}
+    for n in ("cross_k", "cross_v"):
+        t = jax_cross[n]
+        jax_cross[n] = t.transpose(2, 3)       # (L, B, F/4, Hkv, hd)
+    token = torch.zeros((4, 1), dtype=torch.long, device="meta")
+    sharding.set_runtime_mesh(mesh, sharding.P("data"))
+    spmd.reset_counts()
+    try:
+        for state in (whole, jax_cross):
+            with pytest.raises(ValueError, match="decode_state_specs gives"):
+                model.decode_step(params, token, dict(state, max_len=16), 3)
+        with pytest.raises(ValueError, match="max_len"):
+            model.decode_step(params, token, whole, 3)
+    finally:
+        sharding.set_runtime_mesh(None)
+    assert not spmd.counts
+
+
 # ----------------------------------------------------------------------------
 # the combine, in one process
 # ----------------------------------------------------------------------------
@@ -810,9 +1129,9 @@ def test_attn_decode_slice_form_on_one_slice_is_the_plain_form():
                                       vc.clone(), 7, freqs=freqs)
     k2, v2 = kc.clone(), vc.clone()
     with torch.no_grad():
-        b = transformer._attn_seq(cfg, lp, x, k2, v2, 7, freqs, mesh)
+        b = transformer._attn_seq(cfg, lp.attn, x, k2, v2, 7, freqs, mesh)
         with pytest.raises(IndexError):
-            transformer._attn_seq(cfg, lp, x, kc, vc, 12, freqs, mesh)
+            transformer._attn_seq(cfg, lp.attn, x, kc, vc, 12, freqs, mesh)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
 

@@ -1226,6 +1226,13 @@ def serve_cfgs(configs_mod, ArchCfg, dtype, half):
     an application at a time); rwkv6 at batch 2 on (4, 2),
     whose shifts take the batch over "model"; zamba2 on (2, 4) with a
     2-token prompt, shorter than its conv window (``SERVE_PROMPTS``).
+    The encoder-decoder (``SERVE_ENCDEC``, 8 frames from the seed): the
+    reduced whisper on every mesh and (1, 8), its self K/V on the heads
+    on (4, 2) and on the sequence elsewhere, its cross K/V on the heads
+    on (4, 2) and on the frames on (2, 4) and (1, 8); with 6 frames and 4
+    layers on (2, 4) (the cross K/V on the layers) and (1, 8) (not split
+    over "model"); at batch 2 on (4, 2) (the batch over no axis); in
+    bf16 on (2, 4) (``SERVE_FORCED``, ``SERVE_PLAIN``).
     The order is the port's; the JAX processes take alternate tags.  The
     environment's ``SERVE_TAGS`` (comma-separated) runs a subset."""
     import dataclasses
@@ -1257,6 +1264,13 @@ def serve_cfgs(configs_mod, ArchCfg, dtype, half):
         "rwkv-bf16": (reduced("rwkv6-1.6b", dtype=half), 8, ((2, 4),), 32),
         "zamba-bf16": (reduced("zamba2-1.2b", dtype=half), 8, ((2, 4),),
                        32),
+        "whisper": (reduced("whisper-large-v3"), 8,
+                    SERVE_MESHES + ((1, 8),), 32),
+        "whisper6x4": (reduced("whisper-large-v3", n_frames=6, n_layers=4),
+                       8, ((2, 4), (1, 8)), 32),
+        "whisperb2": (reduced("whisper-large-v3"), 2, ((4, 2),), 32),
+        "whisper-bf16": (reduced("whisper-large-v3", dtype=half), 8,
+                         ((2, 4),), 32),
     }
     only = os.environ.get("SERVE_TAGS")     # a comma-separated subset
     return {k: v for k, v in cfgs.items()
@@ -1266,13 +1280,15 @@ def serve_cfgs(configs_mod, ArchCfg, dtype, half):
 # the recurrent families' tags, and the prompts other than SERVE_PROMPT
 SERVE_RECURRENT = ("rwkv", "mamba", "zamba", "rwkvb2", "zambas",
                    "rwkv-bf16", "zamba-bf16")
+# the encoder-decoder's tags
+SERVE_ENCDEC = ("whisper", "whisper6x4", "whisperb2", "whisper-bf16")
 SERVE_PROMPTS = {"zambas": 2}
 # the tags whose unsharded JAX run is kept (beside the partitioned ones)
-SERVE_WHOLE = ("olmoe-ep", "rwkv-bf16", "zamba-bf16")
+SERVE_WHOLE = ("olmoe-ep", "rwkv-bf16", "zamba-bf16", "whisper-bf16")
 # the tags whose port also runs its plain path (no mesh) on rank 0, and
 # whose unsharded JAX run is fed the tokens of their one partitioned run,
 # as that plain path is: the spread of the four bf16 runs
-SERVE_PLAIN = ("rwkv-bf16", "zamba-bf16")
+SERVE_PLAIN = ("rwkv-bf16", "zamba-bf16", "whisper-bf16")
 
 
 def serve_prompt(tag: str) -> int:
@@ -1287,8 +1303,9 @@ def serve_prefill_kw(cfg, max_len: int) -> dict:
 
 def state_leaves(state) -> dict:
     """{"/"-joined path: tensor or array} of a decode state's leaves (a
-    decoder's cache {"k", "v"}; a recurrent family's state), its depth
-    entry ("max_len") left out."""
+    decoder's cache {"k", "v"}; a recurrent family's state; the
+    encoder-decoder's self and cross K/V), its depth entry ("max_len")
+    left out."""
     out = {}
     for k, v in state.items():
         if isinstance(v, dict):
@@ -1298,22 +1315,35 @@ def state_leaves(state) -> dict:
     return out
 
 
+def jax_layout(state) -> dict:
+    """``state_leaves`` of a port state as fp32 numpy copies in JAX's
+    layout (a decode step writes its caches in place): the encoder-
+    decoder's cross K/V, (L, B, Hkv, F, hd) in the port, permuted to
+    JAX's (L, B, F, Hkv, hd)."""
+    return {k: (v.transpose(2, 3) if k in ("cross_k", "cross_v") else v)
+            .float().clone().numpy() for k, v in state_leaves(state).items()}
+
+
 # JAX's processes (run side by side): alternate tags of serve_cfgs
 SERVE_JAX_PARTS = 2
 # the cases fed the JAX run's greedy tokens (teacher forcing), where the
 # port parts from the reference by bf16 rounding (the split softmax; the
 # bf16 models' sums in another order) and a near-tie can flip a token
-SERVE_FORCED = ("vlm-bf16", "rwkv-bf16", "zamba-bf16")
+SERVE_FORCED = ("vlm-bf16", "rwkv-bf16", "zamba-bf16", "whisper-bf16")
 
 
 def serve_batch(cfg, batch: int, prompt: int = SERVE_PROMPT) -> dict:
-    """The prompt (and a VLM's prefix embeddings), from one seed."""
+    """The prompt (and a VLM's prefix embeddings, an encoder-decoder's
+    frames), from one seed."""
     rng = np.random.default_rng(7)
     out = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt))
            .astype(np.int32)}
     if cfg.family == "vlm":
         out["prefix_embeds"] = rng.normal(
             size=(batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(
+            size=(batch, cfg.n_frames, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -1452,7 +1482,7 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
         def run(*args, **kw):
             out = plain(*args, **kw)
             tag = kw.get("tag", args[at] if len(args) > at else "")
-            if tag in ("state", "cache"):
+            if tag in ("state", "cache", "cross"):
                 moved.append([op, tag, list(out.shape)])
             return out
         return run
@@ -1507,8 +1537,8 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
                                         in spmd.counts.items()}
             logits = spmd.relayout(logits, (bspec["tokens"][0],),
                                    (tspec[0],), mesh)
-            for k, v in state_leaves(cache).items():
-                arrays[f"{case}/prefill_{k}"] = v.clone().float().numpy()
+            for k, v in jax_layout(cache).items():
+                arrays[f"{case}/prefill_{k}"] = v
             lgs, toks = [logits[:, -1]], []
             forced = None
             if tag in SERVE_FORCED:
@@ -1549,8 +1579,8 @@ def rank_serve_tp(out_dir: str, rank: int, world: int, store: str):
             res[case] = out
             arrays.update({f"{case}/logits": logits.float().numpy(),
                            f"{case}/tokens": torch.stack(toks).numpy()})
-            arrays.update({f"{case}/{k}": v.float().numpy()
-                           for k, v in state_leaves(cache).items()})
+            arrays.update({f"{case}/{k}": v
+                           for k, v in jax_layout(cache).items()})
     _save_npz(os.path.join(out_dir, f"rank{rank}_serve_tp.npz"), arrays)
     _save_json(os.path.join(out_dir, f"rank{rank}_serve_tp.json"), res)
     dist.destroy_process_group()
@@ -1571,14 +1601,14 @@ def _serve_plain(cfg, params, batch, max_len, ctx, fed_from):
     with torch.no_grad():
         logits, state = model.prefill(params, batch,
                                       **serve_prefill_kw(cfg, max_len))
-        out = {f"prefill_{k}": v.clone().float().numpy()
-               for k, v in state_leaves(state).items()}
+        out = {f"prefill_{k}": v
+               for k, v in jax_layout(state).items()}
         lgs = [logits[:, -1]]
         for i in range(SERVE_STEPS):
             logits, state = model.decode_step(params, forced[i][:, None],
                                               state, ctx + i)
             lgs.append(logits[:, -1])
-    out.update({k: v.float().numpy() for k, v in state_leaves(state).items()})
+    out.update(jax_layout(state))
     out["logits"] = torch.stack(lgs).float().numpy()
     return out
 
