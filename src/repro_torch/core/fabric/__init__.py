@@ -12,7 +12,8 @@
         fluid.*     the flow-level tier (``FluidSim``, ``HybridSim``)
                     behind ``make_sim(..., fidelity=)``; its rate solver
                     runs on numpy or, with ``solver="torch"``, on the card
-        telemetry.* counters, spans and the Perfetto export
+        telemetry.* counters, spans and the Perfetto export; the
+                    process hub of the hot path's wall-clock spans
         qosctl.*    the closed-loop QoS controller
         autotune.*  the design-space search (``FabricEnv``, the agents,
                     ``search`` / ``rescore``) and ``best_configs.json``
@@ -60,6 +61,7 @@ from repro_torch.core.fabric.sim import (FabricSim, FlowResult, best_route,
                                          stripe_counts, striped_routes)
 from repro_torch.core.fabric.telemetry import (Telemetry, canon_key,
                                                ordered_link_items,
+                                               process_hub,
                                                validate_perfetto)
 # autotune references this package lazily (``from repro_torch.core import
 # fabric``), so it must come after every name it may resolve at call time
@@ -91,7 +93,8 @@ __all__ = [
     "clear_route_cache", "inject_schedule", "simulate_schedule",
     "stripe_counts", "striped_routes",
     "FIDELITIES", "FluidSim", "HybridSim", "make_sim",
-    "Telemetry", "canon_key", "ordered_link_items", "validate_perfetto",
+    "Telemetry", "canon_key", "ordered_link_items", "process_hub",
+    "validate_perfetto",
     "DEFAULT_CREDIT_FRAC", "DEFAULT_WEIGHTS", "SINGLE_CLASS", "QosPolicy",
     "QosController", "QosCtlPolicy", "TrafficClass",
     "AGENTS", "ConfigSpace", "FabricConfig", "FabricEnv", "GeneticAgent",

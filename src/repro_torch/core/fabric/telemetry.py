@@ -39,18 +39,31 @@ Invariants the rest of the stack depends on:
   top-level ``fabric.probes`` count is stamped after rollback.  A
   probed sim's counters and event ring match a never-probed control
   (same discipline as the PR-5 probe-ghost test).
-* **Deterministic export.**  No wall-clock anywhere; timestamps are sim
-  times, track ids are first-seen order, args are sorted — same seed
-  produces a byte-identical ``.trace.json``.
+* **Deterministic export.**  A hub passed to a simulator, an RDMA
+  endpoint, the serving cluster or the trace replay sees no wall clock:
+  its timestamps are sim times, track ids are first-seen order, args are
+  sorted — same seed produces a byte-identical ``.trace.json``.
+
+One hub is different: :func:`process_hub`, the flight recorder of the
+hot path.  The serving engine, the paged model, the MoE dispatch and the
+trainer record into it, always, spans on ``time.perf_counter()``
+(:meth:`Telemetry.span`) and counters of the work they did.  Its ring
+bounds what it keeps; while ``torch.profiler`` runs, each span is also a
+``record_function`` range, so the program's spans nest on the profiler's
+timeline as they nest here.
 """
 from __future__ import annotations
 
 import json
+import sys
+import threading
+import time
 from collections import deque
 from typing import Any, Iterable
 
 __all__ = [
     "Telemetry",
+    "process_hub",
     "ordered_link_items",
     "canon_key",
     "validate_perfetto",
@@ -151,6 +164,7 @@ class Telemetry:
         # attaching a hub cannot perturb sim behavior or snapshots:
         self._stall_from: dict = {}   # link key -> credit-block start
         self._last_cls: dict = {}     # resource key -> last class served
+        self._span_id = 0             # the last span id handed out
 
     # -- registry ------------------------------------------------------------
     def add(self, name: str, value: float = 1.0, *,
@@ -199,6 +213,78 @@ class Telemetry:
     def dropped(self) -> int:
         """Events lost to the ring bound."""
         return self.n_events - len(self.events)
+
+    # -- wall-clock spans (the process hub) ---------------------------------
+    def span(self, track: tuple, name: str, parent: int | None = None,
+             **args: Any) -> "_Span":
+        """A context manager recording one span on ``time.perf_counter()``:
+        an event of the ring (start, length) whose args carry the span's
+        ``id`` and its ``parent``'s id (default: the innermost span of
+        this hub open on this thread).  ``args`` are ids and lengths; the body
+        adds more with the span's ``set``.  While the profiler runs, the
+        span is also a ``record_function`` range of the same name."""
+        return _Span(self, track, name, parent, args)
+
+    def record_span(self, track: tuple, name: str, t0: float, t1: float,
+                    parent: int | None = None, **args: Any) -> int:
+        """Record a span already timed (``t0``, ``t1`` on
+        ``time.perf_counter()``), such as a wait that starts in one call
+        and ends in another; returns its id."""
+        self._span_id += 1
+        self._append_span(track, name, t0, t1, self._span_id, parent, args)
+        return self._span_id
+
+    def _append_span(self, track, name, t0, t1, sid, parent, args) -> None:
+        args["id"] = sid
+        if parent is not None:
+            args["parent"] = parent
+        self.events.append((t0, track, name, t1 - t0,
+                            tuple(sorted(args.items()))))
+        self.n_events += 1
+
+    def annotate(self, span: "_Span", **args: Any) -> bool:
+        """Add ``args`` to a span already recorded (a value known only
+        once the card has caught up); False if the ring no longer holds
+        it.  Looks back from the newest event, where such a span is."""
+        key = ("id", span.id)
+        for i in range(len(self.events) - 1, -1, -1):
+            ts, track, name, dur, packed = self.events[i]
+            if key in packed:
+                merged = dict(packed)
+                merged.update(args)
+                self.events[i] = (ts, track, name, dur,
+                                  tuple(sorted(merged.items())))
+                return True
+        return False
+
+    def span_summary(self) -> str:
+        """Count, total and self milliseconds per span name over the
+        spans the ring holds; self time is a span's length less what its
+        children cover."""
+        spans: dict[int, tuple[str, float]] = {}
+        covered: dict[int, float] = {}
+        for _, _, name, dur, packed in self.events:
+            a = dict(packed)
+            if "id" not in a:
+                continue
+            spans[a["id"]] = (name, dur)
+            if "parent" in a:
+                covered[a["parent"]] = covered.get(a["parent"], 0.0) + dur
+        rows: dict[str, list] = {}
+        for sid, (name, dur) in spans.items():
+            r = rows.setdefault(name, [0, 0.0, 0.0])
+            r[0] += 1
+            r[1] += dur
+            r[2] += dur - covered.get(sid, 0.0)
+        lines = [f"== spans == ({self.dropped} events dropped, "
+                 f"ring={self.ring})",
+                 f"  {'span':<16s} {'count':>7s} {'total ms':>11s} "
+                 f"{'self ms':>11s}"]
+        for name, (n, tot, own) in sorted(rows.items(),
+                                          key=lambda kv: -kv[1][1]):
+            lines.append(f"  {name:<16s} {n:>7d} {tot * 1e3:>11.3f} "
+                         f"{own * 1e3:>11.3f}")
+        return "\n".join(lines)
 
     def events_snapshot(self) -> tuple:
         return tuple(self.events)
@@ -354,6 +440,80 @@ class Telemetry:
             for k, v in busiest:
                 lines.append(f"  {k:<40s} {v:>12.6g} s")
         return "\n".join(lines)
+
+
+class _Span:
+    """One span of :meth:`Telemetry.span`, open between ``__enter__`` and
+    ``__exit__``; recorded into its hub's ring when it closes."""
+
+    __slots__ = ("hub", "track", "name", "id", "parent", "args", "t0",
+                 "_range")
+
+    def __init__(self, hub: Telemetry, track: tuple, name: str, parent,
+                 args: dict) -> None:
+        self.hub, self.track, self.name, self.args = hub, track, name, args
+        self.parent = parent
+        self.id = 0
+        self.t0 = 0.0
+        self._range = None
+
+    def set(self, **args: Any) -> None:
+        """Add ``args`` before the span closes."""
+        self.args.update(args)
+
+    def __enter__(self) -> "_Span":
+        hub = self.hub
+        hub._span_id += 1
+        self.id = hub._span_id
+        stack = _open_spans()
+        if self.parent is None:
+            for sp in reversed(stack):
+                if sp.hub is hub:
+                    self.parent = sp.id
+                    break
+        stack.append(self)
+        # one module lookup and one attribute read while no profiler runs
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and prof._is_profiler_enabled:
+            self._range = prof.record_function(self.name)
+            self._range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        stack = _open_spans()
+        if stack and stack[-1] is self:
+            stack.pop()
+        else:
+            stack.remove(self)
+        self.hub._append_span(self.track, self.name, self.t0, t1, self.id,
+                              self.parent, self.args)
+
+
+_OPEN = threading.local()
+
+
+def _open_spans() -> list:
+    """This thread's open spans, innermost last."""
+    try:
+        return _OPEN.spans
+    except AttributeError:
+        _OPEN.spans = []
+        return _OPEN.spans
+
+
+_PROCESS_HUB = Telemetry()
+
+
+def process_hub() -> Telemetry:
+    """The process's own hub: the hot path's wall-clock spans and its
+    counters (``moe.rows``, ``moe.slots``), always on, bounded by the
+    ring.  Never handed to a simulator: their hubs keep sim time."""
+    return _PROCESS_HUB
 
 
 # ----------------------------------------------------------------------------

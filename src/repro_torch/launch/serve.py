@@ -9,7 +9,8 @@ The counterpart of ``repro.launch.serve``.  Page allocation goes through
 RDMA buffer registration, virtual->physical page translation hits the
 (software) TLB, and decode attention runs the paged-attention kernel whose
 in-kernel page-table lookup is the hardware-TLB analogue.  Weights are
-random, drawn from ``--seed``.
+random, drawn from ``--seed``.  At exit it prints the process hub's span
+summary: count, total and self milliseconds per span name.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch import configs
+    from repro_torch.core.fabric import process_hub
     from repro_torch.models import api
     from repro_torch.serving.engine import Engine, PagedLM, Request
 
@@ -79,6 +81,7 @@ def main(argv=None) -> int:
     print(f"[serve] decode_steps={stats['decode_steps']} "
           f"tlb_hit_rate={stats['tlb_hit_rate']:.3f} "
           f"translation_cost={stats['translation_cost_s']*1e6:.1f} us")
+    print(process_hub().span_summary())
     if len(eng.finished) != args.requests:
         print(f"[serve] only {len(eng.finished)} of {args.requests} "
               "requests finished")

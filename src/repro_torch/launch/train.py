@@ -20,7 +20,9 @@ On the card:
 parallelism (bidirectional ring reduce-scatter / all-gather as
 ``torch.distributed`` point-to-point rounds) over a one-axis mesh of every
 rank.  The JAX launcher's ``--devices`` (forced host devices) has no
-counterpart: ranks are processes.
+counterpart: ranks are processes.  At exit the lead rank prints the
+process hub's span summary: count, total and self milliseconds per span
+name.
 """
 from __future__ import annotations
 
@@ -73,6 +75,7 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from repro_torch import configs
+    from repro_torch.core.fabric import process_hub
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -122,6 +125,7 @@ def main(argv=None) -> int:
     losses = [m["loss"] for m in tr.metrics_log]
     if lead:
         print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        print(process_hub().span_summary())
     if dist.is_initialized():
         dist.destroy_process_group()
     return 0

@@ -32,6 +32,11 @@ gathered, dispatched together, this rank's rows kept.  ``apply_moe_tp``
 is serving's (the decode step's capacity dispatch, and the dropless one):
 each rank runs the slots of its own experts for every token, and their
 contributions are summed over "model".
+
+Each dispatch counts, on the process's telemetry hub, the rows it routed
+(``moe.rows``: T*K) against the expert slots it computes (``moe.slots``:
+E*C), from shapes on the host: the dropless dispatch computes E*T slots
+for T*K rows.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.fabric.telemetry import process_hub
 from repro_torch.models.common import ArchCfg, Params, dense_init
 from repro_torch.parallel import sharding, spmd
 
@@ -116,6 +122,13 @@ def _local_dispatch(cfg: ArchCfg, xt, router, K: int, E: int, C: int,
     return buf, combine, probs, flat_e
 
 
+def _count(rows: int, slots: int) -> None:
+    """One dispatch's routed rows and computed slots, on the process hub."""
+    hub = process_hub()
+    hub.add("moe.rows", rows)
+    hub.add("moe.slots", slots)
+
+
 def _expert_ffn(buf, wg, wu, wd, dtype):
     """(E, C, d) tokens through each expert's SwiGLU FFN -> (E, C, d)."""
     g = F.silu(torch.einsum("ecd,edf->ecf", buf, wg).float())
@@ -135,6 +148,7 @@ def apply_moe(cfg: ArchCfg, p: Params, x: torch.Tensor, *,
     T = B * S
     E, K = m.n_experts, m.top_k
     C = T if dropless else capacity(cfg, T)
+    _count(T * K, E * C)
     buf, combine, probs, flat_e = _local_dispatch(
         cfg, x.reshape(T, d), p["router"], K, E, C)
     # load-balancing auxiliary loss (Switch-style)
@@ -184,6 +198,7 @@ def apply_moe_tp(cfg: ArchCfg, p: Params, x: torch.Tensor, *,
     T = B * S
     C = T if dropless else capacity(cfg, T)
     E_loc = E // tp
+    _count(T * K, E * C)       # the whole dispatch; this rank's E_loc * C
     lo = mesh.axis_index("model") * E_loc
     buf, combine, probs, flat_e = _local_dispatch(
         cfg, xg.reshape(T, d), p["router"], K, E, C,
@@ -231,6 +246,7 @@ def apply_moe_ep(cfg: ArchCfg, p: Params, x: torch.Tensor):
     blk = (tuple(dpx) or None, "model")
     xs = spmd.relayout(x, src, blk, mesh, "moe")     # this rank's block
     xt = xs.reshape(-1, d)
+    _count(xt.shape[0] * K, E * C)
     buf, combine, probs, flat_e = _local_dispatch(cfg, xt, p["router"], K,
                                                   E, C)
     # Switch-style aux loss from globally-averaged router stats

@@ -50,9 +50,21 @@ optimizer sees the JAX pytree's leaves (``weights.jax_leaves``: layer-
 stacked where JAX stacks), so its rules and the ZeRO chunking see JAX's
 shapes, the bucket plan and cost model JAX's leaf sizes, and a checkpoint
 has JAX's keys and layout.
+
+Each step records wall-clock spans into the process's telemetry hub
+(``fabric.process_hub()``), on track ``("train",)``: ``train.step`` with
+its children ``train.data`` (the next batch, placed), ``train.fwd_bwd``
+and ``train.update`` (the single and GSPMD steps: leaf gradients, AdamW
+and the assignment back; the apex step overlaps the two and is not
+split) and ``train.wait`` (the card catching up).  On a card,
+``train.fwd_bwd`` and ``train.update`` carry ``dev_s``, the device's time
+between CUDA events recorded at their boundaries, read after the step's
+own synchronisation.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
 import dataclasses
 import math
@@ -67,6 +79,7 @@ from repro_torch import weights
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import collectives as C
 from repro_torch.core import fabric, hw
+from repro_torch.core.fabric.telemetry import process_hub
 from repro_torch.core.lofamo import LofamoSim
 from repro_torch.core.rdma import RdmaEndpoint
 from repro_torch.core.topology import Torus
@@ -76,6 +89,8 @@ from repro_torch.models.common import ArchCfg
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import apex_zero1_init, apex_zero1_update
 from repro_torch.parallel import sharding, spmd
+
+TRACK = ("train",)
 
 
 @dataclasses.dataclass
@@ -181,7 +196,10 @@ class Trainer:
                                     seed=tcfg.seed)
         self.metrics_log: list[dict] = []
         self.events: list[str] = []
-        self._step_times: list[float] = []
+        # the straggler check's running median reads the last 20 steps
+        self._step_times: collections.deque = collections.deque(maxlen=20)
+        # (span, start event, end event) of this step's timed phases
+        self._phases: list = []
         # False once an elastic re-mesh drops this rank: it leaves the loop
         self.active = True
         if tcfg.torus_dims is not None:
@@ -278,11 +296,33 @@ class Trainer:
         inv = 1.0 / accum
         return loss_acc * inv, {k: g * inv for k, g in g_acc.items()}
 
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """A span of the step; on a card, CUDA events at its boundaries
+        give its device time once the step has synchronised."""
+        with process_hub().span(TRACK, name) as sp:
+            if self.device.type != "cuda" or self._phases is None:
+                yield
+                return
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._phases.append((sp, start, end))
+
     def _single_step(self, batch: dict) -> dict:
-        loss, grads = self._loss_and_grads(batch)
-        new_p, self.opt_state, metrics = adamw_update(
-            self.tcfg.opt, grads, self.opt_state, self._leaf_values())
-        self._assign(new_p)
+        with self._phase("train.fwd_bwd"):
+            if self.tcfg.grad_accum <= 1:
+                loss, grads = self._backward(batch), None
+            else:
+                loss, grads = self._loss_and_grads(batch)
+        with self._phase("train.update"):
+            if grads is None:
+                grads = self._leaf_grads()
+            new_p, self.opt_state, metrics = adamw_update(
+                self.tcfg.opt, grads, self.opt_state, self._leaf_values())
+            self._assign(new_p)
         return {"loss": loss, **metrics}
 
     # ------------------------------------------------------- apex (fabric)
@@ -440,6 +480,7 @@ class Trainer:
         self = cls.__new__(cls)
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.device = torch.device(device)
+        self._phases = None        # no train_step reads the phases' times
         self.model = api.get_model(cfg)
         if self.device.type == "meta":
             params = weights.model_class(cfg)(cfg, device="meta")
@@ -546,9 +587,11 @@ class Trainer:
 
     def gspmd_step(self, batch: dict) -> dict:
         """One GSPMD step on this rank's part of the batch."""
-        loss, grads = self._gspmd_loss_and_grads(batch)
-        new_p, metrics = self._zero1_update(grads)
-        self._assign(new_p)
+        with self._phase("train.fwd_bwd"):
+            loss, grads = self._gspmd_loss_and_grads(batch)
+        with self._phase("train.update"):
+            new_p, metrics = self._zero1_update(grads)
+            self._assign(new_p)
         return {"loss": loss, **metrics}
 
     @property
@@ -678,17 +721,26 @@ class Trainer:
         return batch
 
     def train_step(self) -> dict:
+        hub = process_hub()
+        with hub.span(TRACK, "train.step"):
+            return self._train_step(hub)
+
+    def _train_step(self, hub) -> dict:
         t0 = time.perf_counter()
-        np_batch = self.data.next_batch()
-        batch = self._place_batch(np_batch)
+        with hub.span(TRACK, "train.data"):
+            batch = self._place_batch(self.data.next_batch())
         if self._apex() and self.tcfg.overlap \
                 and self._overlap_baseline is None:
             self._overlap_baseline = self._measure_overlap_baseline(batch)
             t0 = time.perf_counter()  # calibration is not step time
         metrics = self._step_fn(batch)
-        self._sync()
+        with hub.span(TRACK, "train.wait"):
+            self._sync()
         dt = time.perf_counter() - t0
         self._step_times.append(dt)
+        for sp, start, end in self._phases:
+            hub.annotate(sp, dev_s=start.elapsed_time(end) * 1e-3)
+        self._phases.clear()
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics["step_time_s"] = dt
         metrics["step"] = self.data.step
@@ -713,7 +765,7 @@ class Trainer:
                 metrics["seq_step_s"] = base["seq_s"]
         # straggler detection: this step vs the running median
         if len(self._step_times) >= 5:
-            med = float(np.median(self._step_times[-20:]))
+            med = float(np.median(self._step_times))
             if dt > self.tcfg.straggler_factor * med:
                 metrics["straggler"] = True
                 self.events.append(
@@ -723,11 +775,6 @@ class Trainer:
         if self.telemetry is not None:
             self.telemetry.add("trainer.steps")
             self.telemetry.add("trainer.step_time_s", dt)
-            # trainer spans ride a logical clock (cumulative step time)
-            self.telemetry.event(
-                ("trainer",), f"step{self.data.step}",
-                sum(self._step_times[:-1]), dt,
-                loss=metrics.get("loss", 0.0), step=self.data.step)
         return metrics
 
     def train(self, steps: int, *, fault_hook: Callable[[int], None] | None
@@ -773,9 +820,6 @@ class Trainer:
             f"LO|FA|MO: master aware of dead link(s) {sorted(links)}")
         if self.telemetry is not None:
             self.telemetry.add("fabric.fault_epochs")
-            self.telemetry.event(
-                ("trainer",), "link_fault", sum(self._step_times),
-                links=sorted(links))
         if self.tcfg.fault_mode != "reroute" or not self._apex():
             return
         dp = self.mesh.shape[self.tcfg.dp_axis]

@@ -27,6 +27,16 @@ prices this node's migration PUTs and per-step TP collectives on one
 timeline with every other node's, as in the JAX engine.
 
 Engine scope: decoder-only transformer families (dense/moe/vlm).
+
+Both record wall-clock spans into the process's telemetry hub
+(``fabric.process_hub()``), on track ``("engine",)``: ``engine.step``,
+its ``engine.admit`` and each whole-prompt ``engine.prefill`` (with the
+MoE rows and slots it dispatched), and ``decode`` with its children
+``decode.inputs`` (the step's uploads), ``decode.layers`` (the embedding
+and the layer loop, with its MoE rows and slots), ``decode.head`` (final
+norm, head and mask) and ``decode.wait`` (the argmax read back to the
+host).  ``engine.queued``, on ``("engine", "queue")``, runs from a
+request's ``submit`` to the start of its own prefill.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import torch
 
 from repro_torch.core import fabric
 from repro_torch.core.apelink import NetModel
+from repro_torch.core.fabric.telemetry import process_hub
 from repro_torch.core.rdma import RdmaEndpoint
 from repro_torch.core.tlb import PAGE_BYTES
 from repro_torch.core.topology import Torus
@@ -47,6 +58,9 @@ from repro_torch.models import common
 from repro_torch.models import transformer
 from repro_torch.models.common import ArchCfg
 from repro_torch.models.transformer import TransformerLM
+
+TRACK = ("engine",)
+QUEUE_TRACK = ("engine", "queue")
 
 
 class TruncatedRunError(RuntimeError):
@@ -440,22 +454,40 @@ class PagedLM:
 
         tokens: (B,) int; active: (B,) bool."""
         cfg = self.cfg
-        dev = self.device
-        B = tokens.shape[0]
-        h = common.embed_tokens(self.params.embed,
-                                self._tensor(tokens[:, None].astype(np.int64)))
-        freqs = common.rope_freqs(cfg, dev)
-        seq_lens = self._tensor(self.seq_lens)
+        hub = process_hub()
+        with hub.span(TRACK, "decode.inputs"):
+            token_t = self._tensor(tokens[:, None].astype(np.int64))
+            seq_lens = self._tensor(self.seq_lens)
+            page_table = self._tensor(self.page_table)
+            # this step's K/V go to each ACTIVE slot's current page;
+            # inactive slots write nothing (their pages may already belong
+            # to a newly admitted request) — JAX drops those writes out of
+            # bounds
+            act = np.flatnonzero(active)
+            act_t = self._tensor(act.astype(np.int64))
+            phys = self._tensor(self.page_table[act, self.seq_lens[act]
+                                                // self.page]
+                                .astype(np.int64))
+            off = self._tensor((self.seq_lens[act] % self.page)
+                               .astype(np.int64))
+        with hub.span(TRACK, "decode.layers") as sp:
+            moe0 = _moe_counts(hub)
+            h = self._decode_layers(token_t, seq_lens, page_table, act_t,
+                                    phys, off)
+            sp.set(**_moe_delta(hub, moe0))
+        with hub.span(TRACK, "decode.head"):
+            h = common.apply_norm(cfg, self.params.final_norm, h)
+            logits = common.lm_head(cfg, self.params.embed, h)[:, 0]
+            return torch.where(self._tensor(active)[:, None], logits, 0.0)
+
+    def _decode_layers(self, token_t, seq_lens, page_table, act_t, phys,
+                       off) -> torch.Tensor:
+        """The decode step's embedding and layers: the hidden (B, 1, d)."""
+        cfg = self.cfg
+        B = token_t.shape[0]
+        h = common.embed_tokens(self.params.embed, token_t)
+        freqs = common.rope_freqs(cfg, self.device)
         pos = seq_lens.long()
-        page_table = self._tensor(self.page_table)
-        # this step's K/V go to each ACTIVE slot's current page; inactive
-        # slots write nothing (their pages may already belong to a newly
-        # admitted request) — JAX drops those writes out of bounds
-        act = np.flatnonzero(active)
-        act_t = self._tensor(act.astype(np.int64))
-        phys = self._tensor(self.page_table[act, self.seq_lens[act]
-                                            // self.page].astype(np.int64))
-        off = self._tensor((self.seq_lens[act] % self.page).astype(np.int64))
         attend_lens = seq_lens + 1
         for li, lp in enumerate(self.params.layers):
             kp, vp = self.k_pool[li], self.v_pool[li]
@@ -469,9 +501,7 @@ class PagedLM:
                                       page_table, attend_lens)
             h = h + out.reshape(B, 1, -1) @ lp.attn["wo"]
             h = h + transformer._mix(cfg, lp, h, moe_dropless=True)
-        h = common.apply_norm(cfg, self.params.final_norm, h)
-        logits = common.lm_head(cfg, self.params.embed, h)[:, 0]
-        return torch.where(self._tensor(active)[:, None], logits, 0.0)
+        return h
 
     # -- public API ---------------------------------------------------------------
     def prefill_slot(self, slot: int, prompt: np.ndarray) -> int:
@@ -499,9 +529,23 @@ class PagedLM:
         return int(torch.argmax(logits[len(prompt) - 1 - start]))
 
     def decode_batch(self, tokens: np.ndarray, active: np.ndarray):
-        logits = self.decode_logits(tokens, active)
-        self.seq_lens = self.seq_lens + active.astype(np.int32)
-        return torch.argmax(logits, -1).cpu().numpy()
+        hub = process_hub()
+        with hub.span(TRACK, "decode", batch=int(active.sum())):
+            logits = self.decode_logits(tokens, active)
+            self.seq_lens = self.seq_lens + active.astype(np.int32)
+            with hub.span(TRACK, "decode.wait"):
+                return torch.argmax(logits, -1).cpu().numpy()
+
+
+def _moe_counts(hub) -> tuple[float, float]:
+    return hub.value("moe.rows"), hub.value("moe.slots")
+
+
+def _moe_delta(hub, before: tuple[float, float]) -> dict:
+    """The MoE rows and slots dispatched since ``before``."""
+    rows, slots = _moe_counts(hub)
+    return {"moe_rows": int(rows - before[0]),
+            "moe_slots": int(slots - before[1])}
 
 
 class Engine:
@@ -526,6 +570,7 @@ class Engine:
         self.prefill_chunks = 0
         self.decode_stall_s = 0.0   # non-decode work while a batch waited
         self._step_times: list[float] = []
+        self._queued_at: dict[int, float] = {}   # id(request) -> submit
         # shared-timeline accounting (lm.sim attached): each decode step
         # injects the node's TP collective traffic as flows; the timeline
         # owner (the serving cluster) settles them per logical window
@@ -544,7 +589,26 @@ class Engine:
         return len(self.pending) + len(self.prefilling) + len(self.running)
 
     def submit(self, req: Request) -> None:
+        self._queued_at[id(req)] = time.perf_counter()
         self.pending.append(req)
+
+    def _dequeue(self, req: Request) -> None:
+        """The request's wait since ``submit`` ends: its prefill starts."""
+        t0 = self._queued_at.pop(id(req), None)
+        if t0 is not None:
+            process_hub().record_span(QUEUE_TRACK, "engine.queued", t0,
+                                      time.perf_counter(), rid=req.rid)
+
+    def _prefill(self, slot: int, req: Request) -> int:
+        """A whole-prompt prefill: its first token."""
+        hub = process_hub()
+        n = len(req.prompt)
+        with hub.span(TRACK, "engine.prefill", rid=req.rid, prompt=n,
+                      padded=-(-n // self.lm.page) * self.lm.page) as sp:
+            moe0 = _moe_counts(hub)
+            first = self.lm.prefill_slot(slot, req.prompt)
+            sp.set(**_moe_delta(hub, moe0))
+        return first
 
     # -- migration hooks --------------------------------------------------------
     def detach(self, slot: int) -> Request:
@@ -577,6 +641,7 @@ class Engine:
                 raise
             req.slot = slot
             admitted += 1
+            self._dequeue(req)
             if self.chunked_prefill:
                 req.pos = 0
                 self.prefilling[slot] = req
@@ -590,7 +655,7 @@ class Engine:
                     self.lm.seq_lens[slot] = len(req.prompt)
                     first = 0
                 else:
-                    first = self.lm.prefill_slot(slot, req.prompt)
+                    first = self._prefill(slot, req)
                 req.out_tokens.append(first)
                 req.pos = len(req.prompt)
                 self.running[slot] = req
@@ -639,13 +704,21 @@ class Engine:
         return chunks
 
     def step(self) -> None:
+        hub = process_hub()
+        with hub.span(TRACK, "engine.step", admitted=0, batch=0) as sp:
+            self._step(hub, sp)
+
+    def _step(self, hub, sp) -> None:
         t0 = time.perf_counter()
         self.window_first = []
         self.window_finished = []
         self.window_decode_tokens = 0
         self.window_cold_prefill_tokens = 0
         had_batch = bool(self.running)
-        worked = self._admit()
+        with hub.span(TRACK, "engine.admit", admitted=0) as admit:
+            worked = self._admit()
+            admit.set(admitted=worked)
+        sp.set(admitted=worked)
         if self.chunked_prefill:
             worked += self._advance_prefills()
         if had_batch and worked:
@@ -655,6 +728,7 @@ class Engine:
         if not self.running:
             return
         if self.lm.modelled:
+            sp.set(batch=sum(not r.done for r in self.running.values()))
             self._step_modelled(t0)
             return
         B = self.lm.max_batch
@@ -663,6 +737,7 @@ class Engine:
         for slot, req in self.running.items():
             tokens[slot] = req.out_tokens[-1]
             active[slot] = not req.done
+        sp.set(batch=int(active.sum()))
         self.window_decode_tokens += int(active.sum())
         nxt = self.lm.decode_batch(tokens, active)
         if self.lm.sim is not None and self.lm.tp_schedule is not None:

@@ -192,12 +192,24 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert all(n.endswith(".so") for n in names)
 
 
-def test_serve_launcher_runs_on_cpu(capsys):
+def test_serve_launcher_runs_on_cpu(capsys, monkeypatch):
+    from repro_torch.core.fabric import Telemetry, telemetry
     from repro_torch.launch import serve
+    # a fresh process hub: the summary is this run's alone
+    monkeypatch.setattr(telemetry, "_PROCESS_HUB", Telemetry())
     rc = serve.main(["--reduced", "--device", "cpu", "--requests", "3",
                      "--max-new", "4"])
     assert rc == 0
-    assert "requests=3" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "requests=3" in out
+    # the process hub's span summary: count, total and self ms a name
+    assert "== spans ==" in out
+    rows = {ln.split()[0]: ln.split()[1:] for ln in out.splitlines()
+            if ln.strip().startswith(("engine.", "decode"))}
+    assert {"engine.step", "engine.queued", "engine.prefill", "decode",
+            "decode.layers", "decode.wait"} <= set(rows)
+    assert rows["engine.queued"][0] == "3"
+    assert all(float(r[2]) <= float(r[1]) + 1e-3 for r in rows.values())
 
 
 def test_trainer_and_weight_bridges_default_to_the_card():

@@ -224,16 +224,24 @@ def test_fault_recovery_restores_and_replays(tmp_path):
 
 
 def test_trainer_telemetry_and_straggler_bookkeeping(tmp_path):
-    """As JAX's: a step span and counters per step on the telemetry hub,
-    and a step slower than straggler_factor x the running median flagged."""
-    from repro_torch.core.fabric import Telemetry
+    """Counters per step on the passed hub, which gets no wall-clock
+    event; a wall-clock ``train.step`` span a step on the process hub;
+    and a step slower than straggler_factor x the running median
+    flagged."""
+    from repro_torch.core.fabric import Telemetry, process_hub
     tel = Telemetry()
+    hub = process_hub()
     tr = Trainer(CFG, tcfg(tmp_path, straggler_factor=0.0), device="cpu",
                  telemetry=tel)
+    n0 = hub.n_events
     ms = tr.train(6)
     assert tel.value("trainer.steps") == 6
     assert tel.value("trainer.step_time_s") > 0
-    assert tel.n_events == 6                 # one span a step
+    assert tel.n_events == 0                 # no logical-clock span
+    new = list(hub.events)[-(hub.n_events - n0):]
+    steps = [e for e in new if e[2] == "train.step"]
+    assert len(steps) == 6                   # one wall-clock span a step
+    assert all(a[0] + a[3] <= b[0] for a, b in zip(steps, steps[1:]))
     assert [m["step"] for m in ms] == list(range(1, 7))
     assert ms[-1].get("straggler") and "straggler step=6" in tr.events[-1]
     assert "straggler" not in ms[3]          # fewer than 5 steps timed
@@ -358,6 +366,13 @@ def test_launcher_trains_on_the_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "comm=single device=cpu" in out.stdout
     assert "[train] done" in out.stdout
+    # the process hub's span summary: count, total and self ms a name
+    rows = {ln.split()[0]: ln.split()[1:] for ln in out.stdout.splitlines()
+            if ln.strip().startswith("train.")}
+    assert set(rows) == {"train.step", "train.data", "train.fwd_bwd",
+                         "train.update", "train.wait"}
+    assert all(r[0] == "2" and float(r[2]) <= float(r[1]) + 1e-3
+               for r in rows.values())
 
 
 def test_launcher_defaults_to_gspmd_and_runs_single_on_one_rank():
