@@ -71,8 +71,9 @@ paths against its plain PyTorch version:
      plain backward and SDPA's (eager, and graph-replayed); (b)
      qwen2-0.5b at full width, bf16, trained 10 steps through
      ``Trainer(comm="single")`` (batch 8 x 1024, remat, AdamW): finite
-     falling losses, K2 2 x 24 and K2-bwd 24 launches a step and nothing
-     else, step ms, tokens/s, a profiled step, peak memory; (c)
+     falling losses, K2 2 x 24, K2-bwd 24 and AdamW's kernel pair 1
+     launches a step and nothing else, step ms, tokens/s, a profiled
+     step, peak memory; (c)
      checkpoint-restart: a second trainer resumes at step 3 and its steps
      4-6 equal the first's bitwise (depth cut to 4 layers, so each
      checkpoint is ~1.6 GB); (d) the reduced fp32 qwen2 trained 5 steps on
@@ -80,8 +81,10 @@ paths against its plain PyTorch version:
      1e-4; (e) ``[train gspmd]``: qwen2-0.5b at full width trained 3 steps
      through ``Trainer(comm="gspmd")`` on a 1 x 1 ("data", "model") mesh
      over NCCL (world size 1) and through ``comm="single"`` from the same
-     seed: the same losses bitwise, K2 48 and K2-bwd 24 launches a step,
-     each path's step ms and the device's busy share;
+     seed, clipping inactive: the same losses bitwise (single's kernel
+     pair updates as GSPMD's eager update does), K2 48 and K2-bwd 24
+     launches a step, AdamW's pair once a step in the single run, each
+     path's step ms and the device's busy share;
  10. whisper-large-v3 (the encoder-decoder family), last, alone on the
      card: (a) served through ``api.get_model`` at full width, 8 segments
      of 1500 frames and a 224-token prompt prefilled, then 64 greedy steps;
@@ -93,9 +96,10 @@ paths against its plain PyTorch version:
      fp32 whisper of the CPU tests (head_dim 16) gives the CPU's tokens;
      (c)
      trained 3 steps through ``Trainer(comm="single")`` (batch 2 x (1500
-     frames + 448 tokens), remat, AdamW): finite losses, K2 192 and K2-bwd
-     96 launches a step; (d) the reduced fp32 whisper trained 3 steps on
-     the card and on the CPU: losses within rtol 1e-4. Phases 2 and 9a
+     frames + 448 tokens), remat, AdamW): finite losses, K2 192, K2-bwd
+     96 and AdamW's pair 1 launches a step; (d) the reduced fp32 whisper
+     trained 3 steps on the card and on the CPU: losses within rtol
+     1e-4. Phases 2 and 9a
      hold K2 and K2-bwd at every shape whisper's main paths give them
      (serving at batch 8: the encoder S = 1500, the causal decoder prefill
      S = 224, cross Sq = 224 / 1 against 1500 frames; training at batch 2:
@@ -116,8 +120,8 @@ paths against its plain PyTorch version:
      (b, c) rwkv6-1.6b, then zamba2-1.2b, at full width, bf16, trained 3
      steps through ``Trainer(comm="single")`` (batch 4 x 1024, remat,
      AdamW): finite losses, per step exactly K4 48 and K4-bwd 24 (rwkv6),
-     K3 76, K3-bwd 38, K2 6 and K2-bwd 6 (zamba2), step ms, tokens/s, a
-     profiled step, peak memory; (d) the reduced fp32 rwkv6, mamba2 and
+     K3 76, K3-bwd 38, K2 6 and K2-bwd 6 (zamba2), AdamW's pair 1, step
+     ms, tokens/s, a profiled step, peak memory; (d) the reduced fp32 rwkv6, mamba2 and
      zamba2 of the CPU tests trained 3 steps on the card (small-width
      routes) and on the CPU: losses within rtol 1e-4, the launches exact.  Phase 9a holds K2-bwd at
      zamba2's shared-block shape too;
@@ -136,9 +140,10 @@ paths against its plain PyTorch version:
      held); (b) trained at full width with the depth cut to 4 layers (batch
      4 x 1024, remat, AdamW) through ``Trainer(comm="single")`` and then
      ``Trainer(comm="gspmd")`` on a 1 x 1 mesh over NCCL from the same
-     seed: losses bitwise equal (on one rank both take JAX's fallback to
-     the global dispatch), K2 8 and K2-bwd 4 a step exactly (K2-bwd at
-     bf16 D = 128 on its wgmma pair), step ms, tokens/s, busy share, peak
+     seed, clipping inactive: losses bitwise equal (on one rank both take
+     JAX's fallback to the global dispatch), K2 8 and K2-bwd 4 a step
+     exactly (K2-bwd at bf16 D = 128 on its wgmma pair), AdamW's pair
+     once a step in the single run, step ms, tokens/s, busy share, peak
      memory, tokens/s x 6 x the active parameters; (c) the reduced fp32
      olmoe of the CPU tests served (tokens, whole and chunked prefill) and
      trained 3 steps (losses, rtol 1e-4) on the card and the CPU, on the
@@ -212,6 +217,18 @@ paths against its plain PyTorch version:
      FP32_LOGIT_TOL of the plain path with its argmax, bf16 (the main
      path) every K2 call held to its plain version and the launches
      exact, every state leaf its ``decode_state_specs`` shard.
+ 17. the training step's AdamW update (``kernels/adamw.py``, the kernel
+     pair of ``csrc/adamw.cu``), at the leaf shapes of olmoe-1b-7b at 4
+     layers and deepseek-7b at 6 (1.88 B and 2.05 B parameters, bf16,
+     the fp32 router), random bf16 gradients, one tensor without one:
+     one step against the plain version leaf by leaf, bitwise with
+     clipping inactive; the kernel's gradient norm against an fp64 sum;
+     ``ms`` (the in-place entry point, eager), ``ms_graph`` (the kernel
+     pair's launch replayed in a CUDA graph), the kernels' device time
+     under the profiler, the plain version's ``ms`` and the bound (every
+     parameter, gradient and moment byte the step must move, twice the
+     gradient's, at 3.35 TB/s); the row's launches are the main paths'
+     (the training phases above, each held to once a single step).
 
 Each phase's wall time is printed (``[phase]``, ``[phase walls]``), and
 each kernel's cost on the main paths, launches x (ms - bound) at the
@@ -232,6 +249,7 @@ package ``repro``.
     python3 chip_smoke.py --serve-tp-only     # 1, 2 and 14
     python3 chip_smoke.py --serve-rec-tp-only # 1, 2's K3/K4 and 15
     python3 chip_smoke.py --serve-encdec-tp-only  # 1 and 16
+    python3 chip_smoke.py --adamw-only        # 1 and 17
 
 runs phases 3-4 alone (the qwen2 engine, per-request prefill, the profiled
 decode step), K3's and K4's times alone (``ms`` and ``ms_graph`` of K3
@@ -332,6 +350,7 @@ OUR_KERNELS = {"K1": ("paged_",),   # every kernel of paged_attention.cu
                "K4": ("rwkv6_scan_kernel", "rwkv6_scan_mma_kernel",
                       "rwkv6_scan_decode_kernel", "rwkv6_scan_small_kernel"),
                "K2-bwd": ("attn_bwd_",),   # flash_attention_bwd.cu
+               "AdamW": ("adamw_norm_kernel", "adamw_update_kernel"),
                # fp32 route: the kernel and its head sum; bf16 route: the
                # state walk, the chunk kernel and the sum
                "K3-bwd": ("mamba2_scan_bwd_kernel",
@@ -1322,6 +1341,7 @@ def make_requests(cfg, n, lo, hi, max_new, seed):
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by name; each counts its launches."""
+    from repro_torch.kernels import adamw as ka
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_scan as m2
     from repro_torch.kernels import paged_attention as pa
@@ -1334,7 +1354,8 @@ def kernel_wrappers() -> dict:
             "mamba2_scan_bwd": m2.mamba2_scan_bwd,
             "rwkv6_scan": rw.rwkv6_scan,
             "rwkv6_scan_split": rw.rwkv6_scan_split,
-            "rwkv6_scan_bwd": rw.rwkv6_scan_bwd}
+            "rwkv6_scan_bwd": rw.rwkv6_scan_bwd,
+            "fused_adamw": ka.fused_adamw}
 
 
 def reset_counts() -> None:
@@ -2169,8 +2190,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 # fp32 moments) is ~1.6 GB instead of ~5 GB at 24
 RESTART_LAYERS = 4
 # GSPMD training on a 1 x 1 mesh (phase 9e): 3 steps of the same batch,
-# beside single's
+# beside single's; there, and in phase 12b, the clip norm is out of reach
+# (scale 1), so single's kernel pair and GSPMD's eager update agree bit for
+# bit (with clipping active the pair's norm, summed in another order, may
+# differ in its last bits)
 GSPMD_STEPS = 3
+NO_CLIP = 1e9
 # whisper-large-v3 training's attention shapes ((B, H, Hkv, Sq, Skv, D),
 # causal), one for each third of its K2-bwd launches: the encoder over 1500
 # frames, the 448-token decoder's causal self-attention, and its
@@ -2448,8 +2473,10 @@ def train_gspmd_phase() -> dict:
     """Phase 9e: qwen2-0.5b at full width trained through
     ``Trainer(comm="gspmd")`` on a 1 x 1 ("data", "model") mesh over NCCL
     (world size 1), and through ``comm="single"`` from the same weights, in
-    this one call: the same losses (bitwise where they are), K2 48 and
-    K2-bwd 24 launches a step and nothing else, each path's step ms and
+    this one call, clipping inactive (``NO_CLIP``): the same losses
+    bitwise, K2 48 and K2-bwd 24 launches a step, and AdamW's kernel pair
+    once a step in the single run, none in GSPMD's (its update is the eager
+    one on the mesh's slices), and nothing else; each path's step ms and
     the device's busy share.  Returns the GSPMD run's launches."""
     import numpy as np
     import torch
@@ -2466,16 +2493,16 @@ def train_gspmd_phase() -> dict:
                             f"{free_port()}", rank=0, world_size=1)
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
-        runs, counts = {}, None
+        runs, counts = {}, {}
         for comm in ("single", "gspmd"):   # both from the seed-0 weights
             torch.cuda.empty_cache()
-            tr = Trainer(cfg, train_config(cfg, f"gspmd_{comm}", comm=comm),
+            tr = Trainer(cfg, train_config(cfg, f"gspmd_{comm}", comm=comm,
+                                           clip_norm=NO_CLIP),
                          mesh=mesh if comm == "gspmd" else None)
             reset_counts()
             ms = tr.train(GSPMD_STEPS)
             torch.cuda.synchronize()
-            if comm == "gspmd":
-                counts = read_counts()
+            counts[comm] = read_counts()
             prof = device_profile(tr.train_step, 2)
             runs[comm] = {
                 "losses": [m["loss"] for m in ms],
@@ -2491,33 +2518,39 @@ def train_gspmd_phase() -> dict:
     torch.cuda.empty_cache()
     a, b = runs["single"]["losses"], runs["gspmd"]["losses"]
     rel = float(np.max(np.abs(np.subtract(b, a)) / np.abs(a)))
-    want = dict.fromkeys(counts, 0)
+    want = dict.fromkeys(counts["gspmd"], 0)
     want["flash_attention"] = 2 * L * GSPMD_STEPS
     want["flash_attention_bwd"] = L * GSPMD_STEPS
+    wants = {"gspmd": want, "single": {**want, "fused_adamw": GSPMD_STEPS}}
     out = {"mesh": [1, 1], "backend": "nccl", "steps": GSPMD_STEPS,
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "single": runs["single"],
            "gspmd": runs["gspmd"], "bitwise": a == b,
            "largest_relative_loss_gap": rel,
-           "launches": {k: v for k, v in counts.items() if v},
+           "launches": {c: {k: v for k, v in n.items() if v}
+                        for c, n in counts.items()},
            "card": gpu_name_power()}
     print(f"[train gspmd] {json.dumps(out)}")
     check(all(np.isfinite(b)), f"train gspmd: a loss is not finite: {b}")
-    check(counts == want, f"train gspmd: launches {counts}, expected {want} "
-          "(K2 twice a layer a step under remat, K2-bwd once)")
+    for comm, w in wants.items():
+        check(counts[comm] == w, f"train gspmd ({comm}): launches "
+              f"{counts[comm]}, expected {w} (K2 twice a layer a step under "
+              "remat, K2-bwd once; AdamW's pair once a single step)")
     # one rank: every collective is the identity and every spec shards
-    # nothing, so the step is single's, operation for operation
+    # nothing, so the step is single's; with clipping inactive the kernel
+    # pair's update is the eager one's, bit for bit
     check(a == b, f"train gspmd: losses {b} differ from single's {a}")
-    return counts
+    return counts["gspmd"]
 
 
-def train_config(cfg, ckpt: str, **kw):
+def train_config(cfg, ckpt: str, clip_norm: float = 1.0, **kw):
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.trainer import TrainerConfig
     return TrainerConfig(**{
         "ckpt_dir": str(ROOT / "build" / "chip_smoke_ckpt" / ckpt),
         "ckpt_every": 0, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
         "remat": True, "comm": "single",
-        "opt": AdamWConfig(lr=3e-4, warmup_steps=0), **kw})
+        "opt": AdamWConfig(lr=3e-4, warmup_steps=0, clip_norm=clip_norm),
+        **kw})
 
 
 def train_phase() -> dict:
@@ -2549,8 +2582,10 @@ def train_phase() -> dict:
     want = dict.fromkeys(counts, 0)
     want["flash_attention"] = 2 * L * TRAIN_STEPS
     want["flash_attention_bwd"] = L * TRAIN_STEPS
+    want["fused_adamw"] = TRAIN_STEPS
     check(counts == want, f"train: launches {counts}, expected {want} (K2 "
-          "twice a layer a step under remat, K2-bwd once; K1/K3/K4 never)")
+          "twice a layer a step under remat, K2-bwd once, AdamW's pair once; "
+          "K1/K3/K4 never)")
     step_s = float(np.median([m["step_time_s"] for m in ms]))
     peak = torch.cuda.max_memory_allocated()
     prof = device_profile(tr.train_step, 2)
@@ -2628,6 +2663,7 @@ def train_with_cpu(name: str = "qwen2-0.5b", steps: int = 5) -> dict:
     want = dict.fromkeys(kernel_wrappers(), 0)
     want["flash_attention"] = 2 * cfg.n_layers * steps
     want["flash_attention_bwd"] = cfg.n_layers * steps
+    want["fused_adamw"] = steps
     want = by_route(want, cfg)
     check(counts == want, f"reduced {name} training: launches {counts}, "
           f"expected {want}")
@@ -2926,8 +2962,10 @@ def train_whisper() -> dict:
     want = dict.fromkeys(counts, 0)
     want["flash_attention"] = 2 * n_attn * WHISPER_TRAIN_STEPS
     want["flash_attention_bwd"] = n_attn * WHISPER_TRAIN_STEPS
+    want["fused_adamw"] = WHISPER_TRAIN_STEPS
     check(counts == want, f"whisper train: launches {counts}, expected "
-          f"{want} (K2 {2 * n_attn} and K2-bwd {n_attn} a step)")
+          f"{want} (K2 {2 * n_attn}, K2-bwd {n_attn} and AdamW's pair once "
+          "a step)")
     step_s = float(np.median([m["step_time_s"] for m in ms]))
     peak = torch.cuda.max_memory_allocated()
     prof = device_profile(tr.train_step, 1)
@@ -2977,6 +3015,7 @@ def train_whisper_with_cpu() -> dict:
     want = dict.fromkeys(kernel_wrappers(), 0)
     want["flash_attention"] = 2 * n_attn * steps
     want["flash_attention_bwd"] = n_attn * steps
+    want["fused_adamw"] = steps
     want = by_route(want, cfg)
     check(launched == want, f"reduced whisper training: launches "
           f"{launched}, expected {want}")
@@ -3274,6 +3313,7 @@ def train_recurrent(name: str) -> dict:
           f"{losses}")
     n = REC_TRAIN_STEPS
     want = dict.fromkeys(counts, 0)
+    want["fused_adamw"] = n
     if cfg.family == "rwkv6":
         want["rwkv6_scan"] = 2 * cfg.n_layers * n
         want["rwkv6_scan_bwd"] = cfg.n_layers * n
@@ -3337,6 +3377,7 @@ def train_recurrent_with_cpu() -> dict:
                 launched = read_counts()
         L = cfg.n_layers
         want = dict.fromkeys(kernel_wrappers(), 0)
+        want["fused_adamw"] = steps
         if cfg.family == "rwkv6":
             want.update(rwkv6_scan=2 * L * steps, rwkv6_scan_bwd=L * steps)
         else:
@@ -3654,11 +3695,13 @@ def train_olmoe() -> dict:
     """Phase 12b: olmoe-1b-7b at full width, depth cut to 4 layers,
     trained 3 steps (batch 4 x 1024, remat, AdamW lr 3e-4) through
     ``Trainer(comm="single")`` and then through ``Trainer(comm="gspmd")``
-    on a 1 x 1 ("data", "model") mesh over NCCL, from the same seed: on
-    one rank ``tp = 1``, so both take JAX's fallback to the global
-    dispatch and the losses are equal bitwise; each run K2 8 and K2-bwd 4
-    a step exactly (K2 on its ``mma`` route, K2-bwd at bf16 D = 128 on its
-    ``wgmma128`` pair) and nothing else; step ms, tokens/s, busy share, peak
+    on a 1 x 1 ("data", "model") mesh over NCCL, from the same seed,
+    clipping inactive (``NO_CLIP``): on one rank ``tp = 1``, so both take
+    JAX's fallback to the global dispatch, and single's kernel pair updates
+    as GSPMD's eager update does, so the losses are equal bitwise; each run
+    K2 8 and K2-bwd 4 a step exactly (K2 on its ``mma`` route, K2-bwd at
+    bf16 D = 128 on its ``wgmma128`` pair), the single run AdamW's pair
+    once a step, and nothing else; step ms, tokens/s, busy share, peak
     memory, tokens/s x 6 x the active parameters.  Returns the two runs'
     launches."""
     import dataclasses
@@ -3688,7 +3731,7 @@ def train_olmoe() -> dict:
             torch.cuda.reset_peak_memory_stats()
             tr = Trainer(cfg, train_config(
                 cfg, f"olmoe_{comm}", batch=OLMOE_TRAIN_BATCH,
-                seq_len=OLMOE_TRAIN_SEQ, comm=comm),
+                seq_len=OLMOE_TRAIN_SEQ, comm=comm, clip_norm=NO_CLIP),
                 mesh=mesh if comm == "gspmd" else None)
             torch.cuda.synchronize()
             reset_counts()             # the main path's run starts here
@@ -3728,14 +3771,18 @@ def train_olmoe() -> dict:
     want["flash_attention_bwd"] = L * n
     want_routes = {"flash_attention": {"mma": 2 * L * n},
                    "flash_attention_bwd": {"wgmma128": L * n}}
+    wants = {"single": ({**want, "fused_adamw": n},
+                        {**want_routes, "fused_adamw": {"fused": n}}),
+             "gspmd": (want, want_routes)}
     for comm, r in runs.items():
+        w, w_routes = wants[comm]
         check(all(np.isfinite(r["losses"])), f"olmoe train {comm}: a loss "
               f"is not finite: {r['losses']}")
-        check(counts[comm] == want, f"olmoe train {comm}: launches "
-              f"{counts[comm]}, expected {want} (K2 twice a layer a step "
-              "under remat, K2-bwd once)")
-        check(r["routes"] == want_routes, f"olmoe train {comm}: routes "
-              f"{r['routes']}, expected {want_routes}")
+        check(counts[comm] == w, f"olmoe train {comm}: launches "
+              f"{counts[comm]}, expected {w} (K2 twice a layer a step "
+              "under remat, K2-bwd once, AdamW's pair once a single step)")
+        check(r["routes"] == w_routes, f"olmoe train {comm}: routes "
+              f"{r['routes']}, expected {w_routes}")
     # one rank: tp = 1 takes JAX's fallback to the global dispatch, every
     # collective is the identity and every spec shards nothing
     check(a == b, f"olmoe train: GSPMD's losses {b} differ from single's "
@@ -5267,6 +5314,149 @@ def serve_encdec_tp_phases(report: dict) -> dict:
 # --engine-ab / --scan-ab: two checkouts of the port, on one card
 # ----------------------------------------------------------------------------
 
+ADAMW_SHAPES = {"olmoe-1b-7b": 4, "deepseek-7b": 6}   # config: layers
+
+
+def adamw_leaves(name: str, layers: int):
+    """(cfg, model, {leaf: [tensors]}, {"m", "v", "step"}) at ``name``'s
+    widths cut to ``layers``: the model's own tensors, each with a random
+    gradient of its dtype (the last leaf's last tensor with none), and
+    random fp32 moments of the stacked leaves' shapes, as after a step."""
+    import torch
+
+    from repro_torch import configs, weights
+    from repro_torch.models import api
+    cfg = dataclasses.replace(configs.get_config(name), n_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.get_model(cfg).init(gen)
+    leaves = weights.jax_leaves(cfg, params)
+    state = {"m": {}, "v": {}, "step": torch.ones((), dtype=torch.int32,
+                                                  device="cuda")}
+    for k, ps in leaves.items():
+        shape = ((len(ps),) if weights.is_stacked(cfg, k) else ()) \
+            + tuple(ps[0].shape)
+        for mom, scale in (("m", 1e-3), ("v", 1e-6)):
+            t = torch.randn(shape, generator=gen, device="cuda")
+            state[mom][k] = t.abs_() * scale if mom == "v" else t * scale
+        for p in ps:
+            p.requires_grad_(False)
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda",
+                                 dtype=p.dtype) * 1e-4
+    ps[-1].grad = None        # the last leaf's last tensor: no gradient
+    return cfg, params, leaves, state
+
+
+def adamw_phase() -> dict:
+    """Phase 17: the AdamW kernel pair at olmoe-l4's and deepseek-l6's leaf
+    shapes; returns its row for the kernels' table."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import AdamWConfig, adamw_update_, \
+        adamw_update_plain_
+    row = {"name": "fused_adamw", "route": "adamw_norm_kernel + "
+           "adamw_update_kernel", "source": "src/repro_torch/kernels/csrc/"
+           "adamw.cu", "replaces": "none (the JAX package leaves AdamW to "
+           "XLA); the port's eager update over stacked copies",
+           "bound_by": "bytes", "library_ms": "none"}
+    cfg_opt = AdamWConfig(lr=4e-4, warmup_steps=0, clip_norm=1e9)
+    for name, layers in ADAMW_SHAPES.items():
+        tag = f"{name}-l{layers}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, leaves, state = adamw_leaves(name, layers)
+        tensors = [p for ps in leaves.values() for p in ps]
+        n = sum(p.numel() for p in tensors)
+        # bytes the step must move: the parameter read and written, its
+        # gradient read by each pass, each fp32 moment read and written
+        nbytes = sum(p.numel() * (4 * p.element_size() + 16)
+                     for p in tensors)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        # (a) one step against the plain version, leaf by leaf (clipping
+        # off: every leaf's step is its own), from copies of the state
+        before = {k: ([p.clone() for p in ps], state["m"][k].clone(),
+                      state["v"][k].clone()) for k, ps in leaves.items()}
+        step0 = state["step"].clone()
+        want_sq = sum(float(p.grad.double().square().sum())
+                      for p in tensors if p.grad is not None)
+        n0 = ka.fused_adamw.launches
+        got = adamw_update_(cfg_opt, leaves, state)
+        torch.cuda.synchronize()
+        check(ka.fused_adamw.launches == n0 + 1, f"{tag}: launches")
+        worst = 0
+        for k, ps in leaves.items():
+            ref, m, v = before.pop(k)
+            for r, p in zip(ref, ps):
+                r.grad = p.grad
+            one = {"m": {k: m}, "v": {k: v}, "step": step0.clone()}
+            adamw_update_plain_(cfg_opt, {k: ref}, one, arch=cfg)
+            same = all(torch.equal(a, b) for a, b in zip(ps, ref)) \
+                and torch.equal(m, state["m"][k]) \
+                and torch.equal(v, state["v"][k])
+            check(same, f"{tag}: leaf {k} differs from the plain version")
+            del ref, m, v, one
+        norm = float(got["grad_norm"])
+        norm_rel = abs(norm - want_sq ** 0.5) / want_sq ** 0.5
+        check(norm_rel <= 2 ** -22, f"{tag}: norm {norm} against the fp64 "
+              f"norm {want_sq ** 0.5}")
+        torch.cuda.empty_cache()
+        # (b) times: the entry point eagerly, the kernel pair in a graph,
+        # the kernels under the profiler, the plain version
+        ms = time_ms(lambda: adamw_update_(cfg_opt, leaves, state), 20, 3)
+        table, n_chunks, _ = ka._records(leaves, state["m"], state["v"],
+                                         torch.device("cuda", 0), True)
+        recs = torch.from_numpy(table.view(np.uint8)).cuda()
+        scal = torch.tensor([4e-4, 0.5, 0.25, 0.0], device="cuda")
+        lr, bc1, bc2, norm_out = (scal.data_ptr() + 4 * i for i in range(4))
+        partial = torch.empty(ka.MAX_BLOCKS, dtype=torch.float64,
+                              device="cuda")
+        blocks = (ctypes.c_int * 2)()
+        fn, f = _build.load("adamw"), ctypes.c_float
+
+        def launch():
+            err = fn(recs.data_ptr(), len(table), n_chunks,
+                     partial.data_ptr(), ka.MAX_BLOCKS, lr, bc1, bc2,
+                     norm_out, f(0.9), f(1 - 0.9), f(0.95),
+                     f(1 - 0.95), f(1e-8), f(0.1), f(1e9), blocks,
+                     _build.raw_stream(scal.device))
+            check(err == 0, f"{tag}: adamw_launch returned {err}")
+        ms_graph = time_graph_ms(launch, iters=10, reps=3)
+        prof = device_profile(lambda: adamw_update_(cfg_opt, leaves, state),
+                              3)
+        kernel_ms = prof["our_kernels_device_ms"].get("AdamW", 0.0)
+        plain_ms = time_ms(
+            lambda: adamw_update_plain_(cfg_opt, leaves, state, arch=cfg),
+            3, 1)
+        peak = torch.cuda.max_memory_allocated()
+        out = {"parameters": n, "tensors": len(tensors),
+               "records": len(table), "chunks": n_chunks,
+               "grids": list(ka.fused_adamw.last_blocks),
+               "bytes": nbytes, "bound_ms": bound_ms, "ms": ms,
+               "ms_graph": ms_graph, "kernel_ms": kernel_ms,
+               # "(anonymous namespace)::<name>(<arguments>)"
+               "kernels_by_name": {k.split("(")[1].split("::")[-1]: t
+                                   for k, t in prof["top_device_ms"]
+                                   if "adamw_" in k},
+               "plain_ms": plain_ms, "bound_share_graph": bound_ms / ms_graph,
+               "norm_rel_to_fp64": norm_rel,
+               "max_memory_allocated_bytes": peak}
+        print(f"[adamw {tag}] {json.dumps(out)}")
+        sfx = "_" + name.split("-")[0]
+        row.update({k + sfx: out[k] for k in ("ms", "ms_graph", "kernel_ms",
+                                              "plain_ms", "bound_ms")})
+        del params, leaves, state, tensors, recs, partial, before
+        torch.cuda.empty_cache()
+    first = "_" + next(iter(ADAMW_SHAPES)).split("-")[0]
+    row.update({k: row[k + first] for k in ("ms", "ms_graph", "kernel_ms",
+                                            "plain_ms", "bound_ms")})
+    row["max_abs_err"] = 0.0         # bitwise against the plain version
+    return row
+
+
 def engine_only(src: str) -> None:
     """Phases 3-4 with the port under ``src``: one ``[engine-ab]`` line."""
     sys.path.insert(0, src)
@@ -5566,6 +5756,9 @@ def main() -> int:
     ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--tp-job", default="rec", choices=("rec", "whisper"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--adamw-only", action="store_true",
+                    help="the build and phase 17 (the AdamW kernel pair) "
+                         "alone")
     ap.add_argument("--serve-tp-only", action="store_true",
                     help="the build, phase 2's kernel checks and phase 14 "
                          "(tensor-parallel serving) alone")
@@ -5617,6 +5810,12 @@ def main() -> int:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
 
     report: dict = {}
+    if args.adamw_only:
+        row = phase("17 adamw", adamw_phase)
+        print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
+        print(card)
+        print(json.dumps({"kernels": [row]}))
+        return 0
     if args.serve_encdec_tp_only:
         paths = serve_encdec_tp_phases(report)
         print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
@@ -5715,8 +5914,10 @@ def main() -> int:
     # the recurrent families' rank programs: K4's split-key route, then
     # the rank programs whole on gloo ranks sharing the card
     paths.update(serve_rec_tp_phases(report))
-    # the encoder-decoder's rank programs and K2's LSE route, last
+    # the encoder-decoder's rank programs and K2's LSE route
     paths.update(serve_encdec_tp_phases(report))
+    # the optimizer update, last: its row's launches are the main paths'
+    adamw = phase("17 adamw", adamw_phase)
     print(f"[phase walls] {json.dumps(PHASE_WALLS)}")
     ranking = kernel_ranking(report, paths)
     print(f"[ranking] {json.dumps(ranking)}")
@@ -5738,6 +5939,13 @@ def main() -> int:
         kernels.append(entry)
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main paths never launched: {paths}")
+    by_path = {p: c["fused_adamw"] for p, c in paths.items()
+               if c["fused_adamw"]}
+    check(by_path, "the training paths never launched AdamW")
+    kernels.append({**adamw, "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "launches_per_single_step":
+                        paths["qwen2_train"]["fused_adamw"] / TRAIN_STEPS})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("paged_attention", "flash_attention", "flash_attention_bwd",
            "mamba2_scan", "mamba2_scan_bwd", "mamba2_scan_bwd_chunk",
-           "rwkv6_scan", "rwkv6_scan_bwd", "rwkv6_scan_bwd_chunk")
+           "rwkv6_scan", "rwkv6_scan_bwd", "rwkv6_scan_bwd_chunk", "adamw")
 # no --use_fast_math / -ftz: flushing denormals to zero would break the
 # scans' guards (the exponent selected before exp, w floored before log)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -51,6 +51,8 @@ SIGNATURES = {
                        [_vp] * 16 + [_i] * 5 + [_vp, _vp]),
     "rwkv6_scan_bwd_chunk": ("rwkv6_scan_bwd_chunk_launch",
                              [_vp] * 15 + [_i] * 4 + [_vp, _vp]),
+    "adamw": ("adamw_launch", [_vp, _i, _ll, _vp, _i] + [_vp] * 4 + [_f] * 7
+              + [ctypes.POINTER(_i), _vp]),
 }
 
 # second entry points of a kernel's source: name -> (source, signature)

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, cost
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba2_scan as _m2
 from repro_torch.kernels import paged_attention as _pa
@@ -195,7 +196,7 @@ def launch_counts() -> dict[str, int]:
         _pa.paged_attention, _fa.flash_attention, _fa.flash_attention_lse,
         _fa.flash_attention_bwd,
         _m2.mamba2_scan, _m2.mamba2_scan_bwd, _rw.rwkv6_scan,
-        _rw.rwkv6_scan_split, _rw.rwkv6_scan_bwd)}
+        _rw.rwkv6_scan_split, _rw.rwkv6_scan_bwd, _adamw.fused_adamw)}
 
 
 # ----------------------------------------------------------------------------

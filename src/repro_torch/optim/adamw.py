@@ -4,9 +4,14 @@ The counterpart of the JAX package's ``optim/adamw.py``.  Parameters,
 gradients and moments are dicts keyed by leaf (the trainer keys them by
 the JAX pytree's leaf paths, ``repro_torch.weights.jax_leaves``, so rules
 that read a leaf's shape see JAX's shapes); every function is functional,
-as JAX's are: it returns new tensors and leaves its arguments as they were.
-Moments are fp32 whatever the parameters' dtype; the update runs in fp32
-and casts the new parameter back to its dtype.
+as JAX's are: it returns new tensors and leaves its arguments as they were,
+except ``adamw_update_``, the single-card step's update in place (CUDA
+only: one kernel pair, ``kernels/adamw.py``), and ``adamw_update_plain_``,
+its plain version on any device.  Moments are fp32 whatever the
+parameters' dtype; the update runs in fp32 and casts the new parameter
+back to its dtype.  The
+process hub counts the elements each path updated: ``adamw.eager_elems``
+(``adamw_update``) and ``adamw.fused_elems`` (the kernel pair).
 
 Also the *explicit* APEX update of the paper-faithful DP trainer:
 gradients reduce-scattered with the torus ring collectives, the
@@ -21,6 +26,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import weights
+from repro_torch.core.fabric.telemetry import process_hub
+from repro_torch.kernels.adamw import fused_adamw
+from repro_torch.models.common import ArchCfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +97,52 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params: dict,
             delta = delta + cfg.weight_decay * p.float()
         new_p[k] = (p.float() - lr * delta).to(p.dtype)
         new_m[k], new_v[k] = m, v
+    process_hub().add("adamw.eager_elems",
+                      sum(p.numel() for p in params.values()))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
+
+
+def adamw_update_(cfg: AdamWConfig, params: dict, state: dict) -> dict:
+    """``adamw_update`` in place, on a card: one kernel pair updates every
+    tensor, with no stacked copy.  ``params`` maps each leaf to its
+    tensors (a layer-stacked leaf's layers in order, as
+    ``weights.jax_leaves`` gives them); each tensor's ``.grad`` is its
+    gradient (None: zeros).  The tensors, their slices of the leaves'
+    stacked moments ``state["m"]`` / ``state["v"]`` and ``state["step"]``
+    are updated in place; a leaf decays where its moment's rank is 2 or
+    more, as the stacked leaf's rank is.  Returns the metrics.  CUDA
+    tensors only; the plain version is ``adamw_update_plain_``."""
+    step = state["step"]
+    if step.device.type != "cuda":
+        raise ValueError(f"adamw_update_: the state is on {step.device}; "
+                         "the kernel pair takes CUDA tensors only")
+    step.add_(1)
+    lr = cosine_schedule(cfg, step)
+    bc1, bc2 = _bias_corrections(cfg, step)
+    gnorm = fused_adamw(cfg, params, state["m"], state["v"], lr, bc1, bc2)
+    return {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_update_plain_(cfg: AdamWConfig, params: dict, state: dict, *,
+                        arch: ArchCfg) -> dict:
+    """The plain version of ``adamw_update_``, on any device: every
+    ``arch`` leaf's tensors and gradients as ``weights.leaf_tensor`` stacks
+    them, ``adamw_update``, the results copied back by
+    ``weights.assign_leaf``."""
+    with torch.no_grad():
+        grads = {k: weights.leaf_tensor(arch, k, [
+            p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in ps]) for k, ps in params.items()}
+        values = {k: weights.leaf_tensor(arch, k, [p.detach() for p in ps])
+                  for k, ps in params.items()}
+        new_p, new, metrics = adamw_update(cfg, grads, state, values)
+        for k, ps in params.items():
+            weights.assign_leaf(arch, k, ps, new_p[k])
+            state["m"][k].copy_(new["m"][k])
+            state["v"][k].copy_(new["v"][k])
+        state["step"].copy_(new["step"])
+    return metrics
 
 
 # ----------------------------------------------------------------------------

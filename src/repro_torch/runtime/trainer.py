@@ -55,8 +55,10 @@ Each step records wall-clock spans into the process's telemetry hub
 (``fabric.process_hub()``), on track ``("train",)``: ``train.step`` with
 its children ``train.data`` (the next batch, placed), ``train.fwd_bwd``
 and ``train.update`` (the single and GSPMD steps: leaf gradients, AdamW
-and the assignment back; the apex step overlaps the two and is not
-split) and ``train.wait`` (the card catching up).  On a card,
+and the assignment back, or, in the single step on a card without
+gradient accumulation, the in-place kernel pair ``optim.adamw_update_``;
+the apex step overlaps the two and is not split) and ``train.wait`` (the
+card catching up).  On a card,
 ``train.fwd_bwd`` and ``train.update`` carry ``dev_s``, the device's time
 between CUDA events recorded at their boundaries, read after the step's
 own synchronisation.
@@ -86,7 +88,8 @@ from repro_torch.core.topology import Torus
 from repro_torch.data import SyntheticTokens, make_batch_arrays
 from repro_torch.models import api, transformer
 from repro_torch.models.common import ArchCfg
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               adamw_update_)
 from repro_torch.optim.adamw import apex_zero1_init, apex_zero1_update
 from repro_torch.parallel import sharding, spmd
 
@@ -318,11 +321,17 @@ class Trainer:
             else:
                 loss, grads = self._loss_and_grads(batch)
         with self._phase("train.update"):
-            if grads is None:
-                grads = self._leaf_grads()
-            new_p, self.opt_state, metrics = adamw_update(
-                self.tcfg.opt, grads, self.opt_state, self._leaf_values())
-            self._assign(new_p)
+            if grads is None and self.device.type == "cuda":
+                # one kernel pair, in place: no stacked copy, no copy back
+                metrics = adamw_update_(self.tcfg.opt, self.leaves,
+                                        self.opt_state)
+            else:
+                if grads is None:
+                    grads = self._leaf_grads()
+                new_p, self.opt_state, metrics = adamw_update(
+                    self.tcfg.opt, grads, self.opt_state,
+                    self._leaf_values())
+                self._assign(new_p)
         return {"loss": loss, **metrics}
 
     # ------------------------------------------------------- apex (fabric)

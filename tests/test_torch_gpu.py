@@ -12,6 +12,8 @@ under ``compute_dtype=fp32`` is also held to two bf16 ulps plus 2.5e-4.  The sca
 final states are fp32 on both sides, summed in another order: 3e-4 (scaled
 by the state's magnitude) in either input dtype.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -1249,3 +1251,164 @@ def test_reduced_olmoe_on_the_card_gives_the_cpus_losses(cuda, tmp_path):
             assert fa.flash_attention_bwd.routes["small"] == \
                 n_b + 3 * cfg.n_layers
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ----------------------------------------------------------------------------
+# the AdamW kernel pair (kernels/adamw.py) vs its plain version
+# ----------------------------------------------------------------------------
+
+def adamw_mix(device, seed=0):
+    """({leaf: [tensors]}, state, grads a step): bf16 stacked matrices, an
+    fp32 stacked router, 1-D norm gains inside a stacked leaf (decayed), a
+    lone 1-D final norm (not), a lone bf16 matrix of 3 chunks and an odd
+    size, and a leaf without a gradient in one layer and one whole."""
+    from repro_torch.optim import adamw_init
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"embed": (1001, 41), "final_norm": (37,),
+              "layers/ln": (2, 37), "layers/router": (2, 24, 8),
+              "layers/w": (2, 40, 24), "unused": (3, 5)}
+    stacked = {k: (0.02 * torch.randn(s, generator=g)).to(
+        torch.float32 if k == "layers/router" else torch.bfloat16)
+        for k, s in shapes.items()}
+    params = {k: [t.clone().to(device) for t in v] if k.startswith("layers/")
+              else [v.clone().to(device)] for k, v in stacked.items()}
+    state = adamw_init({k: v.to(device) for k, v in stacked.items()})
+    grads = [{k: [(torch.randn(p.shape, generator=g) * 0.1).to(device,
+                                                                  p.dtype)
+                  for p in ps] for k, ps in params.items()}
+             for _ in range(3)]
+    for gs in grads:
+        gs["unused"] = [None]
+        gs["layers/w"][1] = None
+    return params, state, grads
+
+
+def adamw_copy(params, state):
+    return ({k: [p.clone() for p in ps] for k, ps in params.items()},
+            {"m": {k: t.clone() for k, t in state["m"].items()},
+             "v": {k: t.clone() for k, t in state["v"].items()},
+             "step": state["step"].clone()})
+
+
+def within_ulp(got, want, bits):
+    """|got - want| at most one unit in the last place of a ``bits``-bit
+    significand (bf16: 8) at want's magnitude."""
+    e = torch.frexp(want.float()).exponent
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - bits)
+    return bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip_norm", [1e9, 0.05])
+def test_adamw_kernel_matches_plain(cuda, clip_norm):
+    """Three steps of the kernel pair and of its plain version from one
+    state.  Clipping inactive (scale 1): parameters, m and v bitwise.
+    Active: the kernel's norm is summed in another order, so the clip
+    scale may differ in its last bits, and so may every g * scale: bf16
+    parameters within one bf16 ulp; fp32 parameters (a step lr * delta as
+    large as the parameter at this lr, so a few of its ulps) and the
+    moments within 1e-6 of the leaf's largest magnitude.  One launch a
+    step; the counters grow by every element the kernel updated, the
+    eager one not at all."""
+    from repro_torch import configs
+    from repro_torch.core.fabric import process_hub
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import (AdamWConfig, adamw_update_,
+                                   adamw_update_plain_)
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=20,
+                      clip_norm=clip_norm)
+    arch = configs.get_reduced("qwen2-0.5b")   # stacks "layers/..." leaves
+    params, state, grads = adamw_mix(cuda)
+    ref_p, ref_s = adamw_copy(params, state)
+    hub = process_hub()
+    n = sum(p.numel() for ps in params.values() for p in ps)
+    for gs in grads:
+        for ps, rs, k in ((params[k], ref_p[k], k) for k in params):
+            for p, r, g in zip(ps, rs, gs[k]):
+                p.grad = r.grad = g
+        n0, e0 = ka.fused_adamw.launches, hub.value("adamw.eager_elems")
+        f0 = hub.value("adamw.fused_elems")
+        got = adamw_update_(cfg, params, state)
+        assert ka.fused_adamw.launches == n0 + 1
+        assert hub.value("adamw.fused_elems") - f0 == n
+        assert hub.value("adamw.eager_elems") == e0
+        want = adamw_update_plain_(cfg, ref_p, ref_s, arch=arch)
+        torch.cuda.synchronize()
+        assert int(state["step"]) == int(ref_s["step"])
+        torch.testing.assert_close(got["lr"], want["lr"], rtol=0, atol=0)
+        torch.testing.assert_close(got["grad_norm"], want["grad_norm"],
+                                   rtol=1e-6, atol=0)
+        for k in params:
+            pairs = [(p, r) for p, r in zip(params[k], ref_p[k])] + [
+                (state[mom][k], ref_s[mom][k]) for mom in ("m", "v")]
+            for a, b in pairs:
+                if clip_norm > 1e6:
+                    assert torch.equal(a, b), k
+                elif a.dtype == torch.bfloat16:
+                    assert within_ulp(a, b, 8), k
+                else:
+                    assert float((a - b).abs().max()) <= \
+                        1e-6 * float(b.abs().max()), k
+    assert ka.fused_adamw.last_blocks[0] > 0
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import AdamWConfig
+    one = torch.ones((), device=cuda)
+    p = torch.zeros(4, 6, device=cuda, dtype=torch.float16)
+    m = {"w": torch.zeros(4, 6, device=cuda)}
+    with pytest.raises(TypeError, match="adamw kernel"):
+        ka.fused_adamw(AdamWConfig(), {"w": [p]}, m, m, one, one, one)
+    with pytest.raises(ValueError, match="adamw kernel"):
+        ka.fused_adamw(AdamWConfig(), {"w": [p.float().t()]}, m, m, one,
+                       one, one)
+
+
+@pytest.mark.gpu
+def test_trainer_on_the_card_updates_in_place(cuda, tmp_path, monkeypatch):
+    """``Trainer(comm="single")`` on the card takes the kernel pair once a
+    step over every parameter and no stacked copy; with its plain version
+    in the kernel's place the same steps give the same weights bitwise
+    (clipping inactive), and gradient accumulation keeps the eager
+    update."""
+    from repro_torch import configs
+    from repro_torch.core.fabric import process_hub
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, adamw_update_plain_
+    from repro_torch.runtime import trainer as trainer_mod
+    cfg = configs.get_reduced("qwen2-0.5b")
+    init = api.get_model(cfg).init(torch.Generator().manual_seed(0))
+    hub = process_hub()
+
+    def run(tag, stacked=True, **kw):
+        tc = trainer_mod.TrainerConfig(
+            ckpt_dir=str(tmp_path / tag), ckpt_every=0, batch=4, seq_len=32,
+            comm="single", opt=AdamWConfig(lr=3e-3, warmup_steps=0,
+                                           clip_norm=1e9), **kw)
+        tr = trainer_mod.Trainer(cfg, tc, device=cuda, init_params=init)
+        if not stacked:   # no leaf stacked, nothing copied back
+
+            def boom(*a):
+                raise AssertionError("a stacked copy on the card's path")
+            tr._leaf_grads = tr._leaf_values = tr._assign = boom
+        n0, e0 = ka.fused_adamw.launches, hub.value("adamw.eager_elems")
+        f0 = hub.value("adamw.fused_elems")
+        losses = [m["loss"] for m in tr.train(3)]
+        return (tr, losses, ka.fused_adamw.launches - n0,
+                hub.value("adamw.fused_elems") - f0,
+                hub.value("adamw.eager_elems") - e0)
+
+    tr, losses, launches, fused, eager = run("fused", stacked=False)
+    assert (launches, fused, eager) == (3, 3 * tr.n_params, 0)
+    monkeypatch.setattr(trainer_mod, "adamw_update_", functools.partial(
+        adamw_update_plain_, arch=cfg))
+    ref, ref_losses, launches, fused, eager = run("plain")
+    assert (launches, fused, eager) == (0, 0, 3 * tr.n_params)
+    assert losses == ref_losses
+    for a, b in zip(tr.params.parameters(), ref.params.parameters()):
+        assert torch.equal(a, b)
+    _, _, launches, fused, eager = run("accum", grad_accum=2)
+    assert (launches, fused, eager) == (0, 0, 3 * tr.n_params)

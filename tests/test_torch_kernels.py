@@ -204,3 +204,80 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     _, tin = paged_inputs(rng, 2, 4, 2, 64, 8, 2, [3, 9], "f32")
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_attention(*tin)
+
+
+# ----------------------------------------------------------------------------
+# the AdamW kernel pair's table (the kernel itself: tests/test_torch_gpu.py)
+# ----------------------------------------------------------------------------
+
+def test_adamw_table_packs_every_tensor_with_its_moment_slices():
+    """The records the kernel walks: one a non-empty tensor, its moment
+    slices at their offsets in the leaf's stacked moments, a missing
+    gradient as a null pointer, decay by the leaf's rank, the vector
+    route only where all four pointers are 16-byte aligned, and each
+    record's first chunk after the chunks of those before it."""
+    from repro_torch.kernels import adamw as ka
+    w = [torch.zeros(3, 40, dtype=torch.bfloat16) for _ in range(2)]
+    ln = [torch.zeros(37) for _ in range(2)]
+    big = torch.zeros(ka.CHUNK + 5, dtype=torch.bfloat16)
+    params = {"big": [big], "layers/ln": ln, "layers/w": w,
+              "empty": [torch.zeros(0)]}
+    for p in w + ln:
+        p.grad = torch.ones_like(p)
+    w[1].grad = None
+    m = {"big": torch.zeros(ka.CHUNK + 5), "layers/ln": torch.zeros(2, 37),
+         "layers/w": torch.zeros(2, 3, 40), "empty": torch.zeros(0)}
+    v = {k: t.clone() for k, t in m.items()}
+    cpu = torch.device("cpu")
+    table, n_chunks, n = ka._records(params, m, v, cpu, True)
+    assert list(table["n"]) == [ka.CHUNK + 5, 37, 37, 120, 120]
+    assert list(table["chunk0"]) == [0, 2, 3, 4, 5] and n_chunks == 6
+    assert n == ka.CHUNK + 5 + 2 * 37 + 2 * 120
+    assert list(table["g"] == 0) == [True, False, False, False, True]
+    base = int(table["m"][1])
+    assert [int(a) - base for a in table["m"]] == [
+        m["big"].data_ptr() - m["layers/ln"].data_ptr(), 0, 4 * 37,
+        m["layers/w"].data_ptr() - m["layers/ln"].data_ptr(),
+        m["layers/w"].data_ptr() - m["layers/ln"].data_ptr() + 4 * 120]
+    decay = list(table["flags"] & ka.DECAY)
+    assert decay == [0, ka.DECAY, ka.DECAY, ka.DECAY, ka.DECAY]
+    # the second ln slice starts 148 bytes in: no 16-byte route
+    assert not table["flags"][2] & ka.ALIGNED
+    assert list(table["dtype"]) == [1, 0, 0, 1, 1]
+    table, _, _ = ka._records(params, m, v, cpu, False)
+    assert not (table["flags"] & ka.DECAY).any()
+
+
+@pytest.mark.parametrize("bad", ["m_dtype", "m_size", "grad_strided",
+                                 "strided", "param_dtype"])
+def test_adamw_table_refuses_what_the_kernel_cannot_take(bad):
+    from repro_torch.kernels import adamw as ka
+    p = torch.zeros(4, 6)
+    params = {"w": [p]}
+    m = {"w": torch.zeros(4, 6)}
+    err = ValueError
+    if bad == "m_dtype":
+        m = {"w": torch.zeros(4, 6, dtype=torch.float64)}
+    elif bad == "m_size":
+        m = {"w": torch.zeros(4, 5)}
+    elif bad == "grad_strided":
+        p.grad = torch.zeros(6, 4).t()
+    elif bad == "strided":
+        params = {"w": [torch.zeros(6, 4).t()]}
+    else:
+        params, err = {"w": [torch.zeros(4, 6, dtype=torch.float16)]}, \
+            TypeError
+    with pytest.raises(err, match="adamw kernel"):
+        ka._records(params, m, {"w": m["w"].clone()}, torch.device("cpu"),
+                    True)
+
+
+def test_adamw_kernel_refuses_cpu_tensors():
+    """The card's wrapper never runs the plain version."""
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim import AdamWConfig
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA"):
+        ka.fused_adamw(AdamWConfig(), {"w": [torch.zeros(4)]},
+                       {"w": torch.zeros(4)}, {"w": torch.zeros(4)}, one, one,
+                       one)

@@ -207,6 +207,26 @@ def test_checkpoint_restart_is_bitwise(tmp_path):
     assert [m["loss"] for m in tr2.train(2)] == ref
 
 
+def test_single_step_on_the_cpu_takes_the_eager_update(tmp_path):
+    """The card's in-place kernel pair is the card's alone: on the CPU the
+    single step runs the stacked eager update, and the moments keep JAX's
+    keys and stacked shapes (what checkpoints and ``from_jax_opt_state``
+    read)."""
+    from repro_torch.core.fabric import process_hub
+    hub = process_hub()
+    tr = Trainer(CFG, tcfg(tmp_path), device="cpu")
+    shapes = {k: tuple(v.shape) for k, v in tr._leaf_values().items()}
+    e0, f0 = hub.value("adamw.eager_elems"), hub.value("adamw.fused_elems")
+    tr.train(2)
+    assert hub.value("adamw.eager_elems") - e0 == 2 * tr.n_params
+    assert hub.value("adamw.fused_elems") == f0
+    for mom in ("m", "v"):
+        assert {k: tuple(t.shape) for k, t in tr.opt_state[mom].items()} \
+            == shapes
+        assert list(tr.opt_state[mom]) == list(weights.jax_leaves(
+            CFG, tr.params))
+
+
 def test_fault_recovery_restores_and_replays(tmp_path):
     tr = Trainer(CFG, tcfg(tmp_path, ckpt_every=2, torus_dims=(4,)),
                  device="cpu")
@@ -423,6 +443,62 @@ def test_adamw_update_matches_jax():
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-6)
         assert int(ts["step"]) == int(js["step"])
+
+
+@pytest.mark.parametrize("clip_norm", [1e9, 0.05])
+def test_in_place_update_is_the_functional_update(clip_norm):
+    """``adamw_update_plain_`` (the kernel pair's plain version) over
+    per-layer tensors is ``adamw_update`` over their stacked leaves,
+    bitwise: a stacked leaf's 1-D tensors decay (the leaf's rank), a lone
+    1-D leaf does not, and a tensor without a gradient takes zeros."""
+    cfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=20,
+                             clip_norm=clip_norm)
+    assert weights.is_stacked(CFG, "layers/x") and \
+        not weights.is_stacked(CFG, "w")
+    params, grads = _opt_case(1)
+    params["ln"] = params["norm"][None].repeat(2, 0)      # stacked 1-D
+    key = {"stacked": "layers/stacked", "ln": "layers/ln"}   # CFG stacks
+    tensors = {key.get(k, k): [torch.from_numpy(x.copy()) for x in v]
+               if k in key else [torch.from_numpy(v.copy())]
+               for k, v in params.items()}
+    stacked = {key.get(k, k): torch.from_numpy(v.copy())
+               for k, v in params.items()}
+    state_ = tadamw.adamw_init(stacked)
+    state = tadamw.adamw_init(stacked)
+    for i, g in enumerate(grads):
+        g = dict(g, ln=np.stack([g["norm"], -g["norm"]]))
+        if i == 1:
+            g["w"] = np.zeros_like(g["w"])                  # no gradient
+        g = {key.get(k, k): x for k, x in g.items()}
+        for k, ts in tensors.items():
+            gs = [g[k]] if len(ts) == 1 else list(g[k])
+            for t, x in zip(ts, gs):
+                t.grad = None if i == 1 and k == "w" else \
+                    torch.from_numpy(x.copy())
+        m_ = tadamw.adamw_update_plain_(cfg, tensors, state_, arch=CFG)
+        stacked, state, m = tadamw.adamw_update(
+            cfg, {k: torch.from_numpy(x) for k, x in g.items()}, state,
+            stacked)
+        for k, ts in tensors.items():
+            assert torch.equal(torch.stack(ts) if len(ts) > 1 else ts[0],
+                               stacked[k]), k
+            for mom in ("m", "v"):
+                assert torch.equal(state_[mom][k], state[mom][k]), (k, mom)
+        assert int(state_["step"]) == int(state["step"]) == i + 1
+        assert torch.equal(m_["grad_norm"], m["grad_norm"])
+        assert torch.equal(m_["lr"], m["lr"])
+
+
+def test_in_place_update_refuses_the_cpu():
+    """``adamw_update_`` is the card's kernel pair alone: on CPU tensors it
+    raises before it touches the state (the trainer picks the eager update
+    there)."""
+    params, _ = _opt_case(2)
+    tensors = {k: [torch.from_numpy(v)] for k, v in params.items()}
+    state = tadamw.adamw_init({k: ts[0] for k, ts in tensors.items()})
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tadamw.adamw_update_(tadamw.AdamWConfig(), tensors, state)
+    assert int(state["step"]) == 0
 
 
 @pytest.mark.parametrize("step", [0, 1, 5, 10, 11, 55, 99, 100, 150])
