@@ -27,6 +27,7 @@ class Record:
     kind: str
     model: dict
     traffic: dict
+    layout: object = None        # the configuration's layout module
     setup_s: float = 0.0
     window: tuple = (0.0, 0.0)
     steps: list = dataclasses.field(default_factory=list)
@@ -82,19 +83,24 @@ class Ctx:
         return self.cell.config
 
     @property
+    def layout(self):
+        return self.cell.layout
+
+    @property
     def traffic(self) -> dict:
         return self.cell.traffic
 
     def judge_serve(self, rec: Record, sample) -> None:
         from reference import serve
-        rows = serve.logit_rows(self.cfgd, self.seed, sample, self.device)
+        rows = serve.logit_rows(self.layout, self.cfgd, self.seed, sample,
+                                self.device)
         got = serve.gaps(rows, [o for _, o in sample])
         rec.compared.update({k: v for k, v in got.items() if k != "tokens"})
 
     def judge_train(self, rec: Record, got: dict) -> None:
         rec.compared.update(compare_training(
-            got, reference_training(self, got["rows"]), self.device,
-            got["rows"][0][0]))
+            self.layout, got, reference_training(self, got["rows"]),
+            self.device, got["rows"][0][0]))
 
 
 def reference_training(ctx, rows, prec: str = "fp32") -> dict:
@@ -102,22 +108,11 @@ def reference_training(ctx, rows, prec: str = "fp32") -> dict:
     gradient stacked into the optimizer's leaves."""
     from reference import train
     grads: dict = {}
-    ref = train.train(ctx.cfgd, ctx.seed, rows, ctx.traffic["optimizer"],
-                      ctx.device, prec=prec, first_grads=grads)
-    ref["grads"] = stack_leaves(grads)
+    ref = train.train(ctx.layout, ctx.cfgd, ctx.seed, rows,
+                      ctx.traffic["optimizer"], ctx.device, prec=prec,
+                      first_grads=grads)
+    ref["grads"] = ctx.layout.stack_leaves(grads)
     return ref
-
-
-def stack_leaves(named: dict) -> dict:
-    """{weight name: tensor} -> {leaf: tensor}, a layer's weights stacked
-    in layer order."""
-    groups: dict = {}
-    for k, t in named.items():
-        i = int(k.split(".")[1]) if k.startswith("layers.") else 0
-        groups.setdefault(weights.leaf_of(k), []).append((i, t))
-    return {leaf: (torch.stack([t for _, t in sorted(v, key=lambda x: x[0])])
-                   if leaf.startswith("layers/") else v[0][1])
-            for leaf, v in groups.items()}
 
 
 def worst_leaf(prog: dict, ref: dict, keep=None) -> float:
@@ -132,11 +127,12 @@ def worst_leaf(prog: dict, ref: dict, keep=None) -> float:
                for k in keys)
 
 
-def compare_training(got: dict, ref: dict, device, tokens) -> dict:
+def compare_training(layout, got: dict, ref: dict, device, tokens) -> dict:
     """The numbers a training cell may compare (its limits file says
     which).  ``got`` and ``ref`` hold each step's loss, the first step's
     gradient by leaf (``grads``) and each leaf's change over the steps
-    (``change_norms``); ``tokens`` are the first step's token ids."""
+    (``change_norms``); ``tokens`` are the first step's token ids, whose
+    rows of the layout's token embedding (``TOKEN_LEAF``) are read."""
     loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
                                                    ref["losses"]))
     if set(got["grads"]) != set(ref["grads"]):
@@ -154,8 +150,8 @@ def compare_training(got: dict, ref: dict, device, tokens) -> dict:
     # each embedding row the first step's tokens use holds that token's
     # own gradient: its relative difference, at the median row
     ids = torch.as_tensor(np.unique(tokens), dtype=torch.long, device=device)
-    a = got["grads"]["embed/tok"].to(device)[ids].float()
-    b = ref["grads"]["embed/tok"].to(device)[ids].float()
+    a = got["grads"][layout.TOKEN_LEAF].to(device)[ids].float()
+    b = ref["grads"][layout.TOKEN_LEAF].to(device)[ids].float()
     rows = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
     return {"loss_rel_gap": loss,
             "grad_norm_gap": worst_leaf(gp, g),
@@ -179,6 +175,7 @@ def drive(cell: manifest.Cell, seed: int, seconds: float, trace: bool, *,
     traffic = cell.traffic
     rec = Record(cell=cell.name, kind=traffic["mode"],
                  model=cell.config["model"], traffic=traffic,
+                 layout=cell.layout,
                  itemsize=weights.DTYPES[cell.config["dtype"]].itemsize)
     ctx = ctx_cls(cell=cell, seed=int(seed), seconds=seconds,
                   trace=bool(trace), device=device, clock=clock,

@@ -17,6 +17,7 @@ served token's logit lies below the reference's best is compared.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -60,6 +61,33 @@ class Spans:
         return wrapped
 
 
+class Collections:
+    """The collector's full (generation 2) collections while it is
+    attached: how many and their seconds on the host's clock, a pause of
+    the host that a host-paced window takes whole (a diagnostic, never
+    compared)."""
+
+    def __init__(self) -> None:
+        self.n, self.seconds, self._t0 = 0, 0.0, None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.n += 1
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def __enter__(self) -> "Collections":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
+
+
 def run(ctx):
     sample = _serve(ctx)           # every tensor of the program dies here
     port.free_cuda()
@@ -73,12 +101,12 @@ def _serve(ctx, module=None) -> list:
     """Set-up and window; returns the checked sample (prompt, served).
     ``module``: the program's model on the seed's weights, if already
     built."""
-    tr, cfgd, rec = ctx.traffic, ctx.cfgd, ctx.record
+    tr, cfgd, rec, layout = ctx.traffic, ctx.cfgd, ctx.record, ctx.layout
     m = cfgd["model"]
-    cfg = port.arch(cfgd)
+    cfg = layout.arch(cfgd)
     if module is None:
-        module = port.lm_module(cfg, cfgd, ctx.seed, ctx.device)
-    lm, eng = port.engine(cfg, module, tr, ctx.device)
+        module = layout.lm_module(cfg, cfgd, ctx.seed, ctx.device)
+    lm, eng = layout.engine(cfg, module, tr, ctx.device)
     del module
     spans = Spans()
     lm.prefill_slot = spans.wrap(
@@ -143,20 +171,21 @@ def _serve(ctx, module=None) -> list:
     t_stop = t_start + ctx.seconds
     sl, done_sl, n_prof = None, None, 0
     prof_at = t_start + ctx.seconds / 3
-    while True:
-        if ctx.trace and done_sl is None and sl is None \
-                and time.perf_counter() >= prof_at:
-            sl = profile.Slice()
-            sl.start()
-        t = one_step(sl is not None)
-        if sl is not None:
-            n_prof += 1
-            if n_prof == tr["profile_steps"]:
-                rec.excluded_s = sl.stop()   # left out of the window
-                t_stop += rec.excluded_s
-                sl, done_sl = None, sl
-        if t >= t_stop and sl is None:
-            break
+    with Collections() as collected:
+        while True:
+            if ctx.trace and done_sl is None and sl is None \
+                    and time.perf_counter() >= prof_at:
+                sl = profile.Slice()
+                sl.start()
+            t = one_step(sl is not None)
+            if sl is not None:
+                n_prof += 1
+                if n_prof == tr["profile_steps"]:
+                    rec.excluded_s = sl.stop()   # left out of the window
+                    t_stop += rec.excluded_s
+                    sl, done_sl = None, sl
+            if t >= t_stop and sl is None:
+                break
     t_end = steps[-1][1]
     rec.memory_peak_bytes = (torch.cuda.max_memory_allocated()
                              if ctx.device.type == "cuda" else 0)
@@ -168,7 +197,8 @@ def _serve(ctx, module=None) -> list:
     rec.trace = done_sl.trace(rec.spans) if done_sl else None
     rec.requests = done + list(live.values())
     rec.stall = sum(s[3] for s in win if not s[4])
-    rec.diag = _diagnostics(rec, lm, cfg)
+    rec.diag = _diagnostics(rec, lm)
+    rec.diag.update(gc_full=collected.n, gc_full_s=collected.seconds)
     finished = [r for r in done if t_start < r.finished <= t_end]
     rec.attempted = len(finished)
     rec.failed = sum(len(r.obj.out_tokens) != r.answer_len for r in finished)
@@ -194,15 +224,14 @@ def _serve(ctx, module=None) -> list:
     return sample
 
 
-def _diagnostics(rec, lm, cfg) -> dict:
+def _diagnostics(rec, lm) -> dict:
     """What the spread of a run's numbers is looked for in: the decode
     step's time and batch, prefill's share of the window, the pool's use
     and the queue (printed on standard error, never compared)."""
     win = rec.quiet_steps()
     dec = [s for s in rec.spans if s[0] == "decode"]
     pre = [s for s in rec.spans if s[0] == "prefill"]
-    per_tok = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim \
-        * rec.itemsize
+    per_tok = rec.layout.cache_bytes_per_token(rec.model, rec.itemsize)
     # prefills a window step ran: a step that admits several runs their
     # prefills one after another, and the last of them waits for all
     at = np.searchsorted([s[0] for s in rec.steps], [s[1] for s in pre],

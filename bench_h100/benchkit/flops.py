@@ -1,67 +1,53 @@
-"""Useful model FLOPs, counted from a configuration file.
+"""Useful model FLOPs, summed over a configuration's layers.
 
 A product of an (m, k) by a (k, n) matrix is 2 m k n operations.  A token
-through the model passes every matrix it uses once: the attention's four,
-the feed-forward's three (an MoE layer: its top-k experts' and the
-router's), and the head where a token is predicted; the embedding is a
-lookup.  Attention adds 4 H hd operations a (query, key) pair the causal
-mask leaves (QK^T and PV).  Training is three times the forward (the
-backward twice it); recomputation is not useful work and is not counted.
-Work an implementation does beyond this (a dense dispatch over every
-expert, padding) shows as lost utilisation.
+through the model passes every matrix it uses once: each layer's (its
+layout's ``layer_matmul_params``: an MoE layer counts its top-k experts
+and its router) and the head where a token is predicted; the embedding is
+a lookup.  Attention adds each layer's ``attention_pair_flops`` a (query,
+key) pair the causal mask leaves.  Training is three times the forward
+(the backward twice it); recomputation is not useful work and is not
+counted.  Work an implementation does beyond this (a dense dispatch over
+every expert, padding) shows as lost utilisation.
+
+Every function takes the configuration's layout (``layouts/<layout>.py``)
+and its model sizes ``m``; the counts are whole numbers, exact in a float.
 """
 from __future__ import annotations
 
 
-def dims(m: dict) -> dict:
-    d, H = m["hidden_size"], m["num_attention_heads"]
-    hd = m.get("head_dim") or d // H
-    return dict(L=m["num_hidden_layers"], d=d, H=H,
-                Hkv=m["num_key_value_heads"], hd=hd,
-                f=m["intermediate_size"], V=m["vocab_size"],
-                E=m.get("num_experts", 0), K=m.get("num_experts_per_tok", 0))
+def token_params(layout, m: dict) -> int:
+    """Weights one token multiplies through in all the layers."""
+    return sum(layout.layer_matmul_params(m, i)
+               for i in range(m["num_hidden_layers"]))
 
 
-def layer_matmul_params(m: dict) -> int:
-    """Weights one token multiplies through in one layer."""
-    g = dims(m)
-    attn = g["d"] * (g["H"] + 2 * g["Hkv"]) * g["hd"] + g["H"] * g["hd"] * g["d"]
-    ffn = 3 * g["d"] * g["f"]
-    if g["E"]:
-        return attn + g["K"] * ffn + g["d"] * g["E"]
-    return attn + ffn
-
-
-def head_params(m: dict) -> int:
-    return m["hidden_size"] * m["vocab_size"]
-
-
-def attention_flops(m: dict, pairs: int) -> float:
+def attention_flops(layout, m: dict, pairs: int) -> float:
     """Forward attention over ``pairs`` (query, key) pairs, all layers."""
-    g = dims(m)
-    return 4.0 * g["H"] * g["hd"] * pairs * g["L"]
+    return float(pairs * sum(layout.attention_pair_flops(m, i)
+                             for i in range(m["num_hidden_layers"])))
 
 
-def prefill(m: dict, n: int) -> float:
+def prefill(layout, m: dict, n: int) -> float:
     """A prompt of n tokens: every token through the layers, the last one
     through the head, causal attention."""
-    L = m["num_hidden_layers"]
-    return (2.0 * n * L * layer_matmul_params(m) + 2.0 * head_params(m)
-            + attention_flops(m, n * (n + 1) // 2))
+    return (2.0 * n * token_params(layout, m)
+            + 2.0 * layout.head_params(m)
+            + attention_flops(layout, m, n * (n + 1) // 2))
 
 
-def decode(m: dict, contexts) -> float:
+def decode(layout, m: dict, contexts) -> float:
     """One decode step: a token for each context length in ``contexts``
     (keys it attends, itself included)."""
-    L = m["num_hidden_layers"]
-    per = 2.0 * (L * layer_matmul_params(m) + head_params(m))
-    return per * len(contexts) + attention_flops(m, int(sum(contexts)))
+    per = 2.0 * (token_params(layout, m) + layout.head_params(m))
+    return per * len(contexts) + attention_flops(layout, m,
+                                                 int(sum(contexts)))
 
 
-def train_step(m: dict, batch: int, seq: int) -> float:
+def train_step(layout, m: dict, batch: int, seq: int) -> float:
     """Forward and backward of ``batch`` rows of ``seq`` tokens, every
     token predicted."""
-    L = m["num_hidden_layers"]
-    fwd = (2.0 * batch * seq * (L * layer_matmul_params(m) + head_params(m))
-           + attention_flops(m, batch * seq * (seq + 1) // 2))
+    fwd = (2.0 * batch * seq * (token_params(layout, m)
+                                + layout.head_params(m))
+           + attention_flops(layout, m, batch * seq * (seq + 1) // 2))
     return 3.0 * fwd

@@ -7,15 +7,16 @@ drawn from the mix's distribution: ``prompt_lognormal`` / ``output_lognormal``
 ([median, sigma], the heavy tails that real traffic has) or, without one,
 uniform; either way clipped to ``prompt_tokens`` / ``output_tokens``
 ([least, most]).  The draw is stratified: the stream is cut into blocks of as
-many requests as there are clients, and each block draws one quantile
-from each of as many equal slices of the distribution, at
-a point inside the slice and in an order that the seed and the block set,
-prompts and answers each on their own.  So every seed sends other lengths
-in another order, while any stretch of the stream holds nearly the same
-mix, and the tail is in every block.  The first ``clients`` requests,
-those in flight when the run starts, are cut to a share of their answer
-spread evenly over (0, 1], so that completions are staggered from the
-first step as they are in a loop that has run for a while.
+many requests as there are clients, and each block takes one quantile
+from each of as many equal slices of the distribution, at the slice's
+midpoint, in an order that the seed and the block set, prompts and
+answers each on their own.  So every block of every seed sends the same
+lengths, the tail among them, in another order, with other token ids:
+the seed changes the order of the work and not its amount.  The first
+``clients`` requests, those in flight when the run starts, are cut to a
+share of their answer spread evenly over (0, 1], so that completions are
+staggered from the first step as they are in a loop that has run for a
+while.
 
 Training: each step's rows, uniform token ids drawn from the seed and the
 step, labels the next token (-1 past the end).
@@ -59,7 +60,7 @@ class Requests:
         if self._at[0] != b:
             n = self.block
             rng = np.random.default_rng([self.seed, 4, b])
-            q = [(rng.permutation(n) + rng.random(n)) / n for _ in range(2)]
+            q = [(rng.permutation(n) + 0.5) / n for _ in range(2)]
             self._at = (b, q)
         return self._at[1]
 

@@ -40,20 +40,22 @@ def readings(cell, seed: int, seconds: float, device="cuda",
     class Ctx(C.Ctx):
         def judge_serve(self, rec, sample):
             served = [o for _, o in sample]
-            rows = serve.logit_rows(self.cfgd, self.seed, sample, self.device)
+            rows = serve.logit_rows(self.layout, self.cfgd, self.seed,
+                                    sample, self.device)
             rec.compared = serve.gaps(rows, served)
-            low = serve.logit_rows(self.cfgd, self.seed, sample, self.device,
-                                   prec="fp8")
+            low = serve.logit_rows(self.layout, self.cfgd, self.seed,
+                                   sample, self.device, prec="fp8")
             first = [r.argmax(-1).cpu().numpy() for r in low]
             rec.control = serve.gaps(rows, first)
 
         def judge_train(self, rec, got):
             ref = C.reference_training(self, got["rows"])
             first = got["rows"][0][0]
-            rec.compared.update(C.compare_training(got, ref, self.device,
-                                                   first))
+            rec.compared.update(C.compare_training(
+                self.layout, got, ref, self.device, first))
             low = C.reference_training(self, got["rows"], prec="fp8")
-            rec.control = C.compare_training(low, ref, self.device, first)
+            rec.control = C.compare_training(self.layout, low, ref,
+                                             self.device, first)
             ref["grads"] = {k: t.cpu() for k, t in ref["grads"].items()}
             rec.ref = ref           # kept on the host for the fault's run
 
@@ -66,7 +68,7 @@ def readings(cell, seed: int, seconds: float, device="cuda",
         class Fault(C.Ctx):
             def judge_train(self, r, got):
                 r.compared.update(C.compare_training(
-                    got, ref, self.device, got["rows"][0][0]))
+                    self.layout, got, ref, self.device, got["rows"][0][0]))
 
         port.free_cuda()
         bad = C.drive(cell, seed, min(seconds, 1.0), False, device=device,
@@ -113,8 +115,7 @@ def routes(cell, seed: int, device="cuda") -> dict:
     """The routing of a training cell's first step, in the program and in
     the reference, compared (``route_flips``)."""
     from benchkit import cell as C
-    from benchkit import port
-    from reference import decoder
+    from reference import ops
 
     m = cell.config["model"]
     L, K, E = (m["num_hidden_layers"], m["num_experts_per_tok"],
@@ -123,13 +124,13 @@ def routes(cell, seed: int, device="cuda") -> dict:
 
     class Ctx(C.Ctx):
         def judge_train(self, rec, got):
-            decoder.ROUTES = ref
+            ops.ROUTES = ref
             try:
                 C.reference_training(self, got["rows"][:1])
             finally:
-                decoder.ROUTES = None
+                ops.ROUTES = None
 
-    with port.recorded_routes([], L) as prog:
+    with cell.layout.recorded_routes([], L) as prog:
         C.drive(cell, seed, 1.0, False, device=device, ctx_cls=Ctx)
     factor = cell.config["assumed"]["moe_capacity_factor_train"]
     return {"seed": seed, **route_flips(prog, ref[:L], K, E, factor)}

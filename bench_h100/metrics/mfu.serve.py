@@ -9,8 +9,8 @@ def read(rec):
     if rec.kind != "serve" or not rec.steps:
         return None
     m = rec.model
-    work = sum(flops.prefill(m, s[3]["prompt"])
+    work = sum(flops.prefill(rec.layout, m, s[3]["prompt"])
                for s in rec.quiet_spans("prefill"))
-    work += sum(flops.decode(m, s[3]["context"])
+    work += sum(flops.decode(rec.layout, m, s[3]["context"])
                 for s in rec.quiet_spans("decode"))
     return 100.0 * work / (rec.quiet_wall * cost.PEAK_FLOPS)

@@ -10,5 +10,6 @@ def read(rec):
         return None
     t = rec.traffic
     n = len(rec.quiet_steps())
-    work = n * flops.train_step(rec.model, t["batch"], t["seq_len"])
+    work = n * flops.train_step(rec.layout, rec.model, t["batch"],
+                                t["seq_len"])
     return 100.0 * work / (rec.quiet_wall * cost.PEAK_FLOPS)

@@ -5,7 +5,9 @@ reference runs once over the prompt followed by the served tokens (the
 last one is never an input) and gives, at each answering position, the
 row of logits that should have picked the served token there.  It works a
 layer at a time over all the requests, drawing each layer's weights again
-from the seed, so that it fits beside nothing else on the card.
+from the seed, so that it fits beside nothing else on the card.  The
+layer, its weights and the head are the configuration's layout's
+(``layout``: the module ``manifest.layout`` loads).
 """
 from __future__ import annotations
 
@@ -13,31 +15,31 @@ import numpy as np
 import torch
 
 from benchkit import weights
-from reference import decoder
+from reference import ops
 
 
-def logit_rows(cfgd: dict, seed: int, requests, device, prec: str = "fp32"):
+def logit_rows(layout, cfgd: dict, seed: int, requests, device,
+               prec: str = "fp32"):
     """requests: [(prompt (P,) ints, served (n,) ints)] -> [(n, V) fp32
     logits]: row j is the reference's logits where served[j] was
     answered."""
-    s = decoder.Spec.of(cfgd)
+    s = layout.Spec.of(cfgd)
     m, dtype = cfgd["model"], weights.DTYPES[cfgd["dtype"]]
     inputs = [np.concatenate([np.asarray(p), np.asarray(o)[:-1]])
               for p, o in requests]
-    with torch.no_grad(), decoder.exact_fp32():
-        ow = weights.outer(m, seed, device, dtype)
-        hs = [ow["embed.tok"][torch.as_tensor(x, dtype=torch.long,
-                                              device=device)].float()[None]
+    with torch.no_grad(), ops.exact_fp32():
+        ow = layout.outer_weights(m, seed, device, dtype)
+        hs = [layout.ref_embed(s, ow, torch.as_tensor(
+            x, dtype=torch.long, device=device)).float()[None]
               for x in inputs]
         for i in range(s.layers):
             w = {k: v.float() for k, v in
-                 weights.layer(m, seed, i, device, dtype).items()}
-            hs = [decoder.layer(s, w, h, torch.arange(h.shape[1],
-                                                      device=device),
-                                prec)[0] for h in hs]
+                 layout.layer_weights(m, seed, i, device, dtype).items()}
+            hs = [layout.ref_layer(s, i, w, h, torch.arange(
+                h.shape[1], device=device), prec)[0] for h in hs]
             del w
         ow = {k: v.float() for k, v in ow.items()}
-        return [decoder.head(s, ow, h[0, len(p) - 1:], prec)
+        return [layout.ref_head(s, ow, h[0, len(p) - 1:], prec)
                 for h, (p, _) in zip(hs, requests)]
 
 

@@ -13,7 +13,8 @@ where it was on both sides.  Each layer is recomputed in the backward.
 It returns, per optimizer leaf (a layer's weight stacked over the
 layers, ``layers/attn/wq``), the norm of the first step's gradient as the
 optimizer takes it (after clipping) and the norm of each weight's change
-over the steps.
+over the steps.  The layers, their weights, the head and the leaves are
+the configuration's layout's (``layout``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from benchkit import weights
-from reference import decoder
+from reference import ops
 
 
 def learning_rate(opt: dict, step: int) -> float:
@@ -39,51 +40,58 @@ def learning_rate(opt: dict, step: int) -> float:
     return opt["lr"] * warm * frac
 
 
-def initial_weights(cfgd: dict, seed: int, device) -> dict:
+def initial_weights(layout, cfgd: dict, seed: int, device) -> dict:
     m, dtype = cfgd["model"], weights.DTYPES[cfgd["dtype"]]
-    out = dict(weights.outer(m, seed, device, dtype))
+    out = dict(layout.outer_weights(m, seed, device, dtype))
     for i in range(m["num_hidden_layers"]):
         out.update({f"layers.{i}.{k}": v for k, v in
-                    weights.layer(m, seed, i, device, dtype).items()})
+                    layout.layer_weights(m, seed, i, device, dtype).items()})
     return out
 
 
-def loss_of(s: decoder.Spec, p: dict, tokens: torch.Tensor,
-            labels: torch.Tensor, prec: str) -> torch.Tensor:
+def loss_of(layout, s, p: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            prec: str) -> torch.Tensor:
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device)
-    h = p["embed.tok"][tokens]
+    h = layout.ref_embed(s, p, tokens)
     aux_total = h.new_zeros(())
     for i in range(s.layers):
         w = {k.split(".", 2)[2]: v for k, v in p.items()
              if k.startswith(f"layers.{i}.")}
 
-        def run(h, w=w):
-            return decoder.layer(s, w, h, pos, prec, capacity=True)
+        def run(h, i=i, w=w):
+            return layout.ref_layer(s, i, w, h, pos, prec, capacity=True)
         h, aux = checkpoint(run, h, use_reentrant=False)
         aux_total = aux_total + aux
-    logits = decoder.head(s, p, h.reshape(B * S, -1), prec)
-    ce = F.cross_entropy(logits, labels.reshape(-1), ignore_index=-1)
-    return ce + aux_total
+
+    def row_loss(h_row, labels_row):
+        logits = layout.ref_head(s, p, h_row, prec)
+        return F.cross_entropy(logits, labels_row, ignore_index=-1,
+                               reduction="sum")
+    # the head and the loss a row at a time, each recomputed in the
+    # backward: one row's logits (S x V fp32) live at a time
+    ce = sum(checkpoint(row_loss, h[b], labels[b], use_reentrant=False)
+             for b in range(B))
+    return ce / (labels != -1).sum() + aux_total
 
 
-def leaf_norms(named) -> dict[str, float]:
+def leaf_norms(layout, named) -> dict[str, float]:
     """{leaf: norm} of (name, tensor) pairs, taken one at a time."""
     sq: dict[str, float] = {}
     for name, t in named:
-        leaf = weights.leaf_of(name)
+        leaf = layout.leaf_of(name)
         sq[leaf] = sq.get(leaf, 0.0) + float(t.float().square().sum())
     return {k: math.sqrt(v) for k, v in sq.items()}
 
 
-def train(cfgd: dict, seed: int, rows, opt: dict, device,
+def train(layout, cfgd: dict, seed: int, rows, opt: dict, device,
           prec: str = "fp32", first_grads: dict | None = None) -> dict:
     """rows: [(tokens, labels)] numpy (B, S), one pair a step.  Returns
     {"losses": [...], "grad_norms": {leaf: norm}, "change_norms":
     {leaf: norm}}."""
-    s = decoder.Spec.of(cfgd)
-    with decoder.exact_fp32():
-        stored = initial_weights(cfgd, seed, device)
+    s = layout.Spec.of(cfgd)
+    with ops.exact_fp32():
+        stored = initial_weights(layout, cfgd, seed, device)
         m = {k: torch.zeros(v.shape, dtype=torch.float32, device=device)
              for k, v in stored.items()}
         v2 = {k: torch.zeros_like(t) for k, t in m.items()}
@@ -92,7 +100,7 @@ def train(cfgd: dict, seed: int, rows, opt: dict, device,
             p = {k: t.float().requires_grad_() for k, t in stored.items()}
             tok, lab = (torch.as_tensor(np.asarray(a), dtype=torch.long,
                                         device=device) for a in (tok, lab))
-            loss = loss_of(s, p, tok, lab, prec)
+            loss = loss_of(layout, s, p, tok, lab, prec)
             loss.backward()
             losses.append(float(loss.detach()))
             with torch.no_grad():
@@ -100,11 +108,12 @@ def train(cfgd: dict, seed: int, rows, opt: dict, device,
                 gnorm = math.sqrt(sum(float(g.square().sum())
                                       for g in grads.values()))
                 scale = min(opt["clip_norm"] / (gnorm + 1e-9), 1.0)
-                if step == 1 and first_grads is not None:
-                    first_grads.update({k: g * scale for k, g in grads.items()})
+                if step == 1 and first_grads is not None:     # on the host
+                    first_grads.update({k: (g * scale).cpu()
+                                        for k, g in grads.items()})
                 if step == 1:
-                    grad_norms = {k: n * scale
-                                  for k, n in leaf_norms(grads.items()).items()}
+                    norms = leaf_norms(layout, grads.items())
+                    grad_norms = {k: n * scale for k, n in norms.items()}
                 lr = learning_rate(opt, step)
                 bc1 = 1 - opt["b1"] ** step
                 bc2 = 1 - opt["b2"] ** step
@@ -119,8 +128,8 @@ def train(cfgd: dict, seed: int, rows, opt: dict, device,
             del p, grads, loss
         del m, v2
         with torch.no_grad():
-            start = initial_weights(cfgd, seed, device)
-            change = leaf_norms((k, stored[k].float() - start[k].float())
-                                for k in stored)
+            start = initial_weights(layout, cfgd, seed, device)
+            change = leaf_norms(layout, (
+                (k, stored[k].float() - start[k].float()) for k in stored))
     return {"losses": losses, "grad_norms": grad_norms,
             "change_norms": change}

@@ -36,14 +36,13 @@ def point(cell, module, clients: int, seed: int, seconds: float,
     t = c.traffic
     t.update(clients=clients, max_batch=clients)
     m = c.config["model"]
-    hd = m.get("head_dim") or m["hidden_size"] // m["num_attention_heads"]
-    page_bytes = (2 * m["num_hidden_layers"] * m["num_key_value_heads"] * hd
-                  * 2 * t["page_tokens"])
+    page_bytes = c.layout.cache_bytes_per_token(m, 2) * t["page_tokens"]
     if pool_gb:
         t["pool_pages"] = int(pool_gb * 1e9 // page_bytes)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rec = C.Record(cell=c.name, kind="serve", model=m, traffic=t)
+    rec = C.Record(cell=c.name, kind="serve", model=m, traffic=t,
+                   layout=c.layout)
     ctx = C.Ctx(cell=c, seed=seed, seconds=seconds, trace=False,
                 device=device, clock=lambda: time.perf_counter() - t0,
                 hooks={}, tmpdir=C._tmpdir(), record=rec)
@@ -70,12 +69,12 @@ def main(argv=None) -> int:
                           str(ROOT / "build" / "repro_torch"))
     sys.path[:0] = [str(HERE), str(ROOT / "src")]
     import torch
-    from benchkit import manifest, port
+    from benchkit import manifest
 
     device = torch.device("cuda")
     cell = manifest.cell(args.workload, ROOT)
-    cfg = port.arch(cell.config)
-    module = port.lm_module(cfg, cell.config, args.seed, device)
+    cfg = cell.layout.arch(cell.config)
+    module = cell.layout.lm_module(cfg, cell.config, args.seed, device)
     for n in (int(x) for x in args.clients.split(",")):
         line = json.dumps(point(cell, module, n, args.seed, args.seconds,
                                 args.pool_gb, device))

@@ -45,6 +45,32 @@ def test_planted_fault_is_not_correct(cell, fault):
     assert not out["correct"], out["compared"]
 
 
+@pytest.mark.parametrize("cell", TRAIN)
+def test_unchanged_state_fails_the_change_gap(cell):
+    """A step that drops its update fails the change's gap by itself (the
+    reference's leaves move; the program's read no change: a gap of 1)."""
+    c = small(cell)
+    out = run_cell(cell, SEED, 0.5, False, device="cpu", cell=c,
+                   hooks={"trainer": [faults.state_unchanged_train]})
+    gap = out["compared"]["change_norm_gap"]
+    assert gap["value"] > gap["limit"] and gap["value"] == pytest.approx(1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", TRAIN)
+def test_unchanged_state_fails_the_change_gap_on_the_card(gpu, cell):
+    """As above on the card, where the step's update is the fused AdamW
+    kernel pair, in place: the fault drops that update too."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()["fused_adamw"]
+    c = small(cell, dtype="bfloat16")
+    out = run_cell(cell, SEED, 0.5, False, device=gpu, cell=c,
+                   hooks={"trainer": [faults.state_unchanged_train]})
+    assert ops.launch_counts()["fused_adamw"] > before
+    gap = out["compared"]["change_norm_gap"]
+    assert gap["value"] > gap["limit"] and gap["value"] == pytest.approx(1.0)
+
+
 def _control(cell, device, dtype, rows=None):
     import control
     c = small(cell, dtype=dtype, traffic=rows if cell in TRAIN else LONGER,

@@ -42,34 +42,38 @@ def test_bound_names_the_peak_that_sets_it():
     assert cost.bound_s(0, 3.35e12) == (1.0, "bytes")
 
 
-def _model(name):
-    return manifest.cell(name, ROOT).config["model"]
+def _cell(name):
+    c = manifest.cell(name, ROOT)
+    return c.layout, c.config["model"]
 
 
 def test_olmoe_layer_by_hand():
     """One OLMoE layer, one token: q, k, v, o (2048 x 2048 each), the
     router (2048 x 64) and 8 experts of three 2048 x 1024 matrices."""
-    m = _model("olmoe-prefill-code")
+    layout, m = _cell("olmoe-prefill-code")
     per_token = 4 * 2048 * 2048 + 2048 * 64 + 8 * 3 * 2048 * 1024
-    assert flops.layer_matmul_params(m) == per_token
+    assert all(layout.layer_matmul_params(m, i) == per_token
+               for i in range(16))
     # a 100-token prompt: 16 layers, the head once, 5050 causal pairs
     want = (2 * 100 * 16 * per_token + 2 * 2048 * 50304
             + 4 * 16 * 128 * 5050 * 16)
-    assert flops.prefill(m, 100) == want
+    assert flops.prefill(layout, m, 100) == want
 
 
 def test_deepseek_layer_by_hand():
     """One DeepSeek-7B layer, one token: four 4096 x 4096 matrices and
     three 4096 x 11008."""
-    m = _model("deepseek7b-decode-chat")
+    layout, m = _cell("deepseek7b-decode-chat")
     per_token = 4 * 4096 * 4096 + 3 * 4096 * 11008
-    assert flops.layer_matmul_params(m) == per_token
+    assert layout.layer_matmul_params(m, 0) == per_token
     # one decode step of two tokens attending 10 and 20 keys
     want = 2 * 2 * (30 * per_token + 4096 * 102400) \
         + 4 * 32 * 128 * 30 * 30
-    assert flops.decode(m, [10, 20]) == want
+    assert flops.decode(layout, m, [10, 20]) == want
     # training: three times the forward of 4096 tokens
-    mt = _model("deepseek7b-train-4k")
+    layout, mt = _cell("deepseek7b-train-4k")
     fwd = 2 * 4096 * (6 * per_token + 4096 * 102400) \
         + 4 * 32 * 128 * (4096 * 4097 // 2) * 6
-    assert flops.train_step(mt, 1, 4096) == 3 * fwd
+    assert flops.train_step(layout, mt, 1, 4096) == 3 * fwd
+    # the serving cache: K and V of 32 heads of 128 in 30 layers, bf16
+    assert layout.cache_bytes_per_token(m, 2) == 2 * 30 * 32 * 128 * 2

@@ -36,7 +36,7 @@ def _top_level_imports(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", list(_sources("run.py", "control.py",
                                                "benchkit", "metrics",
-                                               "reference")),
+                                               "layouts", "reference")),
                          ids=lambda p: str(p.relative_to(HERE)))
 def test_no_jax_in_sources(path):
     assert not _top_level_imports(path) & FORBIDDEN
@@ -60,9 +60,15 @@ def _modules_after(code: str) -> set[str]:
 
 
 def test_reference_loads_no_program():
+    """The reference and every layout, whose program functions import the
+    program only when called."""
+    layouts = sorted(p.stem for p in (HERE / "layouts").glob("*.py"))
     mods = _modules_after(
         f"import sys; sys.path[:0] = [{str(HERE)!r}]\n"
-        "from reference import decoder, serve, train")
+        "from reference import ops, serve, train\n"
+        "from benchkit import manifest\n"
+        f"for name in {layouts!r}:\n"
+        "    manifest.layout(name)")
     assert not mods & (FORBIDDEN | PROGRAM)
 
 

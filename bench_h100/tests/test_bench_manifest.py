@@ -105,10 +105,10 @@ def test_config_file_is_what_the_program_runs(conf):
     """The file's sizes become the program's config whole; at full depth
     they are the program's own registry entry, but for what the file
     states it changed."""
-    from benchkit import port
     from repro_torch.configs import get_config
     d = json.loads((ROOT / conf["file"]).read_text())
-    cfg, reg = port.arch(d), get_config(d["port_config"])
+    cfg = manifest.layout(d["layout"], ROOT).arch(d)
+    reg = get_config(d["port_config"])
     m = d["model"]
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab) == (

@@ -44,8 +44,9 @@ def _record(kind, steps, spans=(), requests=(), trace=None, **kw):
     c = manifest.cell("deepseek7b-decode-chat" if kind == "serve"
                       else "deepseek7b-train-4k", ROOT)
     rec = C.Record(cell=c.name, kind=kind, model=c.config["model"],
-                   traffic=c.traffic, steps=list(steps), spans=list(spans),
-                   requests=list(requests), trace=trace, **kw)
+                   traffic=c.traffic, layout=c.layout, steps=list(steps),
+                   spans=list(spans), requests=list(requests), trace=trace,
+                   **kw)
     rec.window = (0.0, 10.0)
     return rec
 

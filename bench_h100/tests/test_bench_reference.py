@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from conftest import SEED, ROOT, small
-from benchkit import cell as C, manifest, port
+from benchkit import cell as C, manifest
 from reference import serve
 
 CELL = {"olmoe-1b-7b": "olmoe-prefill-code",
@@ -46,17 +46,19 @@ def test_logits_match_the_programs_plain_path(name, attn, tol):
     import dataclasses
     from repro_torch.models import common, transformer
     cfgd = reduced(name)
-    cfg = port.arch(cfgd)
+    layout = manifest.layout(cfgd["layout"], ROOT)
+    cfg = layout.arch(cfgd)
     if attn:
         cfg = dataclasses.replace(cfg, attn_dtype=attn)
-    module = port.lm_module(cfg, cfgd, SEED, "cpu")
+    module = layout.lm_module(cfg, cfgd, SEED, "cpu")
     tok = np.random.default_rng(0).integers(0, cfg.vocab, 48)
     with torch.no_grad():
         _, _, h = transformer.prefill(
             cfg, module, {"tokens": torch.as_tensor(tok[None])},
             return_hidden=True, moe_dropless=True)
         want = common.lm_head(cfg, module.embed, h)[0, :-1]
-    got = serve.logit_rows(cfgd, SEED, [(tok[:1], tok[1:])], "cpu")[0]
+    got = serve.logit_rows(layout, cfgd, SEED, [(tok[:1], tok[1:])],
+                           "cpu")[0]
     assert got.shape == want.shape
     assert float((got - want).abs().max()) < tol
 
